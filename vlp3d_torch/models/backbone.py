@@ -1,0 +1,60 @@
+"""PointNet++ backbone: 4 set-abstraction + 2 feature-propagation layers.
+
+Counterpart of ``vlp3d/models/backbone.py`` (inference; no remat and no
+point-sharded SA1 front end). Emits the seeds fp2_xyz (= sa2_xyz),
+fp2_features and fp2_inds (= sa1_inds[:, :num_seed], indices into the raw
+input cloud).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from vlp3d_torch.device import resolve_device
+from vlp3d_torch.models.layers import FPModule, SAModule
+
+
+class PointNet2Backbone(nn.Module):
+    def __init__(self, input_feature_dim: int = 0, *,
+                 npoints=(2048, 1024, 512, 256), radii=(0.2, 0.4, 0.8, 1.2),
+                 nsamples=(64, 32, 16, 16), device=None):
+        super().__init__()
+        device = resolve_device(device)
+        np_, r, ns = npoints, radii, nsamples
+        self.sa1 = SAModule(np_[0], r[0], ns[0], [64, 64, 128],
+                            input_feature_dim, device=device)
+        self.sa2 = SAModule(np_[1], r[1], ns[1], [128, 128, 256], 128,
+                            device=device)
+        self.sa3 = SAModule(np_[2], r[2], ns[2], [128, 128, 256], 256,
+                            device=device)
+        self.sa4 = SAModule(np_[3], r[3], ns[3], [128, 128, 256], 256,
+                            device=device)
+        self.fp1 = FPModule([256, 256], 512, device=device)
+        self.fp2 = FPModule([256, 256], 512, device=device)
+
+    def forward(self, point_clouds: torch.Tensor) -> dict:
+        """point_clouds (B, N, 3 + input_feature_dim) -> sa*/fp2 outputs."""
+        xyz, features = point_clouds[..., :3], point_clouds[..., 3:]
+        sa1_xyz, sa1_f, sa1_inds = self.sa1(xyz, features)
+        sa2_xyz, sa2_f, sa2_inds = self.sa2(sa1_xyz, sa1_f)
+        sa3_xyz, sa3_f, _ = self.sa3(sa2_xyz, sa2_f)
+        sa4_xyz, sa4_f, _ = self.sa4(sa3_xyz, sa3_f)
+        f = self.fp1(sa3_xyz, sa4_xyz, sa3_f, sa4_f)
+        f = self.fp2(sa2_xyz, sa3_xyz, sa2_f, f)
+        return {
+            "sa1_inds": sa1_inds,
+            "sa1_xyz": sa1_xyz,
+            "sa1_features": sa1_f,
+            "sa2_inds": sa2_inds,
+            "sa2_xyz": sa2_xyz,
+            "sa2_features": sa2_f,
+            "sa3_xyz": sa3_xyz,
+            "sa3_features": sa3_f,
+            "sa4_xyz": sa4_xyz,
+            "sa4_features": sa4_f,
+            "fp2_features": f,
+            "fp2_xyz": sa2_xyz,
+            # indices into the raw input cloud (backbone_module.py:134)
+            "fp2_inds": sa1_inds[:, :sa2_xyz.shape[1]],
+        }

@@ -1,0 +1,160 @@
+"""BERT text encoder (text mode) + language module.
+
+Counterpart of ``BertConfig``, ``BertEmbeddings``, ``BertLayer``,
+``BertTextEncoder`` (text mode: layers [0, fusion_layer)) and
+``LangModule`` in ``vlp3d/models/bert.py``, inference only; the encoder
+is frozen in the reference, so the port runs it under no gradient.
+Parameter names follow the vendored xbert layout the reference state dict
+carries (``text_encoder.bert.encoder.layer.0.attention.self.query``).
+LayerNorm eps is 1e-12; the attention mask is ADDED as
+(1 - mask) * -10000; GELU is the exact erf form.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vlp3d_torch.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    layer_norm_eps: float = 1e-12
+    fusion_layer: int = 6  # text mode runs layers [0, fusion_layer)
+
+
+class BertEmbeddings(nn.Module):
+    def __init__(self, c: BertConfig, device):
+        super().__init__()
+        self.word_embeddings = nn.Embedding(c.vocab_size, c.hidden_size,
+                                            device=device)
+        self.position_embeddings = nn.Embedding(
+            c.max_position_embeddings, c.hidden_size, device=device)
+        self.token_type_embeddings = nn.Embedding(
+            c.type_vocab_size, c.hidden_size, device=device)
+        self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps,
+                                      device=device)
+        self.register_buffer(
+            "position_ids",
+            torch.arange(c.max_position_embeddings, device=device)[None, :])
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        seq = input_ids.shape[-1]
+        x = (self.word_embeddings(input_ids)
+             + self.position_embeddings(self.position_ids[:, :seq])
+             + self.token_type_embeddings(torch.zeros_like(input_ids)))
+        return self.LayerNorm(x)
+
+
+class _SelfAttention(nn.Module):
+    def __init__(self, c: BertConfig, device):
+        super().__init__()
+        self.query = nn.Linear(c.hidden_size, c.hidden_size, device=device)
+        self.key = nn.Linear(c.hidden_size, c.hidden_size, device=device)
+        self.value = nn.Linear(c.hidden_size, c.hidden_size, device=device)
+
+
+class _DenseLN(nn.Module):
+    """``dense`` + ``LayerNorm`` pair (attention.output / output)."""
+
+    def __init__(self, cin: int, c: BertConfig, device):
+        super().__init__()
+        self.dense = nn.Linear(cin, c.hidden_size, device=device)
+        self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps,
+                                      device=device)
+
+    def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+        return self.LayerNorm(residual + self.dense(x))
+
+
+class BertLayer(nn.Module):
+    def __init__(self, c: BertConfig, *, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.heads = c.num_attention_heads
+        self.attention = nn.Module()
+        self.attention.self = _SelfAttention(c, device)
+        self.attention.output = _DenseLN(c.hidden_size, c, device)
+        self.intermediate = nn.Module()
+        self.intermediate.dense = nn.Linear(c.hidden_size,
+                                            c.intermediate_size,
+                                            device=device)
+        self.output = _DenseLN(c.intermediate_size, c, device)
+
+    def forward(self, x: torch.Tensor, attention_mask: torch.Tensor):
+        """x (B, S, H); attention_mask (B, S) float, 1 = attend."""
+        b, s, d = x.shape
+        h, dk = self.heads, d // self.heads
+        sa = self.attention.self
+        q = sa.query(x).reshape(b, s, h, dk).transpose(1, 2)
+        k = sa.key(x).reshape(b, s, h, dk).transpose(1, 2)
+        v = sa.value(x).reshape(b, s, h, dk).transpose(1, 2)
+        att = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dk)
+        att = att + (1.0 - attention_mask[:, None, None, :]) * -10000.0
+        att = torch.softmax(att, dim=-1)
+        ctx = torch.matmul(att, v).transpose(1, 2).reshape(b, s, d)
+        x = self.attention.output(ctx, x)
+        y = F.gelu(self.intermediate.dense(x))  # exact erf GELU
+        return self.output(y, x)
+
+
+class BertTextEncoder(nn.Module):
+    """Embeddings + encoder layers [0, fusion_layer) (xbert.py text mode)."""
+
+    def __init__(self, config: BertConfig = BertConfig(), *, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.bert = nn.Module()
+        self.bert.embeddings = BertEmbeddings(config, device)
+        self.bert.encoder = nn.Module()
+        self.bert.encoder.layer = nn.ModuleList(
+            BertLayer(config, device=device)
+            for _ in range(config.fusion_layer))
+
+    def forward(self, input_ids, attention_mask):
+        mask = attention_mask.float()
+        x = self.bert.embeddings(input_ids)
+        for layer in self.bert.encoder.layer:
+            x = layer(x, mask)
+        return x
+
+
+class LangModule(nn.Module):
+    """BERT text mode -> 768->128 projection, CLS embedding, lang classifier
+    (lang_bert_module.py:98-140)."""
+
+    def __init__(self, num_class: int = 18, lang_hidden_size: int = 128,
+                 bert_config: BertConfig = BertConfig(), *, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.text_encoder = BertTextEncoder(bert_config, device=device)
+        self.proj = nn.Linear(bert_config.hidden_size, lang_hidden_size,
+                              device=device)
+        self.lang_cls = nn.Sequential(
+            nn.Linear(lang_hidden_size, num_class, device=device),
+            nn.Dropout(0.5))
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: torch.Tensor) -> dict:
+        """input_ids, attention_mask (B, L, T) -> lang_fea (B*L, T, 128), ..."""
+        b, l, t = input_ids.shape
+        ids = input_ids.reshape(b * l, t).long()
+        amask = attention_mask.reshape(b * l, t)
+        with torch.no_grad():  # frozen encoder
+            hidden = self.text_encoder(ids, amask)
+        lang_fea = self.proj(hidden)
+        lang_emb = lang_fea[:, 0, :]  # CLS
+        return {"lang_fea": lang_fea, "lang_emb": lang_emb, "lang_mask": amask,
+                "lang_scores": self.lang_cls(lang_emb)}

@@ -1,0 +1,119 @@
+"""JointNet inference forward for ScanRefer grounding.
+
+Counterpart of ``vlp3d/models/jointnet.py:118-218`` with ``train=False,
+is_eval=True``: backbone -> voting (votes L2-normalised) -> proposal ->
+relation -> BERT language branch -> match. The contrast head feeds only
+training losses and is skipped, as the JAX module skips it at
+``is_eval``. Flags the port does not implement raise NotImplementedError
+(:func:`vlp3d_torch.config.check_supported`).
+
+Submodule names are the reference's (``backbone_net``, ``vgen``,
+``proposal``, ``relation``, ``lang``, ``match``), so
+``load_state_dict(jax_to_torch_state_dict(...), strict=True)`` works.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from vlp3d_torch.config import Config, check_supported
+from vlp3d_torch.device import resolve_device
+from vlp3d_torch.models.backbone import PointNet2Backbone
+from vlp3d_torch.models.bert import BertConfig, LangModule
+from vlp3d_torch.models.layers import PReLU
+from vlp3d_torch.models.match import MatchModule
+from vlp3d_torch.models.proposal import ProposalModule
+from vlp3d_torch.models.relation import RelationModule
+from vlp3d_torch.models.voting import VotingModule, l2_normalize
+
+
+class JointNet(nn.Module):
+    """Inference-only JointNet. Weights start from :func:`init_weights_`
+    with seed 0; load real ones with ``load_state_dict(..., strict=True)``.
+    """
+
+    def __init__(self, config: Config, *, device=None):
+        super().__init__()
+        check_supported(config)
+        device = resolve_device(device)
+        cfg, ds = config.model, config.dataset
+        self.config = config
+        self.backbone_net = PointNet2Backbone(
+            cfg.input_feature_dim, npoints=tuple(cfg.sa_npoints),
+            radii=tuple(cfg.sa_radii), nsamples=tuple(cfg.sa_nsamples),
+            device=device,
+        )
+        self.vgen = VotingModule(cfg.vote_factor, 256, device=device)
+        self.proposal = ProposalModule(
+            ds.num_class, ds.num_heading_bin, cfg.num_proposal, device=device)
+        self.relation = RelationModule(
+            det_channel=128, multiview_offset=cfg.multiview_offset,
+            multiview_dim=cfg.multiview_dim, device=device,
+        )
+        self.lang = LangModule(
+            ds.num_class, bert_config=BertConfig(fusion_layer=cfg.fusion_layer),
+            device=device,
+        )
+        self.match = MatchModule(device=device)
+        init_weights_(self, 0)
+        self.requires_grad_(False)
+        self.eval()
+
+    @torch.no_grad()
+    def forward(self, batch: dict) -> dict:
+        """batch: point_clouds (B, N, 3+C) f32, input_ids and
+        bert_attention_mask (B, L, T) -> the JAX module's eval outputs."""
+        out = dict(self.backbone_net(batch["point_clouds"]))
+        seed_xyz, seed_features = out["fp2_xyz"], out["fp2_features"]
+        out["seed_inds"] = out["fp2_inds"]
+        out["seed_xyz"] = seed_xyz
+        out["seed_features"] = seed_features
+
+        vote_xyz, vote_features = self.vgen(seed_xyz, seed_features)
+        vote_features = l2_normalize(vote_features)
+        out["vote_xyz"] = vote_xyz
+        out["vote_features"] = vote_features
+
+        out.update(self.proposal(vote_xyz, vote_features))
+        out.update(self.relation(
+            out["aggregated_vote_features"], out["pred_center"],
+            out["pred_size"], out["pred_heading"], batch["point_clouds"],
+            out["seed_inds"], out["aggregated_vote_inds"],
+        ))
+        out.update(self.lang(batch["input_ids"], batch["bert_attention_mask"]))
+        out.update(self.match(out["bbox_feature"], out["lang_fea"],
+                              lang_num_max=batch["input_ids"].shape[1]))
+        return out
+
+
+def init_weights_(module: nn.Module, seed: int) -> None:
+    """Fill every parameter and BN statistic from a numpy generator seeded
+    with ``seed``, in state-dict order: fan-in-scaled normal weights,
+    small biases, unit-ish norm scales, random BN running statistics
+    (so a random model exercises the BN arithmetic)."""
+    rng = np.random.default_rng(seed)
+    named = dict(module.named_modules())
+    with torch.no_grad():
+        for name, t in module.state_dict(keep_vars=True).items():
+            owner, _, leaf = name.rpartition(".")
+            mod = named[owner]
+            shape = tuple(t.shape)
+            if leaf in ("num_batches_tracked", "position_ids"):
+                continue
+            if leaf == "running_mean":
+                v = rng.normal(0.0, 0.1, shape)
+            elif leaf == "running_var":
+                v = rng.uniform(0.5, 1.5, shape)
+            elif isinstance(mod, nn.Embedding):
+                v = rng.normal(0.0, 0.02, shape)
+            elif leaf == "bias":
+                v = rng.normal(0.0, 0.01, shape)
+            elif t.dim() == 1:  # LayerNorm / BN scales, PReLU slopes
+                base = 0.25 if isinstance(mod, PReLU) else 1.0
+                v = base + rng.normal(0.0, 0.05, shape)
+            else:
+                fan_in = int(np.prod(shape[1:]))
+                v = rng.normal(0.0, 1.0 / np.sqrt(fan_in), shape)
+            t.copy_(torch.from_numpy(v.astype(np.float32)))

@@ -1,0 +1,92 @@
+"""Grounding inference executor.
+
+Counterpart of ``vlp3d/serving.py``'s ``GroundingPredictor`` (no mesh):
+``predictor(batches)`` runs a list of equally-shaped host batches and
+returns one host dict per batch; ``run_padded(batch_k)`` runs one batch
+of k <= batch_size occupied rows, transferring only those rows and
+padding to batch_size on the device by repeating row 0 (the
+micro-batcher's convention).
+
+The per-sentence prediction is the argmax of objectness-masked
+confidences (eval_ground.py:100-120): ``argmax(cluster_ref * mask)``,
+which picks a masked proposal when every unmasked confidence is negative,
+as the reference does.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from vlp3d_torch.config import Config
+from vlp3d_torch.device import resolve_device
+from vlp3d_torch.models.jointnet import JointNet
+
+# batch keys the grounding forward consumes (everything else is labels;
+# the JAX stream's per-step scalars epoch/istrain/random are train-only)
+STREAM_KEYS = (
+    "point_clouds", "input_ids", "bert_attention_mask", "lang_num",
+)
+
+
+class GroundingPredictor:
+    """ScanRefer grounding inference on one device.
+
+    ``state_dict``: the reference-layout weights
+    (:func:`vlp3d_torch.convert.jax_to_torch_state_dict`), loaded
+    strictly; None keeps the model's seeded random initialisation.
+    """
+
+    def __init__(self, config: Config, state_dict: dict | None = None, *,
+                 batch_size: int = 8, device=None):
+        self.device = resolve_device(device)
+        self.config = config
+        self.batch_size = batch_size
+        self.model = JointNet(config, device=self.device)
+        if state_dict is not None:
+            self.model.load_state_dict(state_dict, strict=True)
+
+    def _to_device(self, batch: dict) -> dict:
+        return {
+            k: torch.as_tensor(np.asarray(batch[k])).to(self.device)
+            for k in STREAM_KEYS
+        }
+
+    @torch.no_grad()
+    def predict(self, batch: dict) -> dict:
+        """One device batch (tensors on the device) -> device predictions."""
+        out = self.model(batch)
+        masks = out["objectness_masks"]  # (B, K)
+        bsz, l = batch["input_ids"].shape[:2]
+        conf = out["cluster_ref"].reshape(bsz, l, -1)
+        return {
+            "pred_ref": torch.argmax(conf * masks[:, None, :], dim=-1),
+            "pred_center": out["pred_center"],
+            "pred_size": out["pred_size"],
+            "pred_heading": out["pred_heading"],
+            "cluster_ref": out["cluster_ref"],
+        }
+
+    @staticmethod
+    def _to_host(out: dict) -> dict:
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def __call__(self, batches: list[dict]) -> list[dict]:
+        """batches: host batch dicts with STREAM_KEYS arrays."""
+        return [self._to_host(self.predict(self._to_device(b)))
+                for b in batches]
+
+    def run_padded(self, batch_k: dict) -> dict:
+        """Run k <= batch_size occupied rows; rows past k repeat row 0 on
+        the device, and the result keeps all batch_size rows."""
+        dev = self._to_device(batch_k)
+        k = dev["point_clouds"].shape[0]
+        if k > self.batch_size:
+            raise ValueError(f"occupancy {k} > batch_size {self.batch_size}")
+        if k < self.batch_size:
+            dev = {
+                key: torch.cat(
+                    [v, v[:1].expand((self.batch_size - k,) + v.shape[1:])])
+                for key, v in dev.items()
+            }
+        return self._to_host(self.predict(dev))
