@@ -76,6 +76,16 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def index_err(torch, got, want) -> float:
+    """Largest absolute difference of two integer tensors of one shape
+    (a shape mismatch is infinite)."""
+    if got.shape != want.shape:
+        return float("inf")
+    if got.numel() == 0:
+        return 0.0
+    return float((got.long() - want.long()).abs().max().item())
+
+
 def bound_ms(nbytes: float, nops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / FP32_FLOPS * 1e3
@@ -130,9 +140,10 @@ def check_kernels(torch, config, out):
         b, n, _ = xyz.shape
         got = ops.furthest_point_sample(xyz, npoint)
         want = fps_plain(xyz, npoint)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            fail(f"fps {site}: kernel indices differ from the plain version")
+        fps_err = index_err(torch, got, want)
+        if fps_err != 0:
+            fail(f"fps {site}: kernel indices differ from the plain version "
+                 f"by up to {fps_err}")
         k_ms = cuda_ms(torch, lambda: ops.furthest_point_sample(xyz, npoint),
                        10)
         p_ms = cuda_ms(torch, lambda: fps_plain(xyz, npoint), 2, warmup=0)
@@ -143,17 +154,19 @@ def check_kernels(torch, config, out):
         serial = (npoint - 1) * n * OPS_PER_TEST / (FP32_FLOPS / SMS) * 1e3
         rows["fps"].append(dict(site=site, shape=[b, n, npoint], ms=k_ms,
                                 plain_ms=p_ms, bound_ms=bms, bound_by=by,
-                                serial_one_sm_ms=serial, max_abs_err=0.0))
+                                serial_one_sm_ms=serial, max_abs_err=fps_err))
 
         ctr = ctr.contiguous()
         m = ctr.shape[1]
         idx = ops.ball_query(radius, nsample, xyz, ctr)
         idx_c, cnt_c = ops.ball_query_with_count(radius, nsample, xyz, ctr)
         pidx, pcnt = ball_query_plain(radius, nsample, xyz, ctr)
-        torch.cuda.synchronize()
-        if not (torch.equal(idx, pidx) and torch.equal(idx_c, pidx)
-                and torch.equal(cnt_c, pcnt)):
-            fail(f"ball query {site}: kernel differs from the plain version")
+        bq_err = max(index_err(torch, idx, pidx),
+                     index_err(torch, idx_c, pidx),
+                     index_err(torch, cnt_c, pcnt))
+        if bq_err != 0:
+            fail(f"ball query {site}: kernel indices or counts differ from "
+                 f"the plain version by up to {bq_err}")
         k_ms = cuda_ms(torch, lambda: ops.ball_query(radius, nsample, xyz,
                                                      ctr), 20)
         kc_ms = cuda_ms(torch, lambda: ops.ball_query_with_count(
@@ -168,7 +181,7 @@ def check_kernels(torch, config, out):
         rows["ball_query"].append(dict(
             site=site, shape=[b, n, m, radius, nsample], ms=k_ms,
             with_count_ms=kc_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by,
-            points_scanned=scanned, max_abs_err=0.0,
+            points_scanned=scanned, max_abs_err=bq_err,
             mean_count=pcnt.float().mean().item()))
 
     for site, unknown, known, feats in (
@@ -301,8 +314,7 @@ def kernel_line(rows, launches):
     return {"kernels": kernels}
 
 
-def drive(torch, config, batch_size, num_points, smi,
-          device=None):
+def drive(torch, config, batch_size, num_points, smi):
     """Phases 3-5; returns (per-call kernel rows, main-path launch counts)."""
     import numpy as np
 
@@ -312,7 +324,7 @@ def drive(torch, config, batch_size, num_points, smi,
 
     # 3. the model from a seed and one warm-up forward
     t0 = time.perf_counter()
-    pred = GroundingPredictor(config, batch_size=batch_size, device=device)
+    pred = GroundingPredictor(config, batch_size=batch_size)
     print(f"[3] model built and seeded in {time.perf_counter() - t0:.1f} s "
           f"({sum(p.numel() for p in pred.model.parameters())} parameters)")
     scenes = [make_batch(config, batch_size=batch_size, num_points=num_points, seed=s,

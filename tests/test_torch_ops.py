@@ -177,3 +177,19 @@ def test_cpu_path_launches_no_kernel_and_other_devices_raise():
     ):
         with pytest.raises(ValueError, match="unsupported device"):
             call()
+
+
+def test_kernel_library_name_tracks_source_and_flags(monkeypatch):
+    from vlp3d_torch.ops import _kernels
+
+    names = {name: _kernels.lib_path(name) for name in _kernels.SOURCES}
+    assert len(set(names.values())) == len(names)
+    for name, path in names.items():
+        assert path.parent == _kernels.BUILD_DIR
+        assert path.name.startswith(f"lib{name}.")
+        assert _kernels.lib_path(name) == path
+    monkeypatch.setattr(_kernels, "NVCC_FLAGS",
+                        tuple(f for f in _kernels.NVCC_FLAGS
+                              if f != "--fmad=false"))
+    for name, path in names.items():
+        assert _kernels.lib_path(name) != path

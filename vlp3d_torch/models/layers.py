@@ -132,15 +132,13 @@ class SAModule(nn.Module):
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
         self.mlp_module = PointMLP(3 + in_channels, mlp, device=device)
 
-    def forward(self, xyz: torch.Tensor, features: torch.Tensor,
-                inds: torch.Tensor | None = None):
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor):
         """xyz (B, N, 3), features (B, N, C), C may be 0.
 
         Returns (new_xyz (B, npoint, 3), new_features (B, npoint, mlp[-1]),
         inds (B, npoint) int32).
         """
-        if inds is None:
-            inds = furthest_point_sample(xyz, self.npoint)
+        inds = furthest_point_sample(xyz, self.npoint)
         new_xyz = gather_points(xyz, inds)
         idx = ball_query(self.radius, self.nsample, xyz, new_xyz)
         layers = list(self.mlp_module.children())

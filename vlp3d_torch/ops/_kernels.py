@@ -1,9 +1,13 @@
 """Build and load the hand-written CUDA kernels under ``vlp3d_torch/csrc``.
 
 Each ``.cu`` file has a plain C interface and is compiled by ``nvcc`` into
-its own shared library under ``build/vlp3d_torch/`` at first use; all
-sources compile at once, one ``nvcc`` process each. Libraries load with
-``ctypes``: pointers and the stream go over as ``c_void_p``, and every C
+its own shared library at first use; all sources compile at once, one
+``nvcc`` process each. A library's file name carries a hash of its source
+and of ``NVCC_FLAGS``, so a change to either builds it anew. Libraries go
+to ``$VLP3D_TORCH_BUILD_DIR`` when that is set, else to
+``build/vlp3d_torch/`` one level above the package: the repository's
+ignored ``build/`` in a source checkout (an installed copy should set the
+variable). Libraries load with ``ctypes``: pointers and the stream go over as ``c_void_p``, and every C
 entry point returns ``cudaGetLastError()`` after its launch, which
 :func:`check` turns into an exception.
 
@@ -14,6 +18,7 @@ its main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -23,7 +28,9 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vlp3d_torch"
+BUILD_DIR = Path(os.environ.get(
+    "VLP3D_TORCH_BUILD_DIR",
+    Path(__file__).resolve().parents[2] / "build" / "vlp3d_torch"))
 SOURCES = ("fps", "ball_query", "three_nn")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -67,15 +74,23 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def lib_path(name: str) -> Path:
+    """The library of source ``name``, named by a hash of the source's
+    contents and the compiler flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}.{h.hexdigest()[:16]}.so"
+
+
 def build(force: bool = False) -> dict[str, str]:
-    """Compile every stale kernel library in parallel; return each
-    source's ptxas report (registers, shared memory, spills)."""
+    """Compile every missing kernel library in parallel (every one when
+    ``force``); return each compiled source's ptxas report (registers,
+    shared memory, spills)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in SOURCES:
-        src, lib = CSRC / f"{name}.cu", BUILD_DIR / f"lib{name}.so"
-        if (not force and lib.exists()
-                and lib.stat().st_mtime >= src.stat().st_mtime):
+        src, lib = CSRC / f"{name}.cu", lib_path(name)
+        if not force and lib.exists():
             continue
         tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.tmp.so"
         procs[name] = (subprocess.Popen(
@@ -101,7 +116,7 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
             build()
-            lib = ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so"))
+            lib = ctypes.CDLL(str(lib_path(name)))
             for symbol, argtypes in SIGNATURES[name].items():
                 fn = getattr(lib, symbol)
                 fn.argtypes = argtypes
