@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the vlp3d_torch grounding path on one CUDA card.
+"""Smoke run of vlp3d_torch on one CUDA card: grounding inference and the
+joint train step.
 
     python3 chip_smoke.py
 
@@ -7,7 +8,7 @@ Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX and
 nothing of the vlp3d package. Phases, each fatal on failure:
 
 1. card, power limit, torch / CUDA / nvcc versions;
-2. build every kernel under vlp3d_torch/csrc (one nvcc each, in
+2. build every kernel source under vlp3d_torch/csrc (one nvcc each, in
    parallel) and print ptxas register / shared-memory use;
 3. build the full-width model (Config() with use_con=False,
    no_caption=True: 132 feature channels, SA 2048/1024/512/256, 256
@@ -20,13 +21,32 @@ nothing of the vlp3d package. Phases, each fatal on failure:
    version and, for three-NN, torch.cdist + topk with CUDA events;
 5. with every launch count at 0, serve three requests through
    GroundingPredictor (one batch; a list of two; occupancy 3 through
-   run_padded), read the counts (FPS 5, ball query 5, three-NN 2 per
-   forward), check the outputs, compare one forward against the same
-   forward with the plain ops on the card (pred_ref equal, cluster_ref
-   within 1e-4), and trace one request with torch.profiler (device time
-   by kernel, device-busy share);
-6. print {"kernels": [...]}, the card's name and power limit, and last
-   {"ok": true, "device": {...}}.
+   run_padded), read the counts (FPS 5, ball query 5, three-NN 2, row
+   gather 13 per forward, no backward), check the outputs, compare one
+   forward against the same forward with the plain ops on the card
+   (pred_ref equal, cluster_ref within 1e-4), and trace one request with
+   torch.profiler (device time by kernel, device-busy share);
+6. the train path: the full-width model with use_con=True from a seed,
+   (two nudges: small vote offsets, ~0.7 m boxes, so that every loss is
+   live), AdamW with its two learning-rate groups on the cosine schedule, one
+   make_batch(istrain=1) batch at B=8, N=40960 on the card. One recorded
+   forward + backward gives every call site of the row gather its own
+   tensors: the forward kernel is held against torch.gather (fatal
+   unless the difference is 0) and the scatter-add backward kernel
+   against index_add_ (fatal above GRAD_RTOL of the absolute sum meeting
+   in a row), also on all-equal neighbourhoods and on C = 3 and C = 135
+   rows, with times for kernel, plain version and library call. Then,
+   with every count at 0, train steps on that batch: one at epoch 60
+   (OCC/OSC positive, the reference weight switched), 8 at epoch 0, one
+   more at epoch 60; the counts of one
+   step must be FPS 5, ball query 5, three-NN 2, row gather 13, its
+   backward 7; every loss finite, the vote and objectness losses falling
+   over the repeated steps; the same forward + backward with the plain
+   ops on the card compared with the kernels' (loss within 1e-5
+   relative, gradients within 1e-4 of their largest entry); step ms,
+   peak memory and a torch.profiler trace of one step by kernel name;
+7. print {"kernels": [...]} with every kernel of both paths, the card's
+   name and power limit, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -47,6 +67,16 @@ B, N = 8, 40960
 CLUSTER_REF_TOL = 1e-4
 INTERP_TOL = 1e-5
 DIST_TOL = 1e-6
+# kernel step against plain-op step on the card: the forward is the same
+# arithmetic on the same indices, the backward differs in the order the
+# scatter-add sums colliding rows
+STEP_LOSS_RTOL = 1e-5
+STEP_GRAD_TOL = 1e-4  # of the gradient tensor's largest entry
+TRAIN_STEPS_EPOCH0 = 8
+# kernel launches of one forward, and of one train step's backward
+PER_FORWARD = {"fps": 5, "ball_query": 5, "three_nn": 2, "group_points": 13,
+               "group_points_grad": 0}
+PER_STEP = dict(PER_FORWARD, group_points_grad=7)
 
 
 def fail(msg: str):
@@ -95,12 +125,14 @@ def bound_ms(nbytes: float, nops: float):
 
 @contextlib.contextmanager
 def plain_ops():
-    """Route the three kernel wrappers to their plain versions (for the
-    plain-op reference forward on the card); restored on exit."""
+    """Route every kernel wrapper to its plain version (for the plain-op
+    reference forward and backward on the card); restored on exit."""
     smp = importlib.import_module("vlp3d_torch.ops.sampling")
     bq = importlib.import_module("vlp3d_torch.ops.ball_query")
     itp = importlib.import_module("vlp3d_torch.ops.interpolate")
-    saved = (smp._fps_cuda, bq._ball_query_cuda, itp._three_nn_cuda)
+    grp = importlib.import_module("vlp3d_torch.ops.grouping")
+    saved = (smp._fps_cuda, bq._ball_query_cuda, itp._three_nn_cuda,
+             grp._gather_rows)
 
     def bq_plain(radius, nsample, xyz, new_xyz, with_count):
         idx, cnt = bq.ball_query_plain(radius, nsample, xyz, new_xyz)
@@ -109,10 +141,12 @@ def plain_ops():
     smp._fps_cuda = smp.fps_plain
     bq._ball_query_cuda = bq_plain
     itp._three_nn_cuda = itp.three_nn_plain
+    grp._gather_rows = grp.group_points_plain
     try:
         yield
     finally:
-        smp._fps_cuda, bq._ball_query_cuda, itp._three_nn_cuda = saved
+        (smp._fps_cuda, bq._ball_query_cuda, itp._three_nn_cuda,
+         grp._gather_rows) = saved
 
 
 def check_kernels(torch, config, out):
@@ -246,17 +280,18 @@ def check_kernels(torch, config, out):
     return rows
 
 
-def profile_request(torch, pred, scene, top: int = 15):
-    """Trace one single-batch request with torch.profiler; print the device
-    time by operator and the device-busy share of the request's wall time."""
+def profile_call(torch, fn, tag: str, what: str, top: int = 15):
+    """Trace one call of fn with torch.profiler; print the device time by
+    kernel name and the device-busy share of the call's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    pred([scene])  # warm
+    fn()  # warm
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred([scene])
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -264,34 +299,50 @@ def profile_request(torch, pred, scene, top: int = 15):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
 
-    # device-side events only (kernels, copies): an operator's own entry
-    # repeats the time of the kernels it launched
+    # device-side events only (kernels, copies): an operator's own entry,
+    # or an annotated range such as Optimizer.step, repeats the time of
+    # the kernels launched inside it
     events = sorted((e for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA),
+                     if e.device_type == DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)
+                     and not e.key.startswith("Optimizer.")),
                     key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     if busy_ms == 0:
-        print("[5] profile: the trace holds no device time (not measured)")
+        print(f"[{tag}] profile: the trace holds no device time (not "
+              "measured)")
         return
     rows = [dict(op=e.key[:90], calls=e.count, device_ms=dev_us(e) / 1e3)
             for e in events[:top] if dev_us(e) > 0]
-    print(f"[5] profile of one request: wall {wall_ms:.3f} ms, device busy "
-          f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.3f} of wall; idle share "
-          f"{1 - busy_ms / wall_ms:.3f})")
+    print(f"[{tag}] profile of one {what}: wall {wall_ms:.3f} ms, device "
+          f"busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.3f} of wall; idle "
+          f"share {1 - busy_ms / wall_ms:.3f}), {sum(e.count for e in events)}"
+          " device kernels and copies")
     for r in rows:
-        print(f"[5]   {r['device_ms']:9.3f} ms  x{r['calls']:<5d} {r['op']}")
+        print(f"[{tag}]   {r['device_ms']:9.3f} ms  x{r['calls']:<5d} "
+              f"{r['op']}")
 
 
-def kernel_line(rows, launches):
+def kernel_line(rows, serving, train):
+    """The {"kernels": [...]} line. ``rows`` holds the per-call-site checks
+    of each kernel; ``serving`` / ``train`` the launch counts of the two
+    main-path runs."""
     sources = {
         "fps": ("vlp3d_torch/csrc/fps.cu", "vlp3d/ops/sampling.py:60"),
         "ball_query": ("vlp3d_torch/csrc/ball_query.cu",
                        "vlp3d/ops/ball_query.py:33"),
         "three_nn": ("vlp3d_torch/csrc/three_nn.cu",
                      "vlp3d/ops/interpolate.py:16"),
+        "group_points": ("vlp3d_torch/csrc/grouping.cu",
+                         "vlp3d/ops/grouping.py:117"),
+        "group_points_grad": ("vlp3d_torch/csrc/grouping.cu",
+                              "vlp3d/ops/grouping.py:135"),
     }
     kernels = []
     for name, rs in rows.items():
+        # one forward's (for the gather's backward: one train step's)
+        # calls of this kernel, summed over its call sites
+        rs = [r for r in rs if r.get("on_path", True)]
         ops_bound = sum(r["bound_ms"] for r in rs if r["bound_by"] ==
                         "operations")
         bytes_bound = sum(r["bound_ms"] for r in rs if r["bound_by"] ==
@@ -302,9 +353,10 @@ def kernel_line(rows, launches):
             "route": "cuda",
             "source": sources[name][0],
             "replaces": sources[name][1],
-            "launches": launches[name],
+            "launches": serving[name] + train[name],
+            "launches_serving": serving[name],
+            "launches_train": train[name],
             "max_abs_err": max(r["max_abs_err"] for r in rs),
-            # one forward's calls of this kernel, summed over call sites
             "ms": sum(r["ms"] for r in rs),
             "plain_ms": sum(r["plain_ms"] for r in rs),
             "bound_ms": sum(r["bound_ms"] for r in rs),
@@ -312,6 +364,346 @@ def kernel_line(rows, launches):
             "library_ms": None if None in lib else sum(lib),
         })
     return {"kernels": kernels}
+
+
+def record_gather_sites(torch, run):
+    """Run ``run()`` with the row gather wrapped so that every call leaves
+    its table, its indices and (after a backward) the gradient of its
+    output. Returns the list of call sites in call order."""
+    grp = importlib.import_module("vlp3d_torch.ops.grouping")
+    sites, orig = [], grp._gather_rows
+
+    def recording(points, idx):
+        out = orig(points, idx)
+        site = {"points": points.detach(), "idx": idx.to(torch.int32),
+                "grad": None, "differentiable": out.requires_grad}
+        if out.requires_grad:
+            out.register_hook(
+                lambda g, site=site: site.__setitem__("grad", g.detach()))
+        sites.append(site)
+        return out
+
+    grp._gather_rows = recording
+    try:
+        run()
+    finally:
+        grp._gather_rows = orig
+    return sites
+
+
+def check_group_site(torch, label, points, idx, grad, on_path, reps=20):
+    """One call site of the row gather: the forward kernel against
+    torch.gather (exact), and with ``grad`` the backward kernel against
+    index_add_; times of kernel, plain version and library call."""
+    grp = importlib.import_module("vlp3d_torch.ops.grouping")
+    b, n, c = points.shape
+    r = idx.shape[1]
+    got = grp._group_points_cuda(points, idx)
+    want = grp.group_points_plain(points, idx)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item() if got.numel() else 0.0
+    if err != 0 or got.shape != want.shape:
+        fail(f"group_points {label}: kernel differs from torch.gather by {err}")
+    offs = torch.arange(b, device=idx.device, dtype=torch.int64)[:, None] * n
+    flat = (idx.long() + offs).reshape(-1)
+    table = points.contiguous().reshape(b * n, c)
+    touched = torch.unique(flat).numel()
+    nbytes = touched * c * 4 + idx.numel() * 4 + got.numel() * 4
+    bms, by = bound_ms(nbytes, 0)
+    shape = [b, n, c, r]
+    fwd = dict(
+        site=label, shape=shape, on_path=on_path, max_abs_err=err,
+        ms=cuda_ms(torch, lambda: grp._group_points_cuda(points, idx), reps),
+        plain_ms=cuda_ms(torch, lambda: grp.group_points_plain(points, idx),
+                         reps),
+        library_ms=cuda_ms(torch, lambda: torch.index_select(table, 0, flat),
+                           reps),
+        bound_ms=bms, bound_by=by, rows_touched=touched)
+    print(f"[6] group_points {json.dumps(fwd)}")
+    if grad is None:
+        return fwd, None
+    grad = grad.reshape(b, r, c).contiguous()
+    got = grp._group_points_grad_cuda(grad, idx, n)
+    want = grp.group_points_grad_plain(grad, idx, n)
+    scale = grp.group_points_grad_plain(grad.abs(), idx, n)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    err = diff.max().item()
+    rel = (diff / scale.clamp_min(1e-30)).max().item()
+    if not bool((diff <= grp.GRAD_RTOL * scale + 1e-30).all()):
+        fail(f"group_points_grad {label}: kernel differs from index_add_ by "
+             f"{err} ({rel} of the absolute sum in the row; tolerance "
+             f"{grp.GRAD_RTOL})")
+    nbytes = grad.numel() * 4 + idx.numel() * 4 + b * n * c * 4
+    bms, by = bound_ms(nbytes, grad.numel())
+    flat_grad = grad.reshape(b * r, c)
+    acc = torch.zeros((b * n, c), device=grad.device)
+    bwd = dict(
+        site=label, shape=shape, on_path=on_path, max_abs_err=err,
+        max_rel_err=rel,
+        ms=cuda_ms(torch, lambda: grp._group_points_grad_cuda(grad, idx, n),
+                   reps),
+        plain_ms=cuda_ms(torch, lambda: grp.group_points_grad_plain(
+            grad, idx, n), reps),
+        library_ms=cuda_ms(torch, lambda: acc.zero_().index_add_(
+            0, flat, flat_grad), reps),
+        bound_ms=bms, bound_by=by,
+        max_rows_in_one=int(torch.bincount(flat).max().item()))
+    print(f"[6] group_points_grad {json.dumps(bwd)}")
+    return fwd, bwd
+
+
+def check_grouping(torch, model, config, batch):
+    """Phase 6, kernels: the row gather and its backward at every call
+    site of one train step, from the step's own tensors."""
+    from vlp3d_torch.losses.joint import compute_joint_loss
+
+    def train_pass():
+        out = model(batch, train=True)
+        loss, _ = compute_joint_loss(config, out, batch)
+        loss.backward()
+        model.zero_grad(set_to_none=True)
+
+    names = ["sa1 xyz", "sa1 rows (train: raw 3+C)", "sa2 xyz", "sa2 rows",
+             "sa3 xyz", "sa3 rows", "sa4 xyz", "sa4 rows", "fp1 3-nn rows",
+             "fp2 3-nn rows", "proposal xyz", "proposal rows",
+             "relation multiview"]
+    sites = record_gather_sites(torch, train_pass)
+    if len(sites) != len(names):
+        fail(f"a train forward made {len(sites)} row gathers, expected "
+             f"{len(names)}")
+    with_grad = [nm for nm, st in zip(names, sites) if st["differentiable"]]
+    want_grad = ["sa2 rows", "sa3 rows", "sa4 rows", "fp1 3-nn rows",
+                 "fp2 3-nn rows", "proposal xyz", "proposal rows"]
+    if with_grad != want_grad:
+        fail(f"row gathers with a backward: {with_grad}, expected {want_grad}")
+    rows = {"group_points": [], "group_points_grad": []}
+
+    def add(label, st, on_path=True, reps=20):
+        fwd, bwd = check_group_site(torch, label, st["points"], st["idx"],
+                                    st["grad"], on_path, reps)
+        rows["group_points"].append(fwd)
+        if bwd is not None:
+            rows["group_points_grad"].append(bwd)
+
+    for nm, st in zip(names, sites):
+        add(nm, st)
+    sa2 = dict(sites[3])
+    sa1_idx = sites[1]["idx"]
+    del sites
+
+    # the inference form of SA1 (folded first layer: 64 channels gathered)
+    eval_sites = record_gather_sites(torch, lambda: model(batch, train=False,
+                                                          is_eval=True))
+    add("sa1 rows (inference: folded 64)", eval_sites[1], on_path=False)
+    del eval_sites
+
+    # all-equal neighbourhoods (the empty-ball padding): K rows into one
+    b, r = sa2["idx"].shape
+    k = config.model.sa_nsamples[1]
+    sa2["idx"] = sa2["idx"].reshape(b, r // k, k)[:, :, :1].expand(
+        b, r // k, k).reshape(b, r).contiguous()
+    add("sa2 rows, all K equal", sa2, on_path=False)
+    # C = 3 with K = 64 and a backward, C = 135 with a backward
+    for label, c in (("C=3 K=64", 3), ("C=135 K=64", 135)):
+        pts = torch.randn(batch["point_clouds"].shape[0], N, c,
+                          device=sa1_idx.device)
+        st = {"points": pts, "idx": sa1_idx,
+              "grad": torch.randn(sa1_idx.shape + (c,),
+                                  device=sa1_idx.device)}
+        add(label, st, on_path=False, reps=5)
+    torch.cuda.synchronize()
+    return rows
+
+
+def loss_and_grads(torch, model, config, batch, names, seed):
+    """One train forward + backward with dropout drawn from ``seed``;
+    returns (loss, {name: gradient}) and leaves no gradient behind."""
+    from vlp3d_torch.losses.joint import compute_joint_loss
+    from vlp3d_torch.models.layers import set_dropout_generator
+
+    gen = torch.Generator(device=batch["point_clouds"].device)
+    gen.manual_seed(seed)
+    set_dropout_generator(model, gen)
+    out = model(batch, train=True)
+    loss, _ = compute_joint_loss(config, out, batch)
+    loss.backward()
+    grads = {n: model.get_parameter(n).grad.detach().clone() for n in names}
+    model.zero_grad(set_to_none=True)
+    return loss.detach(), grads
+
+
+def step_phases(torch, model, config, optimizer, batch, gen, reps: int = 3):
+    """One train step taken apart, with a synchronise after each phase:
+    host-clock ms of forward, loss, backward and optimizer update (their
+    sum exceeds an unsynchronised step, which overlaps host and device)."""
+    import numpy as np
+
+    from vlp3d_torch.losses.joint import compute_joint_loss
+    from vlp3d_torch.models.layers import set_dropout_generator
+
+    set_dropout_generator(model, gen)
+    phases = {"forward": [], "loss": [], "backward": [], "optimizer": []}
+
+    def lap(name, t0):
+        torch.cuda.synchronize()
+        phases[name].append((time.perf_counter() - t0) * 1e3)
+        return time.perf_counter()
+
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = model(batch, train=True)
+        t = lap("forward", t)
+        loss, _ = compute_joint_loss(config, out, batch)
+        t = lap("loss", t)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        t = lap("backward", t)
+        optimizer.step()
+        lap("optimizer", t)
+        del out, loss
+    med = {k: float(np.median(v)) for k, v in phases.items()}
+    print(f"[6] one step by phase, synchronised after each (median of "
+          f"{reps}): {json.dumps(med)}; sum {sum(med.values()):.3f} ms")
+
+
+def drive_train(torch, batch_size, num_points, smi):
+    """Phase 6; returns (per-call kernel rows, train-path launch counts)."""
+    import numpy as np
+
+    from vlp3d_torch import ops
+    from vlp3d_torch.config import Config, ModelConfig
+    from vlp3d_torch.data.synthetic import make_batch
+    from vlp3d_torch.models import JointNet
+    from vlp3d_torch.train import (
+        batch_to_device,
+        make_optimizer,
+        make_train_step,
+    )
+    from vlp3d_torch.train.schedules import cosine_lr
+
+    config = Config(model=ModelConfig(use_con=True, no_caption=True))
+    t0 = time.perf_counter()
+    model = JointNet(config)
+    device = next(model.parameters()).device
+    # two nudges to the seeded weights so that every loss is live from
+    # the first step: votes stay near their seeds (half of which lie on
+    # objects) and boxes start ~0.7 m wide, so some proposals lie within
+    # 0.3 m of a GT center and overlap a referred box by more than 0.25
+    with torch.no_grad():
+        model.vgen.conv3.weight.mul_(0.05)
+        model.vgen.conv3.bias.mul_(0.05)
+        model.proposal.proposal.box_predictor.bias.fill_(-1.0)
+    optimizer = make_optimizer(
+        model, lr_schedule=lambda e, lr0: cosine_lr(e, lr0, 200),
+        steps_per_epoch=100)
+    train_step = make_train_step(model, config, optimizer)
+    n_train = sum(p.numel() for g in optimizer.param_groups
+                  for p in g["params"])
+    print(f"[6] train model built in {time.perf_counter() - t0:.1f} s: "
+          f"{n_train} trained parameters of "
+          f"{sum(p.numel() for p in model.parameters())}, groups "
+          f"{[(g['name'], len(g['params']), g['base_lr']) for g in optimizer.param_groups]}")
+    host = make_batch(config, batch_size=batch_size, num_points=num_points,
+                      seed=7, epoch=0, istrain=1)
+    batch = batch_to_device(host, device)
+    late = dict(batch, epoch=torch.tensor(60, device=device))
+
+    # kernels at the step's call sites
+    torch.cuda.reset_peak_memory_stats()
+    rows = check_grouping(torch, model, config, batch)
+
+    # the same forward + backward with the plain ops on the card
+    probe = ["backbone_net.sa2.mlp_module.layer0.conv.weight",
+             "backbone_net.sa1.mlp_module.layer0.conv.weight",
+             "backbone_net.fp2.mlp.layer0.conv.weight",
+             "vgen.conv3.weight",
+             "proposal.vote_aggregation.mlp_module.layer0.conv.weight",
+             "relation.features_concat.0.weight", "match.match.0.weight"]
+    loss_k, grads_k = loss_and_grads(torch, model, config, batch, probe, 11)
+    with plain_ops():
+        t0 = time.perf_counter()
+        loss_p, grads_p = loss_and_grads(torch, model, config, batch, probe,
+                                         11)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    worst = 0.0
+    for n in probe:
+        scale = grads_p[n].abs().max().item()
+        worst = max(worst, (grads_k[n] - grads_p[n]).abs().max().item()
+                    / max(scale, 1e-30))
+    print(f"[6] kernel forward+backward against plain ops on the card "
+          f"({plain_s * 1e3:.3f} ms): loss {loss_k.item()} vs "
+          f"{loss_p.item()} (relative {loss_rel}), largest gradient "
+          f"difference {worst} of the tensor's largest entry over "
+          f"{len(probe)} tensors")
+    if loss_rel > STEP_LOSS_RTOL or worst > STEP_GRAD_TOL:
+        fail("the kernel step differs from the plain-op step")
+    del grads_k, grads_p
+
+    # the main path: train steps, with every count at 0 before
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    # one step at epoch 60 first: the seeded objectness head still
+    # accepts about half of the proposals, so OCC and OSC see positives
+    # (once it has learnt that ~99.5% are background, its argmax mask is
+    # empty and both are 0); then the repeated steps at epoch 0, then
+    # epoch 60 again
+    schedule = [(60, late)] + [(0, batch)] * TRAIN_STEPS_EPOCH0 + [(60, late)]
+    history, times = [], []
+    for i, (_, b) in enumerate(schedule):
+        t0 = time.perf_counter()
+        history.append(train_step(b, gen))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            one = dict(ops.launches)
+            print(f"[6] launches of one train step: {one}")
+            if one != PER_STEP:
+                fail(f"launch counts of one step {one} != {PER_STEP}")
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(history)
+    if launches != {k: v * steps for k, v in PER_STEP.items()}:
+        fail(f"launch counts over {steps} steps: {launches}")
+    history = [{k: v.item() for k, v in m.items()} for m in history]
+    for i, ((epoch, _), m) in enumerate(zip(schedule, history)):
+        print(f"[6] step {i} (epoch {epoch}): {times[i] * 1e3:.3f} ms "
+              + json.dumps({k: m[k] for k in (
+                  "loss", "vote_loss", "objectness_loss", "box_loss",
+                  "ref_loss", "diou_loss", "lang_loss", "lang_con_loss",
+                  "iou_con_loss", "pos_ratio", "max_iou_rate_0.25")}))
+        for k, v in m.items():
+            if not np.isfinite(v):
+                fail(f"step {i}: non-finite {k}")
+    if not (history[0]["lang_con_loss"] > 0 and history[0]["iou_con_loss"] > 0):
+        fail("OCC/OSC gave no positive loss at epoch 60")
+    # the vote and objectness losses must fall over the repeated steps.
+    # The total need not: the box and reference losses come and go with
+    # the proposals that land on GT boxes, and the language loss sits
+    # behind a dropout of 0.5 on 64 sentences
+    early = history[1:1 + TRAIN_STEPS_EPOCH0]
+    for key in ("vote_loss", "objectness_loss"):
+        series = [m[key] for m in early]
+        if not min(series[2:]) < series[0]:
+            fail(f"{key} does not fall over {len(series)} steps: {series}")
+    if any(m["con_loss"] != 0.0 for m in early):
+        fail("the contrast losses are not gated off before epoch 50")
+    lrs = {g["name"]: g["lr"] for g in optimizer.param_groups}
+    steady = float(np.median(times[1:])) * 1e3
+    print(f"[6] train step at B={batch_size}, N={num_points}: first "
+          f"{times[0] * 1e3:.3f} ms, median of the next {steps - 1} "
+          f"{steady:.3f} ms, {batch_size / steady * 1e3:.3f} scenes/s; peak "
+          f"memory {peak / 2**30:.3f} GiB; learning rates {lrs} ({smi})")
+    step_phases(torch, model, config, optimizer, batch, gen)
+    profile_call(torch, lambda: train_step(batch, gen), "6", "train step",
+                 top=25)
+    return rows, launches
 
 
 def drive(torch, config, batch_size, num_points, smi):
@@ -356,8 +748,7 @@ def drive(torch, config, batch_size, num_points, smi):
     timings.append(("run_padded occ3", 3, time.perf_counter() - t0))
     launches = dict(ops.launches)
     forwards = 4
-    want = {"fps": 5 * forwards, "ball_query": 5 * forwards,
-            "three_nn": 2 * forwards}
+    want = {name: n * forwards for name, n in PER_FORWARD.items()}
     print(f"[5] launches over {forwards} forwards: {launches}")
     if launches != want:
         fail(f"launch counts {launches} != {want}")
@@ -397,7 +788,7 @@ def drive(torch, config, batch_size, num_points, smi):
         fail(f"cluster_ref differs from the plain forward by {err}")
     print(f"[5] plain-op forward on the card: {plain_s * 1e3:.3f} ms; "
           f"pred_ref equal, cluster_ref max abs err {err}")
-    profile_request(torch, pred, scenes[0])
+    profile_call(torch, lambda: pred([scenes[0]]), "5", "request")
     return rows, launches
 
 
@@ -446,10 +837,19 @@ def main() -> int:
 
     # 3-5. the full-width model: Config() grounding defaults, B=8, N=40960
     config = Config(model=ModelConfig(use_con=False, no_caption=True))
-    rows, launches = drive(torch, config, B, N, smi)
+    rows, serving = drive(torch, config, B, N, smi)
+    torch.cuda.empty_cache()
 
-    # 6. results
-    line = kernel_line(rows, launches)
+    # 6. the joint train step at the same width
+    train_rows, train = drive_train(torch, B, N, smi)
+    rows.update(train_rows)
+    for name in rows:
+        if train[name] == 0 or (serving[name] == 0
+                                and PER_FORWARD[name] > 0):
+            fail(f"kernel {name} was not launched on a main path")
+
+    # 7. results
+    line = kernel_line(rows, serving, train)
     print(json.dumps(line))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

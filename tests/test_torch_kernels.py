@@ -9,7 +9,9 @@ port's dependencies are installed:
 (``--noconftest`` skips tests/conftest.py, which configures JAX.) Shapes
 run from small to the main path's (B=8, N=40960). Indices must be equal;
 three-NN distances within 1e-6 and interpolated features within 1e-5;
-the tiny JointNet's cluster_ref within 1e-4 of the CPU forward.
+the row gather exact and its atomic scatter-add backward within
+``GRAD_RTOL`` (1e-5) of the absolute sum meeting in a row; the tiny
+JointNet's cluster_ref within 1e-4 of the CPU forward.
 """
 
 import numpy as np
@@ -21,6 +23,11 @@ from vlp3d_torch.data.synthetic import make_batch, tiny_config
 from vlp3d_torch.models import JointNet
 from vlp3d_torch.ops import _kernels
 from vlp3d_torch.ops.ball_query import ball_query_plain
+from vlp3d_torch.ops.grouping import (
+    GRAD_RTOL,
+    group_points_grad_plain,
+    group_points_plain,
+)
 from vlp3d_torch.ops.interpolate import three_nn_plain
 from vlp3d_torch.ops.sampling import fps_plain
 from vlp3d_torch.serving import STREAM_KEYS
@@ -104,6 +111,88 @@ def test_three_nn_kernel_matches_plain(cuda, b, n, m):
     assert torch.allclose(got, want, rtol=0, atol=1e-5)
 
 
+# (b, n, c, m, k) — small odd widths, then the train step's call sites:
+# SA1 raw rows, SA1 folded, SA2, SA3/proposal, a K=1 coordinate gather
+GROUP_SHAPES = [(2, 50, 3, 7, 1), (2, 50, 5, 7, 3), (3, 64, 12, 9, 4),
+                (8, 40960, 135, 2048, 64), (8, 40960, 64, 2048, 64),
+                (8, 2048, 128, 1024, 32), (8, 1024, 128, 256, 16),
+                (8, 1024, 3, 256, 1)]
+
+
+def _group_inputs(b, n, c, m, k, device):
+    g = torch.Generator(device="cpu").manual_seed(b * n + c)
+    points = torch.randn(b, n, c, generator=g).to(device)
+    idx = torch.randint(0, n, (b, m, k), generator=g, dtype=torch.int32)
+    idx[:, ::3] = idx[:, ::3, :1]  # padded neighbourhoods: one row K times
+    return points, idx.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,c,m,k", GROUP_SHAPES)
+def test_group_points_kernel_matches_plain(cuda, b, n, c, m, k):
+    points, idx = _group_inputs(b, n, c, m, k, cuda)
+    ops.reset_launches()
+    got = ops.group_points(points, idx)
+    torch.cuda.synchronize()
+    assert ops.launches["group_points"] == 1
+    want = group_points_plain(points, idx.reshape(b, m * k))
+    assert torch.equal(got.reshape(b, m * k, c), want)
+    if k == 1:
+        assert torch.equal(ops.gather_points(points, idx[:, :, 0]), want)
+    # a channel slice of a wider table is gathered in place
+    if c > 4:
+        view = points[..., 1:c - 1]
+        assert torch.equal(ops.group_points(view, idx).reshape(b, m * k, -1),
+                           want[..., 1:c - 1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,c,m,k", GROUP_SHAPES)
+def test_group_points_grad_kernel_matches_plain(cuda, b, n, c, m, k):
+    points, idx = _group_inputs(b, n, c, m, k, cuda)
+    points.requires_grad_(True)
+    grad = torch.randn(b, m, k, c, device=cuda)
+    ops.reset_launches()
+    ops.group_points(points, idx).backward(grad)
+    torch.cuda.synchronize()
+    assert ops.launches["group_points_grad"] == 1
+    flat_idx, flat_grad = idx.reshape(b, m * k), grad.reshape(b, m * k, c)
+    want = group_points_grad_plain(flat_grad, flat_idx, n)
+    scale = group_points_grad_plain(flat_grad.abs(), flat_idx, n)
+    err = (points.grad - want).abs()
+    assert bool((err <= GRAD_RTOL * scale + 1e-30).all()), err.max().item()
+
+
+@pytest.mark.gpu
+def test_group_points_never_follows_an_index_out_of_range(cuda):
+    points, idx = _group_inputs(2, 50, 8, 7, 3, cuda)
+    bad = idx.clone()
+    bad[0, 0, 0], bad[1, 2, 1] = 50, -1
+    points.requires_grad_(True)
+    out = ops.group_points(points, bad)
+    out.backward(torch.ones_like(out))
+    torch.cuda.synchronize()
+    assert not out[0, 0, 0].any() and not out[1, 2, 1].any()
+    keep = torch.ones(2, 7, 3, dtype=torch.bool, device=cuda)
+    keep[0, 0, 0] = keep[1, 2, 1] = False
+    good = torch.where(keep, bad, torch.zeros_like(bad))
+    assert torch.equal(out[keep], ops.group_points(points, good)[keep])
+    want = group_points_grad_plain(
+        keep[..., None].float().expand(2, 7, 3, 8).reshape(2, 21, 8),
+        good.reshape(2, 21), 50)
+    assert torch.allclose(points.grad, want)
+
+
+@pytest.mark.gpu
+def test_group_points_without_grad_launches_no_backward(cuda):
+    points, idx = _group_inputs(2, 50, 8, 7, 3, cuda)
+    w = torch.ones(8, device=cuda, requires_grad=True)
+    ops.reset_launches()
+    (ops.group_points(points, idx) * w).sum().backward()
+    assert ops.launches["group_points"] == 1
+    assert ops.launches["group_points_grad"] == 0
+
+
 @pytest.mark.gpu
 def test_kernels_count_launches(cuda):
     xyz = _scene(2, 300, 0, cuda)
@@ -112,7 +201,9 @@ def test_kernels_count_launches(cuda):
     ops.ball_query(0.3, 8, xyz, xyz[:, :16])
     ops.ball_query_with_count(0.3, 8, xyz, xyz[:, :16])
     ops.three_nn(xyz, xyz[:, :16])
-    assert _kernels.launches == {"fps": 1, "ball_query": 2, "three_nn": 1}
+    ops.gather_points(xyz, torch.zeros(2, 4, dtype=torch.int32, device=cuda))
+    assert _kernels.launches == {"fps": 1, "ball_query": 2, "three_nn": 1,
+                                 "group_points": 1, "group_points_grad": 0}
 
 
 @pytest.mark.gpu
@@ -126,7 +217,8 @@ def test_kernel_forward_matches_plain_forward(cuda):
     ops.reset_launches()
     got = gpu({k: torch.from_numpy(batch[k]).to(cuda) for k in STREAM_KEYS})
     torch.cuda.synchronize()
-    assert ops.launches == {"fps": 5, "ball_query": 5, "three_nn": 2}
+    assert ops.launches == {"fps": 5, "ball_query": 5, "three_nn": 2,
+                            "group_points": 13, "group_points_grad": 0}
     want = cpu({k: torch.from_numpy(batch[k]) for k in STREAM_KEYS})
     for k in ("sa1_inds", "sa2_inds", "aggregated_vote_inds"):
         assert torch.equal(got[k].cpu(), want[k]), k

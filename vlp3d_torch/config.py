@@ -1,12 +1,14 @@
 """Configuration tree for the PyTorch port.
 
 The port's own copy of the dataclasses in ``vlp3d/config.py``
-(``DatasetConfig``, ``ModelConfig``, ``Config``): same fields, same
-defaults, so a config written for one package reads the same in the
-other. The port imports nothing from ``vlp3d``.
+(``DatasetConfig``, ``ModelConfig``, ``LossConfig``, ``TrainConfig``,
+``Config``): same fields, same defaults, so a config written for one
+package reads the same in the other. The port imports nothing from
+``vlp3d``.
 
-Only the grounding-inference flags are implemented so far;
-:func:`check_supported` names the ROADMAP item that ports each other one.
+The grounding flags (inference and the joint train step) are implemented
+so far; :func:`check_supported` names the ROADMAP item that ports each
+other one.
 """
 
 from __future__ import annotations
@@ -86,16 +88,75 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Weights from get_joint_loss (lib/loss_helper/loss_joint.py:160-224)."""
+
+    detection_scale: float = 10.0
+    objectness_weight: float = 0.1
+    ref_weight_before_50: float = 0.3
+    ref_weight_after_50: float = 1.0
+    diou_weight: float = 0.3
+    kl_weight: float = 0.3
+    lang_weight: float = 0.3
+    attr_weight: float = 0.3
+    vote_weight_weight: float = 0.3
+    lang_con_weight: float = 0.5
+    iou_con_weight: float = 2.5
+    mlm_weight: float = 10.0
+    num_ground_epoch: int = 50
+    use_diou_loss: bool = True
+    use_attr_loss: bool = False
+    # --debug diagnostics inside the OID loss (per-class IoU rates,
+    # top-k IoU stats, top_ind; loss_grounding.py:262-306)
+    debug: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 8
+    epochs: int = 200
+    lr: float = 2e-3
+    module_lr: float = 5e-4  # lang/relation/match/caption groups
+    weight_decay: float = 1e-5
+    amsgrad: bool = False  # AMSGrad AdamW variant (scripts/utils/AdamW.py)
+    # "adamw" (joint path, vendored AdamW) | "adam" (VQA paths' default:
+    # coupled L2, scripts/joint_scripts/train_qa.py:145-159)
+    optim_name: str = "adamw"
+    # one param group at `lr` (the VQA scripts' model.parameters())
+    # instead of the joint lang/relation/match/caption split
+    single_lr_group: bool = False
+    # clip raw gradient VALUES (nn.utils.clip_grad_value_, the VQA
+    # solver's default 1.0; 0 disables)
+    clip_grad_value: float = 0.0
+    # "cosine" | "step" | "none" (train_3dvlp.py:180-196: --coslr ->
+    # cosine; detection-only without --coslr -> MultiStepLR; else none)
+    lr_schedule: str = "cosine"
+    coslr_eta_min: float = 1e-5
+    lr_decay_steps: tuple = (80, 120, 160)  # LR_DECAY_STEP (no_caption)
+    lr_decay_rate: float = 0.1
+    bn_momentum_init: float = 0.5  # torch convention; halved every 20 epochs
+    bn_decay_step: int = 20
+    bn_momentum_min: float = 1e-3
+    seed: int = 42
+    # loader worker threads (reference DataLoader num_workers=4,
+    # train_3dvlp.py:48-77); batch stream is identical for any value
+    num_workers: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     dataset: DatasetConfig = DatasetConfig()
     model: ModelConfig = ModelConfig()
+    loss: LossConfig = LossConfig()
+    train: TrainConfig = TrainConfig()
 
 
 _SLICE1_OPTIONS = "ROADMAP.md queue A item 9a (options of slice 1)"
 # flag -> (value that is not ported yet, the ROADMAP item that ports it).
-# use_con is served as-is: the contrast head only feeds training losses
-# and is skipped at inference, which is all the port runs so far.
+# use_con builds the contrast head: it feeds the OCC/OSC training losses
+# and is skipped at inference (is_eval).
 _UNPORTED = {
+    "remat": (True, "ROADMAP.md queue A item 14 (rematerialisation)"),
     "use_answer": (True, "ROADMAP.md queue A item 17 (VQA)"),
     "use_mlm": (True, "ROADMAP.md queue A item 16 (captioning/MLM)"),
     "no_caption": (False, "ROADMAP.md queue A item 16 (captioning/MLM)"),

@@ -2,8 +2,8 @@
 
 The port's own copy of the numpy export code in
 ``vlp3d/models/torch_export.py``, restricted to the submodules of the
-grounding-inference slice (backbone, voting, proposal, relation, BERT
-text mode, match). Takes the flax ``params`` and ``batch_stats`` as
+grounding slices (backbone, voting, proposal, relation, BERT text mode,
+match, contrast). Takes the flax ``params`` and ``batch_stats`` as
 nested dicts of numpy arrays and returns a dict of CPU tensors that
 ``vlp3d_torch.models.JointNet.load_state_dict(sd, strict=True)`` accepts.
 The key names are the reference 3DVLP checkpoint's, so the port loads
@@ -214,6 +214,15 @@ def convert_match(params, prefix: str, out: dict):
         i += 1
 
 
+def convert_contrast(params, prefix: str, out: dict):
+    """ContrastModule -> the reference's keys: bias-free linears
+    (``pc_proj_iou`` sits in a Sequential) and ``nce_loss.tau``."""
+    lin(params["pc_proj"], f"{prefix}pc_proj", out)
+    lin(params["text_proj"], f"{prefix}text_proj", out)
+    lin(params["pc_proj_iou"], f"{prefix}pc_proj_iou.0", out)
+    out[f"{prefix}nce_loss.tau"] = _f32(params["tau"])
+
+
 def to_tensors(sd: dict) -> dict:
     # np.array copies: flax leaves may be read-only views
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
@@ -222,8 +231,10 @@ def to_tensors(sd: dict) -> dict:
 def jax_to_torch_state_dict(params, batch_stats) -> dict:
     """JAX JointNet (params, batch_stats) -> the port's JointNet state dict.
 
-    Submodules outside the grounding-inference slice (contrast, caption,
-    MLM, answer) are not carried: the port's JointNet has none of them.
+    Submodules outside the grounding slices (caption, MLM, answer) are
+    not carried: the port's JointNet has none of them. A gradient tree has
+    the parameters' structure and converts the same way (pass the
+    parameters' ``batch_stats`` for the statistics' slots).
     """
     params, stats = dict(params), dict(batch_stats)
     sd: dict = {}
@@ -236,4 +247,6 @@ def jax_to_torch_state_dict(params, batch_stats) -> dict:
         convert_lang(params["lang"], "lang.", sd)
     if "match" in params:
         convert_match(params["match"], "match.", sd)
+    if "constrast" in params:  # the reference's spelling
+        convert_contrast(params["constrast"], "constrast.", sd)
     return to_tensors(sd)

@@ -1,3 +1,10 @@
-from vlp3d_torch.geometry.boxes import corner_offsets_flat, rotate_rotz_rows
+from vlp3d_torch.geometry.boxes import (
+    box3d_diou,
+    box3d_iou_aabb,
+    corner_offsets_flat,
+    rotate_rotz_rows,
+)
+from vlp3d_torch.geometry.nn_distance import huber_loss, nn_distance
 
-__all__ = ["corner_offsets_flat", "rotate_rotz_rows"]
+__all__ = ["box3d_diou", "box3d_iou_aabb", "corner_offsets_flat",
+           "rotate_rotz_rows", "huber_loss", "nn_distance"]

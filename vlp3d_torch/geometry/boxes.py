@@ -1,7 +1,8 @@
-"""Box geometry on tensors: the two closed forms the proposal path needs.
+"""Box geometry on tensors: the closed forms the proposal path needs and
+the axis-aligned IoU / DIoU of the grounding and contrast losses.
 
-Counterparts of ``corner_offsets_flat`` and ``rotate_rotz_rows`` in
-``vlp3d/geometry/boxes.py``.
+Counterparts of ``corner_offsets_flat``, ``rotate_rotz_rows``,
+``box3d_diou`` and ``box3d_iou_aabb`` in ``vlp3d/geometry/boxes.py``.
 """
 
 from __future__ import annotations
@@ -39,3 +40,33 @@ def rotate_rotz_rows(v: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     c, s = torch.cos(t), torch.sin(t)
     vx, vy, vz = v.unbind(-1)
     return torch.stack([vx * c + vy * s, -vx * s + vy * c, vz], dim=-1)
+
+
+def _aabb_inter(center1, size1, center2, size2):
+    min1, max1 = center1 - size1 / 2.0, center1 + size1 / 2.0
+    min2, max2 = center2 - size2 / 2.0, center2 + size2 / 2.0
+    inter = torch.clamp(torch.minimum(max1, max2) - torch.maximum(min1, min2),
+                        min=0.0).prod(dim=-1)
+    return inter, (min1, max1, min2, max2)
+
+
+def box3d_iou_aabb(center1, size1, center2, size2) -> torch.Tensor:
+    """Axis-aligned IoU of aligned pairs of boxes, each a center (..., 3)
+    and a size (..., 3); broadcasts over leading dims."""
+    inter, _ = _aabb_inter(center1, size1, center2, size2)
+    return inter / (size1.prod(dim=-1) + size2.prod(dim=-1) - inter)
+
+
+def box3d_diou(center1, size1, center2, size2):
+    """Axis-aligned IoU and DIoU (box3d_diou_batch_tensor,
+    box_util.py:488-529): diou = iou - 1.5 * center_dist^2 /
+    enclosing_diag^2, clamped to [-1, 1]. Returns (iou, diou)."""
+    inter, (min1, max1, min2, max2) = _aabb_inter(center1, size1, center2,
+                                                  size2)
+    iou = inter / (size1.prod(dim=-1) + size2.prod(dim=-1) - inter)
+    inter_diag = ((center1 - center2) ** 2).sum(dim=-1)
+    outer = torch.clamp(torch.maximum(max1, max2) - torch.minimum(min1, min2),
+                        min=0.0)
+    outer_diag = (outer ** 2).sum(dim=-1)
+    diou = torch.clamp(iou - 1.5 * inter_diag / outer_diag, -1.0, 1.0)
+    return iou, diou

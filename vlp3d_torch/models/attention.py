@@ -1,9 +1,10 @@
 """Transformer primitives for the relation and match heads.
 
 Counterparts of ``MultiHeadAttention``, ``PositionwiseFeedForward`` and
-``CrossAttentionDecoderLayer`` in ``vlp3d/models/attention.py``
-(inference: dropout is the identity). Attention is written out as matmul
-+ softmax, as the JAX module does. Parameter names follow the reference
+``CrossAttentionDecoderLayer`` in ``vlp3d/models/attention.py``, with
+the JAX module's dropout sites (after the output projection, inside the
+feed-forward, on the feed-forward's output; the identity at evaluation).
+Attention is written out as matmul + softmax, as the JAX module does. Parameter names follow the reference
 (``attention.fc_q``, ``layer_norm``, ``ffn.linear1``, ``norm``).
 """
 
@@ -16,6 +17,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from vlp3d_torch.device import resolve_device
+from vlp3d_torch.models.layers import Dropout
+
+
+DROPOUT = 0.1  # every dropout site of these modules, as in the reference
 
 
 class ScaledDotProductAttention(nn.Module):
@@ -50,12 +55,14 @@ class ScaledDotProductAttention(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """Post-LN residual attention: out = LN(q + att(q, k, v)), eps 1e-5."""
+    """Post-LN residual attention: out = LN(q + dropout(att(q, k, v))),
+    eps 1e-5."""
 
     def __init__(self, d_model: int = 128, heads: int = 4, *, device=None):
         super().__init__()
         device = resolve_device(device)
         self.attention = ScaledDotProductAttention(d_model, heads, device)
+        self.dropout = Dropout(DROPOUT)
         self.layer_norm = nn.LayerNorm(d_model, eps=1e-5, device=device)
 
     def forward(self, queries, keys, values, *, attention_mask=None,
@@ -63,7 +70,7 @@ class MultiHeadAttention(nn.Module):
                 return_attention: bool = False):
         out, att = self.attention(queries, keys, values, attention_mask,
                                   attention_weights, way)
-        out = self.layer_norm(queries + out)
+        out = self.layer_norm(queries + self.dropout(out))
         return (out, att) if return_attention else out
 
 
@@ -73,9 +80,10 @@ class PositionwiseFeedForward(nn.Module):
         device = resolve_device(device)
         self.linear1 = nn.Linear(d_model, hidden, device=device)
         self.linear2 = nn.Linear(hidden, d_model, device=device)
+        self.dropout = Dropout(DROPOUT)
 
     def forward(self, x):
-        return self.linear2(F.relu(self.linear1(x)))
+        return self.linear2(self.dropout(F.relu(self.linear1(x))))
 
 
 class CrossAttentionDecoderLayer(nn.Module):
@@ -91,9 +99,10 @@ class CrossAttentionDecoderLayer(nn.Module):
                                                     device=device)
         self.ffn = PositionwiseFeedForward(hidden_size, ffn_hidden,
                                            device=device)
+        self.dropout = Dropout(DROPOUT)
         self.norm = nn.LayerNorm(hidden_size, eps=1e-5, device=device)
 
     def forward(self, query, key, value, *, src_mask=None, src_trg_mask=None):
         x = self.self_attention(query, query, query, attention_mask=src_mask)
         x = self.enc_dec_attention(x, key, value, attention_mask=src_trg_mask)
-        return self.norm(x + self.ffn(x))
+        return self.norm(x + self.dropout(self.ffn(x)))

@@ -1,7 +1,8 @@
 """PointNet++ backbone: 4 set-abstraction + 2 feature-propagation layers.
 
-Counterpart of ``vlp3d/models/backbone.py`` (inference; no remat and no
-point-sharded SA1 front end). Emits the seeds fp2_xyz (= sa2_xyz),
+Counterpart of ``vlp3d/models/backbone.py`` (no remat and no
+point-sharded SA1 front end). SA1 reads the raw cloud, so it is the one SA
+module with ``leaf_inputs``: in training its gather has no backward. Emits the seeds fp2_xyz (= sa2_xyz),
 fp2_features and fp2_inds (= sa1_inds[:, :num_seed], indices into the raw
 input cloud).
 """
@@ -23,7 +24,8 @@ class PointNet2Backbone(nn.Module):
         device = resolve_device(device)
         np_, r, ns = npoints, radii, nsamples
         self.sa1 = SAModule(np_[0], r[0], ns[0], [64, 64, 128],
-                            input_feature_dim, device=device)
+                            input_feature_dim, leaf_inputs=True,
+                            device=device)
         self.sa2 = SAModule(np_[1], r[1], ns[1], [128, 128, 256], 128,
                             device=device)
         self.sa3 = SAModule(np_[2], r[2], ns[2], [128, 128, 256], 256,

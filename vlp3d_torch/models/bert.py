@@ -2,8 +2,11 @@
 
 Counterpart of ``BertConfig``, ``BertEmbeddings``, ``BertLayer``,
 ``BertTextEncoder`` (text mode: layers [0, fusion_layer)) and
-``LangModule`` in ``vlp3d/models/bert.py``, inference only; the encoder
-is frozen in the reference, so the port runs it under no gradient.
+``LangModule`` in ``vlp3d/models/bert.py``. The encoder is frozen in the
+reference: the port runs it under no gradient and its parameters never
+require one, but in training its dropout still draws (embeddings,
+attention probabilities, both sublayer outputs), as the JAX module's
+does.
 Parameter names follow the vendored xbert layout the reference state dict
 carries (``text_encoder.bert.encoder.layer.0.attention.self.query``).
 LayerNorm eps is 1e-12; the attention mask is ADDED as
@@ -20,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vlp3d_torch.device import resolve_device
+from vlp3d_torch.models.layers import Dropout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +36,8 @@ class BertConfig:
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
     fusion_layer: int = 6  # text mode runs layers [0, fusion_layer)
 
 
@@ -49,13 +55,14 @@ class BertEmbeddings(nn.Module):
         self.register_buffer(
             "position_ids",
             torch.arange(c.max_position_embeddings, device=device)[None, :])
+        self.dropout = Dropout(c.hidden_dropout)
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         seq = input_ids.shape[-1]
         x = (self.word_embeddings(input_ids)
              + self.position_embeddings(self.position_ids[:, :seq])
              + self.token_type_embeddings(torch.zeros_like(input_ids)))
-        return self.LayerNorm(x)
+        return self.dropout(self.LayerNorm(x))
 
 
 class _SelfAttention(nn.Module):
@@ -74,9 +81,10 @@ class _DenseLN(nn.Module):
         self.dense = nn.Linear(cin, c.hidden_size, device=device)
         self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps,
                                       device=device)
+        self.dropout = Dropout(c.hidden_dropout)
 
     def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
-        return self.LayerNorm(residual + self.dense(x))
+        return self.LayerNorm(residual + self.dropout(self.dense(x)))
 
 
 class BertLayer(nn.Module):
@@ -86,6 +94,7 @@ class BertLayer(nn.Module):
         self.heads = c.num_attention_heads
         self.attention = nn.Module()
         self.attention.self = _SelfAttention(c, device)
+        self.attention.dropout = Dropout(c.attention_dropout)
         self.attention.output = _DenseLN(c.hidden_size, c, device)
         self.intermediate = nn.Module()
         self.intermediate.dense = nn.Linear(c.hidden_size,
@@ -103,7 +112,7 @@ class BertLayer(nn.Module):
         v = sa.value(x).reshape(b, s, h, dk).transpose(1, 2)
         att = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dk)
         att = att + (1.0 - attention_mask[:, None, None, :]) * -10000.0
-        att = torch.softmax(att, dim=-1)
+        att = self.attention.dropout(torch.softmax(att, dim=-1))
         ctx = torch.matmul(att, v).transpose(1, 2).reshape(b, s, d)
         x = self.attention.output(ctx, x)
         y = F.gelu(self.intermediate.dense(x))  # exact erf GELU
@@ -140,11 +149,12 @@ class LangModule(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.text_encoder = BertTextEncoder(bert_config, device=device)
+        self.text_encoder.requires_grad_(False)  # frozen in the reference
         self.proj = nn.Linear(bert_config.hidden_size, lang_hidden_size,
                               device=device)
         self.lang_cls = nn.Sequential(
             nn.Linear(lang_hidden_size, num_class, device=device),
-            nn.Dropout(0.5))
+            Dropout(0.5))
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: torch.Tensor) -> dict:

@@ -1,14 +1,15 @@
-"""JointNet inference forward for ScanRefer grounding.
+"""JointNet for ScanRefer grounding: inference and the joint train forward.
 
-Counterpart of ``vlp3d/models/jointnet.py:118-218`` with ``train=False,
-is_eval=True``: backbone -> voting (votes L2-normalised) -> proposal ->
-relation -> BERT language branch -> match. The contrast head feeds only
-training losses and is skipped, as the JAX module skips it at
-``is_eval``. Flags the port does not implement raise NotImplementedError
+Counterpart of ``vlp3d/models/jointnet.py:118-218``: backbone -> voting
+(votes L2-normalised) -> proposal -> relation -> BERT language branch ->
+match -> contrast (OCC/OSC loss inputs; needs GT reference boxes, so it is
+skipped at ``is_eval``, the serving case). Flags the port does not
+implement raise NotImplementedError
 (:func:`vlp3d_torch.config.check_supported`).
 
 Submodule names are the reference's (``backbone_net``, ``vgen``,
-``proposal``, ``relation``, ``lang``, ``match``), so
+``proposal``, ``relation``, ``lang``, ``match``, ``constrast``: the
+reference's spelling), so
 ``load_state_dict(jax_to_torch_state_dict(...), strict=True)`` works.
 """
 
@@ -22,6 +23,7 @@ from vlp3d_torch.config import Config, check_supported
 from vlp3d_torch.device import resolve_device
 from vlp3d_torch.models.backbone import PointNet2Backbone
 from vlp3d_torch.models.bert import BertConfig, LangModule
+from vlp3d_torch.models.contrast import ContrastModule
 from vlp3d_torch.models.layers import PReLU
 from vlp3d_torch.models.match import MatchModule
 from vlp3d_torch.models.proposal import ProposalModule
@@ -30,8 +32,10 @@ from vlp3d_torch.models.voting import VotingModule, l2_normalize
 
 
 class JointNet(nn.Module):
-    """Inference-only JointNet. Weights start from :func:`init_weights_`
-    with seed 0; load real ones with ``load_state_dict(..., strict=True)``.
+    """Weights start from :func:`init_weights_` with seed 0; load real
+    ones with ``load_state_dict(..., strict=True)``. Every parameter is
+    trainable except the frozen BERT text encoder. The module starts in
+    evaluation mode; ``forward(batch, train=True)`` switches it (and back).
     """
 
     def __init__(self, config: Config, *, device=None):
@@ -57,14 +61,34 @@ class JointNet(nn.Module):
             device=device,
         )
         self.match = MatchModule(device=device)
+        if cfg.use_con:
+            self.constrast = ContrastModule(device=device)
+        self.register_buffer(
+            "mean_size_arr",
+            torch.from_numpy(ds.mean_size_arr()).to(device), persistent=False)
         init_weights_(self, 0)
-        self.requires_grad_(False)
         self.eval()
 
-    @torch.no_grad()
-    def forward(self, batch: dict) -> dict:
+    def forward(self, batch: dict, *, train: bool = False,
+                is_eval: bool = False) -> dict:
         """batch: point_clouds (B, N, 3+C) f32, input_ids and
-        bert_attention_mask (B, L, T) -> the JAX module's eval outputs."""
+        bert_attention_mask (B, L, T); with ``train`` also ``random`` (the
+        step's shared uniform gate), and unless ``is_eval`` (with
+        ``use_con``) the reference-box labels, ``lang_num`` and ``epoch``
+        -> the JAX module's outputs.
+
+        ``train`` puts every submodule in training mode (batch-statistic
+        BatchNorm with running updates, dropout, the SA1 raw-row gather,
+        copy-paste) and records a graph; without it the forward runs
+        under no gradient.
+        """
+        if self.training != train:
+            self.train(train)
+        with torch.set_grad_enabled(train):
+            return self._forward(batch, train, is_eval)
+
+    def _forward(self, batch: dict, train: bool, is_eval: bool) -> dict:
+        cfg = self.config.model
         out = dict(self.backbone_net(batch["point_clouds"]))
         seed_xyz, seed_features = out["fp2_xyz"], out["fp2_features"]
         out["seed_inds"] = out["fp2_inds"]
@@ -83,9 +107,28 @@ class JointNet(nn.Module):
             out["seed_inds"], out["aggregated_vote_inds"],
         ))
         out.update(self.lang(batch["input_ids"], batch["bert_attention_mask"]))
-        out.update(self.match(out["bbox_feature"], out["lang_fea"],
-                              lang_num_max=batch["input_ids"].shape[1]))
+        out.update(self.match(
+            out["bbox_feature"], out["lang_fea"], out["objectness_masks"],
+            lang_num_max=batch["input_ids"].shape[1],
+            random_gate=batch.get("random"),
+        ))
+        if cfg.use_con and not is_eval:
+            gt_center, gt_size = ref_gt_boxes(batch, self.mean_size_arr)
+            out.update(self.constrast(
+                out["bbox_feature"], out["lang_emb"], out["pred_center"],
+                out["pred_size"], gt_center, gt_size,
+                out["objectness_masks"], batch["lang_num"], batch["epoch"],
+            ))
         return out
+
+
+def ref_gt_boxes(batch: dict, mean_size_arr: torch.Tensor):
+    """Per-sentence GT reference boxes: center, and mean_size[class] +
+    residual (param2obb_batch_tensor, model_util_scannet.py:187-190)."""
+    gt_center = batch["ref_center_label_list"][..., 0:3]
+    gt_size = (mean_size_arr[batch["ref_size_class_label_list"].long()]
+               + batch["ref_size_residual_label_list"])
+    return gt_center, gt_size
 
 
 def init_weights_(module: nn.Module, seed: int) -> None:

@@ -1,7 +1,11 @@
 """Shared building blocks: point MLPs, set abstraction, feature propagation.
 
 Counterparts of ``PointMLP``, ``SAModule``, ``FPModule`` and ``PReLU`` in
-``vlp3d/models/layers.py``, inference path. Activations are channels-last
+``vlp3d/models/layers.py``, plus the port's :class:`BatchNorm` and
+:class:`Dropout` (flax semantics, see each). A module follows
+``nn.Module.training``: BatchNorm then normalises with batch statistics
+and updates its running ones, Dropout draws a mask, and the SA module
+with ``leaf_inputs`` gathers raw rows. Activations are channels-last
 (B, N, C). Parameter names follow the reference state dict
 (``mlp_module.layer0.conv.weight``, ``layer0.bn.bn.running_mean``, ...):
 a k=1 conv keeps the reference's (out, in, 1[, 1]) weight but runs as a
@@ -45,14 +49,23 @@ class PointwiseConv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the last axis, with torch's buffers:
-    (x - mean) * (rsqrt(var + eps) * weight) + bias, as flax evaluates it."""
+    """BatchNorm over the last axis with torch's buffers and flax's
+    arithmetic: (x - mean) * (rsqrt(var + eps) * weight) + bias.
+
+    In training the statistics are the batch's over all leading axes, the
+    variance biased and computed as max(E[x^2] - E[x]^2, 0), and the
+    running statistics move as ra = (1 - momentum) * ra + momentum *
+    batch, in place, with that same biased variance (flax stores it;
+    ``torch.nn.BatchNorm`` would store the unbiased one). ``momentum`` is
+    torch's convention: 0.1 is flax's 0.9.
+    """
 
     eps = 1e-5
 
     def __init__(self, c: int, *, device=None):
         super().__init__()
         device = resolve_device(device)
+        self.momentum = 0.1
         self.weight = nn.Parameter(torch.ones(c, device=device))
         self.bias = nn.Parameter(torch.zeros(c, device=device))
         self.register_buffer("running_mean", torch.zeros(c, device=device))
@@ -61,8 +74,49 @@ class BatchNorm(nn.Module):
                              torch.zeros((), dtype=torch.long, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+        if self.training:
+            dims = tuple(range(x.dim() - 1))
+            mean = x.mean(dims)
+            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+                self.num_batches_tracked += 1
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
+
+
+class Dropout(nn.Module):
+    """Inverted dropout as flax draws it: keep with probability 1 - p,
+    scale the kept values by 1 / (1 - p); the identity at evaluation or
+    p = 0. The mask comes from ``generator`` (an explicit
+    ``torch.Generator`` on the input's device, set by
+    :func:`set_dropout_generator`), or from the global generator when it
+    is None."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, device=x.device, dtype=x.dtype,
+                          generator=self.generator) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def set_dropout_generator(module: nn.Module,
+                          generator: torch.Generator | None) -> None:
+    """Hand every :class:`Dropout` under ``module`` the generator its
+    masks are drawn from."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
 
 
 class PReLU(nn.Module):
@@ -119,17 +173,29 @@ class SAModule(nn.Module):
     MLP -> max pool, with xyz used as features and divided by the radius
     (use_xyz, normalize_xyz: every caller's setting).
 
-    The first layer is folded before the gather as the JAX module does at
-    inference: W [xyz_rel / r; f] = gather(W_feat f + W_xyz xyz / r) -
-    W_xyz c / r, so only mlp[0] channels are gathered. With no feature
-    channels W_feat is (mlp[0], 0) and contributes zeros.
+    The first layer is folded before the gather as the JAX module does:
+    W [xyz_rel / r; f] = gather(W_feat f + W_xyz xyz / r) - W_xyz c / r, so
+    only mlp[0] channels are gathered. With no feature channels W_feat is
+    (mlp[0], 0) and contributes zeros.
+
+    ``leaf_inputs`` says that xyz and features are raw inputs that need no
+    gradient: in training the module then gathers the raw rows first and
+    applies the first linear after, so the gather has no backward at all
+    (the folded form would need a scatter-add over every gathered row just
+    to reach the weight gradients). Evaluation keeps the folded form.
+
+    The max pool is ``amax``, whose gradient is split evenly among tied
+    maxima as ``jnp.max``'s is (padded neighbourhoods repeat a row, so
+    ties are the rule).
     """
 
     def __init__(self, npoint: int, radius: float, nsample: int,
-                 mlp: Sequence[int], in_channels: int, *, device=None):
+                 mlp: Sequence[int], in_channels: int, *,
+                 leaf_inputs: bool = False, device=None):
         super().__init__()
         device = resolve_device(device)
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
+        self.leaf_inputs = leaf_inputs
         self.mlp_module = PointMLP(3 + in_channels, mlp, device=device)
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor):
@@ -145,9 +211,15 @@ class SAModule(nn.Module):
         w = layers[0].conv.weight.flatten(1)
         w_xyz, w_feat = w[:, :3], w[:, 3:]
         scale = 1.0 / self.radius
-        pre_all = F.linear(features, w_feat) + F.linear(xyz, w_xyz) * scale
-        x = group_points(pre_all, idx) - (
-            F.linear(new_xyz, w_xyz) * scale)[:, :, None, :]
+        if self.leaf_inputs and self.training:
+            src = torch.cat([xyz, features], dim=-1).detach()
+            grouped = group_points(src, idx)  # (B, M, K, 3 + C)
+            gxyz = (grouped[..., :3] - new_xyz[:, :, None, :]) * scale
+            x = F.linear(grouped[..., 3:], w_feat) + F.linear(gxyz, w_xyz)
+        else:
+            pre_all = F.linear(features, w_feat) + F.linear(xyz, w_xyz) * scale
+            x = group_points(pre_all, idx) - (
+                F.linear(new_xyz, w_xyz) * scale)[:, :, None, :]
         x = F.relu(layers[0].bn.bn(x))
         for layer in layers[1:]:
             x = layer(x)

@@ -1,6 +1,6 @@
 """Proposal generation: vote aggregation + ROI head + box decode.
 
-Counterpart of ``vlp3d/models/proposal.py`` at inference: vote
+Counterpart of ``vlp3d/models/proposal.py``: vote
 aggregation is an SA module (FPS ``num_proposal`` of the votes, r=0.3,
 k=16, mlp [128, 128, 128], normalize_xyz); the head is 2x (conv + BN +
 ReLU) and the predictors of roi_heads.py:15-147; boxes decode on device.

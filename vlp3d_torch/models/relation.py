@@ -69,7 +69,8 @@ class RelationModule(nn.Module):
         # geometric attention bias inputs (centers == mean of corners)
         offsets = pred_center[:, None, :, :] - pred_center[:, :, None, :]
         dist = torch.sqrt((offsets ** 2).sum(-1, keepdim=True))
-        geo = torch.cat([offsets, dist], dim=-1)  # (B, K, K, 4)
+        # no gradient reaches the centers through the bias inputs
+        geo = torch.cat([offsets, dist], dim=-1).detach()  # (B, K, K, 4)
         box_feat = torch.cat(
             [pred_center, corner_offsets_flat(pred_size, pred_heading)], -1)
 

@@ -1,7 +1,8 @@
 """Point-cloud ops: FPS, ball query, grouping, three-NN interpolation.
 
-FPS, ball query and three-NN run hand-written CUDA kernels on CUDA
-tensors and their plain PyTorch versions on CPU tensors.
+FPS, ball query, three-NN and the row gather (with its scatter-add
+backward) run hand-written CUDA kernels on CUDA tensors and their plain
+PyTorch versions on CPU tensors. Index outputs carry no gradient.
 """
 
 from vlp3d_torch.ops._kernels import launches, reset_launches

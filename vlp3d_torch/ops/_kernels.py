@@ -11,8 +11,9 @@ variable). Libraries load with ``ctypes``: pointers and the stream go over as ``
 entry point returns ``cudaGetLastError()`` after its launch, which
 :func:`check` turns into an exception.
 
-``launches`` counts the launches of each kernel, so a run can show that
-its main path went through the kernels.
+``launches`` counts the launches of each kernel (a source may hold more
+than one: ``grouping.cu`` has the gather and its scatter-add backward),
+so a run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -31,7 +32,10 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(os.environ.get(
     "VLP3D_TORCH_BUILD_DIR",
     Path(__file__).resolve().parents[2] / "build" / "vlp3d_torch"))
-SOURCES = ("fps", "ball_query", "three_nn")
+SOURCES = ("fps", "ball_query", "three_nn", "grouping")
+# kernels with a launch counter; each wrapper adds one where it launches
+KERNELS = ("fps", "ball_query", "three_nn", "group_points",
+           "group_points_grad")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # index parity: no FMA contraction of d2 (the sources also spell
@@ -39,7 +43,8 @@ NVCC_FLAGS = (
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_longlong)
 # C entry points of each source: symbol -> argument types (all return int)
 SIGNATURES = {
     "fps": {
@@ -52,9 +57,13 @@ SIGNATURES = {
     "three_nn": {
         "vlp3d_three_nn": [_P, _P, _I, _I, _I, _P, _P, _P],
     },
+    "grouping": {
+        "vlp3d_group_points": [_P, _P, _I, _I, _I, _I, _L, _L, _I, _P, _P],
+        "vlp3d_group_points_grad": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
+    },
 }
 
-launches = {name: 0 for name in SOURCES}
+launches = {name: 0 for name in KERNELS}
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 

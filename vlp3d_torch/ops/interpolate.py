@@ -9,7 +9,11 @@ does.
 ``three_nn`` on a CUDA tensor runs the hand-written kernel
 (``csrc/three_nn.cu``), on a CPU tensor :func:`three_nn_plain`; there is
 no fallback between the two. The weighting and the weighted sum are
-plain PyTorch on both.
+plain PyTorch on both (the neighbour rows come through
+:func:`~vlp3d_torch.ops.grouping.group_points`, so on the card their
+gradient is the scatter-add kernel). Indices and distances carry no
+gradient: only the known features receive one, as in the JAX op, which
+stops the gradient at the distances.
 """
 
 from __future__ import annotations
@@ -84,7 +88,7 @@ def three_interpolate(features: torch.Tensor, idx: torch.Tensor,
 def interpolate_features(unknown: torch.Tensor, known: torch.Tensor,
                          known_feats: torch.Tensor) -> torch.Tensor:
     """three_nn + inverse-distance weighting (pointnet2_modules.py:393-401)."""
-    dist2, idx = three_nn(unknown, known)
+    dist2, idx = three_nn(unknown, known)  # computed under no_grad
     recip = 1.0 / (torch.sqrt(dist2) + 1e-8)
     weight = recip / recip.sum(dim=-1, keepdim=True)
     return three_interpolate(known_feats, idx, weight)

@@ -43,6 +43,7 @@ class GroundingPredictor:
         self.config = config
         self.batch_size = batch_size
         self.model = JointNet(config, device=self.device)
+        self.model.requires_grad_(False)
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
 
@@ -55,7 +56,7 @@ class GroundingPredictor:
     @torch.no_grad()
     def predict(self, batch: dict) -> dict:
         """One device batch (tensors on the device) -> device predictions."""
-        out = self.model(batch)
+        out = self.model(batch, is_eval=True)
         masks = out["objectness_masks"]  # (B, K)
         bsz, l = batch["input_ids"].shape[:2]
         conf = out["cluster_ref"].reshape(bsz, l, -1)

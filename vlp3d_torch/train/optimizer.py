@@ -1,0 +1,145 @@
+"""Optimizer: decoupled AdamW with per-module LR groups.
+
+Counterpart of ``vlp3d/train/optimizer.py`` (the reference's vendored
+AdamW + set_params_lr_dict, scripts/utils/AdamW.py,
+script_utils.py:3-31): parameters under the lang / relation / match /
+caption modules train at ``module_lr`` (5e-4) and everything else at
+``base_lr`` (2e-3), each group on its own schedule of the epoch. Frozen
+parameters (``requires_grad=False``: the BERT text encoder) are in no
+group, so they see neither updates nor weight decay.
+
+The update is written out rather than left to ``torch.optim.AdamW`` so
+that it is, term for term, the chain the JAX package runs: moments, bias
+correction, then ``p -= lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``;
+with ``amsgrad`` the running maximum is over the raw second moment and is
+bias-corrected when read, torch's formulation (AdamW.py:100-110). Each
+term runs as one ``torch._foreach_*`` call over a group's tensors: a loop
+over ~200 parameters costs ~2000 small launches a step, which on the card
+is host time the device waits for. The Adam (coupled decay),
+single-group, value-clipping and accumulation variants belong to the VQA
+path and are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+from torch import nn
+
+MODULE_LR_GROUPS = ("lang", "relation", "match", "caption")
+# parameter-name prefixes the model freezes (lang_bert_module.py:84-95)
+FROZEN_PREFIXES = ("lang.text_encoder.",)
+
+_VQA = "ROADMAP.md queue A item 17 (VQA)"
+
+
+def label_params(model: nn.Module) -> dict:
+    """name -> 'frozen' | 'module' | 'base' for every parameter."""
+    labels = {}
+    for name, _ in model.named_parameters():
+        if name.startswith(FROZEN_PREFIXES):
+            labels[name] = "frozen"
+        elif name.split(".")[0] in MODULE_LR_GROUPS:
+            labels[name] = "module"
+        else:
+            labels[name] = "base"
+    return labels
+
+
+class AdamW(torch.optim.Optimizer):
+    """Decoupled AdamW over groups that carry ``base_lr``; the group's
+    ``lr`` of a step is ``lr_schedule(step // steps_per_epoch, base_lr)``,
+    with ``step`` the count of updates already taken."""
+
+    def __init__(self, groups, *, lr_schedule, steps_per_epoch: int,
+                 weight_decay: float, amsgrad: bool, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        for g in groups:
+            g["lr"] = g["base_lr"]
+        super().__init__(groups, dict(weight_decay=weight_decay))
+        self.lr_schedule = lr_schedule
+        self.steps_per_epoch = steps_per_epoch
+        self.amsgrad = amsgrad
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.step_count = 0
+
+    def group_lr(self, group) -> float:
+        if self.lr_schedule is None:
+            return group["base_lr"]
+        return float(self.lr_schedule(self.step_count // self.steps_per_epoch,
+                                      group["base_lr"]))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        count = self.step_count + 1
+        b1, b2 = self.b1, self.b2
+        bc1 = 1.0 - b1 ** count
+        bc2 = 1.0 - b2 ** count
+        for group in self.param_groups:
+            lr = group["lr"] = self.group_lr(group)
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            for p in params:
+                st = self.state[p]
+                if not st:
+                    st["mu"] = torch.zeros_like(p)
+                    st["nu"] = torch.zeros_like(p)
+                    if self.amsgrad:
+                        st["nu_max"] = torch.zeros_like(p)
+            mus = [self.state[p]["mu"] for p in params]
+            nus = [self.state[p]["nu"] for p in params]
+            torch._foreach_mul_(mus, b1)
+            torch._foreach_add_(mus, grads, alpha=1.0 - b1)
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_addcmul_(nus, grads, grads, value=1.0 - b2)
+            if self.amsgrad:
+                nu_maxs = [self.state[p]["nu_max"] for p in params]
+                torch._foreach_maximum_(nu_maxs, nus)
+                denom = torch._foreach_sqrt(nu_maxs)
+                torch._foreach_div_(denom, bc2 ** 0.5)
+            else:
+                denom = torch._foreach_div(nus, bc2)
+                torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, self.eps)
+            update = torch._foreach_div(mus, bc1)
+            torch._foreach_div_(update, denom)
+            torch._foreach_add_(update, params, alpha=group["weight_decay"])
+            torch._foreach_add_(params, update, alpha=-lr)
+        self.step_count = count
+
+
+def make_optimizer(model: nn.Module, *, base_lr: float = 2e-3,
+                   module_lr: float = 5e-4, weight_decay: float = 1e-3,
+                   lr_schedule: Callable[[int, float], float] | None = None,
+                   steps_per_epoch: int = 1, amsgrad: bool = False,
+                   optim_name: str = "adamw", single_group: bool = False,
+                   clip_grad_value: float = 0.0,
+                   grad_accum: int = 1) -> AdamW:
+    """``lr_schedule`` maps (epoch, group_base_lr) -> the group's absolute
+    LR: torch LR schedulers run per parameter group on the group's own
+    base LR (CosineAnnealingLR anneals every group to the same eta_min)."""
+    for name, value, default in (("optim_name", optim_name, "adamw"),
+                                 ("single_group", single_group, False),
+                                 ("clip_grad_value", clip_grad_value, 0.0),
+                                 ("grad_accum", grad_accum, 1)):
+        if value != default:
+            raise NotImplementedError(
+                f"vlp3d_torch does not implement {name}={value!r} yet; "
+                f"see {_VQA}")
+    labels = label_params(model)
+    by_label = {"base": [], "module": []}
+    for name, p in model.named_parameters():
+        if labels[name] == "frozen":
+            p.requires_grad_(False)
+        elif p.requires_grad:
+            by_label[labels[name]].append(p)
+    groups = [
+        dict(params=by_label["base"], base_lr=base_lr, name="base"),
+        dict(params=by_label["module"], base_lr=module_lr, name="module"),
+    ]
+    return AdamW(groups, lr_schedule=lr_schedule,
+                 steps_per_epoch=steps_per_epoch, weight_decay=weight_decay,
+                 amsgrad=amsgrad)

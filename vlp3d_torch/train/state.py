@@ -1,0 +1,70 @@
+"""Train and eval steps of the joint model.
+
+Counterpart of ``vlp3d/train/state.py`` ``make_train_step`` /
+``make_eval_step`` as plain functions over the module, the optimizer and
+an explicit generator. The state the JAX package threads through a
+``TrainState`` lives where PyTorch keeps it: parameters and BatchNorm
+statistics in the module, moments and the step count in the optimizer.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from vlp3d_torch.config import Config
+from vlp3d_torch.losses.joint import compute_joint_loss
+from vlp3d_torch.models.jointnet import JointNet
+from vlp3d_torch.models.layers import set_dropout_generator
+
+
+def batch_to_device(batch: dict, device) -> dict:
+    """Host batch (numpy arrays and scalars, as ``make_batch`` or the
+    loader give it) -> tensors on ``device``."""
+    return {k: torch.as_tensor(np.asarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+def _scalars(metrics: dict) -> dict:
+    return {k: v.detach() for k, v in metrics.items()
+            if torch.is_tensor(v) and v.dim() == 0}
+
+
+def make_train_step(model: JointNet, config: Config, optimizer) -> Callable:
+    """Returns ``train_step(batch, generator=None) -> metrics``: forward
+    in training mode, the joint loss, gradients, one optimizer update and
+    new BatchNorm statistics, all in place in ``model`` and ``optimizer``.
+
+    ``batch`` holds tensors on the model's device
+    (:func:`batch_to_device`); ``generator`` (a ``torch.Generator`` on
+    that device) draws the dropout masks, the global generator when None.
+    ``metrics`` are the scalar entries of the loss's metrics, as 0-dim
+    tensors on the device (reading one synchronises).
+    """
+
+    def train_step(batch: dict, generator: torch.Generator | None = None):
+        set_dropout_generator(model, generator)
+        out = model(batch, train=True)
+        loss, metrics = compute_joint_loss(config, out, batch)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        optimizer.step()
+        return _scalars(metrics)
+
+    return train_step
+
+
+def make_eval_step(model: JointNet, config: Config) -> Callable:
+    """Returns ``eval_step(batch) -> (outputs, metrics)``: the forward at
+    evaluation (running BatchNorm statistics, no dropout, no gradient)
+    and the loss's scalar metrics."""
+
+    def eval_step(batch: dict):
+        out = model(batch, train=False)
+        with torch.no_grad():
+            _, metrics = compute_joint_loss(config, out, batch)
+        return out, _scalars(metrics)
+
+    return eval_step
