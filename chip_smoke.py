@@ -16,9 +16,22 @@ nothing of the vlp3d package. Phases, each fatal on failure:
    BatchNorm statistics, and run one warm-up forward at B=8, N=40960;
 4. hold each kernel against its plain PyTorch version at the shapes the
    main path gives it (FPS x5, ball query x5 with and without counts,
-   three-NN x2, from that forward's own tensors), plus zero-padded rows,
-   empty balls and the global-memory FPS path; time kernel, plain
-   version and, for three-NN, torch.cdist + topk with CUDA events;
+   three-NN x2, from that forward's own tensors), plus zero-padded rows
+   and empty balls; time kernel, plain version and, for three-NN,
+   torch.cdist + topk with CUDA events. FPS besides: at every site the
+   one-block kernel it replaced (time and indices), every other shape
+   of the points-in-registers kernel that holds the row (blocks a row x
+   points a thread: indices equal, times printed as sweep_ms), us a
+   step, and the serial bound for the SMs a row has; then the edge
+   cases, each through the wrapper's choice and through forced one-block
+   and cluster shapes, fatal unless the index difference is 0: ties
+   across blocks (duplicated halves, 7 distinct points), blocks with no
+   valid point, an all-zero row, a row with one valid point, N = 40000 /
+   1000 / 33, npoint = 1, npoint above the number of valid points, B =
+   1 / 3 / 9 / 16, a 65536-point row (cluster) and a 262144-point row
+   (one block, global scratch); plans the card must refuse raise and
+   leave no error behind; how many clusters the card runs at once; host
+   us a call of each wrapper (1000 unsynchronised calls);
 5. with every launch count at 0, serve three requests through
    GroundingPredictor (one batch; a list of two; occupancy 3 through
    run_padded), read the counts (FPS 5, ball query 5, three-NN 2, row
@@ -31,11 +44,16 @@ nothing of the vlp3d package. Phases, each fatal on failure:
    live), AdamW with its two learning-rate groups on the cosine schedule, one
    make_batch(istrain=1) batch at B=8, N=40960 on the card. One recorded
    forward + backward gives every call site of the row gather its own
-   tensors: the forward kernel is held against torch.gather (fatal
-   unless the difference is 0) and the scatter-add backward kernel
+   tensors (C = 3, 64, 128, 135, 256; the multiview site is a sliced
+   view; the folded SA sites pass their centre term as the subtrahend):
+   the forward kernel is held against torch.gather (fatal unless the
+   difference is 0), with the site's subtrahend or a random one against
+   gather - sub (fatal unless 0), and the scatter-add backward kernel
    against index_add_ (fatal above GRAD_RTOL of the absolute sum meeting
    in a row), also on all-equal neighbourhoods and on C = 3 and C = 135
-   rows, with times for kernel, plain version and library call. Then,
+   rows with K = 64, with times for kernel, plain version, library call
+   and, where a subtrahend is fused, the two-op form; host us a call at
+   a K = 1 site beside index_select's. Then,
    with every count at 0, train steps on that batch: one at epoch 60
    (OCC/OSC positive, the reference weight switched), 8 at epoch 0, one
    more at epoch 60; the counts of one
@@ -45,8 +63,9 @@ nothing of the vlp3d package. Phases, each fatal on failure:
    ops on the card compared with the kernels' (loss within 1e-5
    relative, gradients within 1e-4 of their largest entry); step ms,
    peak memory and a torch.profiler trace of one step by kernel name;
-7. print {"kernels": [...]} with every kernel of both paths, the card's
-   name and power limit, and last {"ok": true, "device": {...}}.
+7. print {"kernels": [...]} with every kernel of both paths (the CUDA
+   functions behind each in kernel_functions, host_us beside the times),
+   the card's name and power limit, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -149,13 +168,126 @@ def plain_ops():
          grp._gather_rows) = saved
 
 
+def fps_variants(n: int):
+    """Every (blocks a row, points a thread) of the points-in-registers
+    FPS kernel that holds a row of n points within the threads its
+    register budget allows (the limits of vlp3d_torch/csrc/fps.cu),
+    leaving out those whose threads would mostly hold padding."""
+    smp = importlib.import_module("vlp3d_torch.ops.sampling")
+    for blocks in ((8, 16) if n > 4096 else (1, 2, 4)):
+        share = -(-n // blocks)
+        for points, limit in smp._REGS_THREADS.items():
+            threads = 32 * -(-share // (32 * points))
+            if threads <= limit and (points == 2 or share > 16 * points):
+                yield blocks, points
+
+
+def check_fps_edges(torch, cloud):
+    """Phase 4, FPS where trouble is likely: every case through the
+    wrapper's own choice of kernel and, for short rows, again through a
+    cluster, indices equal to the plain version's (fatal otherwise)."""
+    from vlp3d_torch import ops
+    from vlp3d_torch.ops import _kernels
+    from vlp3d_torch.ops.sampling import fps_plain
+
+    smp = importlib.import_module("vlp3d_torch.ops.sampling")
+    cloud = cloud.contiguous()
+    dev = cloud.device
+    cases = []
+
+    def case(name, xyz, npoint, plans=(None,)):
+        xyz = xyz.contiguous()
+        want = fps_plain(xyz, npoint)
+        for plan in plans:
+            got = (ops.furthest_point_sample(xyz, npoint) if plan is None
+                   else smp._fps_cuda(xyz, npoint, plan))
+            torch.cuda.synchronize()
+            err = index_err(torch, got, want)
+            if err != 0:
+                fail(f"fps edge case {name} (plan {plan}): indices differ "
+                     f"from the plain version by up to {err}")
+        cases.append(name)
+        return want
+
+    n = cloud.shape[1]
+    short = cloud[:, :2048]
+    both = (None, (16, 8), (8, 16), (16, 32))
+    small = (None, (1, 32), (1, 8), (4, 8), (16, 2))
+    # ties across blocks: the second half repeats the first
+    dup = cloud.clone()
+    dup[:, n // 2:] = dup[:, :n // 2]
+    case("duplicated halves, N=40960", dup, 256, both)
+    dup = short.clone()
+    dup[:, 1024:] = dup[:, :1024]
+    case("duplicated halves, N=2048", dup, 256, small)
+    few = cloud[:, :7].repeat(1, 6000, 1)[:, :n]
+    case("7 distinct points, N=40960", few, 64, both)
+    case("7 distinct points, N=1022", few[:, :1022], 64, small)
+    # blocks whose whole share is invalid, rows with none or one valid point
+    tail = cloud.clone()
+    tail[:, n // 4:] = 0.0
+    tail[1] = 0.0
+    tail[2] = 0.0
+    tail[2, 31000] = 1.5
+    want = case("zero tail of 3N/4, an all-zero row, a row with one valid "
+                "point, N=40960", tail, 128, both)
+    if (want[1] != 0).any() or (want[2, 1:] != 31000).any():
+        fail("fps edge case: the plain version itself is off")
+    tail = short.clone()
+    tail[:, 300:] = 0.0
+    tail[1] = 0.0
+    tail[2] = 0.0
+    tail[2, 2047] = 1.5
+    case("zero tail, all-zero row, one valid point, N=2048", tail, 128, small)
+    # N that no block x thread x point grid divides, npoint at its ends
+    case("N=40000", cloud[:, :40000], 128, both)
+    case("N=1000", cloud[:, :1000], 128, small)
+    case("N=33", cloud[:, :33], 20, (None, (1, 4), (4, 2)))
+    case("npoint=1", cloud, 1, both)
+    case("npoint=1, N=512", cloud[:, :512], 1, small)
+    sparse = cloud[:, :33].clone()
+    sparse[:, 10:] = 0.0
+    case("npoint 20 > 10 valid points", sparse, 20, (None, (4, 2)))
+    # more clusters than the card runs at once must queue
+    for b in (1, 3, 9, 16):
+        xyz = cloud[torch.arange(b, device=dev) % cloud.shape[0]].clone()
+        xyz += torch.arange(b, device=dev)[:, None, None] * 0.01
+        case(f"B={b}, N=40960", xyz, 64, both)
+        case(f"B={b}, N=1024", xyz[:, :1024], 64, small)
+    # rows too long for a cluster: the one-block kernel, global scratch
+    big = torch.rand(2, 1 << 18, 3, device=dev) * 6
+    if smp._fps_plan(big.shape[1]) is not None:
+        fail("a 262144-point row should take the global-scratch kernel")
+    case("N=262144 (global scratch)", big, 32)
+    case("N=65536 (cluster)", big[:, :1 << 16], 32, (None, "global"))
+    # a launch the card refuses raises; nothing else is tried
+    for plan in ((32, 8), (1, 3), (1, 2)):
+        try:
+            smp._fps_cuda(cloud, 8, plan)
+        except RuntimeError:
+            continue
+        fail(f"fps: plan {plan} should have been refused")
+    torch.cuda.synchronize()
+    ops.furthest_point_sample(cloud, 8)  # the refusals left no error behind
+    torch.cuda.synchronize()
+    occ = {f"{c}x{p}": _kernels.function("fps", "vlp3d_fps_max_clusters")(
+        c, n, p) for c, p in fps_variants(n)}
+    print(f"[4] fps: {len(cases)} edge cases equal to plain: "
+          + "; ".join(cases))
+    print(f"[4] fps: clusters of the N={n} kernel the card runs at once "
+          f"(blocks x points a thread: clusters): {json.dumps(occ)}; refused plans "
+          "raise")
+
+
 def check_kernels(torch, config, out):
     """Phase 4: every kernel against its plain version at main-path shapes."""
     from vlp3d_torch import ops
     from vlp3d_torch.ops.ball_query import ball_query_plain
+    from vlp3d_torch.ops.host_time import host_us
     from vlp3d_torch.ops.interpolate import three_nn_plain
     from vlp3d_torch.ops.sampling import fps_plain
 
+    smp = importlib.import_module("vlp3d_torch.ops.sampling")
     cfg = config.model
     xyz_in = [out["point_clouds_xyz"], out["sa1_xyz"], out["sa2_xyz"],
               out["sa3_xyz"], out["vote_xyz"]]
@@ -181,14 +313,36 @@ def check_kernels(torch, config, out):
         k_ms = cuda_ms(torch, lambda: ops.furthest_point_sample(xyz, npoint),
                        10)
         p_ms = cuda_ms(torch, lambda: fps_plain(xyz, npoint), 2, warmup=0)
+        # the kernel this one replaced (one 1024-thread block a row,
+        # distances in shared memory), timed in the same run
+        if index_err(torch, smp._fps_cuda(xyz, npoint, "shared"), want) != 0:
+            fail(f"fps {site}: the one-block kernel differs from plain")
+        old_ms = cuda_ms(torch, lambda: smp._fps_cuda(xyz, npoint, "shared"),
+                         5)
+        # every other shape of the points-in-registers kernel that holds
+        # this row: each must give the same indices; the wrapper's choice
+        # (_fps_plan) is the fastest or within a few percent of it
+        plan = smp._fps_plan(n)
+        sweep = {}
+        for cand in fps_variants(n):
+            if index_err(torch, smp._fps_cuda(xyz, npoint, cand), want) != 0:
+                fail(f"fps {site}: plan {cand} differs from plain")
+            sweep["%dx%d" % cand] = cuda_ms(
+                torch, lambda: smp._fps_cuda(xyz, npoint, cand), 3, warmup=1)
         nbytes = b * n * 12 + b * npoint * 4
         nops = (npoint - 1) * b * n * OPS_PER_TEST
         bms, by = bound_ms(nbytes, nops)
-        # one block per row: npoint serial steps on one SM's fp32 rate
-        serial = (npoint - 1) * n * OPS_PER_TEST / (FP32_FLOPS / SMS) * 1e3
-        rows["fps"].append(dict(site=site, shape=[b, n, npoint], ms=k_ms,
-                                plain_ms=p_ms, bound_ms=bms, bound_by=by,
-                                serial_one_sm_ms=serial, max_abs_err=fps_err))
+        # npoint - 1 dependent steps on the fp32 rate of the SMs one row
+        # has: one for the one-block kernels, one a block of a cluster
+        serial_1 = (npoint - 1) * n * OPS_PER_TEST / (FP32_FLOPS / SMS) * 1e3
+        rows["fps"].append(dict(
+            site=site, shape=[b, n, npoint], plan=list(plan),
+            threads=32 * -(-(-(-n // plan[0])) // (32 * plan[1])), ms=k_ms,
+            us_per_step=k_ms * 1e3 / (npoint - 1), one_block_kernel_ms=old_ms,
+            one_block_us_per_step=old_ms * 1e3 / (npoint - 1),
+            plain_ms=p_ms, bound_ms=bms, bound_by=by,
+            serial_one_sm_ms=serial_1, serial_ms=serial_1 / plan[0],
+            max_abs_err=fps_err, sweep_ms=sweep))
 
         ctr = ctr.contiguous()
         m = ctr.shape[1]
@@ -248,8 +402,7 @@ def check_kernels(torch, config, out):
             library_ms=lib_ms, bound_ms=bms, bound_by=by,
             max_abs_err=d_err, interp_max_abs_err=f_err))
 
-    # edge cases: zero-padded points and an all-zero row, empty balls,
-    # and distances too many for shared memory (global scratch)
+    # edge cases: zero-padded points and an all-zero row, empty balls
     xyz = out["point_clouds_xyz"].clone()
     n, npoint = xyz.shape[1], cfg.sa_npoints[0]
     xyz[0] = 0.0
@@ -266,16 +419,23 @@ def check_kernels(torch, config, out):
     if not (torch.equal(idx, pidx) and torch.equal(cnt, pcnt)
             and (idx[:, :empty] == 0).all()):
         fail("ball query: empty balls differ from the plain version")
-    big = torch.rand(2, 1 << 16, 3, device=xyz.device) * 6
-    if not torch.equal(ops.furthest_point_sample(big, 64),
-                       fps_plain(big, 64)):
-        fail("fps: global-memory path differs from the plain version")
     torch.cuda.synchronize()
     print("[4] edge cases equal to plain: zero-padded rows, an all-zero row, "
-          "empty balls, 65536-point FPS in global memory")
+          "empty balls")
+    check_fps_edges(torch, out["point_clouds_xyz"])
 
+    # host time of one wrapper call, on arguments small enough that the
+    # device keeps up with the host
+    tiny = out["sa4_xyz"][:1, :64].contiguous()
+    ctr = tiny[:, :8].contiguous()
+    us = {"fps": host_us(lambda: ops.furthest_point_sample(tiny, 2)),
+          "ball_query": host_us(lambda: ops.ball_query(
+              0.3, 4, tiny, ctr)),
+          "three_nn": host_us(lambda: ops.three_nn(tiny, ctr))}
+    print(f"[4] host us a call on {list(tiny.shape)}: {json.dumps(us)}")
     for name, rs in rows.items():
         for r in rs:
+            r["host_us"] = us[name]
             print(f"[4] {name} {json.dumps(r)}")
     return rows
 
@@ -338,6 +498,15 @@ def kernel_line(rows, serving, train):
         "group_points_grad": ("vlp3d_torch/csrc/grouping.cu",
                               "vlp3d/ops/grouping.py:135"),
     }
+    functions = {
+        "fps": ["fps_regs_kernel<P, false>", "fps_regs_kernel<P, true>",
+                "fps_kernel"],
+        "ball_query": ["ball_query_kernel"],
+        "three_nn": ["three_nn_kernel"],
+        "group_points": ["group_points_vec_kernel",
+                         "group_points_stream_kernel"],
+        "group_points_grad": ["group_points_grad_kernel"],
+    }
     kernels = []
     for name, rs in rows.items():
         # one forward's (for the gather's backward: one train step's)
@@ -362,7 +531,16 @@ def kernel_line(rows, serving, train):
             "bound_ms": sum(r["bound_ms"] for r in rs),
             "bound_by": "operations" if ops_bound >= bytes_bound else "bytes",
             "library_ms": None if None in lib else sum(lib),
+            "host_us": rs[0]["host_us"],
+            "kernel_functions": functions[name],
         })
+        if name == "fps":
+            steps = sum(r["shape"][2] - 1 for r in rs)
+            kernels[-1].update(
+                serial_ms=sum(r["serial_ms"] for r in rs),
+                serial_one_sm_ms=sum(r["serial_one_sm_ms"] for r in rs),
+                us_per_step=kernels[-1]["ms"] * 1e3 / steps,
+                one_block_kernel_ms=sum(r["one_block_kernel_ms"] for r in rs))
     return {"kernels": kernels}
 
 
@@ -373,9 +551,11 @@ def record_gather_sites(torch, run):
     grp = importlib.import_module("vlp3d_torch.ops.grouping")
     sites, orig = [], grp._gather_rows
 
-    def recording(points, idx):
-        out = orig(points, idx)
-        site = {"points": points.detach(), "idx": idx.to(torch.int32),
+    def recording(points, idx, sub=None):
+        out = orig(points, idx, sub)
+        site = {"points": points.detach(),
+                "idx": idx.to(torch.int32).contiguous(),
+                "sub": None if sub is None else sub.detach().contiguous(),
                 "grad": None, "differentiable": out.requires_grad}
         if out.requires_grad:
             out.register_hook(
@@ -391,37 +571,66 @@ def record_gather_sites(torch, run):
     return sites
 
 
-def check_group_site(torch, label, points, idx, grad, on_path, reps=20):
+def check_group_site(torch, label, points, idx, grad, on_path, reps=20,
+                     sub=None):
     """One call site of the row gather: the forward kernel against
-    torch.gather (exact), and with ``grad`` the backward kernel against
-    index_add_; times of kernel, plain version and library call."""
+    torch.gather (exact), with and without a subtrahend, and with ``grad``
+    the backward kernel against index_add_; times of kernel, plain
+    version and library call. ``sub`` is what the site itself passes; a
+    (B, M, K) site without one is also checked against a random one."""
     grp = importlib.import_module("vlp3d_torch.ops.grouping")
     b, n, c = points.shape
-    r = idx.shape[1]
+    idx2 = idx.reshape(b, -1)
+    r = idx2.shape[1]
     got = grp._group_points_cuda(points, idx)
     want = grp.group_points_plain(points, idx)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item() if got.numel() else 0.0
     if err != 0 or got.shape != want.shape:
         fail(f"group_points {label}: kernel differs from torch.gather by {err}")
+    if idx.dim() == 3:
+        s = sub if sub is not None else torch.randn(
+            b, idx.shape[1], c, device=points.device)
+        got_s = grp._group_points_cuda(points, idx, s)
+        torch.cuda.synchronize()
+        sub_err = (got_s - (want - s[:, :, None, :])).abs().max().item()
+        if sub_err != 0:
+            fail(f"group_points {label}: with a subtrahend the kernel "
+                 f"differs from gather - sub by {sub_err}")
+        err = max(err, sub_err)
+        del got_s, s
+    del want
     offs = torch.arange(b, device=idx.device, dtype=torch.int64)[:, None] * n
-    flat = (idx.long() + offs).reshape(-1)
+    flat = (idx2.long() + offs).reshape(-1)
     table = points.contiguous().reshape(b * n, c)
     touched = torch.unique(flat).numel()
     nbytes = touched * c * 4 + idx.numel() * 4 + got.numel() * 4
-    bms, by = bound_ms(nbytes, 0)
+    if sub is not None:
+        nbytes += sub.numel() * 4
+    bms, by = bound_ms(nbytes, 0 if sub is None else got.numel())
     shape = [b, n, c, r]
+    del got
     fwd = dict(
         site=label, shape=shape, on_path=on_path, max_abs_err=err,
-        ms=cuda_ms(torch, lambda: grp._group_points_cuda(points, idx), reps),
-        plain_ms=cuda_ms(torch, lambda: grp.group_points_plain(points, idx),
-                         reps),
+        fused_sub=sub is not None,
+        ms=cuda_ms(torch, lambda: grp._group_points_cuda(points, idx, sub),
+                   reps),
+        plain_ms=cuda_ms(torch, lambda: grp.group_points_plain(
+            points, idx, sub), reps),
         library_ms=cuda_ms(torch, lambda: torch.index_select(table, 0, flat),
                            reps),
         bound_ms=bms, bound_by=by, rows_touched=touched)
+    if sub is not None:
+        # the two-op form this call replaces: gather, then subtract
+        fwd["two_op_ms"] = cuda_ms(torch, lambda: grp._group_points_cuda(
+            points, idx) - sub[:, :, None, :], reps)
+        fwd["library_two_call_ms"] = cuda_ms(
+            torch, lambda: torch.index_select(table, 0, flat).view(
+                *idx.shape, c) - sub[:, :, None, :], reps)
     print(f"[6] group_points {json.dumps(fwd)}")
     if grad is None:
         return fwd, None
+    idx = idx2
     grad = grad.reshape(b, r, c).contiguous()
     got = grp._group_points_grad_cuda(grad, idx, n)
     want = grp.group_points_grad_plain(grad, idx, n)
@@ -457,6 +666,7 @@ def check_grouping(torch, model, config, batch):
     """Phase 6, kernels: the row gather and its backward at every call
     site of one train step, from the step's own tensors."""
     from vlp3d_torch.losses.joint import compute_joint_loss
+    from vlp3d_torch.ops.host_time import host_us
 
     def train_pass():
         out = model(batch, train=True)
@@ -481,13 +691,36 @@ def check_grouping(torch, model, config, batch):
 
     def add(label, st, on_path=True, reps=20):
         fwd, bwd = check_group_site(torch, label, st["points"], st["idx"],
-                                    st["grad"], on_path, reps)
+                                    st["grad"], on_path, reps,
+                                    sub=st.get("sub"))
         rows["group_points"].append(fwd)
         if bwd is not None:
             rows["group_points_grad"].append(bwd)
 
     for nm, st in zip(names, sites):
         add(nm, st)
+    # host time of a call, at a K = 1 site: the wrapper against the one
+    # library call that computes the same rows
+    grp = importlib.import_module("vlp3d_torch.ops.grouping")
+    st = sites[names.index("sa4 xyz")]
+    pts, ix = st["points"], st["idx"]
+    b, n, c = pts.shape
+    table = pts.contiguous().reshape(b * n, c)
+    flat = (ix.long() + torch.arange(b, device=ix.device)[:, None] * n
+            ).reshape(-1)
+    us = {"gather_points": host_us(lambda: grp.gather_points(pts, ix)),
+          "index_select": host_us(lambda: torch.index_select(
+              table, 0, flat))}
+    st = sites[names.index("proposal xyz")]
+    g, ix2, n2 = st["grad"].contiguous(), st["idx"], st["points"].shape[1]
+    us["group_points_grad"] = host_us(
+        lambda: grp._group_points_grad_cuda(g, ix2, n2))
+    print(f"[6] host us a call at K = 1 sites {list(pts.shape)}, "
+          f"{list(g.shape)}: {json.dumps(us)}")
+    for r in rows["group_points"]:
+        r["host_us"] = us["gather_points"]
+    for r in rows["group_points_grad"]:
+        r["host_us"] = us["group_points_grad"]
     sa2 = dict(sites[3])
     sa1_idx = sites[1]["idx"]
     del sites
@@ -499,19 +732,24 @@ def check_grouping(torch, model, config, batch):
     del eval_sites
 
     # all-equal neighbourhoods (the empty-ball padding): K rows into one
-    b, r = sa2["idx"].shape
-    k = config.model.sa_nsamples[1]
-    sa2["idx"] = sa2["idx"].reshape(b, r // k, k)[:, :, :1].expand(
-        b, r // k, k).reshape(b, r).contiguous()
+    sa2["idx"] = sa2["idx"][:, :, :1].expand_as(sa2["idx"]).contiguous()
     add("sa2 rows, all K equal", sa2, on_path=False)
-    # C = 3 with K = 64 and a backward, C = 135 with a backward
-    for label, c in (("C=3 K=64", 3), ("C=135 K=64", 135)):
+    # C = 3 with K = 64 and a backward, C = 135 with a backward, and
+    # C = 135 with a subtrahend (rows that are no multiple of 16 bytes)
+    for label, c, with_sub in (("C=3 K=64", 3, False),
+                               ("C=135 K=64", 135, False),
+                               ("C=135 K=64 with sub", 135, True)):
         pts = torch.randn(batch["point_clouds"].shape[0], N, c,
                           device=sa1_idx.device)
-        st = {"points": pts, "idx": sa1_idx,
-              "grad": torch.randn(sa1_idx.shape + (c,),
-                                  device=sa1_idx.device)}
+        st = {"points": pts, "idx": sa1_idx, "grad": None}
+        if with_sub:
+            st["sub"] = torch.randn(sa1_idx.shape[:2] + (c,),
+                                    device=sa1_idx.device)
+        else:
+            st["grad"] = torch.randn(sa1_idx.shape + (c,),
+                                     device=sa1_idx.device)
         add(label, st, on_path=False, reps=5)
+        del st, pts
     torch.cuda.synchronize()
     return rows
 

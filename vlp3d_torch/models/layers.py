@@ -218,8 +218,8 @@ class SAModule(nn.Module):
             x = F.linear(grouped[..., 3:], w_feat) + F.linear(gxyz, w_xyz)
         else:
             pre_all = F.linear(features, w_feat) + F.linear(xyz, w_xyz) * scale
-            x = group_points(pre_all, idx) - (
-                F.linear(new_xyz, w_xyz) * scale)[:, :, None, :]
+            # the gather subtracts the centre term on its way out
+            x = group_points(pre_all, idx, F.linear(new_xyz, w_xyz) * scale)
         x = F.relu(layers[0].bn.bn(x))
         for layer in layers[1:]:
             x = layer(x)

@@ -14,10 +14,18 @@ entry point returns ``cudaGetLastError()`` after its launch, which
 ``launches`` counts the launches of each kernel (a source may hold more
 than one: ``grouping.cu`` has the gather and its scatter-add backward),
 so a run can show that its main path went through the kernels.
+
+A wrapper's host time is part of every call (a train step makes
+thousands of launches and waits on the host), so what a call needs is
+resolved once: :func:`function` caches each C entry point,
+:func:`stream_ptr` reads the current stream's handle without building a
+``torch.cuda.Stream``, and :func:`on_device` is a device guard only when
+the tensor's device is not the current one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -48,8 +56,9 @@ _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 # C entry points of each source: symbol -> argument types (all return int)
 SIGNATURES = {
     "fps": {
-        "vlp3d_fps_smem_limit": [],
         "vlp3d_fps": [_P, _I, _I, _I, _P, _P, _P],
+        "vlp3d_fps_regs": [_P, _I, _I, _I, _P, _I, _I, _P],
+        "vlp3d_fps_max_clusters": [_I, _I, _I],
     },
     "ball_query": {
         "vlp3d_ball_query": [_P, _P, _I, _I, _I, _F, _I, _P, _P, _P],
@@ -58,14 +67,17 @@ SIGNATURES = {
         "vlp3d_three_nn": [_P, _P, _I, _I, _I, _P, _P, _P],
     },
     "grouping": {
-        "vlp3d_group_points": [_P, _P, _I, _I, _I, _I, _L, _L, _I, _P, _P],
+        "vlp3d_group_points": [_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _P,
+                               _P],
         "vlp3d_group_points_grad": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
     },
 }
 
 launches = {name: 0 for name in KERNELS}
 _libs: dict[str, ctypes.CDLL] = {}
+_functions: dict[tuple[str, str], object] = {}
 _lock = threading.Lock()
+_SAME_DEVICE = contextlib.nullcontext()
 
 
 def reset_launches() -> None:
@@ -134,13 +146,31 @@ def library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+def function(source: str, symbol: str):
+    """C entry point ``symbol`` of kernel source ``source``; the library
+    is built and loaded at the first request, the lookup is cached."""
+    fn = _functions.get((source, symbol))
+    if fn is None:
+        fn = _functions[(source, symbol)] = getattr(library(source), symbol)
+    return fn
+
+
 def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """Handle of the current CUDA stream of ``t``'s device."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def on_device(t: torch.Tensor):
+    """Context that makes ``t``'s device current: nothing to enter when it
+    already is."""
+    if t.device.index == torch._C._cuda_getDevice():
+        return _SAME_DEVICE
+    return torch.cuda.device(t.device)
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,

@@ -73,9 +73,8 @@ def _ball_query_cuda(radius, nsample, xyz, new_xyz, with_count):
              if with_count else None)
     if b * m == 0:
         return idx, count
-    lib = _kernels.library("ball_query")
-    with torch.cuda.device(xyz.device):
-        rc = lib.vlp3d_ball_query(
+    with _kernels.on_device(xyz):
+        rc = _kernels.function("ball_query", "vlp3d_ball_query")(
             xyz.data_ptr(), new_xyz.data_ptr(), b, n, m, _r2(radius),
             nsample, idx.data_ptr(),
             None if count is None else count.data_ptr(),
@@ -118,7 +117,7 @@ def query_and_group(radius: float, nsample: int, xyz: torch.Tensor,
     point and divided by the radius when ``normalize_xyz``.
     """
     idx = ball_query(radius, nsample, xyz, new_xyz)
-    grouped_xyz = group_points(xyz, idx) - new_xyz[:, :, None, :]
+    grouped_xyz = group_points(xyz, idx, new_xyz)
     if normalize_xyz:
         grouped_xyz = grouped_xyz / radius
     if features is None:

@@ -5,13 +5,14 @@ Counterpart of ``vlp3d/ops/grouping.py`` (``gather_points``,
 case of ``group_points``; both go through one row gather.
 
 A CUDA tensor goes to the hand-written kernels (``csrc/grouping.cu``): the
-forward row gather and, under autograd, the atomic scatter-add backward,
-bound in one :class:`torch.autograd.Function`. A CPU tensor goes to the
+forward row gather (which can subtract a row a centre on the way) and,
+where an input needs a gradient, the atomic scatter-add backward, bound
+in one :class:`torch.autograd.Function`. A CPU tensor goes to the
 plain version (``torch.gather``, whose autograd backward is the ordered
 scatter-add). There is no fallback between the two. Indices carry no
 gradient and must lie in [0, N): on the CPU ``torch.gather`` raises for
-one that does not, on the card the kernels never follow it (the output
-row is zeros, the gradient row is dropped) rather than spend a
+one that does not, on the card the kernels never follow it (the source
+row counts as zeros, the gradient row is dropped) rather than spend a
 synchronising check on every call.
 
 The atomic backward sums colliding rows in an order that changes from
@@ -33,10 +34,17 @@ from vlp3d_torch.ops import _kernels
 GRAD_RTOL = 1e-5
 
 
-def group_points_plain(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch row gather: (B, N, C), (B, R) -> (B, R, C)."""
-    index = idx.long()[:, :, None].expand(-1, -1, points.shape[-1])
-    return torch.gather(points, 1, index)
+def group_points_plain(points: torch.Tensor, idx: torch.Tensor,
+                       sub: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch row gather: points (B, N, C), idx (B, R) or
+    (B, M, K) -> idx.shape + (C,), minus ``sub`` (B, M, C) broadcast over
+    K where given."""
+    b, c = idx.shape[0], points.shape[-1]
+    index = idx.reshape(b, -1).long()[:, :, None].expand(-1, -1, c)
+    out = torch.gather(points, 1, index).reshape(*idx.shape, c)
+    if sub is not None:
+        out = out - sub[:, :, None, :]
+    return out
 
 
 def group_points_grad_plain(grad: torch.Tensor, idx: torch.Tensor,
@@ -51,39 +59,53 @@ def group_points_grad_plain(grad: torch.Tensor, idx: torch.Tensor,
     return out.reshape(b, n, c)
 
 
-def _aligned(*addresses: int) -> bool:
-    return all(a % 16 == 0 for a in addresses)
-
-
-def _group_points_cuda(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def _group_points_cuda(points: torch.Tensor, idx: torch.Tensor,
+                       sub: torch.Tensor | None = None) -> torch.Tensor:
     """points (B, N, C) f32 with unit channel stride (rows and batches may
-    be strided: a channel slice of a wider tensor), idx (B, R) i32."""
-    _kernels.require(idx, "idx", torch.int32, 2)
-    if not points.is_cuda or points.dtype != torch.float32 or points.dim() != 3:
+    be strided: a channel slice of a wider tensor), idx (B, R) or
+    (B, M, K) i32 contiguous, sub None or (B, M, C) f32 contiguous with a
+    3-D idx -> idx.shape + (C,)."""
+    if not (points.is_cuda and points.dtype == torch.float32
+            and points.dim() == 3):
         raise ValueError(f"points must be a CUDA float32 (B, N, C) tensor, "
                          f"got {points.dtype} {tuple(points.shape)} on "
                          f"{points.device}")
+    if not (idx.is_cuda and idx.dtype == torch.int32 and idx.is_contiguous()
+            and idx.dim() in (2, 3)):
+        raise ValueError(f"idx must be a contiguous CUDA int32 (B, R) or "
+                         f"(B, M, K) tensor, got {idx.dtype} "
+                         f"{tuple(idx.shape)} on {idx.device}")
     b, n, c = points.shape
-    r = idx.shape[1]
     if idx.shape[0] != b:
         raise ValueError("points and idx batch sizes differ")
+    k = idx.shape[2] if idx.dim() == 3 else 1
+    r = idx.shape[1] * k
     if b * r >= 2 ** 31:
         raise ValueError(f"{b * r} output rows exceed the kernel's int32 range")
+    sub_ptr = None
+    if sub is not None:
+        if not (idx.dim() == 3 and sub.is_cuda and sub.dtype == torch.float32
+                and sub.is_contiguous()
+                and sub.shape == (b, idx.shape[1], c)):
+            raise ValueError(f"sub must be a contiguous CUDA float32 "
+                             f"(B, M, C) tensor beside a (B, M, K) idx, got "
+                             f"{sub.dtype} {tuple(sub.shape)} on {sub.device}")
+        sub_ptr = sub.data_ptr()
     if c > 0 and n > 0 and points.stride(2) != 1:
         points = points.contiguous()
-    out = torch.empty((b, r, c), dtype=torch.float32, device=points.device)
+    out = torch.empty((*idx.shape, c), dtype=torch.float32,
+                      device=points.device)
     if out.numel() == 0:
         return out
     row_stride, batch_stride = points.stride(1), points.stride(0)
     vec = (c % 4 == 0 and row_stride % 4 == 0 and batch_stride % 4 == 0
-           and _aligned(points.data_ptr(), out.data_ptr()))
-    lib = _kernels.library("grouping")
-    with torch.cuda.device(points.device):
-        rc = lib.vlp3d_group_points(
-            points.data_ptr(), idx.data_ptr(), b, n, r, c, row_stride,
-            batch_stride, int(vec), out.data_ptr(),
-            _kernels.stream_ptr(points),
-        )
+           and points.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+           and (sub_ptr is None or sub_ptr % 16 == 0))
+    with _kernels.on_device(points):
+        rc = _kernels.function("grouping", "vlp3d_group_points")(
+            points.data_ptr(), idx.data_ptr(), sub_ptr, b, n, r, k, c,
+            row_stride, batch_stride, vec, out.data_ptr(),
+            _kernels.stream_ptr(points))
         _kernels.check(rc, "group_points kernel")
     _kernels.launches["group_points"] += 1
     return out
@@ -100,38 +122,56 @@ def _group_points_grad_cuda(grad: torch.Tensor, idx: torch.Tensor,
     dpoints = torch.zeros((b, n, c), dtype=torch.float32, device=grad.device)
     if grad.numel() == 0 or n == 0:
         return dpoints
-    vec = c % 4 == 0 and _aligned(grad.data_ptr(), dpoints.data_ptr())
-    lib = _kernels.library("grouping")
-    with torch.cuda.device(grad.device):
-        rc = lib.vlp3d_group_points_grad(
-            grad.data_ptr(), idx.data_ptr(), b, r, c, n, int(vec),
-            dpoints.data_ptr(), _kernels.stream_ptr(grad),
-        )
+    vec = (c % 4 == 0 and grad.data_ptr() % 16 == 0
+           and dpoints.data_ptr() % 16 == 0)
+    with _kernels.on_device(grad):
+        rc = _kernels.function("grouping", "vlp3d_group_points_grad")(
+            grad.data_ptr(), idx.data_ptr(), b, r, c, n, vec,
+            dpoints.data_ptr(), _kernels.stream_ptr(grad))
         _kernels.check(rc, "group_points_grad kernel")
     _kernels.launches["group_points_grad"] += 1
     return dpoints
 
 
 class _GroupPointsCuda(torch.autograd.Function):
-    """Row gather on the card: forward and backward are the two kernels
-    of ``csrc/grouping.cu``."""
+    """Row gather on the card: forward and backward are the kernels of
+    ``csrc/grouping.cu``; the gradient of ``sub`` (minus the sum over the
+    K rows of a centre) is plain PyTorch."""
 
     @staticmethod
-    def forward(ctx, points, idx):
+    def forward(ctx, points, idx, sub):
         ctx.save_for_backward(idx)
         ctx.n = points.shape[1]
-        return _group_points_cuda(points, idx)
+        return _group_points_cuda(points, idx, sub)
 
     @staticmethod
     def backward(ctx, grad):
         (idx,) = ctx.saved_tensors
-        return _group_points_grad_cuda(grad.contiguous(), idx, ctx.n), None
+        dpoints = dsub = None
+        if ctx.needs_input_grad[0]:
+            b = idx.shape[0]
+            dpoints = _group_points_grad_cuda(
+                grad.contiguous().view(b, -1, grad.shape[-1]),
+                idx.view(b, -1), ctx.n)
+        if ctx.needs_input_grad[2]:
+            dsub = -grad.sum(dim=2)
+        return dpoints, None, dsub
 
 
-def _gather_rows(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    if _kernels.cuda_or_cpu(points):
-        return _GroupPointsCuda.apply(points, idx.to(torch.int32).contiguous())
-    return group_points_plain(points, idx)
+def _gather_rows(points: torch.Tensor, idx: torch.Tensor,
+                 sub: torch.Tensor | None = None) -> torch.Tensor:
+    """Rows of points (B, N, C) at idx (B, M) or (B, M, K), minus sub
+    (B, M, C) where given -> idx.shape + (C,)."""
+    if not _kernels.cuda_or_cpu(points):
+        return group_points_plain(points, idx, sub)
+    if idx.dtype != torch.int32 or not idx.is_contiguous():
+        idx = idx.to(torch.int32).contiguous()
+    if sub is not None and not sub.is_contiguous():
+        sub = sub.contiguous()
+    if torch.is_grad_enabled() and (
+            points.requires_grad or (sub is not None and sub.requires_grad)):
+        return _GroupPointsCuda.apply(points, idx, sub)
+    return _group_points_cuda(points, idx, sub)
 
 
 def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -139,10 +179,11 @@ def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return _gather_rows(points, idx)
 
 
-def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """out[b, m, k, c] = points[b, idx[b, m, k], c];
-    (B, N, C), (B, M, K) -> (B, M, K, C)."""
-    b, m, k = idx.shape
-    return _gather_rows(points, idx.reshape(b, m * k)).reshape(
-        b, m, k, points.shape[-1]
-    )
+def group_points(points: torch.Tensor, idx: torch.Tensor,
+                 sub: torch.Tensor | None = None) -> torch.Tensor:
+    """out[b, m, k, c] = points[b, idx[b, m, k], c] - sub[b, m, c];
+    (B, N, C), (B, M, K)[, (B, M, C)] -> (B, M, K, C). ``sub`` (a row a
+    centre, e.g. the SA first layer's centre term) is optional; with it
+    the result equals ``group_points(points, idx) - sub[:, :, None, :]``
+    bit for bit, in one pass over the output."""
+    return _gather_rows(points, idx, sub)

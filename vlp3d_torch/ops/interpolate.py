@@ -54,9 +54,8 @@ def _three_nn_cuda(unknown: torch.Tensor, known: torch.Tensor):
     idx = torch.empty((b, n, 3), dtype=torch.int32, device=unknown.device)
     if b * n == 0:
         return dist2, idx
-    lib = _kernels.library("three_nn")
-    with torch.cuda.device(unknown.device):
-        rc = lib.vlp3d_three_nn(
+    with _kernels.on_device(unknown):
+        rc = _kernels.function("three_nn", "vlp3d_three_nn")(
             unknown.data_ptr(), known.data_ptr(), b, n, m,
             dist2.data_ptr(), idx.data_ptr(), _kernels.stream_ptr(unknown),
         )
