@@ -18,7 +18,19 @@ nothing of the vlp3d package. Phases, each fatal on failure:
    main path gives it (FPS x5, ball query x5 with and without counts,
    three-NN x2, from that forward's own tensors), plus zero-padded rows
    and empty balls; time kernel, plain version and, for three-NN,
-   torch.cdist + topk with CUDA events. FPS besides: at every site the
+   torch.cdist + topk with CUDA events (the launches queue behind a
+   device-side sleep, so a kernel shorter than its wrapper's host time is
+   timed on the device). Ball query besides: at every site the
+   warp-a-centre kernel it replaced and every swept plan of the tile
+   kernel (threads x blocks a cluster x tile points, times as
+   sweep_ms), with and without counts, points_scanned and
+   mean_count; the edge cases of tests/torch_bq_cases.py (hits across
+   segment boundaries, nsample hits ending at a segment's last point,
+   every hit in the last segment, empty and full balls, n < nsample, n =
+   33, ragged n and m, points at exactly the radius) through every
+   plan, B = 1 / 3 / 9 at the SA1 shape, a 70000-point segment (4-byte
+   hit lists), and refused plans; all fatal
+   unless the index and count difference is 0. FPS besides: at every site the
    one-block kernel it replaced (time and indices), every other shape
    of the points-in-registers kernel that holds the row (blocks a row x
    points a thread: indices equal, times printed as sweep_ms), us a
@@ -48,12 +60,16 @@ nothing of the vlp3d package. Phases, each fatal on failure:
    view; the folded SA sites pass their centre term as the subtrahend):
    the forward kernel is held against torch.gather (fatal unless the
    difference is 0), with the site's subtrahend or a random one against
-   gather - sub (fatal unless 0), and the scatter-add backward kernel
-   against index_add_ (fatal above GRAD_RTOL of the absolute sum meeting
-   in a row), also on all-equal neighbourhoods and on C = 3 and C = 135
-   rows with K = 64, with times for kernel, plain version, library call
-   and, where a subtrahend is fused, the two-op form; host us a call at
-   a K = 1 site beside index_select's. Then,
+   gather - sub (fatal unless 0), and the scatter-add backward (the
+   sorted kernel where its plan takes the shape, every swept plan of it,
+   and the atomic kernel it replaced) against index_add_ (fatal above
+   GRAD_RTOL of the absolute sum meeting in a row; the sorted kernel
+   also fatal unless two launches are equal bit for bit), also on
+   all-equal neighbourhoods, all rows into one source row and on C = 3
+   and C = 135 rows with K = 64, with times for kernel, the atomic kernel
+   with its zeroed table, plain version, library call and, where a
+   subtrahend is fused, the two-op form; host us a call at a K = 1 site
+   beside index_select's. Then,
    with every count at 0, train steps on that batch: one at epoch 60
    (OCC/OSC positive, the reference weight switched), 8 at epoch 0, one
    more at epoch 60; the counts of one
@@ -62,7 +78,8 @@ nothing of the vlp3d package. Phases, each fatal on failure:
    over the repeated steps; the same forward + backward with the plain
    ops on the card compared with the kernels' (loss within 1e-5
    relative, gradients within 1e-4 of their largest entry); step ms,
-   peak memory and a torch.profiler trace of one step by kernel name;
+   peak memory and a torch.profiler trace of one step by kernel name
+   (memsets and fill kernels counted);
 7. print {"kernels": [...]} with every kernel of both paths (the CUDA
    functions behind each in kernel_functions, host_us beside the times),
    the card's name and power limit, and last {"ok": true, "device": {...}}.
@@ -78,9 +95,14 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+# fp32 instructions a second outside the tensor cores when none is an FMA
+# (the data sheet's 67e12 counts an FMA as two): 128 an SM a clock x 132
+# SMs x 1.98 GHz. The distance tests are built without contraction
+# (--fmad=false, __fmul_rn / __fadd_rn), and the gathers' subtractions and
+# the backward's additions are single instructions too.
+FP32_OPS = 33.4e12
 SMS = 132
-# fp32 operations a distance test costs: 3 sub, 3 mul, 2 add, 1 min/cmp
+# fp32 instructions a distance test costs: 3 sub, 3 mul, 2 add, 1 min/cmp
 OPS_PER_TEST = 9
 B, N = 8, 40960
 CLUSTER_REF_TOL = 1e-4
@@ -110,13 +132,40 @@ def smi_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+_SLEEP_CYCLES_PER_MS = []
+
+
+def sleep_cycles_per_ms(torch) -> float:
+    """Clock cycles of torch.cuda._sleep that take one ms on this card."""
+    if not _SLEEP_CYCLES_PER_MS:
+        cycles = 20_000_000
+        torch.cuda._sleep(cycles)  # warm
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        torch.cuda.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(cycles / start.elapsed_time(end))
+    return _SLEEP_CYCLES_PER_MS[0]
+
+
 def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of fn over reps launches, by CUDA events."""
+    """Mean device time of fn over reps launches, by CUDA events. The
+    launches queue behind a device-side sleep that lasts until the host
+    has enqueued all of them (1.5x the host time the warm-up calls took,
+    at most 200 ms), so a kernel shorter than its wrapper's host time is
+    timed on the device, not at the host's launch rate."""
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / max(warmup, 1)
     torch.cuda.synchronize()
+    sleep_ms = min(1.5 * host_ms * reps + 0.5, 200.0)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(sleep_ms * sleep_cycles_per_ms(torch)))
     start.record()
     for _ in range(reps):
         fn()
@@ -137,7 +186,7 @@ def index_err(torch, got, want) -> float:
 
 def bound_ms(nbytes: float, nops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / FP32_FLOPS * 1e3
+    t_ops = nops / FP32_OPS * 1e3
     return (max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -279,6 +328,153 @@ def check_fps_edges(torch, cloud):
           "raise")
 
 
+def load_test_module(name: str):
+    """A numpy-only helper module of tests/, loaded by its path (a
+    ``tests`` package installed elsewhere may shadow the directory)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "tests" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def ball_query_err(torch, radius, nsample, xyz, ctr, want, plan):
+    """Largest index or count difference of the ball query under ``plan``
+    (None: the wrapper's choice), with and without counts, against the
+    plain version's (idx, count) ``want``."""
+    bq = importlib.import_module("vlp3d_torch.ops.ball_query")
+    idx, _ = bq._ball_query_cuda(radius, nsample, xyz, ctr, False, plan)
+    idx_c, cnt = bq._ball_query_cuda(radius, nsample, xyz, ctr, True, plan)
+    torch.cuda.synchronize()
+    return max(index_err(torch, idx, want[0]),
+               index_err(torch, idx_c, want[0]),
+               index_err(torch, cnt, want[1]))
+
+
+def check_ball_query_site(torch, site, xyz, ctr, radius, nsample):
+    """Phase 4, ball query at one main-path site: the wrapper's kernel,
+    the warp-a-centre kernel it replaced and every swept tile plan, each
+    with and without counts, against the plain version (fatal unless the
+    difference is 0); device time of each (sweep_ms: the evidence for
+    _ball_query_plan)."""
+    from vlp3d_torch import ops
+
+    bq = importlib.import_module("vlp3d_torch.ops.ball_query")
+    b, n, _ = xyz.shape
+    m = ctr.shape[1]
+    want = bq.ball_query_plain(radius, nsample, xyz, ctr)
+    plan = bq._ball_query_plan(n, nsample)
+    idx = ops.ball_query(radius, nsample, xyz, ctr)
+    idx_c, cnt_c = ops.ball_query_with_count(radius, nsample, xyz, ctr)
+    torch.cuda.synchronize()
+    err = max(index_err(torch, idx, want[0]), index_err(torch, idx_c, want[0]),
+              index_err(torch, cnt_c, want[1]))
+    if err != 0:
+        fail(f"ball query {site}: kernel indices or counts differ from "
+             f"the plain version by up to {err}")
+    if ball_query_err(torch, radius, nsample, xyz, ctr, want, "warp") != 0:
+        fail(f"ball query {site}: the warp-a-centre kernel differs from plain")
+
+    def run(p, with_count=False):
+        return lambda: bq._ball_query_cuda(radius, nsample, xyz, ctr,
+                                           with_count, p)
+
+    sweep = {}
+    for cand in bq.tile_plans(n, nsample):
+        if ball_query_err(torch, radius, nsample, xyz, ctr, want, cand) != 0:
+            fail(f"ball query {site}: plan {cand} differs from plain")
+        sweep["%dx%dx%d" % cand] = cuda_ms(torch, run(cand), 3, warmup=1)
+    pidx, pcnt = want
+    # the early-exit scan of this data: up to the nsample-th hit
+    full = pcnt >= nsample
+    scanned = torch.where(full, pidx[..., -1].long() + 1, n).sum().item()
+    nbytes = b * n * 12 + b * m * 12 + b * m * nsample * 4
+    bms, by = bound_ms(nbytes, scanned * OPS_PER_TEST)
+    bcms, _ = bound_ms(nbytes + b * m * 4, b * m * n * OPS_PER_TEST)
+    row = dict(
+        site=site, shape=[b, n, m, radius, nsample],
+        plan=list(plan) if plan else "warp",
+        ms=cuda_ms(torch, lambda: ops.ball_query(radius, nsample, xyz, ctr),
+                   20),
+        with_count_ms=cuda_ms(torch, lambda: ops.ball_query_with_count(
+            radius, nsample, xyz, ctr), 20),
+        warp_kernel_ms=cuda_ms(torch, run("warp"), 20),
+        warp_kernel_with_count_ms=cuda_ms(torch, run("warp", True), 20),
+        plain_ms=cuda_ms(torch, lambda: bq.ball_query_plain(
+            radius, nsample, xyz, ctr), 2, warmup=1),
+        bound_ms=bms, bound_by=by, with_count_bound_ms=bcms,
+        points_scanned=scanned, tests_with_count=b * m * n,
+        max_abs_err=err, mean_count=pcnt.float().mean().item(),
+        filled_share=full.float().mean().item(),
+        best_tile_plan=min(sweep, key=sweep.get) if sweep else None,
+        sweep_ms=sweep)
+    return row
+
+
+def check_ball_query_edges(torch, cloud):
+    """Phase 4, ball query where a row split into segments is likely to go
+    wrong (tests/torch_bq_cases.py: hits across segment boundaries,
+    exactly nsample hits ending at a segment's last point, every hit in
+    the last segment, empty and full balls, n below nsample, n = 33,
+    ragged n and m, points at exactly the radius), each through the
+    wrapper, the warp-a-centre kernel and every swept tile plan, with and
+    without counts; then B = 1 / 3 / 9 at the SA1 shape; then plans the
+    card must refuse. Fatal unless every difference is 0."""
+    cases = load_test_module("torch_bq_cases")
+    BQ_CASES, ball_query_case = cases.BQ_CASES, cases.ball_query_case
+    bq = importlib.import_module("vlp3d_torch.ops.ball_query")
+    dev = cloud.device
+    tried = 0
+    for name in BQ_CASES:
+        xyz, ctr, radius, nsample = ball_query_case(name)
+        xyz = torch.from_numpy(xyz).to(dev)
+        ctr = torch.from_numpy(ctr).to(dev)
+        want = bq.ball_query_plain(radius, nsample, xyz, ctr)
+        for plan in (None, "warp", *bq.tile_plans(xyz.shape[1], nsample)):
+            tried += 1
+            if ball_query_err(torch, radius, nsample, xyz, ctr, want,
+                              plan) != 0:
+                fail(f"ball query edge case {name} (plan {plan}): indices "
+                     "or counts differ from the plain version")
+    n = cloud.shape[1]
+    for b in (1, 3, 9):
+        xyz = cloud[torch.arange(b, device=dev) % cloud.shape[0]].clone()
+        xyz += torch.arange(b, device=dev)[:, None, None] * 0.01
+        ctr = xyz[:, ::20][:, :2048].contiguous()
+        want = bq.ball_query_plain(0.2, 64, xyz, ctr)
+        for plan in (None, (256, 16, 512), (64, 3, 512)):
+            tried += 1
+            if ball_query_err(torch, 0.2, 64, xyz, ctr, want, plan) != 0:
+                fail(f"ball query B={b}, N={n} (plan {plan}) differs")
+    # a 70000-point segment: 4-byte hit lists
+    xyz = torch.cat([cloud[:2], cloud[:2, :29040] + 7.0], 1).contiguous()
+    ctr = xyz[:, ::500].contiguous()
+    want = bq.ball_query_plain(0.2, 64, xyz, ctr)
+    for plan in ((128, 1, 512), (64, 2, 256)):
+        tried += 1
+        if ball_query_err(torch, 0.2, 64, xyz, ctr, want, plan) != 0:
+            fail(f"ball query N=70000 (plan {plan}) differs")
+    xyz, ctr = cloud[:, :4096].contiguous(), cloud[:, :64].contiguous()
+    for plan, nsample in (((1024, 1, 512), 200), ((2048, 1, 512), 16),
+                          ((64, 17, 512), 16), ((33, 1, 512), 16),
+                          ((64, 1, 6), 16)):
+        try:
+            bq._ball_query_cuda(0.3, nsample, xyz, ctr, False, plan)
+        except RuntimeError:
+            continue
+        fail(f"ball query: plan {plan} should have been refused")
+    want = bq.ball_query_plain(0.3, 16, xyz, ctr)
+    if ball_query_err(torch, 0.3, 16, xyz, ctr, want, None) != 0:
+        fail("ball query after refused plans differs")
+    print(f"[4] ball query: {len(BQ_CASES)} edge cases, B = 1 / 3 / 9 and "
+          f"a 70000-point segment equal to plain under {tried} (case, kernel "
+          "plan) pairs, with and without counts: " + "; ".join(BQ_CASES)
+          + "; refused plans raise")
+
+
 def check_kernels(torch, config, out):
     """Phase 4: every kernel against its plain version at main-path shapes."""
     from vlp3d_torch import ops
@@ -334,7 +530,7 @@ def check_kernels(torch, config, out):
         bms, by = bound_ms(nbytes, nops)
         # npoint - 1 dependent steps on the fp32 rate of the SMs one row
         # has: one for the one-block kernels, one a block of a cluster
-        serial_1 = (npoint - 1) * n * OPS_PER_TEST / (FP32_FLOPS / SMS) * 1e3
+        serial_1 = (npoint - 1) * n * OPS_PER_TEST / (FP32_OPS / SMS) * 1e3
         rows["fps"].append(dict(
             site=site, shape=[b, n, npoint], plan=list(plan),
             threads=32 * -(-(-(-n // plan[0])) // (32 * plan[1])), ms=k_ms,
@@ -344,33 +540,8 @@ def check_kernels(torch, config, out):
             serial_one_sm_ms=serial_1, serial_ms=serial_1 / plan[0],
             max_abs_err=fps_err, sweep_ms=sweep))
 
-        ctr = ctr.contiguous()
-        m = ctr.shape[1]
-        idx = ops.ball_query(radius, nsample, xyz, ctr)
-        idx_c, cnt_c = ops.ball_query_with_count(radius, nsample, xyz, ctr)
-        pidx, pcnt = ball_query_plain(radius, nsample, xyz, ctr)
-        bq_err = max(index_err(torch, idx, pidx),
-                     index_err(torch, idx_c, pidx),
-                     index_err(torch, cnt_c, pcnt))
-        if bq_err != 0:
-            fail(f"ball query {site}: kernel indices or counts differ from "
-                 f"the plain version by up to {bq_err}")
-        k_ms = cuda_ms(torch, lambda: ops.ball_query(radius, nsample, xyz,
-                                                     ctr), 20)
-        kc_ms = cuda_ms(torch, lambda: ops.ball_query_with_count(
-            radius, nsample, xyz, ctr), 20)
-        p_ms = cuda_ms(torch, lambda: ball_query_plain(radius, nsample, xyz,
-                                                       ctr), 2, warmup=1)
-        # the early-exit scan of this data: up to the nsample-th hit
-        full = pcnt >= nsample
-        scanned = torch.where(full, pidx[..., -1].long() + 1, n).sum().item()
-        nbytes = b * n * 12 + b * m * 12 + b * m * nsample * 4
-        bms, by = bound_ms(nbytes, scanned * OPS_PER_TEST)
-        rows["ball_query"].append(dict(
-            site=site, shape=[b, n, m, radius, nsample], ms=k_ms,
-            with_count_ms=kc_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by,
-            points_scanned=scanned, max_abs_err=bq_err,
-            mean_count=pcnt.float().mean().item()))
+        rows["ball_query"].append(check_ball_query_site(
+            torch, site, xyz, ctr.contiguous(), radius, nsample))
 
     for site, unknown, known, feats in (
         ("fp1", out["sa3_xyz"], out["sa4_xyz"], out["sa4_features"]),
@@ -402,7 +573,8 @@ def check_kernels(torch, config, out):
             library_ms=lib_ms, bound_ms=bms, bound_by=by,
             max_abs_err=d_err, interp_max_abs_err=f_err))
 
-    # edge cases: zero-padded points and an all-zero row, empty balls
+    # edge cases: zero-padded points and an all-zero row, empty balls,
+    # and the ball query where a row split into segments may go wrong
     xyz = out["point_clouds_xyz"].clone()
     n, npoint = xyz.shape[1], cfg.sa_npoints[0]
     xyz[0] = 0.0
@@ -423,6 +595,7 @@ def check_kernels(torch, config, out):
     print("[4] edge cases equal to plain: zero-padded rows, an all-zero row, "
           "empty balls")
     check_fps_edges(torch, out["point_clouds_xyz"])
+    check_ball_query_edges(torch, out["point_clouds_xyz"])
 
     # host time of one wrapper call, on arguments small enough that the
     # device keeps up with the host
@@ -474,10 +647,18 @@ def profile_call(torch, fn, tag: str, what: str, top: int = 15):
         return
     rows = [dict(op=e.key[:90], calls=e.count, device_ms=dev_us(e) / 1e3)
             for e in events[:top] if dev_us(e) > 0]
+    # a zeroed table (torch.zeros) is a fill kernel, not a memset
+    memsets = sum(e.count for e in events if "memset" in e.key.lower())
+    fills = sum(e.count for e in events if "fill" in e.key.lower())
     print(f"[{tag}] profile of one {what}: wall {wall_ms:.3f} ms, device "
           f"busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.3f} of wall; idle "
           f"share {1 - busy_ms / wall_ms:.3f}), {sum(e.count for e in events)}"
-          " device kernels and copies")
+          f" device kernels and copies, {memsets} of them memsets and "
+          f"{fills} fill kernels")
+    for name in ("ball_query", "group_points_grad"):
+        hits = [e for e in events if name in e.key]
+        print(f"[{tag}]   {name}*: " + ", ".join(
+            f"{e.key[:60]} x{e.count} {dev_us(e) / 1e3:.3f} ms" for e in hits))
     for r in rows:
         print(f"[{tag}]   {r['device_ms']:9.3f} ms  x{r['calls']:<5d} "
               f"{r['op']}")
@@ -501,11 +682,12 @@ def kernel_line(rows, serving, train):
     functions = {
         "fps": ["fps_regs_kernel<P, false>", "fps_regs_kernel<P, true>",
                 "fps_kernel"],
-        "ball_query": ["ball_query_kernel"],
+        "ball_query": ["ball_query_tile_kernel<L>", "ball_query_kernel"],
         "three_nn": ["three_nn_kernel"],
         "group_points": ["group_points_vec_kernel",
                          "group_points_stream_kernel"],
-        "group_points_grad": ["group_points_grad_kernel"],
+        "group_points_grad": ["group_points_grad_sorted_kernel<V>",
+                              "group_points_grad_kernel"],
     }
     kernels = []
     for name, rs in rows.items():
@@ -534,6 +716,14 @@ def kernel_line(rows, serving, train):
             "host_us": rs[0]["host_us"],
             "kernel_functions": functions[name],
         })
+        if name == "ball_query":
+            kernels[-1].update(
+                warp_kernel_ms=sum(r["warp_kernel_ms"] for r in rs),
+                plans={r["site"]: r["plan"] for r in rs})
+        if name == "group_points_grad":
+            kernels[-1].update(
+                atomic_kernel_ms=sum(r["atomic_kernel_ms"] for r in rs),
+                plans={r["site"]: r["plan"] for r in rs})
         if name == "fps":
             steps = sum(r["shape"][2] - 1 for r in rs)
             kernels[-1].update(
@@ -632,32 +822,63 @@ def check_group_site(torch, label, points, idx, grad, on_path, reps=20,
         return fwd, None
     idx = idx2
     grad = grad.reshape(b, r, c).contiguous()
-    got = grp._group_points_grad_cuda(grad, idx, n)
     want = grp.group_points_grad_plain(grad, idx, n)
     scale = grp.group_points_grad_plain(grad.abs(), idx, n)
-    torch.cuda.synchronize()
-    diff = (got - want).abs()
-    err = diff.max().item()
-    rel = (diff / scale.clamp_min(1e-30)).max().item()
-    if not bool((diff <= grp.GRAD_RTOL * scale + 1e-30).all()):
-        fail(f"group_points_grad {label}: kernel differs from index_add_ by "
-             f"{err} ({rel} of the absolute sum in the row; tolerance "
-             f"{grp.GRAD_RTOL})")
+
+    def check(plan):
+        """The backward under ``plan`` against index_add_ (fatal above
+        GRAD_RTOL of the absolute sum meeting in a row) and, for the
+        sorted kernel, against its own second launch (fatal unless equal
+        bit for bit); returns (abs err, rel err)."""
+        got = grp._group_points_grad_cuda(grad, idx, n, plan)
+        again = grp._group_points_grad_cuda(grad, idx, n, plan)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        err = diff.max().item()
+        rel = (diff / scale.clamp_min(1e-30)).max().item()
+        if not bool((diff <= grp.GRAD_RTOL * scale + 1e-30).all()):
+            fail(f"group_points_grad {label} (plan {plan}): kernel differs "
+                 f"from index_add_ by {err} ({rel} of the absolute sum in "
+                 f"the row; tolerance {grp.GRAD_RTOL})")
+        takes = plan if plan is not None else grp._grad_plan(b, n, c, r)
+        if takes not in (None, "atomic") and not torch.equal(got, again):
+            fail(f"group_points_grad {label} (plan {plan}): two launches "
+                 "of the sorted kernel differ")
+        return err, rel
+
+    plan = grp._grad_plan(b, n, c, r)
+    err, rel = check(None)
+    check("atomic")
+    sweep = {}
+    cap = grp.SORTED_CAP
+    cands = ([(rows, sl, warps, cap) for rows in (16, 32, 64, 128)
+              for sl in ((1, 2) if c > 128 else (1,)) for warps in (8, 16, 32)]
+             if on_path else [(64, 1, 32, cap), (128, 2, 8, 1000)])
+    for cand in cands:
+        check(cand)
+        sweep["%dx%dx%d" % cand[:3]] = cuda_ms(
+            torch, lambda: grp._group_points_grad_cuda(grad, idx, n, cand),
+            reps, warmup=1)
     nbytes = grad.numel() * 4 + idx.numel() * 4 + b * n * c * 4
     bms, by = bound_ms(nbytes, grad.numel())
     flat_grad = grad.reshape(b * r, c)
     acc = torch.zeros((b * n, c), device=grad.device)
     bwd = dict(
-        site=label, shape=shape, on_path=on_path, max_abs_err=err,
+        site=label, shape=shape, on_path=on_path,
+        plan=list(plan) if plan else "atomic", max_abs_err=err,
         max_rel_err=rel,
         ms=cuda_ms(torch, lambda: grp._group_points_grad_cuda(grad, idx, n),
                    reps),
+        # the atomic kernel and the zeroed table it needs: two launches
+        atomic_kernel_ms=cuda_ms(torch, lambda: grp._group_points_grad_cuda(
+            grad, idx, n, "atomic"), reps),
         plain_ms=cuda_ms(torch, lambda: grp.group_points_grad_plain(
             grad, idx, n), reps),
         library_ms=cuda_ms(torch, lambda: acc.zero_().index_add_(
             0, flat, flat_grad), reps),
         bound_ms=bms, bound_by=by,
-        max_rows_in_one=int(torch.bincount(flat).max().item()))
+        max_rows_in_one=int(torch.bincount(flat).max().item()),
+        sweep_ms=sweep)
     print(f"[6] group_points_grad {json.dumps(bwd)}")
     return fwd, bwd
 
@@ -731,9 +952,17 @@ def check_grouping(torch, model, config, batch):
     add("sa1 rows (inference: folded 64)", eval_sites[1], on_path=False)
     del eval_sites
 
-    # all-equal neighbourhoods (the empty-ball padding): K rows into one
+    # all-equal neighbourhoods (the empty-ball padding): K rows into one,
+    # and every row of a batch row into one source row
     sa2["idx"] = sa2["idx"][:, :, :1].expand_as(sa2["idx"]).contiguous()
     add("sa2 rows, all K equal", sa2, on_path=False)
+    # (gradient values in quarters, so that every order of the 32768
+    # additions gives the same exact sum: float32 rounding over that many
+    # same-signed rows alone would exceed GRAD_RTOL)
+    sa2["idx"] = torch.full_like(sa2["idx"], 5)
+    sa2["grad"] = torch.randint(-8, 9, sa2["grad"].shape,
+                                device=sa2["grad"].device).float() / 4
+    add("sa2 rows, all rows into row 5", sa2, on_path=False, reps=3)
     # C = 3 with K = 64 and a backward, C = 135 with a backward, and
     # C = 135 with a subtrahend (rows that are no multiple of 16 bytes)
     for label, c, with_sub in (("C=3 K=64", 3, False),

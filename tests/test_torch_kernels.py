@@ -10,11 +10,14 @@ port's dependencies are installed:
 run from small to the main path's (B=8, N=40960), and the FPS kernels
 also run where a row split over blocks is likely to go wrong (ties across
 blocks, blocks with no valid point, ragged lengths, any batch size).
-Indices must be equal;
+Ball query runs its tile kernel under every plan the smoke run sweeps,
+on inputs built against the plans' segment boundaries
+(``tests/torch_bq_cases.py``). Indices must be equal;
 three-NN distances within 1e-6 and interpolated features within 1e-5;
-the row gather exact and its atomic scatter-add backward within
-``GRAD_RTOL`` (1e-5) of the absolute sum meeting in a row; the tiny
-JointNet's cluster_ref within 1e-4 of the CPU forward.
+the row gather exact and both scatter-add backwards within
+``GRAD_RTOL`` (1e-5) of the absolute sum meeting in a row, the sorted one
+also equal bit for bit from launch to launch; the tiny JointNet's
+cluster_ref within 1e-4 of the CPU forward.
 """
 
 import numpy as np
@@ -25,9 +28,24 @@ from vlp3d_torch import ops
 from vlp3d_torch.data.synthetic import make_batch, tiny_config
 from vlp3d_torch.models import JointNet
 from vlp3d_torch.ops import _kernels
-from vlp3d_torch.ops.ball_query import ball_query_plain
+from torch_bq_cases import (
+    BQ_CASES,
+    GRAD_CASES,
+    GRAD_SITES,
+    ball_query_case,
+    grad_case,
+)
+from vlp3d_torch.ops.ball_query import (
+    _ball_query_cuda,
+    _ball_query_plan,
+    ball_query_plain,
+    tile_plans,
+)
 from vlp3d_torch.ops.grouping import (
     GRAD_RTOL,
+    SORTED_MAX_N,
+    _grad_plan,
+    _group_points_grad_cuda,
     group_points_grad_plain,
     group_points_plain,
 )
@@ -182,6 +200,141 @@ def test_ball_query_kernel_matches_plain(cuda, b, n, m, radius, nsample):
     pidx, pcnt = ball_query_plain(radius, nsample, xyz, centers)
     assert torch.equal(idx, pidx) and torch.equal(cnt, pcnt)
     assert torch.equal(early, pidx)
+
+
+def _bq_all_plans(radius, nsample, xyz, centers):
+    """Both kernels under every plan, with and without counts, against
+    the plain version."""
+    want_idx, want_cnt = ball_query_plain(radius, nsample, xyz, centers)
+    plans = ["warp", *tile_plans(xyz.shape[1], nsample)]
+    for plan in plans:
+        idx, _ = _ball_query_cuda(radius, nsample, xyz, centers, False, plan)
+        idx_c, cnt = _ball_query_cuda(radius, nsample, xyz, centers, True,
+                                      plan)
+        torch.cuda.synchronize()
+        assert torch.equal(idx, want_idx), plan
+        assert torch.equal(idx_c, want_idx) and torch.equal(cnt, want_cnt), plan
+    return want_idx, want_cnt
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", BQ_CASES)
+def test_ball_query_every_plan_where_trouble_is_likely(cuda, name):
+    xyz, centers, radius, nsample = ball_query_case(name)
+    _bq_all_plans(radius, nsample, t(xyz).to(cuda), t(centers).to(cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 3, 9])
+def test_ball_query_tile_kernel_any_batch_size(cuda, b):
+    # the SA1 shape (the wrapper's tile plan) with fewer and more rows
+    xyz = _scene(b, 40960, 40 + b, cuda)
+    centers = xyz[:, ::20][:, :2048].contiguous()
+    assert _ball_query_plan(40960, 64) is not None
+    ops.reset_launches()
+    idx, cnt = ops.ball_query_with_count(0.2, 64, xyz, centers)
+    torch.cuda.synchronize()
+    assert ops.launches["ball_query"] == 1
+    pidx, pcnt = ball_query_plain(0.2, 64, xyz, centers)
+    assert torch.equal(idx, pidx) and torch.equal(cnt, pcnt)
+    assert torch.equal(ops.ball_query(0.2, 64, xyz, centers), pidx)
+
+
+@pytest.mark.gpu
+def test_ball_query_every_plan_at_the_sa1_shape(cuda):
+    xyz = _scene(2, 40960, 3, cuda)
+    _bq_all_plans(0.2, 64, xyz, xyz[:, ::40][:, :1000].contiguous())
+
+
+@pytest.mark.gpu
+def test_ball_query_long_segments_keep_4_byte_hit_lists(cuda):
+    # one segment of 70000 points: hit offsets past 65535
+    xyz = _scene(2, 70000, 7, cuda)
+    centers = torch.cat([xyz[:, ::1000], xyz[:, -40:]], 1).contiguous()
+    want = ball_query_plain(0.3, 32, xyz, centers)
+    for plan in ((64, 1, 512), (128, 1, 256), (64, 2, 512)):
+        idx, cnt = _ball_query_cuda(0.3, 32, xyz, centers, True, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(idx, want[0]) and torch.equal(cnt, want[1]), plan
+    assert int(want[0].max()) > 65535
+
+
+@pytest.mark.gpu
+def test_ball_query_refused_plan_raises_and_leaves_no_error(cuda):
+    xyz = _scene(2, 4096, 5, cuda)
+    centers = xyz[:, :64].contiguous()
+    # shared memory past 227 KB, 2048 threads, 17 blocks a cluster, 33
+    # threads, tile 6
+    for plan, nsample in (((1024, 1, 512), 200), ((2048, 1, 512), 16),
+                          ((64, 17, 512), 16), ((33, 1, 512), 16),
+                          ((64, 1, 6), 16)):
+        with pytest.raises(RuntimeError, match="ball query kernel"):
+            _ball_query_cuda(0.3, nsample, xyz, centers, False, plan)
+    idx = ops.ball_query(0.3, 16, xyz, centers)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, ball_query_plain(0.3, 16, xyz, centers)[0])
+
+
+def _grad_check(grad, idx, n, plan=None):
+    """The backward under ``plan`` against index_add_ (rows out of range
+    dropped), within GRAD_RTOL of the absolute sum meeting in a row."""
+    keep = (idx >= 0) & (idx < n)
+    safe = torch.where(keep, idx, torch.zeros_like(idx))
+    g = grad * keep[..., None]
+    want = group_points_grad_plain(g, safe, n)
+    scale = group_points_grad_plain(g.abs(), safe, n)
+    ops.reset_launches()
+    got = _group_points_grad_cuda(grad, idx, n, plan)
+    torch.cuda.synchronize()
+    assert ops.launches["group_points_grad"] == 1
+    err = (got - want).abs()
+    assert bool((err <= GRAD_RTOL * scale + 1e-30).all()), err.max().item()
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,c,m,k", GRAD_SITES)
+def test_sorted_grad_kernel_at_the_train_step_sites(cuda, b, n, c, m, k):
+    points, idx = _group_inputs(b, n, c, m, k, cuda)
+    idx = idx.reshape(b, m * k)
+    grad = torch.randn(b, m * k, c, device=cuda)
+    assert _grad_plan(b, n, c, m * k) is not None
+    got = _grad_check(grad, idx, n)
+    # the same bits from a second launch, and through autograd
+    assert torch.equal(got, _group_points_grad_cuda(grad, idx, n))
+    points.requires_grad_(True)
+    ops.group_points(points, idx.reshape(b, m, k)).backward(
+        grad.reshape(b, m, k, c))
+    assert torch.equal(points.grad, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", GRAD_CASES)
+def test_sorted_grad_kernel_where_trouble_is_likely(cuda, name):
+    idx, grad, n = grad_case(name)
+    idx, grad = t(idx).to(cuda), t(grad).to(cuda)
+    # the wrapper's plan, others, and windows far shorter than a list
+    for plan in (None, (16, 1, 8, 33), (128, 1, 32, 4096),
+                 (1024, 2, 4, 1000), (7, 3, 1, 1)):
+        got = _grad_check(grad, idx, n, plan)
+        assert torch.equal(got, _grad_check(grad, idx, n, plan)), plan
+        if name == "untouched_rows":
+            assert not got[:, 1::2].any()
+    _grad_check(grad, idx, n, "atomic")
+
+
+@pytest.mark.gpu
+def test_grad_plan_hands_over_to_the_atomic_kernel(cuda):
+    for n in (SORTED_MAX_N, SORTED_MAX_N + 1):
+        g = torch.Generator(device="cpu").manual_seed(n)
+        idx = torch.randint(0, n, (2, 3000), generator=g,
+                            dtype=torch.int32).to(cuda)
+        grad = torch.randn(2, 3000, 8, generator=g).to(cuda)
+        plan = _grad_plan(2, n, 8, 3000)
+        assert (plan is None) == (n > SORTED_MAX_N)
+        got = _grad_check(grad, idx, n)
+        if plan is not None:
+            assert torch.equal(got, _group_points_grad_cuda(grad, idx, n))
 
 
 @pytest.mark.gpu

@@ -3,11 +3,11 @@
 // Replaces vlp3d/ops/grouping.py::group_points / gather_points (XLA
 // take-along-axis gathers split under a 2^18-row table limit) and their
 // backward _group_points_bwd / _gather_points_bwd / _sorted_scatter_add
-// (argsort + permute + sorted segment-sum, a TPU device that is not
-// carried over).
+// (a global argsort + permute + sorted segment-sum, shaped for the TPU;
+// here a counting sort inside each block takes its place).
 //
 //   forward:  out[b, r, :] = points[b, idx[b, r], :] - sub[b, r / k, :]
-//   backward: dpoints[b, idx[b, r], :] += grad[b, r, :]  (dpoints zeroed)
+//   backward: dpoints[b, i, :] = sum of grad[b, r, :] over idx[b, r] == i
 //
 // with r running over the M*K neighbourhood slots of batch row b
 // (gather_points is K = 1) and `sub` an optional row a centre (the SA
@@ -40,14 +40,45 @@
 // The source may be a view whose rows are `row_stride` floats apart (a
 // channel slice of the input cloud), so no copy is made first.
 //
-// The backward adds with atomicAdd straight into the source rows, as the
-// reference's group_points_grad kernel does: colliding rows (a padded
-// neighbourhood repeats its first index up to K times) serialise in L2
-// and the sum's order changes from launch to launch, so it is exact only
-// up to float32 rounding of a reordered sum. The float4 form uses
-// Hopper's 16-byte vector atomicAdd (one L2 transaction for 4 channels).
+// Two backward kernels:
+//
+// group_points_grad_sorted_kernel: one block a (batch row, range of
+//   `rows` source rows, slice of channels). What bounds the backward is
+//   the gradient's bytes, read once; what held the atomic form back was
+//   the collisions (16 rows on average meet in one source row at SA2,
+//   and an unfilled ball repeats its first hit in every empty slot:
+//   atomics on one address serialise in L2), the zeroed table it needs
+//   (a second launch) and its order, which changes from launch to launch.
+//   Here a block transposes its part of the index table in shared memory
+//   by a counting sort. Each warp takes a contiguous share of the batch
+//   row's index table and counts, with shared-memory atomics (a count
+//   does not depend on their order), how many of its rows land on each
+//   source row of the range; a block scan turns the counts into start
+//   positions, target-major and warp-minor; a second pass over the same
+//   indices places each gradient row at its start plus its rank among
+//   the lanes of its step with the same target (__match_any_sync). So a
+//   source row's list holds its gradient rows in ascending order, which
+//   depends on the indices alone. Then a group of lanes a source row sums
+//   that list's gradient rows in registers, in list order (float4 reads,
+//   coalesced, four in flight), and writes the row once, zeros included:
+//   no zeroed table, no float atomics, and two launches give the same
+//   bits. Every block reads the batch row's whole index table twice, so
+//   blocks are few and wide (up to 32 warps, about one an SM) and the
+//   index passes stay a fraction of the gradient's bytes. A list longer
+//   than the shared-memory window (every row of a batch row on one
+//   source row, say) is taken in several windows; a source row that
+//   spans two keeps its partial sum in the output row, which only the
+//   lane that wrote it reads back, so the order stays the same.
+// group_points_grad_kernel: the first design, as the reference's
+//   group_points_grad kernel does: atomicAdd straight into a zeroed
+//   table, 16-byte vector atomics where the row allows. Its sum is exact
+//   only up to float32 rounding of a reordered sum. It stays for tables
+//   too large for the sorted kernel's index passes (every block reads the
+//   whole batch row's index table twice) and as its yardstick.
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -198,6 +229,207 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = lane; j < cv; j += lanes) atomic_add_vec(dst + j, src[j]);
 }
 
+constexpr int kSortMaxThreads = 1024;
+
+__device__ __forceinline__ float vadd(float a, float b) { return a + b; }
+
+__device__ __forceinline__ float4 vadd(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+template <typename V>
+__device__ __forceinline__ V vzero();
+template <>
+__device__ __forceinline__ float vzero<float>() {
+  return 0.0f;
+}
+template <>
+__device__ __forceinline__ float4 vzero<float4>() {
+  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// The source row (relative to i0, in [0, rows)) that gradient row r
+// lands on, or -1 (another block's range, or an index out of range).
+__device__ __forceinline__ int target_of(int i, int i0, int rows, int n) {
+  const unsigned t = (unsigned)(i - i0);
+  return (unsigned)i < (unsigned)n && t < (unsigned)rows ? (int)t : -1;
+}
+
+// Grid: x = ranges of `rows` source rows, y = batch rows, z = slices of
+// `uslice` channel units (a unit is a V: float4, or float); blockDim.x
+// a multiple of 32. Dynamic shared memory: per warp and source row a
+// count, then a start, and a cursor; per source row its list start
+// (rows + 1); the list window of `cap` gradient row numbers; 32 words of
+// scan scratch.
+template <typename V>
+__global__ void __launch_bounds__(kSortMaxThreads)
+    group_points_grad_sorted_kernel(const V* __restrict__ grad,
+                                    const int* __restrict__ idx,
+                                    int rows_per_batch, int units, int n,
+                                    int rows, int uslice, int lanes, int cap,
+                                    V* __restrict__ dpoints) {
+  extern __shared__ int sm[];
+  const int threads = blockDim.x, warps = threads >> 5;
+  int* wstart = sm;                     // [warps][rows]
+  int* cursor = wstart + warps * rows;  // [warps][rows]
+  int* tstart = cursor + warps * rows;  // [rows + 1]
+  int* list = tstart + rows + 1;        // [cap]
+  int* scan = list + cap;               // [32]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int i0 = blockIdx.x * rows, b = blockIdx.y;
+  const int u0 = blockIdx.z * uslice, u1 = min(units, u0 + uslice);
+  const int r_all = rows_per_batch;
+  const int* ix = idx + (size_t)b * r_all;
+  // a warp's share of the index table: consecutive rows, whole steps
+  const int per = (r_all + 32 * warps - 1) / (32 * warps) * 32;
+  const int wlo = min(r_all, warp * per), whi = min(r_all, wlo + per);
+  const unsigned below = (1u << lane) - 1u;
+
+  for (int k = tid; k < warps * rows; k += threads) wstart[k] = 0;
+  __syncthreads();
+
+  // 1. count: rows of this warp's share landing on each source row (a
+  // count is the same whatever order the atomics take)
+  for (int r0 = wlo; r0 < whi; r0 += 128) {
+    int t[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int r = r0 + 32 * q + lane;
+      t[q] = r < whi ? target_of(__ldg(ix + r), i0, rows, n) : -1;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (t[q] >= 0) atomicAdd(wstart + warp * rows + t[q], 1);
+  }
+  __syncthreads();
+
+  // 2. starts: a thread takes consecutive source rows; block-wide
+  // exclusive scan of their totals (target-major, warp-minor)
+  const int chunk = (rows + threads - 1) / threads;
+  const int t_lo = min(rows, tid * chunk), t_hi = min(rows, t_lo + chunk);
+  int mine = 0;
+  for (int t = t_lo; t < t_hi; ++t)
+    for (int w = 0; w < warps; ++w) mine += wstart[w * rows + t];
+  int incl = mine;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += v;
+  }
+  if (lane == 31) scan[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int v = lane < warps ? scan[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, v, d);
+      if (lane >= d) v += u;
+    }
+    scan[lane] = v;  // inclusive totals of warps 0..lane
+  }
+  __syncthreads();
+  int pos = (warp > 0 ? scan[warp - 1] : 0) + incl - mine;
+  for (int t = t_lo; t < t_hi; ++t) {
+    tstart[t] = pos;
+    for (int w = 0; w < warps; ++w) {
+      const int c = wstart[w * rows + t];
+      wstart[w * rows + t] = pos;
+      pos += c;
+    }
+  }
+  const int total = scan[warps - 1];
+  if (tid == 0) tstart[rows] = total;
+  __syncthreads();
+
+  const int groups = threads / lanes, g = tid / lanes, gl = tid % lanes;
+  const V* gb = grad + (size_t)b * r_all * units;
+  V* db = dpoints + (size_t)b * n * units;
+  // the list in windows of cap entries (one window unless rows pile up)
+  for (int ws = 0; ws < max(total, 1); ws += cap) {
+    const int we = ws + cap;
+    // 3. place: the same pass again, each row at start + its rank among
+    // the lanes of its step with the same source row
+    for (int k = tid; k < warps * rows; k += threads) cursor[k] = wstart[k];
+    __syncthreads();
+    for (int r0 = wlo; r0 < whi; r0 += 128) {
+      int t[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = r0 + 32 * q + lane;
+        t[q] = r < whi ? target_of(__ldg(ix + r), i0, rows, n) : -1;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (__ballot_sync(0xffffffffu, t[q] >= 0) == 0u) continue;
+        const unsigned peers = __match_any_sync(0xffffffffu, t[q]);
+        if (t[q] >= 0) {
+          const int p = cursor[warp * rows + t[q]] + __popc(peers & below);
+          if (p >= ws && p < we) list[p - ws] = r0 + 32 * q + lane;
+        }
+        __syncwarp();
+        if (t[q] >= 0 && (peers & below) == 0)
+          cursor[warp * rows + t[q]] += __popc(peers);
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+
+    // 4. sum: a group of lanes a source row, its list in order
+    for (int t = g; t < rows && i0 + t < n; t += groups) {
+      const int s = tstart[t], e = tstart[t + 1];
+      const int lo = max(s, ws), hi = min(e, we);
+      V* dst = db + (size_t)(i0 + t) * units;
+      if (lo >= hi) {
+        if (ws == 0 && s == e)  // nothing lands here: a zero row
+          for (int u = u0 + gl; u < u1; u += lanes) dst[u] = vzero<V>();
+        continue;
+      }
+      for (int u = u0 + gl; u < u1; u += lanes) {
+        // a row begun in an earlier window goes on from its partial sum
+        V acc = lo > s ? dst[u] : vzero<V>();
+        int k = lo;
+        for (; k + 4 <= hi; k += 4) {
+          const V g0 = __ldg(gb + (size_t)list[k - ws] * units + u);
+          const V g1 = __ldg(gb + (size_t)list[k + 1 - ws] * units + u);
+          const V g2 = __ldg(gb + (size_t)list[k + 2 - ws] * units + u);
+          const V g3 = __ldg(gb + (size_t)list[k + 3 - ws] * units + u);
+          acc = vadd(vadd(vadd(vadd(acc, g0), g1), g2), g3);
+        }
+        for (; k < hi; ++k)
+          acc = vadd(acc, __ldg(gb + (size_t)list[k - ws] * units + u));
+        dst[u] = acc;
+      }
+    }
+    __syncthreads();  // the next window overwrites the list
+  }
+}
+
+size_t sorted_smem_bytes(int warps, int rows, int cap) {
+  return 4 * ((size_t)2 * warps * rows + rows + 1 + cap + 32);
+}
+
+template <typename V>
+int launch_sorted(const V* grad, const int* idx, int b, int rows_per_batch,
+                  int units, int n, int rows, int uslice, int lanes,
+                  int warps, int cap, V* dpoints, cudaStream_t stream) {
+  const size_t smem = sorted_smem_bytes(warps, rows, cap);
+  auto kernel = group_points_grad_sorted_kernel<V>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it
+      return (int)err;
+    }
+  }
+  dim3 grid((n + rows - 1) / rows, b, (units + uslice - 1) / uslice);
+  kernel<<<grid, 32 * warps, smem, stream>>>(grad, idx, rows_per_batch,
+                                             units, n, rows, uslice, lanes,
+                                             cap, dpoints);
+  return (int)cudaGetLastError();
+}
+
 // threads that share a row: the smallest power of two >= cv, at most 32
 int lanes_for(int cv) {
   int lanes = 1;
@@ -245,7 +477,8 @@ int vlp3d_group_points(const void* points, const void* idx, const void* sub,
 }
 
 // grad: (b, rows_per_batch, c) f32 contiguous; idx: (b, rows_per_batch)
-// i32; dpoints: (b, n, c) f32 contiguous, zeroed by the caller.
+// i32; dpoints: (b, n, c) f32 contiguous, zeroed by the caller. The
+// first design: float atomics.
 int vlp3d_group_points_grad(const void* grad, const void* idx, int b,
                             int rows_per_batch, int c, int n, int vec,
                             void* dpoints, void* stream) {
@@ -265,6 +498,31 @@ int vlp3d_group_points_grad(const void* grad, const void* idx, int b,
         lanes, (float*)dpoints);
   }
   return (int)cudaGetLastError();
+}
+
+// The same function, deterministic, through
+// group_points_grad_sorted_kernel; dpoints need not be zeroed: every row
+// is written. `rows` source rows a block (1 to 1024), `uslice` channel
+// units a block (float4 when vec, else float; at least 1), `warps` a
+// block (1 to 32), `cap` list entries in shared memory (at least 1). A
+// shape the card refuses comes back as its error code.
+int vlp3d_group_points_grad_sorted(const void* grad, const void* idx, int b,
+                                   int rows_per_batch, int c, int n, int vec,
+                                   int rows, int uslice, int warps, int cap,
+                                   void* dpoints, void* stream) {
+  if (rows < 1 || rows > 1024 || uslice < 1 || warps < 1 || warps > 32 ||
+      cap < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int units = vec ? c / 4 : c;
+  const int lanes = lanes_for(std::min(units, uslice));
+  if (vec)
+    return launch_sorted<float4>((const float4*)grad, (const int*)idx, b,
+                                 rows_per_batch, units, n, rows, uslice,
+                                 lanes, warps, cap, (float4*)dpoints, s);
+  return launch_sorted<float>((const float*)grad, (const int*)idx, b,
+                              rows_per_batch, units, n, rows, uslice, lanes,
+                              warps, cap, (float*)dpoints, s);
 }
 
 }  // extern "C"

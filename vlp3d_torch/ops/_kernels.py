@@ -62,6 +62,8 @@ SIGNATURES = {
     },
     "ball_query": {
         "vlp3d_ball_query": [_P, _P, _I, _I, _I, _F, _I, _P, _P, _P],
+        "vlp3d_ball_query_tile": [_P, _P, _I, _I, _I, _F, _I, _P, _P, _I,
+                                  _I, _I, _P],
     },
     "three_nn": {
         "vlp3d_three_nn": [_P, _P, _I, _I, _I, _P, _P, _P],
@@ -70,6 +72,8 @@ SIGNATURES = {
         "vlp3d_group_points": [_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _P,
                                _P],
         "vlp3d_group_points_grad": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
+        "vlp3d_group_points_grad_sorted": [_P, _P, _I, _I, _I, _I, _I, _I,
+                                           _I, _I, _I, _P, _P],
     },
 }
 

@@ -5,12 +5,18 @@ Counterpart of ``vlp3d/ops/ball_query.py``: for each center, the first
 (dx*dx + dy*dy) + dz*dz, r^2 rounded to float32 as JAX does), padded with
 the first hit, all zeros for an empty ball.
 
-A CUDA tensor goes to the hand-written kernel (``csrc/ball_query.cu``),
+A CUDA tensor goes to the hand-written kernels (``csrc/ball_query.cu``),
 a CPU tensor to :func:`ball_query_plain`; there is no fallback between
-the two.
+the two. On the card the shape picks the kernel (:func:`_ball_query_plan`):
+the tile kernel (centres in registers, points streamed through shared
+memory, a row's points split over the blocks of a thread-block cluster)
+where one of its plans beat the first, warp-a-centre kernel on an H100,
+else that first kernel. A launch the card refuses raises.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -61,7 +67,61 @@ def ball_query_plain(radius: float, nsample: int, xyz: torch.Tensor,
             torch.cat(cnt_parts, 1).to(torch.int32))
 
 
-def _ball_query_cuda(radius, nsample, xyz, new_xyz, with_count):
+# bytes of shared memory a block may have (sm_90)
+MAX_SMEM = 232448
+# the tile kernel's shapes that chip_smoke.py sweeps at every call site
+# and the card tests run: (threads a block, one centre each; blocks a
+# cluster; tile points)
+TILE_PLANS = tuple((threads, segs, tile) for threads in (64, 128, 256)
+                   for segs in (1, 2, 4, 8, 16) for tile in (256, 512))
+
+
+def plan_smem_bytes(plan, n: int, nsample: int) -> int:
+    """Shared memory of one block of the tile kernel under ``plan`` for
+    rows of ``n`` points (``tile_smem_bytes`` in csrc/ball_query.cu): two
+    point tiles (cut to a segment), a centre's count, offset, total and
+    first block, and its hit list of ``nsample | 1`` entries, 2 bytes
+    each where a segment has at most 65536 points, else 4."""
+    threads, segs, tile = plan
+    seg = -(-n // segs)
+    tile = max(4, min(tile, -(-seg // 4) * 4))
+    entry = 2 if seg <= 65536 else 4
+    return 4 * (6 * tile + 4 * threads) + entry * threads * (nsample | 1)
+
+
+def tile_plans(n: int, nsample: int):
+    """The plans of :data:`TILE_PLANS` the card takes for rows of ``n``
+    points and ``nsample`` slots: within shared memory, and no segment
+    shorter than 64 points."""
+    for plan in TILE_PLANS:
+        segs = plan[1]
+        if (plan_smem_bytes(plan, n, nsample) <= MAX_SMEM
+                and (segs == 1 or -(-n // segs) >= 64)):
+            yield plan
+
+
+@functools.lru_cache(maxsize=None)
+def _ball_query_plan(n: int, nsample: int):
+    """(threads, blocks a cluster, tile points) of the tile kernel for
+    rows of ``n`` points and ``nsample`` slots, or None for the
+    warp-a-centre kernel. A row is split over a
+    cluster so that a batch of a few rows fills the card: 16 segments of
+    a long row (SA1), 8 of a 2048-point row (SA2). Shorter rows keep the
+    first kernel, which stops a centre's scan at its nsample-th hit and
+    there beat every tile plan (chip_smoke.py prints the sweep of both on
+    an H100)."""
+    if n < 2048 or nsample < 1:
+        return None
+    plan = (128, 16, 256) if n >= 16384 else (128, 8, 256)
+    if plan_smem_bytes(plan, n, nsample) > MAX_SMEM:
+        return None
+    return plan
+
+
+def _ball_query_cuda(radius, nsample, xyz, new_xyz, with_count, plan=None):
+    """``plan`` is for measurements only: a tuple of the tile kernel (see
+    :func:`_ball_query_plan`) or "warp" for the first kernel; callers
+    leave it None and the shape decides."""
     _kernels.require(xyz, "xyz", torch.float32, 3, 3)
     _kernels.require(new_xyz, "new_xyz", torch.float32, 3, 3)
     b, n, _ = xyz.shape
@@ -73,14 +133,20 @@ def _ball_query_cuda(radius, nsample, xyz, new_xyz, with_count):
              if with_count else None)
     if b * m == 0:
         return idx, count
-    with _kernels.on_device(xyz):
-        rc = _kernels.function("ball_query", "vlp3d_ball_query")(
-            xyz.data_ptr(), new_xyz.data_ptr(), b, n, m, _r2(radius),
+    if plan is None:
+        plan = _ball_query_plan(n, nsample) or "warp"
+    args = (xyz.data_ptr(), new_xyz.data_ptr(), b, n, m, _r2(radius),
             nsample, idx.data_ptr(),
-            None if count is None else count.data_ptr(),
-            _kernels.stream_ptr(xyz),
-        )
-        _kernels.check(rc, "ball query kernel")
+            None if count is None else count.data_ptr())
+    with _kernels.on_device(xyz):
+        if plan == "warp":
+            rc = _kernels.function("ball_query", "vlp3d_ball_query")(
+                *args, _kernels.stream_ptr(xyz))
+        else:
+            rc = _kernels.function("ball_query", "vlp3d_ball_query_tile")(
+                *args, *plan, _kernels.stream_ptr(xyz))
+        if rc != 0:
+            _kernels.check(rc, f"ball query kernel ({plan})")
     _kernels.launches["ball_query"] += 1
     return idx, count
 

@@ -6,8 +6,8 @@ case of ``group_points``; both go through one row gather.
 
 A CUDA tensor goes to the hand-written kernels (``csrc/grouping.cu``): the
 forward row gather (which can subtract a row a centre on the way) and,
-where an input needs a gradient, the atomic scatter-add backward, bound
-in one :class:`torch.autograd.Function`. A CPU tensor goes to the
+where an input needs a gradient, the scatter-add backward, bound in one
+:class:`torch.autograd.Function`. A CPU tensor goes to the
 plain version (``torch.gather``, whose autograd backward is the ordered
 scatter-add). There is no fallback between the two. Indices carry no
 gradient and must lie in [0, N): on the CPU ``torch.gather`` raises for
@@ -15,13 +15,20 @@ one that does not, on the card the kernels never follow it (the source
 row counts as zeros, the gradient row is dropped) rather than spend a
 synchronising check on every call.
 
-The atomic backward sums colliding rows in an order that changes from
-launch to launch: it agrees with :func:`group_points_grad_plain` up to
-float32 rounding of a reordered sum (:data:`GRAD_RTOL` of the largest
-absolute row sum), not bit for bit.
+The backward's shape picks its kernel (:func:`_grad_plan`): the sorted
+kernel (a counting sort of the indices in shared memory, then one sum a
+source row in ascending gradient-row order, every row written once, so
+no zeroed table and the same bits from every launch), or, for tables too
+large for its index passes, the atomic kernel into a zeroed table, whose
+order changes from launch to launch. Both agree with
+:func:`group_points_grad_plain` up to float32 rounding of a reordered sum
+(:data:`GRAD_RTOL` of the absolute sum meeting in a row), not bit for
+bit.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -111,24 +118,78 @@ def _group_points_cuda(points: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+# source rows a batch row past which the backward takes the atomic
+# kernel: each block of the sorted kernel reads the batch row's whole
+# index table twice, so the index traffic grows with n / rows a block
+SORTED_MAX_N = 16384
+# list entries a block of the sorted kernel holds in shared memory (a
+# longer list is taken in windows)
+SORTED_CAP = 4096
+
+
+def sorted_smem_bytes(warps: int, rows: int, cap: int = SORTED_CAP) -> int:
+    """Shared memory of one block of the sorted backward kernel
+    (``sorted_smem_bytes`` in csrc/grouping.cu)."""
+    return 4 * (2 * warps * rows + rows + 1 + cap + 32)
+
+
+@functools.lru_cache(maxsize=None)
+def _grad_plan(b: int, n: int, c: int, r: int):
+    """(source rows a block, channel slices, warps a block, list capacity)
+    of the sorted backward kernel for a (B, R, C) gradient into
+    (B, n, C), or None for the atomic kernel (tables of more than
+    SORTED_MAX_N rows a batch row). Blocks of 32 warps, about one an SM
+    of an H100: rows a block halve from 128 while the grid has fewer than
+    128 blocks; rows of more than 128 channels take two channel slices;
+    a gradient of under 64K floats a batch row takes 8 warps a block
+    (the plans that won the sweep chip_smoke.py prints)."""
+    if n > SORTED_MAX_N or n == 0:
+        return None
+    slices = 2 if c > 128 else 1
+    rows = 128
+    while rows > 16 and b * -(-n // rows) * slices < 128:
+        rows //= 2
+    return rows, slices, 32 if r * c >= 65536 else 8, SORTED_CAP
+
+
 def _group_points_grad_cuda(grad: torch.Tensor, idx: torch.Tensor,
-                            n: int) -> torch.Tensor:
-    """grad (B, R, C) f32 contiguous, idx (B, R) i32 -> (B, n, C)."""
+                            n: int, plan=None) -> torch.Tensor:
+    """grad (B, R, C) f32 contiguous, idx (B, R) i32 -> (B, n, C).
+    ``plan`` is for measurements only: a tuple of the sorted kernel (see
+    :func:`_grad_plan`) or "atomic"; callers leave it None and the shape
+    decides."""
     _kernels.require(grad, "grad", torch.float32, 3)
     _kernels.require(idx, "idx", torch.int32, 2)
     b, r, c = grad.shape
     if idx.shape != (b, r):
         raise ValueError("grad and idx shapes differ")
-    dpoints = torch.zeros((b, n, c), dtype=torch.float32, device=grad.device)
-    if grad.numel() == 0 or n == 0:
-        return dpoints
+    if plan is None:
+        plan = _grad_plan(b, n, c, r) or "atomic"
+    if plan == "atomic" or grad.numel() == 0:
+        dpoints = torch.zeros((b, n, c), dtype=torch.float32,
+                              device=grad.device)
+        if grad.numel() == 0 or n == 0:
+            return dpoints
+    else:
+        dpoints = torch.empty((b, n, c), dtype=torch.float32,
+                              device=grad.device)
     vec = (c % 4 == 0 and grad.data_ptr() % 16 == 0
            and dpoints.data_ptr() % 16 == 0)
     with _kernels.on_device(grad):
-        rc = _kernels.function("grouping", "vlp3d_group_points_grad")(
-            grad.data_ptr(), idx.data_ptr(), b, r, c, n, vec,
-            dpoints.data_ptr(), _kernels.stream_ptr(grad))
-        _kernels.check(rc, "group_points_grad kernel")
+        if plan == "atomic":
+            rc = _kernels.function("grouping", "vlp3d_group_points_grad")(
+                grad.data_ptr(), idx.data_ptr(), b, r, c, n, vec,
+                dpoints.data_ptr(), _kernels.stream_ptr(grad))
+        else:
+            rows, slices, warps, cap = plan
+            units = c // 4 if vec else c
+            rc = _kernels.function(
+                "grouping", "vlp3d_group_points_grad_sorted")(
+                grad.data_ptr(), idx.data_ptr(), b, r, c, n, vec, rows,
+                -(-units // slices), warps, cap, dpoints.data_ptr(),
+                _kernels.stream_ptr(grad))
+        if rc != 0:
+            _kernels.check(rc, f"group_points_grad kernel ({plan})")
     _kernels.launches["group_points_grad"] += 1
     return dpoints
 
