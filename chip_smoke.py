@@ -16,12 +16,24 @@ nothing of the vlp3d package. Phases, each fatal on failure:
    BatchNorm statistics, and run one warm-up forward at B=8, N=40960;
 4. hold each kernel against its plain PyTorch version at the shapes the
    main path gives it (FPS x5, ball query x5 with and without counts,
-   three-NN x2, from that forward's own tensors), plus zero-padded rows
-   and empty balls; time kernel, plain version and, for three-NN,
-   torch.cdist + topk with CUDA events (the launches queue behind a
+   three-NN with the FP module's interpolation x2, from that forward's
+   own tensors), plus zero-padded rows and empty balls; time kernel and
+   plain version with CUDA events (the launches queue behind a
    device-side sleep, so a kernel shorter than its wrapper's host time is
-   timed on the device). Ball query besides: at every site the
-   warp-a-centre kernel it replaced and every swept plan of the tile
+   timed on the device). Three-NN besides: at FP1 and FP2 the fused team
+   kernel (three-NN, weights, weighted sum; indices equal, dist2 within
+   1e-6, weights within 1e-6, output within 1e-5 of
+   interpolate_features_plain), three_nn alone, the first, one-thread-a-point
+   kernel and every team plan (lanes x points a block, times as
+   sweep_ms), timed beside the route the fused kernel replaced (the first
+   kernel + weighting + row gather + multiply + sum), the plain version
+   and torch.cdist + topk; the edge cases of tests/torch_three_nn_cases.py
+   (ties across and inside lanes, an all-zero known row, unknown points
+   on known points, m = 3, m below the lanes, ragged n and m, squared
+   distances that overflow, C = 3 / 5 / 13 / 256, B = 1 / 3 / 9) through
+   every plan, B = 1 / 3 / 9 at the FP2 shape, and refused plans; host us
+   of interpolate_features beside the replaced route. Ball query
+   besides: at every site the warp-a-centre kernel it replaced and every swept plan of the tile
    kernel (threads x blocks a cluster x tile points, times as
    sweep_ms), with and without counts, points_scanned and
    mean_count; the edge cases of tests/torch_bq_cases.py (hits across
@@ -47,7 +59,7 @@ nothing of the vlp3d package. Phases, each fatal on failure:
 5. with every launch count at 0, serve three requests through
    GroundingPredictor (one batch; a list of two; occupancy 3 through
    run_padded), read the counts (FPS 5, ball query 5, three-NN 2, row
-   gather 13 per forward, no backward), check the outputs, compare one
+   gather 11 per forward, no backward), check the outputs, compare one
    forward against the same forward with the plain ops on the card
    (pred_ref equal, cluster_ref within 1e-4), and trace one request with
    torch.profiler (device time by kernel, device-busy share);
@@ -55,9 +67,15 @@ nothing of the vlp3d package. Phases, each fatal on failure:
    (two nudges: small vote offsets, ~0.7 m boxes, so that every loss is
    live), AdamW with its two learning-rate groups on the cosine schedule, one
    make_batch(istrain=1) batch at B=8, N=40960 on the card. One recorded
-   forward + backward gives every call site of the row gather its own
-   tensors (C = 3, 64, 128, 135, 256; the multiview site is a sliced
-   view; the folded SA sites pass their centre term as the subtrahend):
+   forward + backward gives every call site of the row gather and of the
+   interpolation its own tensors (C = 3, 64, 128, 135; the multiview site
+   is a sliced view; the folded SA sites pass their centre term as the
+   subtrahend). The interpolation's weighted backward at FP1 and FP2,
+   under its plan and every swept plan, against the plain weighted
+   backward (fatal above GRAD_RTOL of the absolute sum meeting in a row,
+   or unless two launches are equal bit for bit), timed beside the route
+   it replaced (broadcast multiply + the gather's sorted backward) and
+   torch.sparse.mm. The row gather:
    the forward kernel is held against torch.gather (fatal unless the
    difference is 0), with the site's subtrahend or a random one against
    gather - sub (fatal unless 0), and the scatter-add backward (the
@@ -73,9 +91,9 @@ nothing of the vlp3d package. Phases, each fatal on failure:
    with every count at 0, train steps on that batch: one at epoch 60
    (OCC/OSC positive, the reference weight switched), 8 at epoch 0, one
    more at epoch 60; the counts of one
-   step must be FPS 5, ball query 5, three-NN 2, row gather 13, its
-   backward 7; every loss finite, the vote and objectness losses falling
-   over the repeated steps; the same forward + backward with the plain
+   step must be FPS 5, ball query 5, three-NN 2, row gather 11, its
+   backward 5, the interpolation's backward 2; every loss finite, the
+   vote and objectness losses falling over the repeated steps; the same forward + backward with the plain
    ops on the card compared with the kernels' (loss within 1e-5
    relative, gradients within 1e-4 of their largest entry); step ms,
    peak memory and a torch.profiler trace of one step by kernel name
@@ -115,9 +133,10 @@ STEP_LOSS_RTOL = 1e-5
 STEP_GRAD_TOL = 1e-4  # of the gradient tensor's largest entry
 TRAIN_STEPS_EPOCH0 = 8
 # kernel launches of one forward, and of one train step's backward
-PER_FORWARD = {"fps": 5, "ball_query": 5, "three_nn": 2, "group_points": 13,
-               "group_points_grad": 0}
-PER_STEP = dict(PER_FORWARD, group_points_grad=7)
+PER_FORWARD = {"fps": 5, "ball_query": 5, "three_nn": 2, "group_points": 11,
+               "group_points_grad": 0, "three_interpolate_grad": 0}
+PER_STEP = dict(PER_FORWARD, group_points_grad=5, three_interpolate_grad=2)
+WEIGHT_TOL = 1e-6  # interpolation weights, kernel against plain
 
 
 def fail(msg: str):
@@ -200,7 +219,7 @@ def plain_ops():
     itp = importlib.import_module("vlp3d_torch.ops.interpolate")
     grp = importlib.import_module("vlp3d_torch.ops.grouping")
     saved = (smp._fps_cuda, bq._ball_query_cuda, itp._three_nn_cuda,
-             grp._gather_rows)
+             itp._interpolate_features_cuda, grp._gather_rows)
 
     def bq_plain(radius, nsample, xyz, new_xyz, with_count):
         idx, cnt = bq.ball_query_plain(radius, nsample, xyz, new_xyz)
@@ -209,12 +228,13 @@ def plain_ops():
     smp._fps_cuda = smp.fps_plain
     bq._ball_query_cuda = bq_plain
     itp._three_nn_cuda = itp.three_nn_plain
+    itp._interpolate_features_cuda = itp.interpolate_features_plain
     grp._gather_rows = grp.group_points_plain
     try:
         yield
     finally:
         (smp._fps_cuda, bq._ball_query_cuda, itp._three_nn_cuda,
-         grp._gather_rows) = saved
+         itp._interpolate_features_cuda, grp._gather_rows) = saved
 
 
 def fps_variants(n: int):
@@ -475,12 +495,192 @@ def check_ball_query_edges(torch, cloud):
           + "; refused plans raise")
 
 
+def replaced_route(unknown, known, feats):
+    """The interpolation as the FP module ran it before the fused kernel:
+    the first three-NN kernel, then the weighting, the row gather into a
+    (B, N, 3, C) tensor, a broadcast multiply and a sum."""
+    itp = importlib.import_module("vlp3d_torch.ops.interpolate")
+    dist2, idx = itp._three_nn_cuda(unknown, known, "serial")
+    return itp.three_interpolate(feats, idx, itp.interpolation_weights(dist2))
+
+
+def three_nn_errs(torch, unknown, known, feats, want, plan):
+    """Errors of three_nn alone and of the fused interpolation under
+    ``plan`` against the plain versions' (dist2, idx, weight, out)
+    ``want``: (index difference, dist2, weight, output). The first kernel
+    ("serial") has no interpolation: its weight and output errors are 0."""
+    itp = importlib.import_module("vlp3d_torch.ops.interpolate")
+    pd, pi, pw, pout = want
+    d, i = itp._three_nn_cuda(unknown, known, plan)
+    errs = [index_err(torch, i, pi), close_err(torch, d, pd), 0.0, 0.0]
+    if plan != "serial":
+        out, i, w, d = itp._interpolate_cuda(unknown, known, feats, plan,
+                                             with_dist2=True)
+        errs = [max(errs[0], index_err(torch, i, pi)),
+                max(errs[1], close_err(torch, d, pd)),
+                close_err(torch, w, pw), close_err(torch, out, pout)]
+    torch.cuda.synchronize()
+    return errs
+
+
+def close_err(torch, got, want) -> float:
+    """Largest absolute difference of two float tensors, equal infinities
+    counting as 0."""
+    same = got == want
+    diff = torch.where(same, torch.zeros_like(got), (got - want).abs())
+    return float(diff.max().item()) if diff.numel() else 0.0
+
+
+def three_nn_plain_all(unknown, known, feats):
+    """The plain versions' (dist2, idx, weight, out)."""
+    itp = importlib.import_module("vlp3d_torch.ops.interpolate")
+    pd, pi = itp.three_nn_plain(unknown, known)
+    return (pd, pi, itp.interpolation_weights(pd),
+            itp.interpolate_features_plain(unknown, known, feats))
+
+
+def check_three_nn_errs(site, errs):
+    ierr, derr, werr, ferr = errs
+    if ierr != 0 or derr > DIST_TOL or werr > WEIGHT_TOL or ferr > INTERP_TOL:
+        fail(f"three_nn {site}: index difference {ierr}, dist2 err {derr} "
+             f"(tolerance {DIST_TOL}), weight err {werr} ({WEIGHT_TOL}), "
+             f"output err {ferr} ({INTERP_TOL})")
+
+
+def check_three_nn_site(torch, site, unknown, known, feats):
+    """Phase 4, three-NN and the FP module's interpolation at one
+    main-path site: the wrapper's fused kernel, three_nn alone, the first
+    kernel and every swept team plan against the plain versions (indices
+    equal, dist2 within DIST_TOL, weights within WEIGHT_TOL, output within
+    INTERP_TOL; fatal otherwise); device time of each beside the route
+    the fused kernel replaced, the plain version and torch.cdist + topk
+    (sweep_ms: the evidence for _three_nn_plan)."""
+    from vlp3d_torch import ops
+
+    itp = importlib.import_module("vlp3d_torch.ops.interpolate")
+    b, n, _ = unknown.shape
+    m, c = feats.shape[1:]
+    want = three_nn_plain_all(unknown, known, feats)
+    errs = three_nn_errs(torch, unknown, known, feats, want, None)
+    interp = ops.interpolate_features(unknown, known, feats)
+    errs[3] = max(errs[3], close_err(torch, interp, want[3]))
+    check_three_nn_errs(site, errs)
+    check_three_nn_errs(f"{site} (the first kernel)", three_nn_errs(
+        torch, unknown, known, feats, want, "serial"))
+    sweep, sweep_nn = {}, {}
+    for plan in itp.TEAM_PLANS:
+        check_three_nn_errs(f"{site} (plan {plan})", three_nn_errs(
+            torch, unknown, known, feats, want, plan))
+        key = "%dx%d" % plan
+        sweep[key] = cuda_ms(torch, lambda: itp._interpolate_cuda(
+            unknown, known, feats, plan), 10, warmup=1)
+        sweep_nn[key] = cuda_ms(torch, lambda: itp._three_nn_cuda(
+            unknown, known, plan), 10, warmup=1)
+    # bytes: coordinates and known rows in, output rows, indices and
+    # weights out; operations: the distance tests and 3 mul + 2 add a
+    # channel of the weighted sum
+    nbytes = b * (n + m) * 12 + b * m * c * 4 + b * n * c * 4 + b * n * 24
+    bms, by = bound_ms(nbytes, b * n * m * OPS_PER_TEST + b * n * c * 5)
+    nn_bms, nn_by = bound_ms(b * (n + m) * 12 + b * n * 24,
+                             b * n * m * OPS_PER_TEST)
+    # the same launch with next to no work: what a launch costs whatever
+    # its size (launch, staging, the merge's shuffles, one row)
+    tiny = (unknown[:1, :32].contiguous(), known[:1, :3].contiguous(),
+            feats[:1, :3].contiguous())
+    row = dict(
+        site=site, shape=[b, n, m, c],
+        plan=list(itp._three_nn_plan(b, n, m)),
+        ms=cuda_ms(torch, lambda: ops.interpolate_features(
+            unknown, known, feats), 50),
+        three_nn_ms=cuda_ms(torch, lambda: ops.three_nn(unknown, known), 50),
+        serial_kernel_ms=cuda_ms(torch, lambda: itp._three_nn_cuda(
+            unknown, known, "serial"), 50),
+        route_ms=cuda_ms(torch, lambda: replaced_route(unknown, known, feats),
+                         20),
+        plain_ms=cuda_ms(torch, lambda: itp.interpolate_features_plain(
+            unknown, known, feats), 10),
+        library_ms=cuda_ms(torch, lambda: torch.topk(
+            torch.cdist(unknown, known), 3, dim=-1, largest=False), 10),
+        bound_ms=bms, bound_by=by, three_nn_bound_ms=nn_bms,
+        three_nn_bound_by=nn_by, max_abs_err=errs[1],
+        weight_max_abs_err=errs[2], interp_max_abs_err=errs[3],
+        best_plan=min(sweep, key=sweep.get), sweep_ms=sweep,
+        three_nn_sweep_ms=sweep_nn,
+        floor_ms=cuda_ms(torch, lambda: itp._interpolate_cuda(*tiny), 50))
+    return row
+
+
+def check_three_nn_edges(torch, sa2_xyz):
+    """Phase 4, three-NN and the fused interpolation where the team
+    kernel is likely to go wrong (tests/torch_three_nn_cases.py: ties
+    across and inside lanes, an all-zero known row, unknown points on
+    known points, m = 3, m below the lanes, ragged n and m, squared
+    distances that overflow to inf, channel widths of the scalar and the
+    float4 path, B = 1 / 3 / 9), each through the wrapper's plan, the first
+    kernel and every swept team plan; then B = 1 / 3 / 9 at the FP2
+    shape; then plans the kernel must refuse. Fatal unless the indices
+    are equal and the rest within its tolerance."""
+    cases = load_test_module("torch_three_nn_cases")
+    itp = importlib.import_module("vlp3d_torch.ops.interpolate")
+    from vlp3d_torch.ops import _kernels
+
+    dev = sa2_xyz.device
+    plans = (None, "serial", *itp.TEAM_PLANS)
+    tried = 0
+    for name in cases.NN_CASES:
+        unknown, known, feats = (torch.from_numpy(a).to(dev)
+                                 for a in cases.nn_case(name))
+        want = three_nn_plain_all(unknown, known, feats)
+        for plan in plans:
+            tried += 1
+            check_three_nn_errs(f"edge case {name} (plan {plan})",
+                                three_nn_errs(torch, unknown, known, feats,
+                                              want, plan))
+    for b in (1, 3, 9):
+        unknown = sa2_xyz[torch.arange(b, device=dev) % sa2_xyz.shape[0]]
+        unknown = (unknown + torch.arange(b, device=dev)[:, None, None]
+                   * 0.01).contiguous()
+        known = unknown[:, ::2].contiguous()
+        feats = torch.randn(b, known.shape[1], 256, device=dev)
+        want = three_nn_plain_all(unknown, known, feats)
+        for plan in (None, "serial", (4, 8), (32, 32)):
+            tried += 1
+            check_three_nn_errs(f"B={b} (plan {plan})", three_nn_errs(
+                torch, unknown, known, feats, want, plan))
+    # refused plans raise in the wrapper; the C entry point refuses them
+    # too, without a launch and without leaving an error behind
+    unknown, known = sa2_xyz[:2].contiguous(), sa2_xyz[:2, :64].contiguous()
+    for plan in ((3, 32), (8, 3), (32, 64)):
+        try:
+            itp._three_nn_cuda(unknown, known, plan)
+        except ValueError:
+            continue
+        fail(f"three_nn: plan {plan} should have been refused")
+    d = torch.empty(2, unknown.shape[1], 3, device=dev)
+    i = torch.empty(2, unknown.shape[1], 3, dtype=torch.int32, device=dev)
+    for lanes, threads in ((3, 96), (64, 256), (8, 2048), (8, 48)):
+        rc = _kernels.function("three_nn", "vlp3d_three_nn_team")(
+            unknown.data_ptr(), known.data_ptr(), None, 2, unknown.shape[1],
+            64, 0, lanes, threads, 0, d.data_ptr(), i.data_ptr(), None, None,
+            _kernels.stream_ptr(unknown))
+        if rc == 0:
+            fail(f"three_nn: the kernel took {lanes} lanes x {threads} "
+                 "threads")
+    feats = torch.randn(2, 64, 8, device=dev)
+    check_three_nn_errs("after refused plans", three_nn_errs(
+        torch, unknown, known, feats,
+        three_nn_plain_all(unknown, known, feats), None))
+    print(f"[4] three_nn: {len(cases.NN_CASES)} edge cases and B = 1 / 3 / 9 "
+          f"at the FP2 shape equal to plain under {tried} (case, plan) "
+          "pairs, three_nn alone and fused: " + "; ".join(cases.NN_CASES)
+          + "; refused plans raise")
+
+
 def check_kernels(torch, config, out):
     """Phase 4: every kernel against its plain version at main-path shapes."""
     from vlp3d_torch import ops
     from vlp3d_torch.ops.ball_query import ball_query_plain
     from vlp3d_torch.ops.host_time import host_us
-    from vlp3d_torch.ops.interpolate import three_nn_plain
     from vlp3d_torch.ops.sampling import fps_plain
 
     smp = importlib.import_module("vlp3d_torch.ops.sampling")
@@ -547,31 +747,9 @@ def check_kernels(torch, config, out):
         ("fp1", out["sa3_xyz"], out["sa4_xyz"], out["sa4_features"]),
         ("fp2", out["sa2_xyz"], out["sa3_xyz"], out["sa3_features"]),
     ):
-        unknown, known = unknown.contiguous(), known.contiguous()
-        b, n, _ = unknown.shape
-        m = known.shape[1]
-        d, i = ops.three_nn(unknown, known)
-        pd, pi = three_nn_plain(unknown, known)
-        interp = ops.interpolate_features(unknown, known, feats)
-        with plain_ops():
-            pinterp = ops.interpolate_features(unknown, known, feats)
-        torch.cuda.synchronize()
-        if not torch.equal(i, pi):
-            fail(f"three_nn {site}: kernel indices differ")
-        d_err = (d - pd).abs().max().item()
-        f_err = (interp - pinterp).abs().max().item()
-        if d_err > DIST_TOL or f_err > INTERP_TOL:
-            fail(f"three_nn {site}: dist2 err {d_err}, interp err {f_err}")
-        k_ms = cuda_ms(torch, lambda: ops.three_nn(unknown, known), 50)
-        p_ms = cuda_ms(torch, lambda: three_nn_plain(unknown, known), 10)
-        lib_ms = cuda_ms(torch, lambda: torch.topk(
-            torch.cdist(unknown, known), 3, dim=-1, largest=False), 10)
-        nbytes = b * (n + m) * 12 + b * n * 3 * 8
-        bms, by = bound_ms(nbytes, b * n * m * OPS_PER_TEST)
-        rows["three_nn"].append(dict(
-            site=site, shape=[b, n, m], ms=k_ms, plain_ms=p_ms,
-            library_ms=lib_ms, bound_ms=bms, bound_by=by,
-            max_abs_err=d_err, interp_max_abs_err=f_err))
+        rows["three_nn"].append(check_three_nn_site(
+            torch, site, unknown.contiguous(), known.contiguous(),
+            feats.contiguous()))
 
     # edge cases: zero-padded points and an all-zero row, empty balls,
     # and the ball query where a row split into segments may go wrong
@@ -596,19 +774,28 @@ def check_kernels(torch, config, out):
           "empty balls")
     check_fps_edges(torch, out["point_clouds_xyz"])
     check_ball_query_edges(torch, out["point_clouds_xyz"])
+    check_three_nn_edges(torch, out["sa2_xyz"])
 
     # host time of one wrapper call, on arguments small enough that the
     # device keeps up with the host
     tiny = out["sa4_xyz"][:1, :64].contiguous()
     ctr = tiny[:, :8].contiguous()
+    feats = torch.randn(1, 8, 256, device=tiny.device)
     us = {"fps": host_us(lambda: ops.furthest_point_sample(tiny, 2)),
           "ball_query": host_us(lambda: ops.ball_query(
               0.3, 4, tiny, ctr)),
-          "three_nn": host_us(lambda: ops.three_nn(tiny, ctr))}
-    print(f"[4] host us a call on {list(tiny.shape)}: {json.dumps(us)}")
+          "three_nn": host_us(lambda: ops.interpolate_features(
+              tiny, ctr, feats)),
+          "three_nn alone": host_us(lambda: ops.three_nn(tiny, ctr)),
+          "the replaced route": host_us(lambda: replaced_route(
+              tiny, ctr, feats))}
+    print(f"[4] host us a call on {list(tiny.shape)} (three_nn: "
+          f"interpolate_features): {json.dumps(us)}")
     for name, rs in rows.items():
         for r in rs:
             r["host_us"] = us[name]
+            if name == "three_nn":
+                r["route_host_us"] = us["the replaced route"]
             print(f"[4] {name} {json.dumps(r)}")
     return rows
 
@@ -655,7 +842,7 @@ def profile_call(torch, fn, tag: str, what: str, top: int = 15):
           f"share {1 - busy_ms / wall_ms:.3f}), {sum(e.count for e in events)}"
           f" device kernels and copies, {memsets} of them memsets and "
           f"{fills} fill kernels")
-    for name in ("ball_query", "group_points_grad"):
+    for name in ("ball_query", "three_nn", "group_points_grad"):
         hits = [e for e in events if name in e.key]
         print(f"[{tag}]   {name}*: " + ", ".join(
             f"{e.key[:60]} x{e.count} {dev_us(e) / 1e3:.3f} ms" for e in hits))
@@ -678,16 +865,20 @@ def kernel_line(rows, serving, train):
                          "vlp3d/ops/grouping.py:117"),
         "group_points_grad": ("vlp3d_torch/csrc/grouping.cu",
                               "vlp3d/ops/grouping.py:135"),
+        "three_interpolate_grad": ("vlp3d_torch/csrc/grouping.cu",
+                                   "vlp3d/ops/interpolate.py:49"),
     }
     functions = {
         "fps": ["fps_regs_kernel<P, false>", "fps_regs_kernel<P, true>",
                 "fps_kernel"],
         "ball_query": ["ball_query_tile_kernel<L>", "ball_query_kernel"],
-        "three_nn": ["three_nn_kernel"],
+        "three_nn": ["three_nn_team_kernel<L, kInterp, V>",
+                     "three_nn_kernel"],
         "group_points": ["group_points_vec_kernel",
                          "group_points_stream_kernel"],
-        "group_points_grad": ["group_points_grad_sorted_kernel<V>",
+        "group_points_grad": ["group_points_grad_sorted_kernel<V, false>",
                               "group_points_grad_kernel"],
+        "three_interpolate_grad": ["group_points_grad_sorted_kernel<V, true>"],
     }
     kernels = []
     for name, rs in rows.items():
@@ -724,6 +915,22 @@ def kernel_line(rows, serving, train):
             kernels[-1].update(
                 atomic_kernel_ms=sum(r["atomic_kernel_ms"] for r in rs),
                 plans={r["site"]: r["plan"] for r in rs})
+        if name == "three_nn":
+            # ms: the fused forward (three-NN + weights + weighted sum);
+            # library_ms: torch.cdist + topk, which computes three-NN only
+            kernels[-1].update(
+                also_replaces="vlp3d/ops/interpolate.py:62",
+                three_nn_only_ms=sum(r["three_nn_ms"] for r in rs),
+                three_nn_only_bound_ms=sum(r["three_nn_bound_ms"]
+                                           for r in rs),
+                serial_kernel_ms=sum(r["serial_kernel_ms"] for r in rs),
+                route_ms=sum(r["route_ms"] for r in rs),
+                route_host_us=rs[0]["route_host_us"],
+                plans={r["site"]: r["plan"] for r in rs})
+        if name == "three_interpolate_grad":
+            kernels[-1].update(
+                route_ms=sum(r["route_ms"] for r in rs),
+                plans={r["site"]: r["plan"] for r in rs})
         if name == "fps":
             steps = sum(r["shape"][2] - 1 for r in rs)
             kernels[-1].update(
@@ -759,6 +966,112 @@ def record_gather_sites(torch, run):
     finally:
         grp._gather_rows = orig
     return sites
+
+
+def record_interp_sites(torch, run):
+    """Run ``run()`` with the FP module's interpolation wrapped so that
+    every call leaves its coordinates, its known rows and (after a
+    backward) the gradient of its output. Returns the calls in order."""
+    itp = importlib.import_module("vlp3d_torch.ops.interpolate")
+    sites, orig = [], itp._interpolate_features_cuda
+
+    def recording(unknown, known, feats):
+        out = orig(unknown, known, feats)
+        site = {"unknown": unknown.detach(), "known": known.detach(),
+                "feats": feats.detach(), "grad": None}
+        if out.requires_grad:
+            out.register_hook(
+                lambda g, site=site: site.__setitem__("grad", g.detach()))
+        sites.append(site)
+        return out
+
+    itp._interpolate_features_cuda = recording
+    try:
+        run()
+    finally:
+        itp._interpolate_features_cuda = orig
+    return sites
+
+
+def check_interp_grad_site(torch, label, site, reps=20):
+    """The interpolation's weighted backward at one FP site of a train
+    step: the weighted sorted scatter under the wrapper's plan and every
+    swept plan against the plain weighted backward (fatal above GRAD_RTOL
+    of the absolute sum meeting in a row, or unless two launches are
+    equal bit for bit); times of kernel, plain version, the route it
+    replaced (broadcast multiply + the gather's sorted backward) and one
+    sparse product (torch.sparse.mm of the transposed weight matrix)."""
+    grp = importlib.import_module("vlp3d_torch.ops.grouping")
+    itp = importlib.import_module("vlp3d_torch.ops.interpolate")
+    unknown, known, feats = site["unknown"], site["known"], site["feats"]
+    grad = site["grad"].contiguous()
+    b, n, c = grad.shape
+    m = feats.shape[1]
+    _, idx, weight = itp._interpolate_cuda(unknown, known, feats)
+    want = itp.three_interpolate_grad_plain(grad, idx, weight, m)
+    scale = itp.three_interpolate_grad_plain(grad.abs(), idx, weight.abs(),
+                                             m)
+
+    def check(plan):
+        got = itp._three_interpolate_grad_cuda(grad, idx, weight, m, plan)
+        again = itp._three_interpolate_grad_cuda(grad, idx, weight, m, plan)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        err = diff.max().item()
+        rel = (diff / scale.clamp_min(1e-30)).max().item()
+        if not bool((diff <= grp.GRAD_RTOL * scale + 1e-30).all()):
+            fail(f"three_interpolate_grad {label} (plan {plan}): kernel "
+                 f"differs from the plain backward by {err} ({rel} of the "
+                 f"absolute sum in the row; tolerance {grp.GRAD_RTOL})")
+        if not torch.equal(got, again):
+            fail(f"three_interpolate_grad {label} (plan {plan}): two "
+                 "launches differ")
+        return err, rel
+
+    plan = itp._interp_grad_plan(b, m, c, 3 * n)
+    err, rel = check(None)
+    sweep = {}
+    for cand in [(rows, sl, warps, grp.SORTED_CAP)
+                 for rows in (16, 32, 64, 128)
+                 for sl in ((1, 2) if c > 128 else (1,))
+                 for warps in (8, 16, 32)]:
+        check(cand)
+        sweep["%dx%dx%d" % cand[:3]] = cuda_ms(
+            torch, lambda: itp._three_interpolate_grad_cuda(
+                grad, idx, weight, m, cand), reps, warmup=1)
+    # the transposed (B*m, B*n) weight matrix, three entries a column
+    offs = torch.arange(b, device=grad.device)[:, None, None]
+    rows_ix = (idx.long() + offs * m).reshape(-1)
+    cols_ix = (torch.arange(n, device=grad.device)[None, :, None]
+               + offs * n).expand(b, n, 3).reshape(-1)
+    wt = torch.sparse_coo_tensor(torch.stack([rows_ix, cols_ix]),
+                                 weight.reshape(-1), (b * m, b * n)
+                                 ).coalesce().to_sparse_csr()
+    g2 = grad.reshape(b * n, c)
+    lib_err = (torch.sparse.mm(wt, g2).reshape(b, m, c) - want).abs().max()
+    nbytes = grad.numel() * 4 + idx.numel() * 4 + weight.numel() * 4 \
+        + b * m * c * 4
+    bms, by = bound_ms(nbytes, b * n * 3 * c * 2)
+    bwd = dict(
+        site=label, shape=[b, n, c, m], plan=list(plan), max_abs_err=err,
+        max_rel_err=rel,
+        ms=cuda_ms(torch, lambda: itp._three_interpolate_grad_cuda(
+            grad, idx, weight, m), reps),
+        plain_ms=cuda_ms(torch, lambda: itp.three_interpolate_grad_plain(
+            grad, idx, weight, m), reps),
+        route_ms=cuda_ms(torch, lambda: grp._group_points_grad_cuda(
+            (grad[:, :, None, :] * weight[..., None]).reshape(b, 3 * n, c),
+            idx.view(b, 3 * n), m), reps),
+        library_ms=cuda_ms(torch, lambda: torch.sparse.mm(wt, g2), reps),
+        library_max_abs_err=lib_err.item(),
+        # one unknown point's three rows: the four dependent passes
+        # (count, scan, place, sum) with next to no work
+        floor_ms=cuda_ms(torch, lambda: itp._three_interpolate_grad_cuda(
+            grad[:1, :1].contiguous(), idx[:1, :1].contiguous(),
+            weight[:1, :1].contiguous(), m), reps),
+        bound_ms=bms, bound_by=by, sweep_ms=sweep)
+    print(f"[6] three_interpolate_grad {json.dumps(bwd)}")
+    return bwd
 
 
 def check_group_site(torch, label, points, idx, grad, on_path, reps=20,
@@ -896,19 +1209,28 @@ def check_grouping(torch, model, config, batch):
         model.zero_grad(set_to_none=True)
 
     names = ["sa1 xyz", "sa1 rows (train: raw 3+C)", "sa2 xyz", "sa2 rows",
-             "sa3 xyz", "sa3 rows", "sa4 xyz", "sa4 rows", "fp1 3-nn rows",
-             "fp2 3-nn rows", "proposal xyz", "proposal rows",
-             "relation multiview"]
-    sites = record_gather_sites(torch, train_pass)
+             "sa3 xyz", "sa3 rows", "sa4 xyz", "sa4 rows", "proposal xyz",
+             "proposal rows", "relation multiview"]
+    interp_sites = []
+    sites = record_gather_sites(
+        torch, lambda: interp_sites.extend(record_interp_sites(
+            torch, train_pass)))
     if len(sites) != len(names):
         fail(f"a train forward made {len(sites)} row gathers, expected "
              f"{len(names)}")
     with_grad = [nm for nm, st in zip(names, sites) if st["differentiable"]]
-    want_grad = ["sa2 rows", "sa3 rows", "sa4 rows", "fp1 3-nn rows",
-                 "fp2 3-nn rows", "proposal xyz", "proposal rows"]
+    want_grad = ["sa2 rows", "sa3 rows", "sa4 rows", "proposal xyz",
+                 "proposal rows"]
     if with_grad != want_grad:
         fail(f"row gathers with a backward: {with_grad}, expected {want_grad}")
-    rows = {"group_points": [], "group_points_grad": []}
+    if len(interp_sites) != 2 or any(st["grad"] is None
+                                     for st in interp_sites):
+        fail(f"a train step made {len(interp_sites)} interpolations, "
+             "expected 2, each with a gradient")
+    rows = {"group_points": [], "group_points_grad": [],
+            "three_interpolate_grad": [
+                check_interp_grad_site(torch, label, st)
+                for label, st in zip(("fp1", "fp2"), interp_sites)]}
 
     def add(label, st, on_path=True, reps=20):
         fwd, bwd = check_group_site(torch, label, st["points"], st["idx"],
@@ -936,12 +1258,22 @@ def check_grouping(torch, model, config, batch):
     g, ix2, n2 = st["grad"].contiguous(), st["idx"], st["points"].shape[1]
     us["group_points_grad"] = host_us(
         lambda: grp._group_points_grad_cuda(g, ix2, n2))
+    itp = importlib.import_module("vlp3d_torch.ops.interpolate")
+    st = interp_sites[0]
+    _, ix3, w3 = itp._interpolate_cuda(st["unknown"], st["known"], st["feats"])
+    g3, m3 = st["grad"].contiguous(), st["feats"].shape[1]
+    us["three_interpolate_grad"] = host_us(
+        lambda: itp._three_interpolate_grad_cuda(g3, ix3, w3, m3))
     print(f"[6] host us a call at K = 1 sites {list(pts.shape)}, "
-          f"{list(g.shape)}: {json.dumps(us)}")
+          f"{list(g.shape)}, and of the interpolation's backward at fp1 "
+          f"{list(g3.shape)}: {json.dumps(us)}")
     for r in rows["group_points"]:
         r["host_us"] = us["gather_points"]
     for r in rows["group_points_grad"]:
         r["host_us"] = us["group_points_grad"]
+    for r in rows["three_interpolate_grad"]:
+        r["host_us"] = us["three_interpolate_grad"]
+    del interp_sites, g3, ix3, w3
     sa2 = dict(sites[3])
     sa1_idx = sites[1]["idx"]
     del sites

@@ -12,12 +12,15 @@ also run where a row split over blocks is likely to go wrong (ties across
 blocks, blocks with no valid point, ragged lengths, any batch size).
 Ball query runs its tile kernel under every plan the smoke run sweeps,
 on inputs built against the plans' segment boundaries
-(``tests/torch_bq_cases.py``). Indices must be equal;
-three-NN distances within 1e-6 and interpolated features within 1e-5;
-the row gather exact and both scatter-add backwards within
-``GRAD_RTOL`` (1e-5) of the absolute sum meeting in a row, the sorted one
-also equal bit for bit from launch to launch; the tiny JointNet's
-cluster_ref within 1e-4 of the CPU forward.
+(``tests/torch_bq_cases.py``); three-NN runs its team kernel, alone and
+fused with the interpolation, under every plan on the cases of
+``tests/torch_three_nn_cases.py`` and at the FP shapes. Indices must be
+equal; three-NN distances and interpolation weights within 1e-6 and
+interpolated features within 1e-5; the row gather exact and the
+scatter-add backwards (the gather's two, the interpolation's weighted
+one) within ``GRAD_RTOL`` (1e-5) of the absolute sum meeting in a row,
+the sorted ones also equal bit for bit from launch to launch; the tiny
+JointNet's cluster_ref within 1e-4 of the CPU forward.
 """
 
 import numpy as np
@@ -35,6 +38,7 @@ from torch_bq_cases import (
     ball_query_case,
     grad_case,
 )
+from torch_three_nn_cases import NN_CASES, nn_case
 from vlp3d_torch.ops.ball_query import (
     _ball_query_cuda,
     _ball_query_plan,
@@ -49,7 +53,16 @@ from vlp3d_torch.ops.grouping import (
     group_points_grad_plain,
     group_points_plain,
 )
-from vlp3d_torch.ops.interpolate import three_nn_plain
+from vlp3d_torch.ops.interpolate import (
+    TEAM_PLANS,
+    _interpolate_cuda,
+    _three_interpolate_grad_cuda,
+    _three_nn_cuda,
+    interpolate_features_plain,
+    interpolation_weights,
+    three_interpolate_grad_plain,
+    three_nn_plain,
+)
 from vlp3d_torch.ops.sampling import _fps_cuda, _fps_plan, fps_plain
 from vlp3d_torch.serving import STREAM_KEYS
 
@@ -355,6 +368,129 @@ def test_three_nn_kernel_matches_plain(cuda, b, n, m):
     assert torch.allclose(got, want, rtol=0, atol=1e-5)
 
 
+def _nn_check(unknown, known, feats, plans):
+    """three_nn alone and the fused interpolation under every plan against
+    the plain versions: indices equal, dist2 within 1e-6, weights within
+    1e-6, the output within 1e-5."""
+    pd, pi = three_nn_plain(unknown, known)
+    pw = interpolation_weights(pd)
+    pout = interpolate_features_plain(unknown, known, feats)
+    for plan in plans:
+        d, i = _three_nn_cuda(unknown, known, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(i, pi), plan
+        assert torch.allclose(d, pd, rtol=0, atol=1e-6), plan
+        if plan == "serial":
+            continue
+        out, i, w, d = _interpolate_cuda(unknown, known, feats, plan,
+                                         with_dist2=True)
+        torch.cuda.synchronize()
+        assert torch.equal(i, pi), plan
+        assert torch.allclose(d, pd, rtol=0, atol=1e-6), plan
+        assert torch.allclose(w, pw, rtol=0, atol=1e-6), plan
+        assert torch.allclose(out, pout, rtol=0, atol=1e-5), plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,m", NN_SHAPES)
+def test_team_kernel_every_plan_at_the_fp_shapes(cuda, b, n, m):
+    unknown = _scene(b, n, n + 1, cuda)
+    known = unknown[:, ::2][:, :m].contiguous()  # FP2: a subset, d^2 = 0
+    feats = torch.randn(b, m, 256, device=cuda)
+    _nn_check(unknown, known, feats, (None, "serial", *TEAM_PLANS))
+    # a channel slice: rows not 16-byte aligned take the scalar path
+    _nn_check(unknown, known, feats[..., 1:6].contiguous(), (None, (8, 32)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", NN_CASES)
+def test_team_kernel_every_plan_where_trouble_is_likely(cuda, name):
+    unknown, known, feats = (t(a).to(cuda) for a in nn_case(name))
+    _nn_check(unknown, known, feats, (None, "serial", *TEAM_PLANS))
+
+
+def _interp_grad_check(grad, idx, weight, m, plan=None):
+    """The weighted backward under ``plan`` against the plain one, within
+    GRAD_RTOL of the absolute sum meeting in a row, and equal bit for bit
+    to a second launch."""
+    want = three_interpolate_grad_plain(grad, idx, weight, m)
+    scale = three_interpolate_grad_plain(grad.abs(), idx, weight.abs(), m)
+    ops.reset_launches()
+    got = _three_interpolate_grad_cuda(grad, idx, weight, m, plan)
+    again = _three_interpolate_grad_cuda(grad, idx, weight, m, plan)
+    torch.cuda.synchronize()
+    assert ops.launches["three_interpolate_grad"] == 2
+    err = (got - want).abs()
+    assert bool((err <= GRAD_RTOL * scale + 1e-30).all()), err.max().item()
+    assert torch.equal(got, again), plan
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", NN_CASES)
+def test_interpolation_backward_kernel_where_trouble_is_likely(cuda, name):
+    unknown, known, feats = (t(a).to(cuda) for a in nn_case(name))
+    b, n, _ = unknown.shape
+    m, c = feats.shape[1:]
+    d, idx = three_nn_plain(unknown, known)
+    weight = interpolation_weights(d)
+    grad = torch.randn(b, n, c, device=cuda)
+    for plan in (None, (16, 1, 8, 33), (128, 1, 32, 4096),
+                 (1024, 2, 4, 1000), (7, 3, 1, 1)):
+        _interp_grad_check(grad, idx, weight, m, plan)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,m", NN_SHAPES)
+def test_interpolation_backward_at_the_fp_shapes(cuda, b, n, m):
+    unknown = _scene(b, n, n + 2, cuda)
+    known = unknown[:, ::2][:, :m].contiguous()
+    feats = torch.randn(b, m, 256, device=cuda, requires_grad=True)
+    grad = torch.randn(b, n, 256, device=cuda)
+    ops.reset_launches()
+    ops.interpolate_features(unknown, known, feats).backward(grad)
+    torch.cuda.synchronize()
+    assert ops.launches["three_nn"] == 1
+    assert ops.launches["three_interpolate_grad"] == 1
+    assert ops.launches["group_points"] == 0
+    _, idx, weight = _interpolate_cuda(unknown, known, feats.detach())
+    got = _interp_grad_check(grad, idx, weight, m)
+    assert torch.equal(feats.grad, got)
+    for rows in (16, 32, 64, 128):
+        for warps in (8, 32):
+            _interp_grad_check(grad, idx, weight, m, (rows, 2, warps, 4096))
+
+
+@pytest.mark.gpu
+def test_interpolation_without_feature_grad_launches_no_backward(cuda):
+    unknown = _scene(2, 300, 3, cuda).requires_grad_(True)
+    known = unknown.detach()[:, :40].clone().requires_grad_(True)
+    feats = torch.randn(2, 40, 16, device=cuda)
+    w = torch.ones(16, device=cuda, requires_grad=True)
+    ops.reset_launches()
+    (ops.interpolate_features(unknown, known, feats) * w).sum().backward()
+    assert ops.launches["three_nn"] == 1
+    assert ops.launches["three_interpolate_grad"] == 0
+    assert unknown.grad is None and known.grad is None
+    feats.requires_grad_(True)
+    ops.interpolate_features(unknown, known, feats).sum().backward()
+    assert ops.launches["three_interpolate_grad"] == 1
+    assert unknown.grad is None and known.grad is None
+
+
+@pytest.mark.gpu
+def test_three_nn_refused_plan_raises(cuda):
+    unknown = _scene(2, 300, 4, cuda)
+    known = unknown[:, :40].contiguous()
+    feats = torch.randn(2, 40, 16, device=cuda)
+    for plan in ((3, 32), (8, 3), (32, 64)):
+        with pytest.raises(ValueError, match="plan"):
+            _three_nn_cuda(unknown, known, plan)
+        with pytest.raises(ValueError, match="plan"):
+            _interpolate_cuda(unknown, known, feats, plan)
+    _nn_check(unknown, known, feats, (None,))
+
+
 # (b, n, c, m, k) — small odd widths, then the train step's call sites:
 # SA1 raw rows, SA1 folded, SA2, SA3/proposal, a K=1 coordinate gather
 GROUP_SHAPES = [(2, 50, 3, 7, 1), (2, 50, 5, 7, 3), (3, 64, 12, 9, 4),
@@ -507,7 +643,8 @@ def test_kernels_count_launches(cuda):
     ops.three_nn(xyz, xyz[:, :16])
     ops.gather_points(xyz, torch.zeros(2, 4, dtype=torch.int32, device=cuda))
     assert _kernels.launches == {"fps": 1, "ball_query": 2, "three_nn": 1,
-                                 "group_points": 1, "group_points_grad": 0}
+                                 "group_points": 1, "group_points_grad": 0,
+                                 "three_interpolate_grad": 0}
 
 
 @pytest.mark.gpu
@@ -522,7 +659,8 @@ def test_kernel_forward_matches_plain_forward(cuda):
     got = gpu({k: torch.from_numpy(batch[k]).to(cuda) for k in STREAM_KEYS})
     torch.cuda.synchronize()
     assert ops.launches == {"fps": 5, "ball_query": 5, "three_nn": 2,
-                            "group_points": 13, "group_points_grad": 0}
+                            "group_points": 11, "group_points_grad": 0,
+                            "three_interpolate_grad": 0}
     want = cpu({k: torch.from_numpy(batch[k]) for k in STREAM_KEYS})
     for k in ("sa1_inds", "sa2_inds", "aggregated_vote_inds"):
         assert torch.equal(got[k].cpu(), want[k]), k

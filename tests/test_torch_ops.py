@@ -169,7 +169,8 @@ def test_cpu_path_launches_no_kernel_and_other_devices_raise():
     ops.ball_query(0.3, 4, xyz, xyz[:, :8])
     ops.three_nn(xyz, xyz[:, :8])
     assert ops.launches == {"fps": 0, "ball_query": 0, "three_nn": 0,
-                            "group_points": 0, "group_points_grad": 0}
+                            "group_points": 0, "group_points_grad": 0,
+                            "three_interpolate_grad": 0}
     meta = torch.empty(1, 64, 3, device="meta")
     for call in (
         lambda: ops.furthest_point_sample(meta, 8),

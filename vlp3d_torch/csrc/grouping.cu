@@ -69,6 +69,13 @@
 //   source row, say) is taken in several windows; a source row that
 //   spans two keeps its partial sum in the output row, which only the
 //   lane that wrote it reads back, so the order stays the same.
+//   Its weighted instantiation is the backward of the three-NN
+//   interpolation (vlp3d/ops/interpolate.py::three_interpolate, whose
+//   forward csrc/three_nn.cu fuses): the (b, 3n) table of neighbour
+//   indices, entry r standing for gradient row r / 3 times weight[b, r].
+//   The sort and the ordered sum are the same, so no (b, n, 3, c)
+//   weighted gradient is ever written and two launches give the same
+//   bits.
 // group_points_grad_kernel: the first design, as the reference's
 //   group_points_grad kernel does: atomicAdd straight into a zeroed
 //   table, 16-byte vector atomics where the row allows. Its sum is exact
@@ -237,6 +244,15 @@ __device__ __forceinline__ float4 vadd(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
+__device__ __forceinline__ float vmul(float a, float w) {
+  return __fmul_rn(a, w);
+}
+
+__device__ __forceinline__ float4 vmul(float4 a, float w) {
+  return make_float4(__fmul_rn(a.x, w), __fmul_rn(a.y, w), __fmul_rn(a.z, w),
+                     __fmul_rn(a.w, w));
+}
+
 template <typename V>
 __device__ __forceinline__ V vzero();
 template <>
@@ -255,16 +271,28 @@ __device__ __forceinline__ int target_of(int i, int i0, int rows, int n) {
   return (unsigned)i < (unsigned)n && t < (unsigned)rows ? (int)t : -1;
 }
 
+// Entry r of a batch row's index table contributes gradient row r (the
+// gather's backward) or, kWeighted, gradient row r / 3 scaled by
+// weight[b, r] (the three-NN interpolation's backward: three entries an
+// unknown point, one float32 product each, then the same ordered sum).
+template <typename V, bool kWeighted>
+__device__ __forceinline__ V grad_term(const V* gb, const float* wb, int r,
+                                       int units, int u) {
+  if (!kWeighted) return __ldg(gb + (size_t)r * units + u);
+  return vmul(__ldg(gb + (size_t)(r / 3) * units + u), __ldg(wb + r));
+}
+
 // Grid: x = ranges of `rows` source rows, y = batch rows, z = slices of
 // `uslice` channel units (a unit is a V: float4, or float); blockDim.x
 // a multiple of 32. Dynamic shared memory: per warp and source row a
 // count, then a start, and a cursor; per source row its list start
 // (rows + 1); the list window of `cap` gradient row numbers; 32 words of
-// scan scratch.
-template <typename V>
+// scan scratch. weight: null, or kWeighted (b, rows_per_batch) f32.
+template <typename V, bool kWeighted>
 __global__ void __launch_bounds__(kSortMaxThreads)
     group_points_grad_sorted_kernel(const V* __restrict__ grad,
                                     const int* __restrict__ idx,
+                                    const float* __restrict__ weight,
                                     int rows_per_batch, int units, int n,
                                     int rows, int uslice, int lanes, int cap,
                                     V* __restrict__ dpoints) {
@@ -343,7 +371,8 @@ __global__ void __launch_bounds__(kSortMaxThreads)
   __syncthreads();
 
   const int groups = threads / lanes, g = tid / lanes, gl = tid % lanes;
-  const V* gb = grad + (size_t)b * r_all * units;
+  const V* gb = grad + (size_t)b * (kWeighted ? r_all / 3 : r_all) * units;
+  const float* wb = kWeighted ? weight + (size_t)b * r_all : nullptr;
   V* db = dpoints + (size_t)b * n * units;
   // the list in windows of cap entries (one window unless rows pile up)
   for (int ws = 0; ws < max(total, 1); ws += cap) {
@@ -390,14 +419,18 @@ __global__ void __launch_bounds__(kSortMaxThreads)
         V acc = lo > s ? dst[u] : vzero<V>();
         int k = lo;
         for (; k + 4 <= hi; k += 4) {
-          const V g0 = __ldg(gb + (size_t)list[k - ws] * units + u);
-          const V g1 = __ldg(gb + (size_t)list[k + 1 - ws] * units + u);
-          const V g2 = __ldg(gb + (size_t)list[k + 2 - ws] * units + u);
-          const V g3 = __ldg(gb + (size_t)list[k + 3 - ws] * units + u);
+          const V g0 = grad_term<V, kWeighted>(gb, wb, list[k - ws], units, u);
+          const V g1 =
+              grad_term<V, kWeighted>(gb, wb, list[k + 1 - ws], units, u);
+          const V g2 =
+              grad_term<V, kWeighted>(gb, wb, list[k + 2 - ws], units, u);
+          const V g3 =
+              grad_term<V, kWeighted>(gb, wb, list[k + 3 - ws], units, u);
           acc = vadd(vadd(vadd(vadd(acc, g0), g1), g2), g3);
         }
         for (; k < hi; ++k)
-          acc = vadd(acc, __ldg(gb + (size_t)list[k - ws] * units + u));
+          acc = vadd(acc,
+                     grad_term<V, kWeighted>(gb, wb, list[k - ws], units, u));
         dst[u] = acc;
       }
     }
@@ -409,12 +442,16 @@ size_t sorted_smem_bytes(int warps, int rows, int cap) {
   return 4 * ((size_t)2 * warps * rows + rows + 1 + cap + 32);
 }
 
-template <typename V>
-int launch_sorted(const V* grad, const int* idx, int b, int rows_per_batch,
-                  int units, int n, int rows, int uslice, int lanes,
-                  int warps, int cap, V* dpoints, cudaStream_t stream) {
+template <typename V, bool kWeighted>
+int launch_sorted(const V* grad, const int* idx, const float* weight, int b,
+                  int rows_per_batch, int units, int n, int rows, int uslice,
+                  int lanes, int warps, int cap, V* dpoints,
+                  cudaStream_t stream) {
+  if (rows < 1 || rows > 1024 || uslice < 1 || warps < 1 || warps > 32 ||
+      cap < 1)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = sorted_smem_bytes(warps, rows, cap);
-  auto kernel = group_points_grad_sorted_kernel<V>;
+  auto kernel = group_points_grad_sorted_kernel<V, kWeighted>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -424,9 +461,9 @@ int launch_sorted(const V* grad, const int* idx, int b, int rows_per_batch,
     }
   }
   dim3 grid((n + rows - 1) / rows, b, (units + uslice - 1) / uslice);
-  kernel<<<grid, 32 * warps, smem, stream>>>(grad, idx, rows_per_batch,
-                                             units, n, rows, uslice, lanes,
-                                             cap, dpoints);
+  kernel<<<grid, 32 * warps, smem, stream>>>(grad, idx, weight,
+                                             rows_per_batch, units, n, rows,
+                                             uslice, lanes, cap, dpoints);
   return (int)cudaGetLastError();
 }
 
@@ -510,19 +547,38 @@ int vlp3d_group_points_grad_sorted(const void* grad, const void* idx, int b,
                                    int rows_per_batch, int c, int n, int vec,
                                    int rows, int uslice, int warps, int cap,
                                    void* dpoints, void* stream) {
-  if (rows < 1 || rows > 1024 || uslice < 1 || warps < 1 || warps > 32 ||
-      cap < 1)
-    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int units = vec ? c / 4 : c;
   const int lanes = lanes_for(std::min(units, uslice));
   if (vec)
-    return launch_sorted<float4>((const float4*)grad, (const int*)idx, b,
-                                 rows_per_batch, units, n, rows, uslice,
-                                 lanes, warps, cap, (float4*)dpoints, s);
-  return launch_sorted<float>((const float*)grad, (const int*)idx, b,
-                              rows_per_batch, units, n, rows, uslice, lanes,
-                              warps, cap, (float*)dpoints, s);
+    return launch_sorted<float4, false>(
+        (const float4*)grad, (const int*)idx, nullptr, b, rows_per_batch,
+        units, n, rows, uslice, lanes, warps, cap, (float4*)dpoints, s);
+  return launch_sorted<float, false>(
+      (const float*)grad, (const int*)idx, nullptr, b, rows_per_batch, units,
+      n, rows, uslice, lanes, warps, cap, (float*)dpoints, s);
+}
+
+// The backward of the three-NN interpolation, through the same kernel:
+// dfeats[b, j, :] = sum over (i, k) with idx[b, i, k] == j, in ascending
+// 3 i + k, of weight[b, i, k] * grad[b, i, :]. grad: (b, n, c) f32
+// contiguous; idx, weight: (b, n, 3) i32 / f32 contiguous; dfeats:
+// (b, m, c) f32, every row written. Plan arguments as above.
+int vlp3d_three_interpolate_grad(const void* grad, const void* idx,
+                                 const void* weight, int b, int n, int c,
+                                 int m, int vec, int rows, int uslice,
+                                 int warps, int cap, void* dfeats,
+                                 void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int units = vec ? c / 4 : c;
+  const int lanes = lanes_for(std::min(units, uslice));
+  if (vec)
+    return launch_sorted<float4, true>(
+        (const float4*)grad, (const int*)idx, (const float*)weight, b, 3 * n,
+        units, m, rows, uslice, lanes, warps, cap, (float4*)dfeats, s);
+  return launch_sorted<float, true>(
+      (const float*)grad, (const int*)idx, (const float*)weight, b, 3 * n,
+      units, m, rows, uslice, lanes, warps, cap, (float*)dfeats, s);
 }
 
 }  // extern "C"

@@ -12,7 +12,8 @@ entry point returns ``cudaGetLastError()`` after its launch, which
 :func:`check` turns into an exception.
 
 ``launches`` counts the launches of each kernel (a source may hold more
-than one: ``grouping.cu`` has the gather and its scatter-add backward),
+than one: ``grouping.cu`` has the gather, its scatter-add backward and the
+three-NN interpolation's backward),
 so a run can show that its main path went through the kernels.
 
 A wrapper's host time is part of every call (a train step makes
@@ -43,7 +44,7 @@ BUILD_DIR = Path(os.environ.get(
 SOURCES = ("fps", "ball_query", "three_nn", "grouping")
 # kernels with a launch counter; each wrapper adds one where it launches
 KERNELS = ("fps", "ball_query", "three_nn", "group_points",
-           "group_points_grad")
+           "group_points_grad", "three_interpolate_grad")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # index parity: no FMA contraction of d2 (the sources also spell
@@ -67,6 +68,8 @@ SIGNATURES = {
     },
     "three_nn": {
         "vlp3d_three_nn": [_P, _P, _I, _I, _I, _P, _P, _P],
+        "vlp3d_three_nn_team": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                                _P, _P, _P, _P],
     },
     "grouping": {
         "vlp3d_group_points": [_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _I, _P,
@@ -74,6 +77,8 @@ SIGNATURES = {
         "vlp3d_group_points_grad": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
         "vlp3d_group_points_grad_sorted": [_P, _P, _I, _I, _I, _I, _I, _I,
                                            _I, _I, _I, _P, _P],
+        "vlp3d_three_interpolate_grad": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                         _I, _I, _I, _P, _P],
     },
 }
 

@@ -56,6 +56,7 @@ def main() -> int:
     learn = feats.clone().requires_grad_(True)
     tiny = xyz[:1, :64].contiguous()
     ctr = tiny[:, :8].contiguous()
+    ctr_feats = torch.randn(1, 8, 256, generator=g).to(dev)
     table = xyz.reshape(-1, 3)
     flat = (idx.long() + torch.arange(8, device=dev)[:, None] * 512).reshape(-1)
     cases = {
@@ -69,6 +70,8 @@ def main() -> int:
             lambda: ops.furthest_point_sample(tiny, 2),
         "ball_query (1, 64, 3) x 8": lambda: ops.ball_query(0.3, 4, tiny, ctr),
         "three_nn (1, 64, 3) x 8": lambda: ops.three_nn(tiny, ctr),
+        "interpolate_features (1, 64, 3) x 8, C=256":
+            lambda: ops.interpolate_features(tiny, ctr, ctr_feats),
     }
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
