@@ -32,7 +32,12 @@ nothing of the vlp3d package. Phases, each fatal on failure:
    on known points, m = 3, m below the lanes, ragged n and m, squared
    distances that overflow, C = 3 / 5 / 13 / 256, B = 1 / 3 / 9) through
    every plan, B = 1 / 3 / 9 at the FP2 shape, and refused plans; host us
-   of interpolate_features beside the replaced route. Ball query
+   of interpolate_features beside the replaced route. The row gather on
+   out-of-range indices (-1, -N, N, -N - 1, the int32 extremes): both
+   forward kernels, with and without a subtrahend, at the C = 135 and
+   C = 3 (strided) cloud and the C = 256 SA2 features, equal to the
+   plain version, NaN rows included (the JAX package's rule: [-N, 0)
+   wraps, any other index outside [0, N) gives NaN). Ball query
    besides: at every site the warp-a-centre kernel it replaced and every swept plan of the tile
    kernel (threads x blocks a cluster x tile points, times as
    sweep_ms), with and without counts, points_scanned and
@@ -87,7 +92,10 @@ nothing of the vlp3d package. Phases, each fatal on failure:
    and C = 135 rows with K = 64, with times for kernel, the atomic kernel
    with its zeroed table, plain version, library call and, where a
    subtrahend is fused, the two-op form; host us a call at a K = 1 site
-   beside index_select's. Then,
+   beside index_select's; the backward on out-of-range indices at the
+   SA2 shape, sorted and atomic kernel against the plain backward
+   (only indices in [0, N) pass a gradient; -1 alone leaves the table
+   zero). Then,
    with every count at 0, train steps on that batch: one at epoch 60
    (OCC/OSC positive, the reference weight switched), 8 at epoch 0, one
    more at epoch 60; the counts of one
@@ -98,9 +106,29 @@ nothing of the vlp3d package. Phases, each fatal on failure:
    relative, gradients within 1e-4 of their largest entry); step ms,
    peak memory and a torch.profiler trace of one step by kernel name
    (memsets and fill kernels counted);
-7. print {"kernels": [...]} with every kernel of both paths (the CUDA
-   functions behind each in kernel_functions, host_us beside the times),
-   the card's name and power limit, and last {"ok": true, "device": {...}}.
+7. the ScanRefer predict / evaluate path at run.sh's widths
+   (--use_multiview --use_normal: 3 + 132 channels; batch 8, 8
+   sentences, 40000 points; the use_con model as trained, seeded
+   weights): the native loader library must build (no numpy path here);
+   the stand-in assets (vlp3d_torch.data.standins) in a temporary
+   directory, the model saved there with save_params, and `python -m
+   vlp3d_torch.cli.predict` over them started in a process of its own
+   (pred.json must parse and hold one record an annotation), which runs
+   while this process goes on: make_synthetic_dataset (8 scenes of 50000
+   points, 8 annotations each)
+   through BatchIterator (4 worker threads) and cli.predict's
+   predict_records on the card, with every count at 0 before and the
+   counts of one batch after (FPS 5, ball query 5, gather 11, three-NN 2,
+   fatal otherwise), one record an annotation; loader ms a batch (host
+   clock) and predict ms a batch (wall clock to the records on the
+   host); get_eval and final_eval_breakdown over the batch (Acc@0.25 /
+   0.5 of random weights); the same batch with the plain ops on the
+   card (chosen proposals equal, box corners within 1e-4); and
+   cli.ground_eval over the stand-ins;
+8. print {"kernels": [...]} with every kernel of the three paths (the
+   CUDA functions behind each in kernel_functions, host_us beside the
+   times, the launches of each path), the card's name and power limit,
+   and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -108,6 +136,7 @@ from __future__ import annotations
 import contextlib
 import importlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -137,10 +166,27 @@ PER_FORWARD = {"fps": 5, "ball_query": 5, "three_nn": 2, "group_points": 11,
                "group_points_grad": 0, "three_interpolate_grad": 0}
 PER_STEP = dict(PER_FORWARD, group_points_grad=5, three_interpolate_grad=2)
 WEIGHT_TOL = 1e-6  # interpolation weights, kernel against plain
+REPO = os.path.dirname(os.path.abspath(__file__))
+# the predict phase: run.sh's flags, synthetic scenes through the loader
+RUN_SH_FLAGS = ["--use_multiview", "--use_normal", "--batch_size", "8",
+                "--lang_num_max", "8", "--num_points", "40000",
+                "--no_caption", "--use_con", "--num_workers", "4"]
+PREDICT_SCENES, PREDICT_POINTS, PREDICT_ANNS = 8, 50000, 8
+# (input channels, SA points, proposals, BERT layers, points, sentences)
+PREDICT_WIDTHS = (132, (2048, 1024, 512, 256), 256, 6, 40000, 8)
+BOX_TOL = 1e-4  # predicted box corners, kernel against plain ops
+
+
+_T0 = time.perf_counter()
 
 
 def fail(msg: str):
     raise RuntimeError(msg)
+
+
+def stamp(tag: str, what: str) -> None:
+    """Where the run's wall time goes: a line at the end of each step."""
+    print(f"[{tag}] {what} done at {time.perf_counter() - _T0:.1f} s")
 
 
 def smi_line() -> str:
@@ -751,6 +797,7 @@ def check_kernels(torch, config, out):
             torch, site, unknown.contiguous(), known.contiguous(),
             feats.contiguous()))
 
+    stamp("4", "main-path sites")
     # edge cases: zero-padded points and an all-zero row, empty balls,
     # and the ball query where a row split into segments may go wrong
     xyz = out["point_clouds_xyz"].clone()
@@ -773,8 +820,12 @@ def check_kernels(torch, config, out):
     print("[4] edge cases equal to plain: zero-padded rows, an all-zero row, "
           "empty balls")
     check_fps_edges(torch, out["point_clouds_xyz"])
+    stamp("4", "fps edge cases")
     check_ball_query_edges(torch, out["point_clouds_xyz"])
+    stamp("4", "ball query edge cases")
     check_three_nn_edges(torch, out["sa2_xyz"])
+    check_gather_bounds(torch, out)
+    stamp("4", "three-NN edge cases and gather bounds")
 
     # host time of one wrapper call, on arguments small enough that the
     # device keeps up with the host
@@ -798,6 +849,54 @@ def check_kernels(torch, config, out):
                 r["route_host_us"] = us["the replaced route"]
             print(f"[4] {name} {json.dumps(r)}")
     return rows
+
+
+def bound_indices(torch, b, n, r, device, seed):
+    """(b, r) int32 indices into a table of n rows: random rows in range,
+    and in every batch row each out-of-range kind (-1, -n, n, -n - 1,
+    the int32 extremes, -2, n + 7) at every other slot of the first 16."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    idx = torch.randint(0, n, (b, r), generator=g, dtype=torch.int32)
+    kinds = torch.tensor([-1, -n, n, -n - 1, 2 ** 31 - 1, -2 ** 31, -2,
+                          n + 7], dtype=torch.int32)
+    idx[:, 1:2 * len(kinds):2] = kinds
+    return idx.to(device)
+
+
+def check_gather_bounds(torch, out):
+    """Phase 4, the row gather on out-of-range indices (JAX gather_points'
+    rule within each batch row: an index in [-N, 0) reads row index + N,
+    any other index outside [0, N) gives a NaN row, also after a
+    subtrahend): both
+    forward kernels, with and without a subtrahend, on tables of the
+    main path, against the plain version; fatal unless equal, NaN for
+    NaN."""
+    grp = importlib.import_module("vlp3d_torch.ops.grouping")
+    tables = (("cloud C=135 (stream kernel)", out["point_clouds"]),
+              ("cloud xyz C=3 of 135 (stream kernel, strided)",
+               out["point_clouds_xyz"]),
+              ("sa2 features C=256 (vec kernel)", out["sa2_features"]))
+    done = []
+    for i, (label, table) in enumerate(tables):
+        b, n, c = table.shape
+        idx = bound_indices(torch, b, n, 512 * 16, table.device, i).view(
+            b, 512, 16)
+        sub = torch.randn(b, 512, c, device=table.device)
+        for s in (None, sub):
+            got = grp._group_points_cuda(table, idx, s)
+            want = grp.group_points_plain(table, idx, s)
+            torch.cuda.synchronize()
+            nan = torch.isnan(want)
+            if not (torch.equal(torch.isnan(got), nan) and torch.equal(
+                    torch.nan_to_num(got), torch.nan_to_num(want))):
+                fail(f"group_points {label}: on out-of-range indices the "
+                     "kernel differs from the plain version")
+            if not nan.any():
+                fail(f"group_points {label}: no NaN row for an index past "
+                     "the table")
+        done.append(label)
+    print(f"[4] row gather on out-of-range indices equal to plain (NaN rows "
+          f"included), with and without a subtrahend: {done}")
 
 
 def profile_call(torch, fn, tag: str, what: str, top: int = 15):
@@ -851,10 +950,10 @@ def profile_call(torch, fn, tag: str, what: str, top: int = 15):
               f"{r['op']}")
 
 
-def kernel_line(rows, serving, train):
+def kernel_line(rows, serving, train, predict):
     """The {"kernels": [...]} line. ``rows`` holds the per-call-site checks
-    of each kernel; ``serving`` / ``train`` the launch counts of the two
-    main-path runs."""
+    of each kernel; ``serving`` / ``train`` / ``predict`` the launch counts
+    of the three main-path runs."""
     sources = {
         "fps": ("vlp3d_torch/csrc/fps.cu", "vlp3d/ops/sampling.py:60"),
         "ball_query": ("vlp3d_torch/csrc/ball_query.cu",
@@ -895,9 +994,10 @@ def kernel_line(rows, serving, train):
             "route": "cuda",
             "source": sources[name][0],
             "replaces": sources[name][1],
-            "launches": serving[name] + train[name],
+            "launches": serving[name] + train[name] + predict[name],
             "launches_serving": serving[name],
             "launches_train": train[name],
+            "launches_predict": predict[name],
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": sum(r["ms"] for r in rs),
             "plain_ms": sum(r["plain_ms"] for r in rs),
@@ -1275,6 +1375,7 @@ def check_grouping(torch, model, config, batch):
         r["host_us"] = us["three_interpolate_grad"]
     del interp_sites, g3, ix3, w3
     sa2 = dict(sites[3])
+    check_gather_grad_bounds(torch, sa2)
     sa1_idx = sites[1]["idx"]
     del sites
 
@@ -1313,6 +1414,41 @@ def check_grouping(torch, model, config, batch):
         del st, pts
     torch.cuda.synchronize()
     return rows
+
+
+def check_gather_grad_bounds(torch, site):
+    """Phase 6, the gather's backward on out-of-range indices: only
+    indices in [0, N) pass a gradient (a negative index is dropped, not
+    wrapped). The sorted kernel (with its plan, at a train step's SA2
+    shape) and the atomic kernel against the plain backward, within
+    GRAD_RTOL of the absolute sum meeting in a row; a gradient through
+    -1 alone must leave the table zero."""
+    grp = importlib.import_module("vlp3d_torch.ops.grouping")
+    b, n, c = site["points"].shape
+    grad = site["grad"].reshape(b, -1, c).contiguous()
+    idx = bound_indices(torch, b, n, grad.shape[1], grad.device, 7)
+    want = grp.group_points_grad_plain(grad, idx, n)
+    scale = grp.group_points_grad_plain(grad.abs(), idx, n)
+    plans = []
+    for plan in (None, "atomic"):
+        got = grp._group_points_grad_cuda(grad, idx, n, plan)
+        only = grp._group_points_grad_cuda(
+            torch.ones(b, 1, c, device=grad.device),
+            torch.full((b, 1), -1, dtype=torch.int32, device=grad.device),
+            n, plan)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        if not bool((diff <= grp.GRAD_RTOL * scale + 1e-30).all()):
+            fail(f"group_points_grad (plan {plan}): on out-of-range indices "
+                 f"the kernel differs from the plain backward by "
+                 f"{diff.max().item()}")
+        if only.any():
+            fail(f"group_points_grad (plan {plan}): index -1 passed a "
+                 "gradient")
+        plans.append(plan or list(grp._grad_plan(b, n, c, grad.shape[1])))
+    print(f"[6] gather backward on out-of-range indices equal to plain at "
+          f"{[b, n, c, grad.shape[1]]} under plans {plans}; -1 passes no "
+          "gradient")
 
 
 def loss_and_grads(torch, model, config, batch, names, seed):
@@ -1412,6 +1548,7 @@ def drive_train(torch, batch_size, num_points, smi):
     # kernels at the step's call sites
     torch.cuda.reset_peak_memory_stats()
     rows = check_grouping(torch, model, config, batch)
+    stamp("6", "gather and interpolation-backward checks")
 
     # the same forward + backward with the plain ops on the card
     probe = ["backbone_net.sa2.mlp_module.layer0.conv.weight",
@@ -1441,6 +1578,7 @@ def drive_train(torch, batch_size, num_points, smi):
     if loss_rel > STEP_LOSS_RTOL or worst > STEP_GRAD_TOL:
         fail("the kernel step differs from the plain-op step")
     del grads_k, grads_p
+    stamp("6", "kernel against plain-op step")
 
     # the main path: train steps, with every count at 0 before
     gen = torch.Generator(device=device)
@@ -1499,10 +1637,203 @@ def drive_train(torch, batch_size, num_points, smi):
           f"{times[0] * 1e3:.3f} ms, median of the next {steps - 1} "
           f"{steady:.3f} ms, {batch_size / steady * 1e3:.3f} scenes/s; peak "
           f"memory {peak / 2**30:.3f} GiB; learning rates {lrs} ({smi})")
+    stamp("6", "train steps")
     step_phases(torch, model, config, optimizer, batch, gen)
     profile_call(torch, lambda: train_step(batch, gen), "6", "train step",
                  top=25)
+    stamp("6", "train path")
     return rows, launches
+
+
+def _predict_path(torch, smi, model, ds, device, args, config):
+    """Phase 7's main path: the loader's time alone, then the loader
+    threads + predict_records with the counts at 0, predict alone on the
+    loader's batches, and get_eval; returns the launch counts and the
+    loader's first batch."""
+    import numpy as np
+
+    from vlp3d_torch import ops
+    from vlp3d_torch.cli.ground_eval import evaluate
+    from vlp3d_torch.cli.predict import predict_records
+    from vlp3d_torch.data.dataset import BatchIterator
+
+    cfg, bs = config.model, args.batch_size
+
+    def loader():
+        return BatchIterator(ds, bs, drop_last=False,
+                             num_workers=args.num_workers)
+
+    t0 = time.perf_counter()
+    batches = list(loader())
+    loader_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    pc = batches[0]["point_clouds"]
+    if pc.shape != (bs, config.dataset.num_points,
+                    3 + cfg.input_feature_dim) or pc.dtype != np.float32:
+        fail(f"loader batch point_clouds {pc.shape} {pc.dtype}")
+
+    # the main path, counts at 0: loader threads + predict_records
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    records = predict_records(model, loader(), device)
+    path_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(ops.launches)
+    want = {k: v * len(batches) for k, v in PER_FORWARD.items()}
+    print(f"[7] launches of the predict path over {len(batches)} batch(es): "
+          f"{launches}")
+    if launches != want:
+        fail(f"predict launch counts {launches} != {want}")
+    n_anns = PREDICT_SCENES * PREDICT_ANNS
+    if len(records) != n_anns:
+        fail(f"{len(records)} records for {n_anns} annotations")
+    for r in records:
+        if np.asarray(r["bbox"]).shape != (8, 3) or not np.isfinite(
+                r["bbox"]).all():
+            fail(f"bad record {r}")
+    # predict alone on the loader's batch: wall clock to records on the
+    # host, cold (first) and steady (median of 5)
+    times = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        again = predict_records(model, batches, device)
+        times.append((time.perf_counter() - t0) * 1e3 / len(batches))
+    meta = [{k: v for k, v in r.items() if k != "bbox"} for r in records]
+    if [{k: v for k, v in r.items() if k != "bbox"} for r in again] != meta \
+            or max(np.abs(np.subtract(a["bbox"], r["bbox"])).max()
+                   for a, r in zip(again, records)) > BOX_TOL:
+        fail("predict records differ between two runs")
+    result = evaluate(model, batches, device, config.dataset.mean_size_arr())
+    print(f"[7] {len(records)} records; loader {loader_ms:.3f} ms a batch "
+          f"(host clock, {args.num_workers} worker threads); predict "
+          f"{times[0]:.3f} ms a batch first, median {np.median(times[1:]):.3f}"
+          f" ms of {len(times) - 1}; loader + predict path {path_ms:.3f} ms; "
+          f"Acc@0.25 {result['overall_acc@0.25']} Acc@0.5 "
+          f"{result['overall_acc@0.5']} lang_acc {result['lang_acc']} "
+          f"(random weights; {smi})")
+
+    stamp("7", "predict path")
+    return launches, batches[0]
+
+
+def drive_predict(torch, smi):
+    """Phase 7: the ScanRefer predict / evaluate path at run.sh's widths;
+    returns its launch counts."""
+    import numpy as np
+
+    import argparse
+
+    import tempfile
+
+    from vlp3d_torch import native
+    from vlp3d_torch.cli import ground_eval
+    from vlp3d_torch.cli.common import add_common_args, config_from_args
+    from vlp3d_torch.cli.predict import predict_batch
+    from vlp3d_torch.data.standins import write_standin_assets
+    from vlp3d_torch.data.synthetic import make_synthetic_dataset
+    from vlp3d_torch.geometry.boxes import get_3d_box_batch
+    from vlp3d_torch.models import JointNet
+    from vlp3d_torch.train.checkpoint import save_params
+
+    # the native loader must build: no quiet numpy path on the card
+    t0 = time.perf_counter()
+    lib = native.build()
+    if not native.native_available():
+        fail("the native loader library did not load")
+    print(f"[7] native loader {lib.name} ready in "
+          f"{time.perf_counter() - t0:.1f} s")
+    parser = argparse.ArgumentParser()
+    add_common_args(parser)
+    argv = list(RUN_SH_FLAGS)
+    args = parser.parse_args(argv)
+    config = config_from_args(args)
+    cfg = config.model
+    widths = (cfg.input_feature_dim, tuple(cfg.sa_npoints), cfg.num_proposal,
+              cfg.fusion_layer, config.dataset.num_points, cfg.lang_num_max)
+    if widths != PREDICT_WIDTHS:
+        fail(f"predict config is not run.sh's: {widths}")
+    t0 = time.perf_counter()
+    model = JointNet(config)
+    model.requires_grad_(False)
+    device = next(model.parameters()).device
+    print(f"[7] use_con model built in {time.perf_counter() - t0:.1f} s "
+          f"({argv})")
+
+    # the predict CLI over stand-in assets, with this model's weights saved
+    # by save_params, runs in a process of its own from here to the end of
+    # the phase; its start-up (imports, CUDA context, model) overlaps the
+    # synthetic data and the timed loader and predict runs below
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_standin_assets(tmp)
+        run_dir = os.path.join(tmp, "run")
+        save_params(run_dir, "model", model.state_dict())
+        assets = ["--scanrefer_dir", paths["scanrefer_dir"],
+                  "--scannet_data", paths["scannet_data"], "--bert_vocab",
+                  os.path.join(paths["bert_dir"], "vocab.txt"),
+                  "--model_dir", run_dir]
+        pred_path = os.path.join(tmp, "pred.json")
+        t_cli = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "vlp3d_torch.cli.predict", *argv, *assets,
+             "--out", pred_path], cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        try:
+            t0 = time.perf_counter()
+            ds = make_synthetic_dataset(config, n_scenes=PREDICT_SCENES,
+                                        n_points=PREDICT_POINTS,
+                                        anns_per_scene=PREDICT_ANNS,
+                                        split="val")
+            print(f"[7] {PREDICT_SCENES} synthetic scenes of "
+                  f"{PREDICT_POINTS} points built in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            launches, batch = _predict_path(torch, smi, model, ds, device,
+                                            args, config)
+            # the same batch with the plain ops on the card, then
+            # ground_eval in this process (neither is timed)
+            got = predict_batch(model, batch, device)
+            with plain_ops():
+                ref = predict_batch(model, batch, device)
+            del model
+            boxes = [get_3d_box_batch(r["pred_size"], r["pred_heading"],
+                                      r["pred_center"]) for r in (got, ref)]
+            box_err = float(np.abs(boxes[0] - boxes[1]).max())
+            if not np.array_equal(got["chosen"], ref["chosen"]):
+                fail("predict: chosen proposals differ from the plain-op "
+                     "forward")
+            if box_err > BOX_TOL:
+                fail(f"predict: boxes differ from the plain-op forward by "
+                     f"{box_err}")
+            print(f"[7] plain-op predict on the card: chosen proposals "
+                  f"equal, boxes max abs err {box_err} (tolerance {BOX_TOL})")
+            # ground_eval drops a partial batch: batch 1 for 3 annotations
+            res = ground_eval.main(argv + assets + ["--batch_size", "1"])
+            cli_out, _ = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        cli_s = time.perf_counter() - t_cli
+        if proc.returncode != 0:
+            fail(f"python -m vlp3d_torch.cli.predict exited "
+                 f"{proc.returncode}:\n{cli_out[-3000:]}")
+        with open(pred_path) as f:
+            preds = json.load(f)
+        with open(os.path.join(paths["scanrefer_dir"],
+                               "ScanRefer_filtered_val.json")) as f:
+            anns = json.load(f)
+    keys = sorted((r["scene_id"], r["object_id"], r["ann_id"]) for r in preds)
+    if keys != sorted((a["scene_id"], int(a["object_id"]), int(a["ann_id"]))
+                      for a in anns):
+        fail(f"pred.json over the stand-ins: {keys} for {len(anns)} "
+             "annotations")
+    if res["overall_count"] != len(anns):
+        fail(f"ground_eval counted {res['overall_count']} of {len(anns)}")
+    print(f"[7] CLIs over stand-in assets ({cli_s:.1f} s from the predict "
+          f"CLI's start): pred.json parses with {len(preds)} records, one an "
+          f"annotation ({cli_out.strip().splitlines()[-1]}); ground_eval "
+          f"Acc@0.25 {res['overall_acc@0.25']} Acc@0.5 "
+          f"{res['overall_acc@0.5']} over {res['overall_count']}")
+    stamp("7", "CLIs")
+    return launches
 
 
 def drive(torch, config, batch_size, num_points, smi):
@@ -1526,10 +1857,13 @@ def drive(torch, config, batch_size, num_points, smi):
         warm = pred.model(dev0)
     torch.cuda.synchronize()
     warm["point_clouds_xyz"] = dev0["point_clouds"][..., :3]
+    warm["point_clouds"] = dev0["point_clouds"]
 
     # 4. kernels against their plain versions
+    stamp("3", "model and warm-up forward")
     rows = check_kernels(torch, config, warm)
     del warm
+    stamp("4", "kernel checks")
 
     # 5. the main path: three requests, launch counts, plain-op forward
     torch.cuda.reset_peak_memory_stats()
@@ -1588,6 +1922,7 @@ def drive(torch, config, batch_size, num_points, smi):
     print(f"[5] plain-op forward on the card: {plain_s * 1e3:.3f} ms; "
           f"pred_ref equal, cluster_ref max abs err {err}")
     profile_call(torch, lambda: pred([scenes[0]]), "5", "request")
+    stamp("5", "serving path")
     return rows, launches
 
 
@@ -1629,6 +1964,7 @@ def main() -> int:
     ptxas = _kernels.build(force=True)
     build_s = time.perf_counter() - t0
     print(f"[2] built {len(ptxas)} kernel libraries in {build_s:.1f} s")
+    stamp("2", "build")
     for name, log in ptxas.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1642,13 +1978,17 @@ def main() -> int:
     # 6. the joint train step at the same width
     train_rows, train = drive_train(torch, B, N, smi)
     rows.update(train_rows)
+    torch.cuda.empty_cache()
+
+    # 7. the predict / evaluate path through the data loader and the CLIs
+    predict = drive_predict(torch, smi)
     for name in rows:
-        if train[name] == 0 or (serving[name] == 0
-                                and PER_FORWARD[name] > 0):
+        if train[name] == 0 or (PER_FORWARD[name] > 0 and (
+                serving[name] == 0 or predict[name] == 0)):
             fail(f"kernel {name} was not launched on a main path")
 
-    # 7. results
-    line = kernel_line(rows, serving, train)
+    # 8. results
+    line = kernel_line(rows, serving, train, predict)
     print(json.dumps(line))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -594,6 +594,8 @@ def test_group_points_grad_kernel_matches_plain(cuda, b, n, c, m, k):
 
 @pytest.mark.gpu
 def test_group_points_never_follows_an_index_out_of_range(cuda):
+    """An index past the table gives a NaN row and no gradient; -1 reads
+    the last row (the JAX package's rule) and passes no gradient back."""
     points, idx = _group_inputs(2, 50, 8, 7, 3, cuda)
     bad = idx.clone()
     bad[0, 0, 0], bad[1, 2, 1] = 50, -1
@@ -601,7 +603,8 @@ def test_group_points_never_follows_an_index_out_of_range(cuda):
     out = ops.group_points(points, bad)
     out.backward(torch.ones_like(out))
     torch.cuda.synchronize()
-    assert not out[0, 0, 0].any() and not out[1, 2, 1].any()
+    assert torch.isnan(out[0, 0, 0]).all()
+    assert torch.equal(out[1, 2, 1], points.detach()[1, 49])
     keep = torch.ones(2, 7, 3, dtype=torch.bool, device=cuda)
     keep[0, 0, 0] = keep[1, 2, 1] = False
     good = torch.where(keep, bad, torch.zeros_like(bad))
@@ -610,17 +613,65 @@ def test_group_points_never_follows_an_index_out_of_range(cuda):
         keep[..., None].float().expand(2, 7, 3, 8).reshape(2, 21, 8),
         good.reshape(2, 21), 50)
     assert torch.allclose(points.grad, want)
-    # odd widths take the other kernel; with a subtrahend the source row
-    # counts as zeros
+    # odd widths take the other kernel; with a subtrahend the NaN row
+    # stays NaN and the wrapped row has the centre subtracted
     odd = points.detach()[..., :5]
     sub = torch.randn(2, 7, 5, device=cuda)
     out = ops.group_points(odd, bad)
-    assert not out[0, 0, 0].any() and not out[1, 2, 1].any()
+    assert torch.isnan(out[0, 0, 0]).all()
+    assert torch.equal(out[1, 2, 1], odd[1, 49])
     assert torch.equal(out[keep], ops.group_points(odd, good)[keep])
     out = ops.group_points(odd, bad, sub)
-    assert torch.equal(out[0, 0, 0], -sub[0, 0])
-    assert torch.equal(out[1, 2, 1], -sub[1, 2])
+    assert torch.isnan(out[0, 0, 0]).all()
+    assert torch.equal(out[1, 2, 1], odd[1, 49] - sub[1, 2])
     assert torch.equal(out[keep], ops.group_points(odd, good, sub)[keep])
+
+
+def _bound_indices(b, n, r, device):
+    """(b, r) i32 indices with every kind in each row: in range, -1, -n,
+    n, -n - 1, far out on both sides."""
+    g = torch.Generator(device="cpu").manual_seed(n + r)
+    idx = torch.randint(0, n, (b, r), generator=g, dtype=torch.int32)
+    kinds = torch.tensor([-1, -n, n, -n - 1, 2 ** 31 - 1, -2 ** 31, -2,
+                          n + 7], dtype=torch.int32)
+    idx[:, 1:2 * len(kinds):2] = kinds
+    return idx.to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,c,m,k", [(2, 50, 8, 7, 3), (2, 300, 64, 33, 5),
+                                       (1, 77, 135, 5, 4), (3, 40, 3, 16, 2),
+                                       (2, 20000, 16, 64, 4)])
+def test_out_of_range_indices_follow_the_plain_path(cuda, b, n, c, m, k):
+    """Both forward kernels, with and without a subtrahend, equal the
+    plain path on every kind of index (NaN rows included); the sorted
+    and the atomic backward drop what the plain backward drops."""
+    points = torch.randn(b, n, c, device=cuda)
+    idx = _bound_indices(b, n, m * k, cuda).view(b, m, k)
+    sub = torch.randn(b, m, c, device=cuda)
+    for s in (None, sub):
+        got = ops.group_points(points, idx, s)
+        want = group_points_plain(points, idx, s)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    assert torch.isnan(group_points_plain(points, idx)).any()
+    flat = idx.view(b, m * k)
+    grad = torch.randn(b, m * k, c, device=cuda)
+    want = group_points_grad_plain(grad, flat, n)
+    scale = group_points_grad_plain(grad.abs(), flat, n)
+    for plan in (None, "atomic"):
+        got = _group_points_grad_cuda(grad, flat, n, plan)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        assert bool((err <= GRAD_RTOL * scale + 1e-30).all()), plan
+    # a negative index is dropped, not wrapped: a gradient through -1
+    # alone leaves the last row at zero
+    only = torch.full((b, 1), -1, dtype=torch.int32, device=cuda)
+    for plan in (None, "atomic"):
+        got = _group_points_grad_cuda(torch.ones(b, 1, c, device=cuda),
+                                      only, n, plan)
+        assert not got.any(), plan
 
 
 @pytest.mark.gpu

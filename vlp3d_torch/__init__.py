@@ -9,7 +9,11 @@ train step: train-mode BatchNorm and dropout, the gather's scatter-add
 backward kernel, the contrast head, the detection / grounding / joint
 losses, AdamW with its learning-rate groups, and
 :func:`~vlp3d_torch.train.state.make_train_step` /
-:func:`~vlp3d_torch.train.state.make_eval_step`. Activations are channels-last (B, N, C), as in the
+:func:`~vlp3d_torch.train.state.make_eval_step`. Slice 6 adds the
+ScanRefer data path (:mod:`vlp3d_torch.data`, :mod:`vlp3d_torch.native`),
+checkpoints (:mod:`vlp3d_torch.train.checkpoint`), the grounding
+evaluation (:mod:`vlp3d_torch.eval`) and the ``predict`` / ``ground_eval``
+CLIs (:mod:`vlp3d_torch.cli`). Activations are channels-last (B, N, C), as in the
 JAX package; weights load from the reference-layout state dict
 (:func:`vlp3d_torch.convert.jax_to_torch_state_dict`).
 """

@@ -1,0 +1,353 @@
+"""Shared CLI plumbing: the flag surface, the config, ScanRefer loading
+and the val dataset.
+
+The port's own copy of ``vlp3d/cli/common.py``: the same flags (plus
+``--device``), the same config arithmetic, the same val dataset. Flags
+of model options the port lacks raise NotImplementedError in
+:func:`config_from_args` (:func:`vlp3d_torch.config.check_supported`
+names the ROADMAP item of each), and the run-time flags it lacks
+(:data:`UNPORTED_RUN_FLAGS`) in :func:`resolve_config`. The train
+split's dataset and the solver's resume (``resume_solver``) come with
+the training CLI, ROADMAP.md queue A item A14 part 2.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+
+from vlp3d_torch.config import (
+    Config,
+    DatasetConfig,
+    LossConfig,
+    ModelConfig,
+    TrainConfig,
+    check_supported,
+)
+from vlp3d_torch.data.dataset import (
+    DirectorySceneSource,
+    ScanReferJointDataset,
+    build_nyu40id2class,
+    load_raw2label,
+)
+from vlp3d_torch.data.synthetic import make_synthetic_dataset, tiny_config
+from vlp3d_torch.data.tokenizer import load_tokenizer
+
+
+# run-time flag -> (its default, the ROADMAP.md item that ports it); any
+# other value raises in resolve_config
+UNPORTED_RUN_FLAGS = {
+    "tp": (1, "queue A item A19 (the other parallel modes)"),
+    "zero1": (False, "queue A item A19 (the other parallel modes)"),
+    "grad_accum": (1, "queue A item A14 part 2 (the training CLI)"),
+    "no_donate": (False, "queue A item A14 part 2 (the training CLI)"),
+    "use_wandb": (False, "queue A item A14 part 2 (the training CLI)"),
+    "profile_dir": ("", "queue A item A14 part 2 (the training CLI)"),
+}
+
+
+def add_common_args(p: argparse.ArgumentParser):
+    # mirrors the reference's flag surface (train_3dvlp.py:588-774)
+    p.add_argument("--tag", type=str, default="")
+    p.add_argument("--output_dir", type=str, default="outputs")
+    p.add_argument("--workdir", type=str, default="",
+                   help="exact run directory (skips the timestamped "
+                        "output_dir/STAMP layout). A stable workdir is "
+                        "what makes --auto_resume usable on preemptible "
+                        "machines: the restarted command finds its own "
+                        "checkpoint")
+    p.add_argument("--auto_resume", action="store_true",
+                   help="if the workdir already holds a resume "
+                        "checkpoint, continue from it (state + best "
+                        "taxonomy + next epoch). With the solver's "
+                        "SIGTERM save-and-exit, preemption recovery is: "
+                        "rerun the same command (beyond the reference, "
+                        "whose --use_checkpoint restores weights but "
+                        "restarts the epoch/curriculum clock)")
+    p.add_argument("--scanrefer_dir", type=str, default="data/scanrefer")
+    p.add_argument("--scannet_data", type=str, default="data/scannet_data")
+    p.add_argument("--labels_tsv", type=str, default="")
+    p.add_argument("--mean_size_npz", type=str, default="")
+    p.add_argument("--bert_vocab", type=str, default="")
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--epoch", type=int, default=200)
+    p.add_argument("--lr", type=float, default=2e-3)
+    p.add_argument("--wd", type=float, default=1e-3)
+    p.add_argument("--num_points", type=int, default=40000)
+    p.add_argument("--num_proposals", type=int, default=256)
+    p.add_argument("--lang_num_max", type=int, default=8)
+    p.add_argument("--lang_num_aug", type=int, default=0)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--coslr", action="store_true")
+    p.add_argument("--no_caption", action="store_true")
+    p.add_argument("--no_reference", action="store_true")
+    p.add_argument("--no_lang_cls", action="store_true")
+    p.add_argument("--use_con", action="store_true")
+    p.add_argument("--use_mlm", action="store_true")
+    p.add_argument("--use_answer", action="store_true")
+    p.add_argument("--use_diou_loss", action="store_true")
+    p.add_argument("--use_kl_loss", action="store_true")
+    p.add_argument("--use_reg_head", action="store_true")
+    p.add_argument("--use_lang_emb", action="store_true")
+    p.add_argument("--use_vote_weight", action="store_true")
+    p.add_argument("--use_attr_loss", action="store_true")
+    p.add_argument("--mask_box", action="store_true")
+    p.add_argument("--use_multiview", action="store_true")
+    p.add_argument("--multiview_hdf5", type=str, default="",
+                   help="enet_feats_maxpool.hdf5 with per-point 128-d "
+                        "features appended to the preprocess npy columns")
+    p.add_argument("--use_normal", action="store_true")
+    p.add_argument("--use_height", action="store_true", default=True)
+    p.add_argument("--use_distil", action="store_true")
+    p.add_argument("--unfreeze", type=int, default=6)
+    p.add_argument("--use_checkpoint", type=str, default="")
+    p.add_argument("--pretrain", type=str, default="")
+    p.add_argument("--debug", action="store_true")
+    p.add_argument("--num_workers", type=int, default=4,
+                   help="loader worker threads (reference DataLoader "
+                        "num_workers=4, train_3dvlp.py:48-77); the batch "
+                        "stream is identical for any value")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree; not ported yet, raises "
+                        "unless 1")
+    p.add_argument("--zero1", action="store_true",
+                   help="shard the optimizer state; not ported yet, "
+                        "raises")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the backbone SA/FP blocks in the "
+                        "backward pass; not ported yet, raises")
+    p.add_argument("--no_donate", action="store_true",
+                   help="a training flag; not ported yet, raises")
+    p.add_argument("--grad_accum", type=int, default=1,
+                   help="gradient accumulation over K micro-batches; not "
+                        "ported yet, raises unless 1")
+    p.add_argument("--synthetic", action="store_true",
+                   help="use synthetic scenes (no ScanNet needed)")
+    p.add_argument("--smoke", action="store_true",
+                   help="tiny shapes, 2 epochs — CI smoke run")
+
+    # --- remaining reference-surface flags (train_3dvlp.py:588-774) ---
+    # behavioral:
+    p.add_argument("--dataset", type=str, default="ScanRefer",
+                   help="annotation set; the reference accepts only "
+                        "ScanRefer (train_3dvlp.py:256-262)")
+    p.add_argument("--use_mlcv_net", action="store_true",
+                   help="CGNL backbone/voting variant (jointnet.py:63-69)")
+    p.add_argument("--use_color", action="store_true",
+                   help="RGB input channels, normalized by MEAN_COLOR_RGB "
+                        "(lib/joint/dataset.py:960)")
+    p.add_argument("--no_height", action="store_true",
+                   help="drop the height input channel")
+    p.add_argument("--no_augment", action="store_true",
+                   help="disable train-time augmentation")
+    p.add_argument("--no_detection", action="store_true",
+                   help="do NOT train the detection module")
+    p.add_argument("--minor_aug", action="store_true",
+                   help="minor-class sentence-slot augmentation")
+    p.add_argument("--amsgrad", action="store_true",
+                   help="AMSGrad variant of AdamW (scripts/utils/AdamW.py)")
+    p.add_argument("--num_scenes", type=int, default=-1,
+                   help="limit the number of training scenes (-1 = all)")
+    p.add_argument("--num_ground_epoch", type=int, default=50,
+                   help="grounding-curriculum switch epoch")
+    p.add_argument("--criterion", type=str, default="sum",
+                   help="best-model criterion: 'sum' (2 x iou_rate_0.5, "
+                        "solver_3dvlp.py:1114-1128) or a val-metric name "
+                        "(the VQA path's answer_acc_at1)")
+    p.add_argument("--use_wandb", action="store_true",
+                   help="mirror training metrics to wandb; not ported "
+                        "yet, raises")
+    p.add_argument("--verbose", type=int, default=10,
+                   help="iteration logging interval")
+    p.add_argument("--profile_dir", type=str, default="",
+                   help="trace a few training iterations into this "
+                        "directory; not ported yet, raises")
+    p.add_argument("--val_step", type=int, default=2000)
+    # accepted for flag-for-flag parity; inert in the reference's joint
+    # path too (constructor args JointNet stores but never reads, or
+    # 3DJCG-era graph/caption options the joint model doesn't build):
+    p.add_argument("--gpu", type=str, default="0",
+                   help="accepted for parity; the port picks its device "
+                        "with --device")
+    p.add_argument("--num_locals", type=int, default=-1)
+    p.add_argument("--num_graph_steps", type=int, default=0)
+    p.add_argument("--query_mode", type=str, default="center")
+    p.add_argument("--graph_mode", type=str, default="edge_conv")
+    p.add_argument("--graph_aggr", type=str, default="add")
+    p.add_argument("--use_tf", action="store_true",
+                   help="inert in the joint path: jointnet.forward ignores "
+                        "use_tf (jointnet.py:112,214)")
+    p.add_argument("--use_topdown", action="store_true")
+    p.add_argument("--use_relation", action="store_true")
+    p.add_argument("--use_new", action="store_true")
+    p.add_argument("--use_orientation", action="store_true")
+    p.add_argument("--use_distance", action="store_true")
+    p.add_argument("--use_bidir", action="store_true")
+    p.add_argument("--use_pc_encoder", action="store_true",
+                   help="accepted for parity; dormant in the reference "
+                        "(JointNet never instantiates pc_encoder, "
+                        "jointnet.py:19,170)")
+    p.add_argument("--use_match_con_loss", action="store_true",
+                   help="stored but never read by the reference "
+                        "(match_module.py:74)")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device to run on (default: the current "
+                        "CUDA device; without one the run fails rather "
+                        "than fall back). Pass cpu for the plain PyTorch "
+                        "ops")
+    return p
+
+
+def config_from_args(args) -> Config:
+    # input channel arithmetic mirrors train_3dvlp.py:82-83:
+    # 3 + color*3 + (not no_height) + normal*3 + multiview*128
+    input_dim = 0 if getattr(args, "no_height", False) else 1
+    if getattr(args, "use_color", False):
+        input_dim += 3
+    if args.use_multiview:
+        input_dim += 128
+    if args.use_normal:
+        input_dim += 3
+    # relation's object embedding slices the multiview channels when
+    # present (relation_module.py:101); otherwise use whatever per-point
+    # features exist
+    feat_before_mv = (
+        3
+        + 3 * int(getattr(args, "use_color", False))
+        + 3 * int(args.use_normal)
+    )
+    mv_offset, mv_dim = (
+        (feat_before_mv, 128) if args.use_multiview else (3, input_dim)
+    )
+    model = ModelConfig(
+        input_feature_dim=input_dim,
+        multiview_offset=mv_offset,
+        multiview_dim=mv_dim,
+        num_proposal=args.num_proposals,
+        lang_num_max=args.lang_num_max,
+        no_caption=args.no_caption,
+        no_reference=args.no_reference,
+        use_lang_classifier=not args.no_lang_cls,
+        use_con=args.use_con,
+        use_mlm=args.use_mlm,
+        use_answer=args.use_answer,
+        use_reg_head=args.use_reg_head,
+        use_kl_loss=args.use_kl_loss,
+        use_lang_emb=args.use_lang_emb,
+        use_vote_weight=args.use_vote_weight,
+        mask_box=args.mask_box,
+        use_distil=args.use_distil,
+        use_mlcv_net=getattr(args, "use_mlcv_net", False),
+        remat=getattr(args, "remat", False),
+    )
+    config = Config(
+        dataset=DatasetConfig(
+            num_points=args.num_points, mean_size_path=args.mean_size_npz
+        ),
+        model=model,
+        loss=LossConfig(
+            use_diou_loss=args.use_diou_loss,
+            use_attr_loss=args.use_attr_loss,
+            num_ground_epoch=getattr(args, "num_ground_epoch", 50),
+            debug=args.debug,
+        ),
+        train=TrainConfig(
+            batch_size=args.batch_size,
+            epochs=args.epoch,
+            lr=args.lr,
+            weight_decay=args.wd,
+            amsgrad=getattr(args, "amsgrad", False),
+            # train_3dvlp.py:180-196: --coslr -> cosine; detection-only
+            # without it -> MultiStepLR; else no scheduler. The VQA
+            # paths override after resolve with their own MultiStepLR
+            # recipe ([100, 200] x 0.2; lib/vqa/solver.py:210-216 —
+            # their --coslr is parsed but unused).
+            lr_schedule=(
+                "cosine" if getattr(args, "coslr", False)
+                else "step" if getattr(args, "no_caption", False)
+                else "none"
+            ),
+            seed=args.seed,
+            num_workers=getattr(args, "num_workers", 4),
+        ),
+    )
+    check_supported(config)
+    return config
+
+
+def resolve_config(args) -> Config:
+    """config_from_args, or the tiny synthetic config when --smoke."""
+    for flag, (default, item) in UNPORTED_RUN_FLAGS.items():
+        if getattr(args, flag, default) != default:
+            raise NotImplementedError(
+                f"vlp3d_torch does not implement --{flag} yet; see "
+                f"ROADMAP.md {item}")
+    if getattr(args, "smoke", False):
+        tiny = tiny_config(
+            no_caption=args.no_caption,
+            use_con=args.use_con,
+            use_mlm=args.use_mlm,
+            use_answer=args.use_answer,
+        )
+        args.synthetic = True
+        config = dataclasses.replace(
+            tiny,
+            train=dataclasses.replace(
+                tiny.train, batch_size=min(args.batch_size, 2), epochs=2
+            ),
+        )
+        check_supported(config)
+        return config
+    return config_from_args(args)
+
+
+def load_scanrefer(scanrefer_dir: str, split: str) -> list:
+    path = os.path.join(scanrefer_dir, f"ScanRefer_filtered_{split}.json")
+    with open(path) as f:
+        data = json.load(f)
+    return sorted(data, key=lambda d: (d["scene_id"], int(d["object_id"])))
+
+
+def build_val_dataset(args, config: Config):
+    """The val split's dataset: the val half of ``vlp3d/cli/common.py``
+    ``build_datasets``, which is all that evaluation and prediction
+    read."""
+    if getattr(args, "dataset", "ScanRefer") != "ScanRefer":
+        # the reference accepts only ScanRefer (train_3dvlp.py:261-262)
+        raise ValueError("Invalid dataset.")
+    if args.synthetic:
+        return make_synthetic_dataset(
+            config, n_scenes=2, anns_per_scene=6, split="val",
+            seed=args.seed + 1,
+        )
+
+    raw2label = load_raw2label(args.labels_tsv) if args.labels_tsv else {}
+    nyu40map = (
+        build_nyu40id2class(args.labels_tsv) if args.labels_tsv else {}
+    )
+    tokenizer = load_tokenizer(args.bert_vocab or None)
+    source = DirectorySceneSource(
+        args.scannet_data, multiview_hdf5=args.multiview_hdf5 or None
+    )
+    mean_size = config.dataset.mean_size_arr()
+
+    return ScanReferJointDataset(
+        load_scanrefer(args.scanrefer_dir, "val"),
+        source,
+        tokenizer,
+        split="val",
+        num_points=config.dataset.num_points,
+        lang_num_max=config.model.lang_num_max,
+        lang_num_aug=args.lang_num_aug,
+        augment=False,
+        shuffle=False,
+        minor_aug=getattr(args, "minor_aug", False),
+        use_height=not getattr(args, "no_height", False),
+        mean_size_arr=mean_size,
+        raw2label=raw2label,
+        nyu40id2class=nyu40map,
+        bert_max_len=config.model.bert_seq_len,
+        seed=args.seed,
+    )

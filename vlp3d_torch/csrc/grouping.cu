@@ -13,9 +13,12 @@
 // (gather_points is K = 1) and `sub` an optional row a centre (the SA
 // first layer's centre term, which XLA fuses into the gather in the JAX
 // package): one float32 subtraction, so the result equals the two-op
-// form bit for bit. Indices must lie in [0, n); one that does not is
-// never followed: its source row counts as zeros and its gradient row
-// is dropped.
+// form bit for bit. Out-of-range indices follow the JAX package's
+// gather_points within batch row b: an index i in [-n, 0) reads row
+// i + n, any other index outside [0, n) gives a row of NaN (before the
+// subtrahend, so it stays NaN), and the backward passes a gradient only
+// to indices in [0, n): a wrapped or out-of-range index drops its
+// gradient row.
 //
 // What bounds both on the H100: bytes. Each output row is written once
 // and each source row read at least once; there is no arithmetic worth
@@ -91,6 +94,15 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// the value of a source row that an out-of-range index reads
+__device__ __forceinline__ float nan_row() { return __int_as_float(0x7fc00000); }
+
+// source row of index i in a table of n rows: i + n for i in [-n, 0),
+// else i; the result lies in [0, n) exactly when the row exists
+__device__ __forceinline__ int wrap_index(int i, int n) {
+  return i < 0 ? i + n : i;
+}
+
 __device__ __forceinline__ void atomic_add_vec(float* addr, float v) {
   atomicAdd(addr, v);
 }
@@ -123,13 +135,14 @@ __global__ void __launch_bounds__(kThreads)
   if (row >= rows) return;
   const int lane = threadIdx.x % lanes;
   const int b = row / rows_per_batch;
-  const int i = __ldg(idx + row);
+  const int i = wrap_index(__ldg(idx + row), n);
   const bool follow = (unsigned)i < (unsigned)n;
   const float4* src = points + b * batch_stride + (follow ? i : 0) * row_stride;
   const float4* s = kSub ? sub + (long long)(row / k) * cv : nullptr;
   float4* dst = out + (long long)row * cv;
+  const float nan = nan_row();
   for (int j = lane; j < cv; j += lanes) {
-    float4 v = follow ? __ldg(src + j) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float4 v = follow ? __ldg(src + j) : make_float4(nan, nan, nan, nan);
     if (kSub) {
       const float4 c = __ldg(s + j);
       v = make_float4(__fsub_rn(v.x, c.x), __fsub_rn(v.y, c.y),
@@ -161,7 +174,8 @@ __global__ void __launch_bounds__(kThreads)
   const int row0 = (int)first;
   const int live = min(4, rows - row0);
 
-  // the four rows' sources (null: index out of range) and sub rows
+  // the four rows' sources (null: index out of range, a NaN row) and
+  // sub rows
   const float* src[4];
   const float* sb[4];
   int b = row0 / rows_per_batch, rb = row0 - b * rows_per_batch;
@@ -171,7 +185,7 @@ __global__ void __launch_bounds__(kThreads)
     src[q] = nullptr;
     sb[q] = nullptr;
     if (q < live) {
-      const int i = __ldg(idx + row0 + q);
+      const int i = wrap_index(__ldg(idx + row0 + q), n);
       if ((unsigned)i < (unsigned)n)
         src[q] = points + b * batch_stride + i * row_stride;
       if (kSub) sb[q] = sub + (long long)sc * c;
@@ -203,7 +217,7 @@ __global__ void __launch_bounds__(kThreads)
       float val = 0.0f;
       if (f + q < nf) {
         const float* s = pick4(src, r);
-        if (s) val = __ldg(s + ch);
+        val = s ? __ldg(s + ch) : nan_row();
         if (kSub) val = __fsub_rn(val, __ldg(pick4(sb, r) + ch));
       }
       v[q] = val;
@@ -230,7 +244,7 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x % lanes;
   const int b = row / rows_per_batch;
   const int i = __ldg(idx + row);
-  if ((unsigned)i >= (unsigned)n) return;
+  if ((unsigned)i >= (unsigned)n) return;  // negative ones too: no wrap
   const V* src = grad + (long long)row * cv;
   V* dst = dpoints + ((long long)b * n + i) * cv;
   for (int j = lane; j < cv; j += lanes) atomic_add_vec(dst + j, src[j]);
@@ -265,7 +279,8 @@ __device__ __forceinline__ float4 vzero<float4>() {
 }
 
 // The source row (relative to i0, in [0, rows)) that gradient row r
-// lands on, or -1 (another block's range, or an index out of range).
+// lands on, or -1 (another block's range, or an index outside [0, n):
+// a negative index is dropped, not wrapped as the forward wraps it).
 __device__ __forceinline__ int target_of(int i, int i0, int rows, int n) {
   const unsigned t = (unsigned)(i - i0);
   return (unsigned)i < (unsigned)n && t < (unsigned)rows ? (int)t : -1;

@@ -1,8 +1,8 @@
 """Synthetic scene generator (numpy) for tests and the chip smoke run.
 
-The port's own copy of ``make_batch`` and ``tiny_config`` from
-``vlp3d/data/synthetic.py``: the same seed gives the same arrays, so the
-two packages can be fed identical scenes.
+The port's own copy of ``make_batch``, ``make_synthetic_dataset`` and
+``tiny_config`` from ``vlp3d/data/synthetic.py``: the same seed gives the
+same arrays, so the two packages can be fed identical scenes.
 """
 
 from __future__ import annotations
@@ -115,6 +115,70 @@ def make_batch(config: Config, *, batch_size: int = 2, num_points: int = 1024,
         "istrain": np.int32(istrain),
         "random": np.float32(0.7),
     }
+
+
+def make_synthetic_dataset(config: Config, *, n_scenes: int = 2,
+                           n_points: int = 2000, n_obj: int = 4,
+                           anns_per_scene: int = 5, split: str = "train",
+                           seed: int = 0, **dataset_kwargs):
+    """ScanReferJointDataset over random in-memory scenes (no ScanNet
+    needed): the stand-in for the real data pipeline in tests and on the
+    card."""
+    from vlp3d_torch.data.dataset import (
+        InMemorySceneSource,
+        ScanReferJointDataset,
+    )
+    from vlp3d_torch.data.tokenizer import HashTokenizer
+
+    rng = np.random.default_rng(seed)
+    scenes = {}
+    anns = []
+    names = ["chair", "table", "bed", "sofa"]
+    for si in range(n_scenes):
+        sid = f"scene{si:04d}_00"
+        bboxes = np.zeros((n_obj, 8), np.float32)
+        pts = rng.uniform(0, 5, (n_points, 3)).astype(np.float32)
+        instance = np.zeros(n_points, np.int64)
+        semantic = np.zeros(n_points, np.int64)
+        per = n_points // (2 * n_obj)
+        for i in range(n_obj):
+            c = rng.uniform(1, 4, 3)
+            s = rng.uniform(0.5, 1.0, 3)
+            sl = slice(i * per, (i + 1) * per)
+            pts[sl] = c + rng.uniform(-0.5, 0.5, (per, 3)) * s
+            instance[sl] = i + 1
+            semantic[sl] = 5
+            bboxes[i, 0:3] = c
+            bboxes[i, 3:6] = s
+            bboxes[i, 6] = 5
+            bboxes[i, 7] = i + 10
+        # extra per-point feature channels so point_clouds ends up at
+        # (N, 3 + input_feature_dim) after the height channel is added
+        extra = max(config.model.input_feature_dim - 1, 0)
+        feats = rng.normal(size=(n_points, extra)).astype(np.float32)
+        scenes[sid] = {
+            "point_cloud": np.concatenate([pts, feats], axis=1),
+            "instance_labels": instance,
+            "semantic_labels": semantic,
+            "instance_bboxes": bboxes,
+        }
+        for a in range(anns_per_scene):
+            obj = a % n_obj
+            anns.append({
+                "scene_id": sid,
+                "object_id": str(10 + obj),
+                "object_name": names[obj % len(names)],
+                "ann_id": str(a),
+                "token": ["the", names[obj % len(names)], "near", "the",
+                          "wall"],
+            })
+
+    return ScanReferJointDataset(
+        anns, InMemorySceneSource(scenes), HashTokenizer(), split=split,
+        num_points=config.dataset.num_points,
+        lang_num_max=config.model.lang_num_max,
+        bert_max_len=config.model.bert_seq_len,
+        mean_size_arr=config.dataset.mean_size_arr(), **dataset_kwargs)
 
 
 def tiny_config(**overrides) -> Config:

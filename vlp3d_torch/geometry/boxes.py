@@ -2,11 +2,14 @@
 the axis-aligned IoU / DIoU of the grounding and contrast losses.
 
 Counterparts of ``corner_offsets_flat``, ``rotate_rotz_rows``,
-``box3d_diou`` and ``box3d_iou_aabb`` in ``vlp3d/geometry/boxes.py``.
+``box3d_diou`` and ``box3d_iou_aabb`` in ``vlp3d/geometry/boxes.py``, and
+of its host (numpy) form of ``get_3d_box_batch``, which the data path
+uses.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # reference corner sign pattern (get_3d_box_batch, box_util.py)
@@ -14,6 +17,25 @@ CORNER_SIGNS = (
     (1, 1, 1), (1, -1, 1), (-1, -1, 1), (-1, 1, 1),
     (1, 1, -1), (1, -1, -1), (-1, -1, -1), (-1, 1, -1),
 )
+
+
+def get_3d_box_batch(box_size, heading_angle, center) -> np.ndarray:
+    """Box parameters -> (..., 8, 3) corners, in numpy: box_size (..., 3)
+    as (l, w, h), heading_angle (...,), center (..., 3). signs * size/2
+    rotated by roty(heading) (the reference's convention) plus center,
+    computed in float32 whatever the inputs' dtype, as the JAX package's
+    host branch casts them."""
+    box_size = np.asarray(box_size).astype(np.float32, copy=False)
+    heading_angle = np.asarray(heading_angle).astype(np.float32, copy=False)
+    center = np.asarray(center).astype(np.float32, copy=False)
+    signs = np.asarray(CORNER_SIGNS, np.float32)
+    half = box_size[..., None, :] * signs / 2.0  # (..., 8, 3)
+    c = np.cos(heading_angle)[..., None]
+    s = np.sin(heading_angle)[..., None]
+    hx, hy, hz = half[..., 0], half[..., 1], half[..., 2]
+    # half @ roty(t)^T with roty rows [(c,0,s), (0,1,0), (-s,0,c)]
+    out = np.stack([hx * c + hz * s, hy, -hx * s + hz * c], axis=-1)
+    return out + center[..., None, :]
 
 
 def corner_offsets_flat(box_size: torch.Tensor,

@@ -10,10 +10,16 @@ where an input needs a gradient, the scatter-add backward, bound in one
 :class:`torch.autograd.Function`. A CPU tensor goes to the
 plain version (``torch.gather``, whose autograd backward is the ordered
 scatter-add). There is no fallback between the two. Indices carry no
-gradient and must lie in [0, N): on the CPU ``torch.gather`` raises for
-one that does not, on the card the kernels never follow it (the source
-row counts as zeros, the gradient row is dropped) rather than spend a
-synchronising check on every call.
+gradient. An index outside [0, N) follows the JAX package's
+``gather_points`` on both paths, in its own batch row, with no
+synchronising check: one in [-N, 0) reads row index + N, any other gives
+a row of NaN (the subtrahend does not change that), and the backward
+passes a gradient only to indices in [0, N), so a wrapped index reads
+its row but sends nothing back. JAX's ``group_points`` differs where it
+gathers several batch rows from one flattened table (B > 1 and tables
+under 2^18 rows, as at every ``group_points`` site of the main path):
+there such an index reads a row of another batch row. The port keeps
+the per-row rule (ROADMAP.md C4).
 
 The backward's shape picks its kernel (:func:`_grad_plan`): the sorted
 kernel (a counting sort of the indices in shared memory, then one sum a
@@ -45,10 +51,18 @@ def group_points_plain(points: torch.Tensor, idx: torch.Tensor,
                        sub: torch.Tensor | None = None) -> torch.Tensor:
     """Plain PyTorch row gather: points (B, N, C), idx (B, R) or
     (B, M, K) -> idx.shape + (C,), minus ``sub`` (B, M, C) broadcast over
-    K where given."""
-    b, c = idx.shape[0], points.shape[-1]
-    index = idx.reshape(b, -1).long()[:, :, None].expand(-1, -1, c)
-    out = torch.gather(points, 1, index).reshape(*idx.shape, c)
+    K where given. Out-of-range indices as the module docstring says."""
+    b, n, c = points.shape
+    flat = idx.reshape(b, -1).long()
+    rows = torch.where(flat < 0, flat + n, flat)
+    exists = (rows >= 0) & (rows < n)
+    index = torch.where(exists, rows, 0)[:, :, None].expand(-1, -1, c)
+    out = torch.gather(points, 1, index)
+    if out.requires_grad:
+        # a wrapped index reads its row and passes no gradient back
+        out = torch.where((flat >= 0)[:, :, None], out, out.detach())
+    out = torch.where(exists[:, :, None], out, float("nan"))
+    out = out.reshape(*idx.shape, c)
     if sub is not None:
         out = out - sub[:, :, None, :]
     return out
@@ -57,13 +71,15 @@ def group_points_plain(points: torch.Tensor, idx: torch.Tensor,
 def group_points_grad_plain(grad: torch.Tensor, idx: torch.Tensor,
                             n: int) -> torch.Tensor:
     """Plain PyTorch backward: sum grad rows (B, R, C) into a zeroed
-    (B, n, C) table at idx (B, R)."""
+    (B, n, C) table at idx (B, R); rows of indices outside [0, n) go to a
+    spare row that is dropped."""
     b, r, c = grad.shape
     offs = torch.arange(b, device=idx.device)[:, None] * n
-    flat = (idx.long() + offs).reshape(-1)
-    out = torch.zeros((b * n, c), dtype=grad.dtype, device=grad.device)
+    live = (idx >= 0) & (idx < n)
+    flat = torch.where(live, idx.long() + offs, b * n).reshape(-1)
+    out = torch.zeros((b * n + 1, c), dtype=grad.dtype, device=grad.device)
     out.index_add_(0, flat, grad.reshape(b * r, c))
-    return out.reshape(b, n, c)
+    return out[:b * n].reshape(b, n, c)
 
 
 def _group_points_cuda(points: torch.Tensor, idx: torch.Tensor,

@@ -29,6 +29,31 @@ STREAM_KEYS = (
 )
 
 
+def to_device(batch: dict, device) -> dict:
+    """The STREAM_KEYS arrays of a host batch, on ``device`` (a pageable
+    copy)."""
+    return {k: torch.as_tensor(np.asarray(batch[k])).to(device)
+            for k in STREAM_KEYS}
+
+
+@torch.no_grad()
+def ground(model: JointNet, batch: dict) -> dict:
+    """One device batch (tensors on the model's device) -> device
+    predictions: ``pred_ref`` (B, L), the chosen proposal of each
+    sentence slot, and the model's boxes and ``cluster_ref``."""
+    out = model(batch, is_eval=True)
+    masks = out["objectness_masks"]  # (B, K)
+    bsz, l = batch["input_ids"].shape[:2]
+    conf = out["cluster_ref"].reshape(bsz, l, -1)
+    return {
+        "pred_ref": torch.argmax(conf * masks[:, None, :], dim=-1),
+        "pred_center": out["pred_center"],
+        "pred_size": out["pred_size"],
+        "pred_heading": out["pred_heading"],
+        "cluster_ref": out["cluster_ref"],
+    }
+
+
 class GroundingPredictor:
     """ScanRefer grounding inference on one device.
 
@@ -48,25 +73,11 @@ class GroundingPredictor:
             self.model.load_state_dict(state_dict, strict=True)
 
     def _to_device(self, batch: dict) -> dict:
-        return {
-            k: torch.as_tensor(np.asarray(batch[k])).to(self.device)
-            for k in STREAM_KEYS
-        }
+        return to_device(batch, self.device)
 
-    @torch.no_grad()
     def predict(self, batch: dict) -> dict:
         """One device batch (tensors on the device) -> device predictions."""
-        out = self.model(batch, is_eval=True)
-        masks = out["objectness_masks"]  # (B, K)
-        bsz, l = batch["input_ids"].shape[:2]
-        conf = out["cluster_ref"].reshape(bsz, l, -1)
-        return {
-            "pred_ref": torch.argmax(conf * masks[:, None, :], dim=-1),
-            "pred_center": out["pred_center"],
-            "pred_size": out["pred_size"],
-            "pred_heading": out["pred_heading"],
-            "cluster_ref": out["cluster_ref"],
-        }
+        return ground(self.model, batch)
 
     @staticmethod
     def _to_host(out: dict) -> dict:
