@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of vlp3d_torch on one CUDA card: grounding inference and the
-joint train step.
+"""Smoke run of vlp3d_torch on one CUDA card: grounding inference, the
+joint train step, the predict path, the trainer behind run.sh and the
+HTTP grounding server.
 
     python3 chip_smoke.py
 
@@ -125,10 +126,52 @@ nothing of the vlp3d package. Phases, each fatal on failure:
    0.5 of random weights); the same batch with the plain ops on the
    card (chosen proposals equal, box corners within 1e-4); and
    cli.ground_eval over the stand-ins;
-8. print {"kernels": [...]} with every kernel of the three paths (the
+8. training at run.sh's flags (RUN_SH_TRAIN_FLAGS: 3 + 132 channels,
+   40000 points, batch 8, 8 sentences, --use_con --use_diou_loss
+   --coslr). `python -m vlp3d_torch.cli.train_3dvlp` with those flags
+   plus --synthetic --epoch 2 --workdir <tmp> starts in a process of its
+   own once phase 7's timed loader and predict runs are done, and then
+   the same command with --epoch 3 --auto_resume (a thread runs the
+   two, one after the other, beside the rest of phases 7 and 8; they
+   print where their time goes from their logs' timestamps): each must
+   exit 0; the first must leave
+   model_last.pth, model.pth, log.jsonl, info.json, checkpoint_meta.json
+   and TensorBoard event files, every logged loss finite; the second
+   must say it continues at epoch 2 and train exactly epoch 2. In this
+   process meanwhile: a Solver over 16 synthetic train scenes (two steps
+   an epoch) and 3 val scenes (one partial batch) with the BatchNorm
+   momentum schedule, seeded weights with phase 6's nudges, 2 epochs with
+   every count at 0 first; each step must launch FPS 5, ball query 5,
+   three-NN 2, the row gather 11, its backward 5, the interpolation's
+   backward 2, and each eval batch one forward's worth; every logged
+   number finite, the val
+   records hold iou_rate_0.25/0.5, the snapshots and
+   checkpoint_meta.json exist; step ms (synchronised), fetch ms, eval ms
+   a batch, hbm_peak_mb (these times are taken on a card and host that
+   the training CLI's process shares). Once the CLI's processes have
+   ended, and with the card to itself, one forward + backward with
+   remat=True against the same without it, from the Solver's weights and
+   one of its batches and the same generator: loss within STEP_LOSS_RTOL,
+   gradients within STEP_GRAD_TOL of the largest entry, BatchNorm
+   statistics equal, launches REMAT_STEP (FPS and ball query still 5
+   each); both steps' peak memory and ms;
+9. with the card to itself, the HTTP server
+   (vlp3d_torch.serve.make_server on 127.0.0.1:0) over phase 5's model
+   (use_con=False) at serve batch 8: after a warm-up,
+   12 concurrent /v1/ground requests with b64 clouds of 40960 x 135
+   points and 1-8 queries each, and one xyz-only cloud, with every count
+   at 0 first; all must answer 200, the counts must be one forward's
+   worth a device batch, the mean occupancy above 1; each answer must
+   name the proposal GroundingPredictor picks on that cloud alone, box
+   values within BOX_TOL; a malformed body and a bad cloud get 400;
+   p50 / p99 request ms and device-batch ms from /stats, and the split
+   of a request on the server's threads (decode, resample and tokenise;
+   the handler as a whole);
+10. print {"kernels": [...]} with every kernel of the five paths (the
    CUDA functions behind each in kernel_functions, host_us beside the
-   times, the launches of each path), the card's name and power limit,
-   and last {"ok": true, "device": {...}}.
+   times, the launches of each path, and per_step and per_remat_step
+   as counted in phase 8), the
+   card's name and power limit, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -167,6 +210,10 @@ PER_FORWARD = {"fps": 5, "ball_query": 5, "three_nn": 2, "group_points": 11,
 PER_STEP = dict(PER_FORWARD, group_points_grad=5, three_interpolate_grad=2)
 WEIGHT_TOL = 1e-6  # interpolation weights, kernel against plain
 REPO = os.path.dirname(os.path.abspath(__file__))
+# Python's bytecode of what this run and its CLI processes import, kept in
+# the checkout's build directory: where the interpreter may not write it
+# beside the sources, every process would compile torch's sources anew
+PYCACHE = os.path.join(REPO, "build", "pycache")
 # the predict phase: run.sh's flags, synthetic scenes through the loader
 RUN_SH_FLAGS = ["--use_multiview", "--use_normal", "--batch_size", "8",
                 "--lang_num_max", "8", "--num_points", "40000",
@@ -175,9 +222,32 @@ PREDICT_SCENES, PREDICT_POINTS, PREDICT_ANNS = 8, 50000, 8
 # (input channels, SA points, proposals, BERT layers, points, sentences)
 PREDICT_WIDTHS = (132, (2048, 1024, 512, 256), 256, 6, 40000, 8)
 BOX_TOL = 1e-4  # predicted box corners, kernel against plain ops
+# the training phase: run.sh's flags exactly (run.sh:9-14)
+RUN_SH_TRAIN_FLAGS = ["--use_multiview", "--use_normal", "--batch_size", "8",
+                      "--epoch", "200", "--lang_num_max", "8", "--coslr",
+                      "--lr", "0.002", "--no_caption", "--lang_num_aug", "0",
+                      "--unfreeze", "6", "--debug", "--use_con",
+                      "--use_diou_loss"]
+# 16 train scenes of 8 sentences: two steps an epoch at batch 8; 3 val
+# scenes: one partial batch
+SOLVER_TRAIN_SCENES, SOLVER_VAL_SCENES = 16, 3
+# a remat step recomputes the SA1-4 neighbourhood gathers and the FP1-2
+# interpolations; FPS and ball query stay outside the checkpoints
+REMAT_STEP = dict(PER_STEP, group_points=15, three_nn=4)
+# the HTTP phase: concurrent requests, and how long the batcher waits to
+# fill a device batch
+HTTP_REQUESTS = 12
+HTTP_MAX_WAIT_MS = 20.0
 
 
 _T0 = time.perf_counter()
+
+
+def child_env() -> dict:
+    """The environment of a CLI process: this run's bytecode cache."""
+    env = dict(os.environ, PYTHONPYCACHEPREFIX=PYCACHE)
+    env.pop("PYTHONDONTWRITEBYTECODE", None)
+    return env
 
 
 def fail(msg: str):
@@ -950,10 +1020,12 @@ def profile_call(torch, fn, tag: str, what: str, top: int = 15):
               f"{r['op']}")
 
 
-def kernel_line(rows, serving, train, predict):
+def kernel_line(rows, serving, train, predict, solver, http, per_step,
+                per_remat_step):
     """The {"kernels": [...]} line. ``rows`` holds the per-call-site checks
-    of each kernel; ``serving`` / ``train`` / ``predict`` the launch counts
-    of the three main-path runs."""
+    of each kernel; ``serving`` / ``train`` / ``predict`` / ``solver`` /
+    ``http`` the launch counts of the five main-path runs; ``per_step``
+    and ``per_remat_step`` those of one Solver step and one remat step."""
     sources = {
         "fps": ("vlp3d_torch/csrc/fps.cu", "vlp3d/ops/sampling.py:60"),
         "ball_query": ("vlp3d_torch/csrc/ball_query.cu",
@@ -994,10 +1066,15 @@ def kernel_line(rows, serving, train, predict):
             "route": "cuda",
             "source": sources[name][0],
             "replaces": sources[name][1],
-            "launches": serving[name] + train[name] + predict[name],
+            "launches": (serving[name] + train[name] + predict[name]
+                         + solver[name] + http[name]),
             "launches_serving": serving[name],
             "launches_train": train[name],
             "launches_predict": predict[name],
+            "launches_solver": solver[name],
+            "launches_http": http[name],
+            "per_step": per_step[name],
+            "per_remat_step": per_remat_step[name],
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": sum(r["ms"] for r in rs),
             "plain_ms": sum(r["plain_ms"] for r in rs),
@@ -1715,7 +1792,7 @@ def _predict_path(torch, smi, model, ds, device, args, config):
     return launches, batches[0]
 
 
-def drive_predict(torch, smi):
+def drive_predict(torch, smi, after_timing=lambda: None):
     """Phase 7: the ScanRefer predict / evaluate path at run.sh's widths;
     returns its launch counts."""
     import numpy as np
@@ -1774,8 +1851,8 @@ def drive_predict(torch, smi):
         t_cli = time.perf_counter()
         proc = subprocess.Popen(
             [sys.executable, "-m", "vlp3d_torch.cli.predict", *argv, *assets,
-             "--out", pred_path], cwd=REPO, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
+             "--out", pred_path], cwd=REPO, env=child_env(),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         try:
             t0 = time.perf_counter()
             ds = make_synthetic_dataset(config, n_scenes=PREDICT_SCENES,
@@ -1787,6 +1864,7 @@ def drive_predict(torch, smi):
                   f"{time.perf_counter() - t0:.1f} s")
             launches, batch = _predict_path(torch, smi, model, ds, device,
                                             args, config)
+            after_timing()
             # the same batch with the plain ops on the card, then
             # ground_eval in this process (neither is timed)
             got = predict_batch(model, batch, device)
@@ -1834,6 +1912,538 @@ def drive_predict(torch, smi):
           f"{res['overall_acc@0.5']} over {res['overall_count']}")
     stamp("7", "CLIs")
     return launches
+
+
+def _train_cli(argv, workdir, result):
+    """`python -m vlp3d_torch.cli.train_3dvlp` with run.sh's flags plus
+    ``argv``; returns (exit code, output, seconds). The process stands in
+    result["proc"] while it runs, for the main thread to kill."""
+    t0, wall0 = time.perf_counter(), time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "vlp3d_torch.cli.train_3dvlp",
+         *RUN_SH_TRAIN_FLAGS, "--synthetic", "--workdir", workdir, *argv],
+        cwd=REPO, env=child_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    result["proc"] = proc
+    out, _ = proc.communicate(timeout=600)
+    result.setdefault("started", []).append(wall0)
+    result.setdefault("ended", []).append(time.time())
+    return proc.returncode, out, time.perf_counter() - t0
+
+
+def train_cli_runs(workdir, result):
+    """Phase 8's subprocesses, one after the other (run in a thread
+    beside the in-process work): 2 epochs, then --epoch 3 --auto_resume;
+    leaves {"runs": [(rc, output, s), ...]} or {"error": ...} in
+    ``result``."""
+    try:
+        result["runs"] = [_train_cli(["--epoch", "2"], workdir, result)]
+        if result["runs"][0][0] == 0 and not result.get("stop"):
+            with open(os.path.join(workdir, "log.jsonl")) as f:
+                result["lines_before_resume"] = len(f.readlines())
+            result["info_mtime"] = os.path.getmtime(
+                os.path.join(workdir, "info.json"))
+            result["runs"].append(_train_cli(
+                ["--epoch", "3", "--auto_resume"], workdir, result))
+    except Exception as e:  # noqa: BLE001 — reported by the main thread
+        result["error"] = repr(e)
+
+
+def stop_train_cli(cli, result):
+    """End phase 8's subprocess thread: kill a process still running."""
+    result["stop"] = True
+    for _ in range(2):  # the second run may start while the first ends
+        proc = result.get("proc")
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+        cli.join(timeout=30)
+
+
+def check_train_cli(result, workdir):
+    """Phase 8's CLI checks, after train_cli_runs has ended."""
+    import glob
+
+    import numpy as np
+
+    if "error" in result:
+        fail(f"training CLI: {result['error']}")
+    for i, (rc, out, sec) in enumerate(result["runs"]):
+        print(f"[8] training CLI run {i + 1}: exit {rc} in {sec:.1f} s; "
+              f"last line {out.strip().splitlines()[-1][:200]!r}")
+        if rc != 0:
+            fail(f"training CLI run {i + 1} exited {rc}:\n{out[-4000:]}")
+    if len(result["runs"]) != 2:
+        fail("the --auto_resume run did not start")
+    for name in ("model_last.pth", "model.pth", "log.jsonl", "info.json",
+                 "checkpoint_meta.json"):
+        if not os.path.exists(os.path.join(workdir, name)):
+            fail(f"training CLI left no {name}")
+    events = glob.glob(os.path.join(workdir, "tensorboard", "*",
+                                    "events.out.tfevents.*"))
+    if len(events) < 2:
+        fail(f"training CLI left TensorBoard event files {events}")
+    with open(os.path.join(workdir, "log.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    first = records[:result["lines_before_resume"]]
+    again = records[result["lines_before_resume"]:]
+    trained = sorted({r["epoch"] for r in again if r["phase"] == "train"})
+    if "continuing at epoch 2" not in result["runs"][1][1] or trained != [2]:
+        fail(f"--auto_resume trained epochs {trained}:\n"
+             f"{result['runs'][1][1][-2000:]}")
+    train = [r for r in first if r["phase"] == "train"]
+    for r in train:
+        if not np.isfinite(r["loss"]):
+            fail(f"training CLI logged a loss of {r['loss']}")
+    mem = [r for r in first if r["phase"] == "memory"]
+    # where each process's time goes, from its log's timestamps: start to
+    # info.json (imports, config, datasets), to each logged record, to
+    # its exit
+    for i, (recs, t0, t1) in enumerate(zip(
+            (first, again), result["started"], result["ended"])):
+        marks = [f"{r['phase']}{r.get('epoch', '')} "
+                 f"{r['time'] - t0:.1f}" for r in recs]
+        print(f"[8] training CLI run {i + 1}, s from its start: "
+              + (f"info.json {result['info_mtime'] - t0:.1f}, " if i == 0
+                 else "")
+              + ", ".join(marks) + f", exit {t1 - t0:.1f}")
+    print(f"[8] training CLI: {len(train)} logged steps, loss "
+          f"{[round(r['loss'], 4) for r in train]}, iter ms "
+          f"{[round(r.get('mean_iter_time', float('nan')) * 1e3, 3) for r in train]}"
+          f" (mean over the run's earlier steps, each synchronised), fetch "
+          f"ms {[round(r['mean_fetch_time'] * 1e3, 3) for r in train]}, peak "
+          f"{[r['hbm_peak_mb'] for r in mem]} MB; the resumed run trained "
+          f"epoch {trained} and logged {len(again)} records; "
+          f"{len(events)} event files")
+
+
+def remat_models(torch, config, state):
+    """Phase 8's remat step, built while the training CLI runs: the model
+    loaded from ``state`` without remat and with it."""
+    import dataclasses
+
+    from vlp3d_torch.models import JointNet
+
+    models = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(
+            config, model=dataclasses.replace(config.model, remat=remat))
+        models[remat] = (cfg, JointNet(cfg))
+        models[remat][1].load_state_dict(state, strict=True)
+    return models
+
+
+def remat_step(torch, cfg, model, batch):
+    """Forward + backward of one train step; returns (loss, gradients,
+    BatchNorm buffers, launches, peak bytes above what was resident
+    before the step, ms)."""
+    from vlp3d_torch import ops
+    from vlp3d_torch.losses.joint import compute_joint_loss
+    from vlp3d_torch.models.layers import set_dropout_generator
+
+    gen = torch.Generator(device=batch["point_clouds"].device)
+    gen.manual_seed(5)
+    set_dropout_generator(model, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = model(batch, train=True)
+    loss, _ = compute_joint_loss(cfg, out, batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(ops.launches)
+    peak = torch.cuda.max_memory_allocated() - resident
+    grads = {n: p.grad for n, p in model.named_parameters()
+             if p.grad is not None}
+    stats = {n: b for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var",
+                            "num_batches_tracked"))}
+    return loss.detach(), grads, stats, launches, peak, ms
+
+
+def check_remat(torch, smi, models, batch):
+    """Phase 8, once the training CLI has ended: one remat step against
+    the same step without it, checked; then each step again, warm, for
+    its time and peak memory; returns those numbers and the launches."""
+    runs = {remat: remat_step(torch, cfg, model, batch)
+            for remat, (cfg, model) in models.items()}
+    (loss_p, grads_p, stats_p, n_p, _, _), \
+        (loss_r, grads_r, stats_r, n_r, _, _) = runs[False], runs[True]
+    loss_rel = abs(loss_r.item() - loss_p.item()) / abs(loss_p.item())
+    worst = max((grads_r[n] - g).abs().max().item()
+                / max(g.abs().max().item(), 1e-30)
+                for n, g in grads_p.items())
+    stats_equal = set(stats_r) == set(stats_p) and all(
+        torch.equal(stats_r[n], b) for n, b in stats_p.items())
+    for _, model in models.values():
+        model.zero_grad(set_to_none=True)
+    (peak_p, ms_p), (peak_r, ms_r) = (
+        remat_step(torch, cfg, model, batch)[4:]
+        for cfg, model in (models[False], models[True]))
+    print(f"[8] remat step against the plain step: loss {loss_r.item()} vs "
+          f"{loss_p.item()} (relative {loss_rel}), largest gradient "
+          f"difference {worst} of the tensor's largest entry over "
+          f"{len(grads_p)} tensors, BatchNorm statistics equal "
+          f"{stats_equal}; launches {n_r} (plain {n_p}); peak memory "
+          f"above the resident models and batch {peak_r / 2**30:.3f} GiB "
+          f"vs {peak_p / 2**30:.3f} GiB; forward + backward, each model's "
+          f"second step, {ms_r:.3f} ms vs {ms_p:.3f} ms ({smi})")
+    if set(grads_r) != set(grads_p) or loss_rel > STEP_LOSS_RTOL \
+            or worst > STEP_GRAD_TOL:
+        fail("the remat step differs from the plain step")
+    if not stats_equal:
+        fail("remat moved the BatchNorm statistics differently")
+    if n_p != PER_STEP or n_r != REMAT_STEP:
+        fail(f"launches of a step: plain {n_p}, remat {n_r} "
+             f"(want {PER_STEP}, {REMAT_STEP})")
+    stamp("8", "remat step")
+    return {"remat_peak_gib": peak_r / 2**30, "plain_peak_gib": peak_p / 2**30,
+            "remat_ms": ms_r, "plain_ms": ms_p}, n_r
+
+
+class TrainCli:
+    """Phase 8's training-CLI processes, run one after the other by a
+    thread from start() until stop(), in a temporary directory."""
+
+    def __init__(self):
+        import tempfile
+
+        self.tmp = tempfile.TemporaryDirectory()
+        self.workdir = os.path.join(self.tmp.name, "cli")
+        self.result = {}
+        self.thread = None
+
+    def start(self):
+        import threading
+
+        self.thread = threading.Thread(
+            target=train_cli_runs, args=(self.workdir, self.result),
+            daemon=True)
+        self.thread.start()
+        stamp("8", "training CLI started")
+
+    def stop(self):
+        if self.thread is not None:
+            stop_train_cli(self.thread, self.result)
+        self.tmp.cleanup()
+
+
+def drive_solver(torch, smi, tmp):
+    """Phase 8 in this process, beside the training CLI's processes: the
+    Solver's two epochs at run.sh's widths; returns (launch counts, the
+    counts of one step, (config, weights, batch) for the remat step)."""
+    import argparse
+
+    import numpy as np
+
+    from vlp3d_torch import ops
+    from vlp3d_torch.cli.common import add_common_args, config_from_args
+    from vlp3d_torch.data.dataset import BatchIterator
+    from vlp3d_torch.data.synthetic import make_synthetic_dataset
+    from vlp3d_torch.train.solver import Solver
+    from vlp3d_torch.train.state import batch_to_device
+
+    parser = argparse.ArgumentParser()
+    add_common_args(parser)
+    args = parser.parse_args(RUN_SH_TRAIN_FLAGS)
+    config = config_from_args(args)
+    cfg = config.model
+    widths = (cfg.input_feature_dim, tuple(cfg.sa_npoints), cfg.num_proposal,
+              cfg.fusion_layer, config.dataset.num_points, cfg.lang_num_max)
+    if widths != PREDICT_WIDTHS or not (cfg.use_con and config.loss.use_diou_loss
+                                        and config.train.lr_schedule == "cosine"):
+        fail(f"solver config is not run.sh's: {widths} {config}")
+    t0 = time.perf_counter()
+    train_ds = make_synthetic_dataset(
+        config, n_scenes=SOLVER_TRAIN_SCENES, n_points=PREDICT_POINTS,
+        anns_per_scene=cfg.lang_num_max, augment=True, shuffle=True, seed=3)
+    val_ds = make_synthetic_dataset(
+        config, n_scenes=SOLVER_VAL_SCENES, n_points=PREDICT_POINTS,
+        anns_per_scene=cfg.lang_num_max, split="val", seed=4)
+    solver = Solver(config, train_ds, val_ds,
+                    os.path.join(tmp, "solver"), use_bn_schedule=True,
+                    log_every=1, seed=args.seed)
+    solver.init_state()
+    model = solver.model
+    with torch.no_grad():  # phase 6's nudges: every loss live
+        model.vgen.conv3.weight.mul_(0.05)
+        model.vgen.conv3.bias.mul_(0.05)
+        model.proposal.proposal.box_predictor.bias.fill_(-1.0)
+    print(f"[8] solver built in {time.perf_counter() - t0:.1f} s: "
+          f"{len(train_ds)} train items ({solver.steps_per_epoch} steps an "
+          f"epoch), {len(val_ds)} val items at batch "
+          f"{config.train.batch_size}")
+
+    per_step, step_ms, eval_s = [], [], []
+    train_step, eval_epoch = solver.train_step, solver.eval_epoch
+
+    def counted_step(batch, gen):
+        before = dict(ops.launches)
+        t = time.perf_counter()
+        metrics = train_step(batch, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        per_step.append({k: v - before[k] for k, v in ops.launches.items()})
+        return metrics
+
+    def timed_eval(epoch):
+        t = time.perf_counter()
+        res = eval_epoch(epoch)
+        eval_s.append(time.perf_counter() - t)
+        return res
+
+    solver.train_step, solver.eval_epoch = counted_step, timed_eval
+    epochs = 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    best = solver(epochs)
+    run_s = time.perf_counter() - t0
+    solver.close()
+    launches = dict(ops.launches)
+    bs = config.train.batch_size
+    steps, evals = len(per_step), epochs * -(-len(val_ds) // bs)
+    print(f"[8] solver: {epochs} epochs in {run_s:.1f} s, launches {launches}"
+          f" over {steps} steps and {evals} eval batches")
+    for i, n in enumerate(per_step):
+        if n != PER_STEP:
+            fail(f"solver step {i}: launches {n} != {PER_STEP}")
+    if steps != epochs * solver.steps_per_epoch or launches != {
+            k: steps * PER_STEP[k] + evals * PER_FORWARD[k] for k in PER_STEP}:
+        fail(f"solver launch counts {launches} over {steps} steps")
+    with open(os.path.join(solver.workdir, "log.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    train = [r for r in records if r["phase"] == "train"]
+    val = [r for r in records if r["phase"] == "val"]
+    mem = [r for r in records if r["phase"] == "memory"]
+    for r in train:
+        for k, v in r.items():
+            if isinstance(v, float) and not np.isfinite(v):
+                fail(f"solver logged {k} = {v}")
+    if len(val) != epochs or not all("iou_rate_0.25" in r and "iou_rate_0.5"
+                                     in r for r in val):
+        fail(f"solver val records {val}")
+    for name in ("model_last.pth", "model.pth", "ground_model.pth",
+                 "checkpoint_meta.json", "log.txt"):
+        if not os.path.exists(os.path.join(solver.workdir, name)):
+            fail(f"solver left no {name}")
+    print(f"[8] solver steps: ms {[round(x, 3) for x in step_ms]} (host "
+          f"clock to a synchronise; measured on a card and host shared with "
+          f"the training CLI's process), fetch ms (mean so far) "
+          f"{[round(r['mean_fetch_time'] * 1e3, 3) for r in train]}, loss "
+          f"{[round(r['loss'], 4) for r in train]}; eval "
+          f"{[round(s * 1e3 / (evals // epochs), 3) for s in eval_s]} ms a "
+          f"batch; hbm_peak_mb {[r['hbm_peak_mb'] for r in mem]}; val "
+          f"iou_rate_0.25 {[r['iou_rate_0.25'] for r in val]}; best epoch "
+          f"{best['epoch']} ({smi})")
+    stamp("8", "solver")
+
+    # the remat step's inputs: the trained weights and a train batch
+    host = next(iter(BatchIterator(train_ds, bs)))
+    batch = batch_to_device({k: v for k, v in host.items()
+                             if not isinstance(v, list)}, solver.device)
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model, solver
+    torch.cuda.empty_cache()
+    return launches, per_step[0], (config, state, batch)
+
+
+def _post(port, route, body: bytes, timeout=300):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{route}", data=body,
+                                 headers={"Content-Type": "application/json"},
+                                 method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+class HttpPhase:
+    """Phase 9's server over phase 5's model, its requests and each
+    one's answer from the predictor alone, made while the training CLI
+    runs; drive_http times the requests once the CLI has ended."""
+
+    def __init__(self, torch, config):
+        import base64
+        import threading
+
+        import numpy as np
+
+        from vlp3d_torch.serve import InferenceService, make_server
+        from vlp3d_torch.serving import STREAM_KEYS
+
+        self.config = config
+        self.service = InferenceService(config, batch_size=B,
+                                        max_wait_ms=HTTP_MAX_WAIT_MS)
+        self.server = make_server(self.service)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.service.warmup()
+        rng = np.random.default_rng(9)
+        words = ["chair", "table", "the", "brown", "by", "window", "bed",
+                 "left", "of", "door"]
+        self.reqs = []
+        for i in range(HTTP_REQUESTS + 1):
+            xyz_only = i == HTTP_REQUESTS
+            c = 3 if xyz_only else 3 + config.model.input_feature_dim
+            pc = rng.uniform(0, 4, (N, c)).astype(np.float32)
+            queries = [" ".join(rng.choice(words, 4)) for _ in
+                       range(1 if xyz_only else 1 + i % config.model.lang_num_max)]
+            cloud = {"b64": base64.b64encode(pc.astype("<f4").tobytes()).decode(),
+                     "shape": list(pc.shape)}
+            self.reqs.append({"point_cloud": cloud, "queries": queries})
+        self.bodies = [json.dumps(r).encode() for r in self.reqs]
+        # each request's answer from the predictor on that cloud alone
+        self.refs = []
+        for req in self.reqs:
+            item, n = self.service._make_item(req)
+            self.refs.append((n, self.service._pred.run_padded(
+                {k: np.asarray(item[k])[None] for k in STREAM_KEYS})))
+        stamp("9", "HTTP server started, warmed up and its references "
+              "taken")
+
+    def stop(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.service.close()
+        self.thread.join(timeout=30)
+
+
+def drive_http(torch, smi, phase):
+    """Phase 9's timed requests and checks; returns the launch counts of
+    its device batches and its latency numbers."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from vlp3d_torch import ops
+
+    config, service, reqs, bodies = (phase.config, phase.service,
+                                     phase.reqs, phase.bodies)
+    port = phase.server.server_address[1]
+    try:
+        answers = [None] * len(reqs)
+        wall = [0.0] * len(reqs)
+
+        def call(i):
+            t = time.perf_counter()
+            answers[i] = _post(port, "/v1/ground", bodies[i])
+            wall[i] = (time.perf_counter() - t) * 1e3
+
+        # where a request's time goes, on the server's threads: the
+        # handler (cloud decode, resampling and tokenising, then the
+        # batcher's wait and device batch) and, within it, the item
+        split = {"item": [], "handle": []}
+        make_item, handle = service._make_item, service.handle
+
+        def timed(fn, key):
+            def run(req):
+                t = time.perf_counter()
+                try:
+                    return fn(req)
+                finally:
+                    split[key].append((time.perf_counter() - t) * 1e3)
+            return run
+
+        service._make_item = timed(make_item, "item")
+        service.handle = timed(handle, "handle")
+        torch.cuda.synchronize()
+        before = dict(service.stats())
+        ops.reset_launches()
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(len(reqs))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        total_s = time.perf_counter() - t0
+        launches = dict(ops.launches)
+        service._make_item, service.handle = make_item, handle
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats",
+                                    timeout=60) as r:
+            stats = json.loads(r.read())
+        batches = stats["device_batches"] - before["device_batches"]
+        sent = stats["requests"] - before["requests"]
+        occupancy = sent / max(batches, 1)
+        codes = [a[0] if a else None for a in answers]
+        print(f"[9] {len(reqs)} concurrent /v1/ground requests ("
+              f"{HTTP_REQUESTS} b64 clouds of {N} x "
+              f"{3 + config.model.input_feature_dim}, 1-"
+              f"{config.model.lang_num_max} queries, and one xyz-only) in "
+              f"{total_s * 1e3:.3f} ms: codes {codes}, {batches} device "
+              f"batches, occupancy {occupancy:.3f}, launches {launches}")
+        if codes != [200] * len(reqs) or sent != len(reqs):
+            fail(f"HTTP requests failed: {codes}, {sent} counted")
+        if occupancy <= 1.0:
+            fail(f"the server did not coalesce: occupancy {occupancy}")
+        if launches != {k: batches * v for k, v in PER_FORWARD.items()}:
+            fail(f"HTTP launch counts {launches} over {batches} batches")
+
+        # each answer against the predictor on that cloud alone
+        worst = 0.0
+        for (n, ref), (_, ans) in zip(phase.refs, answers):
+            if len(ans["boxes"]) != n:
+                fail(f"{len(ans['boxes'])} boxes for {n} queries")
+            for q, box in enumerate(ans["boxes"]):
+                p = int(ref["pred_ref"][0, q])
+                if box["proposal"] != p:
+                    fail(f"HTTP chose proposal {box['proposal']}, the "
+                         f"predictor {p}")
+                for key in ("center", "size"):
+                    worst = max(worst, float(np.abs(
+                        np.asarray(box[key]) - ref[f"pred_{key}"][0, p]).max()))
+                worst = max(worst, abs(box["heading"]
+                                       - float(ref["pred_heading"][0, p])))
+        if worst > BOX_TOL:
+            fail(f"HTTP boxes differ from the predictor's by {worst}")
+        code, err = _post(port, "/v1/ground", b"not json")
+        code2, _ = _post(port, "/v1/ground", json.dumps(
+            {"point_cloud": [[0.0, 1.0]], "queries": ["x"]}).encode())
+        if code != 400 or code2 != 400:
+            fail(f"a malformed body got {code}, a bad cloud {code2}")
+        # the timed window's own entries of the batcher's windows (/stats
+        # also holds the warm-up batch, taken while the CLI ran)
+        lat = [x * 1e3 for x in list(service._batcher._latencies)[-sent:]]
+        bms = [x * 1e3 for x in
+               list(service._batcher._batch_times)[-batches:]]
+        lat = {"p50": float(np.percentile(lat, 50)),
+               "p99": float(np.percentile(lat, 99))}
+        print(f"[9] answers name the predictor's proposals, box values "
+              f"within {worst} (tolerance {BOX_TOL}); malformed body 400 "
+              f"({err['error'][:40]}...); request p50 {lat['p50']:.3f} ms "
+              f"p99 {lat['p99']:.3f} ms (submit to result), device batches "
+              f"{[round(x, 3) for x in bms]} ms; /stats mean occupancy "
+              f"{stats['mean_occupancy']:.3f} (with the warm-up batch), "
+              f"hbm_peak_mb {stats.get('hbm_peak_mb')}; client wall p50 "
+              f"{np.percentile(wall, 50):.3f} ms p99 "
+              f"{np.percentile(wall, 99):.3f} ms ({smi})")
+        print(f"[9] split of a request, p50 / max ms (wall clock on the "
+              f"server's threads, interpreter-lock waits included): decode,"
+              f" resample and tokenise {np.percentile(split['item'], 50):.3f}"
+              f" / {max(split['item']):.3f}; handler (that, then the "
+              f"batcher's wait and device batch) "
+              f"{np.percentile(split['handle'], 50):.3f} / "
+              f"{max(split['handle']):.3f}; the client's wall clock above "
+              f"adds sending, reading and JSON-decoding the body and the "
+              f"answer")
+    finally:
+        phase.stop()
+    stamp("9", "HTTP")
+    return launches, {"p50_ms": lat["p50"], "p99_ms": lat["p99"],
+                      "batch_ms": bms, "occupancy": occupancy,
+                      "item_p50_ms": float(np.percentile(split["item"], 50)),
+                      "handle_p50_ms": float(np.percentile(split["handle"],
+                                                           50))}
 
 
 def drive(torch, config, batch_size, num_points, smi):
@@ -1927,6 +2537,7 @@ def drive(torch, config, batch_size, num_points, smi):
 
 
 def main() -> int:
+    sys.pycache_prefix, sys.dont_write_bytecode = PYCACHE, False
     try:
         import torch
     except ImportError:
@@ -1980,15 +2591,45 @@ def main() -> int:
     rows.update(train_rows)
     torch.cuda.empty_cache()
 
-    # 7. the predict / evaluate path through the data loader and the CLIs
-    predict = drive_predict(torch, smi)
+    # 7. the predict / evaluate path through the data loader and the CLIs;
+    # phase 8's training-CLI processes start once phase 7's timing is done
+    cli = TrainCli()
+    try:
+        predict = drive_predict(torch, smi, after_timing=cli.start)
+        torch.cuda.empty_cache()
+
+        # 8. training: the Solver in this process beside the training
+        # CLI, whose checks follow; then, with the card and host to
+        # itself, the remat step and 9. the HTTP server
+        solver, per_step, (solver_config, state, batch) = drive_solver(
+            torch, smi, cli.tmp.name)
+        # what needs no timing is built while the CLI runs
+        remat = remat_models(torch, solver_config, state)
+        del state
+        http_phase = HttpPhase(torch, config)
+        t0 = time.perf_counter()
+        cli.thread.join(timeout=900)
+        if cli.thread.is_alive():
+            fail("the training CLI did not end in 900 s")
+        print(f"[8] waited {time.perf_counter() - t0:.1f} s for the "
+              "training CLI")
+        check_train_cli(cli.result, cli.workdir)
+        stamp("8", "training CLI")
+    finally:
+        cli.stop()
+    remat, per_remat_step = check_remat(torch, smi, remat, batch)
+    del batch
+    http, latency = drive_http(torch, smi, http_phase)
     for name in rows:
-        if train[name] == 0 or (PER_FORWARD[name] > 0 and (
-                serving[name] == 0 or predict[name] == 0)):
+        if train[name] == 0 or solver[name] == 0 or (PER_FORWARD[name] > 0 and (
+                serving[name] == 0 or predict[name] == 0 or http[name] == 0)):
             fail(f"kernel {name} was not launched on a main path")
 
-    # 8. results
-    line = kernel_line(rows, serving, train, predict)
+    # 10. results
+    line = kernel_line(rows, serving, train, predict, solver, http,
+                       per_step, per_remat_step)
+    line["remat_step"] = remat
+    line["http"] = latency
     print(json.dumps(line))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -20,8 +20,12 @@ interpolated features within 1e-5; the row gather exact and the
 scatter-add backwards (the gather's two, the interpolation's weighted
 one) within ``GRAD_RTOL`` (1e-5) of the absolute sum meeting in a row,
 the sorted ones also equal bit for bit from launch to launch; the tiny
-JointNet's cluster_ref within 1e-4 of the CPU forward.
+JointNet's cluster_ref within 1e-4 of the CPU forward; and one Solver
+epoch on the card, with and without remat, launching each kernel the
+stated number of times a step.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -717,3 +721,47 @@ def test_kernel_forward_matches_plain_forward(cuda):
         assert torch.equal(got[k].cpu(), want[k]), k
     np.testing.assert_allclose(got["cluster_ref"].cpu().numpy(),
                                want["cluster_ref"].numpy(), **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", [False, True])
+def test_solver_epoch_on_the_card_counts_launches_a_step(cuda, tmp_path,
+                                                         remat):
+    """One Solver epoch (train and eval) through the kernels: each step
+    launches FPS 5, ball query 5, three-NN 2 (4 under remat), the gather
+    11 (15), its backward 5 and the interpolation's backward 2; each eval
+    batch one forward's worth."""
+    from vlp3d_torch.data.synthetic import make_synthetic_dataset
+    from vlp3d_torch.train.solver import Solver
+
+    config = tiny_config(use_con=True, no_caption=True, remat=remat)
+    train = make_synthetic_dataset(config, n_scenes=4, anns_per_scene=4,
+                                   augment=True, shuffle=True, seed=1)
+    val = make_synthetic_dataset(config, n_scenes=3, anns_per_scene=4,
+                                 split="val", seed=2)
+    config = dataclasses.replace(config, train=dataclasses.replace(
+        config.train, batch_size=2, epochs=1, num_workers=1))
+    solver = Solver(config, train, val, str(tmp_path), log_every=1,
+                    use_bn_schedule=True, device=cuda)
+    solver.init_state()
+    per_step, step = [], solver.train_step
+
+    def counted(batch, gen):
+        before = dict(ops.launches)
+        metrics = step(batch, gen)
+        per_step.append({k: v - before[k] for k, v in ops.launches.items()})
+        return metrics
+
+    solver.train_step = counted
+    ops.reset_launches()
+    best = solver(1)
+    solver.close()
+    forward = {"fps": 5, "ball_query": 5, "three_nn": 2, "group_points": 11,
+               "group_points_grad": 0, "three_interpolate_grad": 0}
+    want = dict(forward, group_points_grad=5, three_interpolate_grad=2)
+    if remat:
+        want.update(three_nn=4, group_points=15)
+    assert per_step == [want, want]
+    assert ops.launches == {k: 2 * want[k] + 2 * forward[k] for k in want}
+    assert np.isfinite(best["loss"]) and "iou_rate_0.5" in best
+    assert (tmp_path / "model_last.pth").exists()

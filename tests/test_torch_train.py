@@ -57,6 +57,7 @@ from vlp3d_torch.models.layers import Dropout
 from vlp3d_torch.train import schedules
 from vlp3d_torch.train.optimizer import label_params, make_optimizer
 from vlp3d_torch.train.state import (
+    backward_and_step,
     batch_to_device,
     make_eval_step,
     make_train_step,
@@ -171,16 +172,122 @@ def test_adamw_trajectory_matches_jax(amsgrad, cosine):
             pytest.approx(schedules.cosine_lr(2, 5e-4, 3))
 
 
+def test_adamw_updates_a_parameter_without_a_gradient_as_optax():
+    """A parameter with no gradient in a step (``.grad`` None, as the
+    contrast head's before epoch 50) moves as optax moves one with a zero
+    gradient: moments decay, weight decay applies."""
+    rng = np.random.default_rng(3)
+    toy = _Toy(rng)
+    params = jax.tree_util.tree_map(jnp.asarray, toy.tree())
+    kw = dict(base_lr=2e-3, module_lr=5e-4, weight_decay=0.5,
+              steps_per_epoch=2)
+    jopt = jax_make_optimizer(**kw)
+    opt = make_optimizer(toy, **kw)
+    state = jopt.init(params)
+    for step in range(4):
+        grads = jax.tree_util.tree_map(
+            lambda a: rng.normal(size=a.shape).astype(np.float32),
+            toy.tree())
+        grads["lang"]["text_encoder"]["w"][:] = 0.0
+        if step >= 1:  # match.w gets no gradient from the second step on
+            grads["match"]["w"][:] = 0.0
+        updates, state = jopt.update(
+            jax.tree_util.tree_map(jnp.asarray, grads), state, params)
+        params = optax.apply_updates(params, updates)
+        for name, g in _leaves(grads).items():
+            p = toy.get_parameter(name)
+            p.grad = (torch.from_numpy(g.copy())
+                      if p.requires_grad and (name != "match.w" or step == 0)
+                      else None)
+        opt.step()
+        for name, want in _leaves(jax.device_get(params)).items():
+            np.testing.assert_allclose(
+                toy.get_parameter(name).detach().numpy(), want, rtol=1e-6,
+                atol=1e-6, err_msg=f"{name} after step {step + 1}")
+
+
+@pytest.mark.parametrize("amsgrad", [False, True])
+def test_adamw_grad_accum_trajectory_matches_jax(amsgrad):
+    """grad_accum=2 against optax.MultiSteps over 8 micro-batches with a
+    cosine schedule, each micro-batch through make_train_step's
+    ``backward_and_step`` (``.grad`` cleared at a window's start,
+    ``backward(loss / k)`` adds, a step on every k-th). match.w gets no
+    gradient in micro-batch 3 (one half of a window) and in neither of
+    micro-batches 4-5 (a whole window: ``.grad`` stays None), where JAX
+    sees zeros. lang.proj.w's gradients are ~1e-8, near Adam's eps, where
+    a sum of the micro-batches' gradients would move it otherwise than
+    their mean does (elsewhere Adam's update does not see the scale).
+    Parameters are compared after every micro-batch: they hold still
+    inside a window."""
+    k, n_micro = 2, 8
+    rng = np.random.default_rng(5)
+    toy = _Toy(rng)
+    params = jax.tree_util.tree_map(jnp.asarray, toy.tree())
+    kw = dict(base_lr=2e-3, module_lr=5e-4, weight_decay=1e-2,
+              steps_per_epoch=1, amsgrad=amsgrad, grad_accum=k)
+    jopt = jax_make_optimizer(
+        lr_schedule=lambda e, lr0: jsched.cosine_lr(e, lr0, 3), **kw)
+    opt = make_optimizer(
+        toy, lr_schedule=lambda e, lr0: schedules.cosine_lr(e, lr0, 3), **kw)
+    state = jopt.init(params)
+    for micro in range(n_micro):
+        grads = jax.tree_util.tree_map(
+            lambda a: (rng.normal(size=a.shape) / (1 + micro)).astype(
+                np.float32), toy.tree())
+        grads["lang"]["text_encoder"]["w"][:] = 0.0
+        # near Adam's eps, where the update tells a mean from a sum
+        grads["lang"]["proj"]["w"] *= 1e-8
+        no_grad = micro in (3, 4, 5)
+        if no_grad:
+            grads["match"]["w"][:] = 0.0
+        updates, state = jopt.update(
+            jax.tree_util.tree_map(jnp.asarray, grads), state, params)
+        params = optax.apply_updates(params, updates)
+
+        # a loss whose gradient is this micro-batch's
+        loss = sum((toy.get_parameter(name) * torch.from_numpy(g)).sum()
+                   for name, g in _leaves(grads).items()
+                   if toy.get_parameter(name).requires_grad
+                   and not (name == "match.w" and no_grad))
+        backward_and_step(loss, opt)
+        if micro == 4:  # a window's first micro-batch without a gradient
+            assert toy.match.w.grad is None
+        assert opt.step_count == (micro + 1) // k
+        for name, want in _leaves(jax.device_get(params)).items():
+            np.testing.assert_allclose(
+                toy.get_parameter(name).detach().numpy(), want, rtol=1e-6,
+                atol=1e-6, err_msg=f"{name} after micro-batch {micro + 1}")
+
+
+# grad_accum is ported; with an unported option beside it the call
+# still raises
 @pytest.mark.parametrize("kw", [{"optim_name": "adam"}, {"single_group": True},
-                                {"clip_grad_value": 1.0}, {"grad_accum": 2}])
+                                {"clip_grad_value": 1.0},
+                                {"grad_accum": 2, "optim_name": "adam"}])
 def test_unported_optimizer_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         make_optimizer(_Toy(np.random.default_rng(0)), **kw)
 
 
-def test_remat_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+def test_remat_raises(monkeypatch):
+    """remat builds, but a Dropout inside a rematerialised block raises:
+    its recompute would draw another mask from the generator that
+    set_dropout_generator installs, which the checkpoint does not
+    restore."""
+    from vlp3d_torch.models import backbone, layers
+
+    model = JointNet(tiny_config(remat=True, **FLAGS), device="cpu")
+    assert model.backbone_net.remat
+
+    class FPWithDropout(layers.FPModule):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.drop = Dropout(0.1)
+
+    monkeypatch.setattr(backbone, "FPModule", FPWithDropout)
+    with pytest.raises(ValueError, match="Dropout"):
         JointNet(tiny_config(remat=True, **FLAGS), device="cpu")
+    JointNet(tiny_config(**FLAGS), device="cpu")  # without remat it may
 
 
 # ------------------------------------------------------- the slice as a whole

@@ -13,8 +13,14 @@ losses, AdamW with its learning-rate groups, and
 ScanRefer data path (:mod:`vlp3d_torch.data`, :mod:`vlp3d_torch.native`),
 checkpoints (:mod:`vlp3d_torch.train.checkpoint`), the grounding
 evaluation (:mod:`vlp3d_torch.eval`) and the ``predict`` / ``ground_eval``
-CLIs (:mod:`vlp3d_torch.cli`). Activations are channels-last (B, N, C), as in the
-JAX package; weights load from the reference-layout state dict
+CLIs (:mod:`vlp3d_torch.cli`). Slice 7 adds the trainer behind run.sh
+(:class:`~vlp3d_torch.train.solver.Solver`, ``python -m
+vlp3d_torch.cli.train_3dvlp``: resume, warm start, gradient
+accumulation, rematerialisation, the TensorBoard / wandb / JSONL logs of
+:mod:`vlp3d_torch.utils`) and the HTTP grounding server
+(:mod:`vlp3d_torch.serve`, ``python -m vlp3d_torch.cli.serve``).
+Activations are channels-last (B, N, C), as in the JAX package; weights
+load from the reference-layout state dict
 (:func:`vlp3d_torch.convert.jax_to_torch_state_dict`).
 """
 

@@ -1,14 +1,13 @@
-"""Shared CLI plumbing: the flag surface, the config, ScanRefer loading
-and the val dataset.
+"""Shared CLI plumbing: the flag surface, the config, ScanRefer loading,
+the datasets, the run directory and the solver's resume.
 
 The port's own copy of ``vlp3d/cli/common.py``: the same flags (plus
-``--device``), the same config arithmetic, the same val dataset. Flags
-of model options the port lacks raise NotImplementedError in
-:func:`config_from_args` (:func:`vlp3d_torch.config.check_supported`
-names the ROADMAP item of each), and the run-time flags it lacks
-(:data:`UNPORTED_RUN_FLAGS`) in :func:`resolve_config`. The train
-split's dataset and the solver's resume (``resume_solver``) come with
-the training CLI, ROADMAP.md queue A item A14 part 2.
+``--device``), the same config arithmetic, the same datasets and the
+same resume rules. Flags of model options the port lacks raise
+NotImplementedError in :func:`config_from_args`
+(:func:`vlp3d_torch.config.check_supported` names the ROADMAP item of
+each), and the run-time flags it lacks (:data:`UNPORTED_RUN_FLAGS`) in
+:func:`resolve_config`.
 """
 
 from __future__ import annotations
@@ -41,10 +40,6 @@ from vlp3d_torch.data.tokenizer import load_tokenizer
 UNPORTED_RUN_FLAGS = {
     "tp": (1, "queue A item A19 (the other parallel modes)"),
     "zero1": (False, "queue A item A19 (the other parallel modes)"),
-    "grad_accum": (1, "queue A item A14 part 2 (the training CLI)"),
-    "no_donate": (False, "queue A item A14 part 2 (the training CLI)"),
-    "use_wandb": (False, "queue A item A14 part 2 (the training CLI)"),
-    "profile_dir": ("", "queue A item A14 part 2 (the training CLI)"),
 }
 
 
@@ -117,12 +112,20 @@ def add_common_args(p: argparse.ArgumentParser):
                         "raises")
     p.add_argument("--remat", action="store_true",
                    help="recompute the backbone SA/FP blocks in the "
-                        "backward pass; not ported yet, raises")
+                        "backward pass (torch.utils.checkpoint; the point "
+                        "indices are kept): less activation memory for "
+                        "about one more backbone forward, the same "
+                        "gradients")
     p.add_argument("--no_donate", action="store_true",
-                   help="a training flag; not ported yet, raises")
+                   help="accepted for the JAX CLI's flag set and does "
+                        "nothing: the port's optimizer updates the "
+                        "parameters in place, so there is no buffer to "
+                        "donate")
     p.add_argument("--grad_accum", type=int, default=1,
-                   help="gradient accumulation over K micro-batches; not "
-                        "ported yet, raises unless 1")
+                   help="gradient accumulation: mean gradients over K "
+                        "micro-batches, one optimizer update per K "
+                        "(effective batch = K x batch_size; the LR "
+                        "schedule counts updates)")
     p.add_argument("--synthetic", action="store_true",
                    help="use synthetic scenes (no ScanNet needed)")
     p.add_argument("--smoke", action="store_true",
@@ -157,13 +160,16 @@ def add_common_args(p: argparse.ArgumentParser):
                         "solver_3dvlp.py:1114-1128) or a val-metric name "
                         "(the VQA path's answer_acc_at1)")
     p.add_argument("--use_wandb", action="store_true",
-                   help="mirror training metrics to wandb; not ported "
-                        "yet, raises")
+                   help="mirror metrics to wandb (train_3dvlp.py:790-794); "
+                        "falls back to an offline JSONL stream "
+                        "(wandb_offline.jsonl) when the package is "
+                        "unavailable")
     p.add_argument("--verbose", type=int, default=10,
                    help="iteration logging interval")
     p.add_argument("--profile_dir", type=str, default="",
-                   help="trace a few training iterations into this "
-                        "directory; not ported yet, raises")
+                   help="write a torch.profiler Chrome trace of a few "
+                        "train iterations of epoch 0 (from iteration 2) "
+                        "into this directory")
     p.add_argument("--val_step", type=int, default=2000)
     # accepted for flag-for-flag parity; inert in the reference's joint
     # path too (constructor args JointNet stores but never reads, or
@@ -198,6 +204,62 @@ def add_common_args(p: argparse.ArgumentParser):
                         "than fall back). Pass cpu for the plain PyTorch "
                         "ops")
     return p
+
+
+def resolve_workdir(args) -> str:
+    """--workdir verbatim, else the reference's timestamped
+    output_dir/STAMP[_TAG] layout (train_3dvlp.py:162-177)."""
+    if getattr(args, "workdir", ""):
+        workdir = args.workdir
+    else:
+        from datetime import datetime
+
+        stamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+        if args.tag:
+            stamp += "_" + args.tag.upper()
+        workdir = os.path.join(args.output_dir, stamp)
+    os.makedirs(workdir, exist_ok=True)
+    return workdir
+
+
+def resume_solver(solver, args, workdir: str) -> int:
+    """Apply --use_checkpoint / --auto_resume to a solver after
+    ``init_state``; returns the start epoch for ``Solver.__call__``.
+
+    Restores weights, optimizer (its moments and step count, so the LR
+    schedule goes on from the restored count either way) and the
+    best-model taxonomy (the reference's checkpoint_best,
+    train_3dvlp.py:160-171). --auto_resume on the run's own checkpoint
+    continues the epoch/curriculum clock at the epoch after the last
+    completed one; --use_checkpoint restarts it at 0, as the reference
+    does."""
+    resume_from = getattr(args, "use_checkpoint", "")
+    continue_clock = False
+    if (
+        getattr(args, "auto_resume", False)
+        and not resume_from
+        and os.path.exists(os.path.join(workdir, "checkpoint_meta.json"))
+    ):
+        # the run's OWN checkpoint: continue the epoch/curriculum clock
+        resume_from = workdir
+        continue_clock = True
+    if not resume_from:
+        return 0
+    from vlp3d_torch.train.checkpoint import load_checkpoint
+
+    meta = load_checkpoint(resume_from, solver.model, solver.optimizer)
+    solver.best.update(meta.get("best", {}))
+    if not continue_clock:
+        # explicit --use_checkpoint = fine-tuning-style restart: weights/
+        # optimizer/best restored but the epoch clock starts at 0, like
+        # the reference (train_3dvlp.py:160-171)
+        print(f"restored {resume_from} (saved @ epoch {meta['epoch']}) — "
+              f"epoch clock restarts at 0 (--auto_resume continues it)")
+        return 0
+    start_epoch = int(meta["epoch"]) + 1
+    print(f"resumed from {resume_from} @ epoch {meta['epoch']} — "
+          f"continuing at epoch {start_epoch}")
+    return start_epoch
 
 
 def config_from_args(args) -> Config:
@@ -310,19 +372,14 @@ def load_scanrefer(scanrefer_dir: str, split: str) -> list:
     return sorted(data, key=lambda d: (d["scene_id"], int(d["object_id"])))
 
 
-def build_val_dataset(args, config: Config):
-    """The val split's dataset: the val half of ``vlp3d/cli/common.py``
-    ``build_datasets``, which is all that evaluation and prediction
-    read."""
+def _check_dataset(args) -> None:
     if getattr(args, "dataset", "ScanRefer") != "ScanRefer":
         # the reference accepts only ScanRefer (train_3dvlp.py:261-262)
         raise ValueError("Invalid dataset.")
-    if args.synthetic:
-        return make_synthetic_dataset(
-            config, n_scenes=2, anns_per_scene=6, split="val",
-            seed=args.seed + 1,
-        )
 
+
+def _scanrefer_dataset(args, config: Config, split: str, augment: bool,
+                       shuffle: bool):
     raw2label = load_raw2label(args.labels_tsv) if args.labels_tsv else {}
     nyu40map = (
         build_nyu40id2class(args.labels_tsv) if args.labels_tsv else {}
@@ -331,23 +388,58 @@ def build_val_dataset(args, config: Config):
     source = DirectorySceneSource(
         args.scannet_data, multiview_hdf5=args.multiview_hdf5 or None
     )
-    mean_size = config.dataset.mean_size_arr()
-
+    anns = load_scanrefer(args.scanrefer_dir, split)
+    num_scenes = getattr(args, "num_scenes", -1)
+    if num_scenes and num_scenes > 0 and split == "train":
+        # limit to the first N scenes (--num_scenes)
+        keep = set(sorted({d["scene_id"] for d in anns})[:num_scenes])
+        anns = [d for d in anns if d["scene_id"] in keep]
     return ScanReferJointDataset(
-        load_scanrefer(args.scanrefer_dir, "val"),
+        anns,
         source,
         tokenizer,
-        split="val",
+        split=split,
         num_points=config.dataset.num_points,
         lang_num_max=config.model.lang_num_max,
         lang_num_aug=args.lang_num_aug,
-        augment=False,
-        shuffle=False,
+        augment=augment,
+        shuffle=shuffle,
         minor_aug=getattr(args, "minor_aug", False),
         use_height=not getattr(args, "no_height", False),
-        mean_size_arr=mean_size,
+        mean_size_arr=config.dataset.mean_size_arr(),
         raw2label=raw2label,
         nyu40id2class=nyu40map,
         bert_max_len=config.model.bert_seq_len,
         seed=args.seed,
     )
+
+
+def build_val_dataset(args, config: Config):
+    """The val split's dataset, which is all that evaluation and
+    prediction read."""
+    _check_dataset(args)
+    if args.synthetic:
+        return make_synthetic_dataset(
+            config, n_scenes=2, anns_per_scene=6, split="val",
+            seed=args.seed + 1,
+        )
+    return _scanrefer_dataset(args, config, "val", False, False)
+
+
+def build_datasets(args, config: Config):
+    """(train, val) datasets, as ``vlp3d/cli/common.py`` builds them:
+    --synthetic gives 4 train scenes of 10 annotations (--num_scenes
+    changes the 4) and 2 val scenes of 6; the train split augments unless
+    --no_augment, and shuffles."""
+    _check_dataset(args)
+    if args.synthetic:
+        n_scenes = getattr(args, "num_scenes", -1)
+        train = make_synthetic_dataset(
+            config, n_scenes=n_scenes if n_scenes > 0 else 4,
+            anns_per_scene=10, augment=True,
+            shuffle=True, seed=args.seed,
+        )
+        return train, build_val_dataset(args, config)
+    no_augment = getattr(args, "no_augment", False)
+    return (_scanrefer_dataset(args, config, "train", not no_augment, True),
+            build_val_dataset(args, config))

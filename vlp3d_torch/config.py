@@ -156,7 +156,6 @@ _SLICE1_OPTIONS = "ROADMAP.md queue A item 9a (options of slice 1)"
 # use_con builds the contrast head: it feeds the OCC/OSC training losses
 # and is skipped at inference (is_eval).
 _UNPORTED = {
-    "remat": (True, "ROADMAP.md queue A item 14 (rematerialisation)"),
     "use_answer": (True, "ROADMAP.md queue A item 17 (VQA)"),
     "use_mlm": (True, "ROADMAP.md queue A item 16 (captioning/MLM)"),
     "no_caption": (False, "ROADMAP.md queue A item 16 (captioning/MLM)"),

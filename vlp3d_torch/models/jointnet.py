@@ -47,7 +47,7 @@ class JointNet(nn.Module):
         self.backbone_net = PointNet2Backbone(
             cfg.input_feature_dim, npoints=tuple(cfg.sa_npoints),
             radii=tuple(cfg.sa_radii), nsamples=tuple(cfg.sa_nsamples),
-            device=device,
+            remat=cfg.remat, device=device,
         )
         self.vgen = VotingModule(cfg.vote_factor, 256, device=device)
         self.proposal = ProposalModule(

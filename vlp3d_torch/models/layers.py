@@ -15,6 +15,7 @@ put cuDNN, and its TF32 default, on the path).
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -57,7 +58,9 @@ class BatchNorm(nn.Module):
     running statistics move as ra = (1 - momentum) * ra + momentum *
     batch, in place, with that same biased variance (flax stores it;
     ``torch.nn.BatchNorm`` would store the unbiased one). ``momentum`` is
-    torch's convention: 0.1 is flax's 0.9.
+    torch's convention: 0.1 is flax's 0.9. With ``track`` False (see
+    :func:`frozen_statistics`) a training forward normalises with the
+    batch's statistics and leaves the running ones alone.
     """
 
     eps = 1e-5
@@ -66,6 +69,7 @@ class BatchNorm(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.momentum = 0.1
+        self.track = True
         self.weight = nn.Parameter(torch.ones(c, device=device))
         self.bias = nn.Parameter(torch.zeros(c, device=device))
         self.register_buffer("running_mean", torch.zeros(c, device=device))
@@ -78,14 +82,32 @@ class BatchNorm(nn.Module):
             dims = tuple(range(x.dim() - 1))
             mean = x.mean(dims)
             var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
-            with torch.no_grad():
-                self.running_mean.lerp_(mean, self.momentum)
-                self.running_var.lerp_(var, self.momentum)
-                self.num_batches_tracked += 1
+            if self.track:
+                with torch.no_grad():
+                    self.running_mean.lerp_(mean, self.momentum)
+                    self.running_var.lerp_(var, self.momentum)
+                    self.num_batches_tracked += 1
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean) * mul + self.bias
+
+
+@contextlib.contextmanager
+def frozen_statistics(module: nn.Module):
+    """Every :class:`BatchNorm` under ``module`` leaves its running
+    statistics alone while the context is open: a rematerialised block
+    recomputes its training forward for the backward pass, and its
+    statistics already moved once, in the step's forward."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    saved = [m.track for m in norms]
+    for m in norms:
+        m.track = False
+    try:
+        yield
+    finally:
+        for m, track in zip(norms, saved):
+            m.track = track
 
 
 class Dropout(nn.Module):
@@ -204,9 +226,22 @@ class SAModule(nn.Module):
         Returns (new_xyz (B, npoint, 3), new_features (B, npoint, mlp[-1]),
         inds (B, npoint) int32).
         """
+        inds, new_xyz, idx = self.sample(xyz)
+        return new_xyz, self.group(xyz, features, new_xyz, idx), inds
+
+    def sample(self, xyz: torch.Tensor):
+        """The block's point indices: FPS (inds (B, npoint) int32), the
+        centres new_xyz (B, npoint, 3) and the ball query (idx (B, npoint,
+        nsample) int32). None of them carries a gradient."""
         inds = furthest_point_sample(xyz, self.npoint)
         new_xyz = gather_points(xyz, inds)
         idx = ball_query(self.radius, self.nsample, xyz, new_xyz)
+        return inds, new_xyz, idx
+
+    def group(self, xyz: torch.Tensor, features: torch.Tensor,
+              new_xyz: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """The neighbourhoods of :meth:`sample`'s indices through the
+        shared MLP and the max pool -> (B, npoint, mlp[-1])."""
         layers = list(self.mlp_module.children())
         w = layers[0].conv.weight.flatten(1)
         w_xyz, w_feat = w[:, :3], w[:, 3:]
@@ -223,7 +258,7 @@ class SAModule(nn.Module):
         x = F.relu(layers[0].bn.bn(x))
         for layer in layers[1:]:
             x = layer(x)
-        return new_xyz, x.amax(dim=2), inds
+        return x.amax(dim=2)
 
 
 class FPModule(nn.Module):

@@ -121,8 +121,7 @@ def save_checkpoint(root: str, model, optimizer, best: dict,
     target = ("checkpoint_b" if _live_slot(root) == "checkpoint_a"
               else "checkpoint_a")
     payload = {"model": _cpu(model.state_dict()),
-               "optimizer": optimizer.state_dict() if optimizer else None,
-               "step_count": getattr(optimizer, "step_count", None)}
+               "optimizer": optimizer.state_dict() if optimizer else None}
     _write_slot(root, target, payload)
     _write_meta(root, {"epoch": epoch, "best": _floats(best),
                        "dir": target})
@@ -140,6 +139,4 @@ def load_checkpoint(root: str, model, optimizer=None) -> dict:
     model.load_state_dict(payload["model"], strict=True)
     if optimizer is not None:
         optimizer.load_state_dict(payload["optimizer"])
-        if payload.get("step_count") is not None:
-            optimizer.step_count = payload["step_count"]
     return meta

@@ -6,7 +6,11 @@ script_utils.py:3-31): parameters under the lang / relation / match /
 caption modules train at ``module_lr`` (5e-4) and everything else at
 ``base_lr`` (2e-3), each group on its own schedule of the epoch. Frozen
 parameters (``requires_grad=False``: the BERT text encoder) are in no
-group, so they see neither updates nor weight decay.
+group, so they see neither updates nor weight decay. A trained parameter
+that got no gradient in a step (``.grad`` None: the contrast head before
+epoch 50, whose losses are gated off) is updated as with a zero
+gradient, as optax updates the JAX package's: its moments decay and
+weight decay applies.
 
 The update is written out rather than left to ``torch.optim.AdamW`` so
 that it is, term for term, the chain the JAX package runs: moments, bias
@@ -16,8 +20,16 @@ bias-corrected when read, torch's formulation (AdamW.py:100-110). Each
 term runs as one ``torch._foreach_*`` call over a group's tensors: a loop
 over ~200 parameters costs ~2000 small launches a step, which on the card
 is host time the device waits for. The Adam (coupled decay),
-single-group, value-clipping and accumulation variants belong to the VQA
-path and are not ported yet.
+single-group and value-clipping variants belong to the VQA path and are
+not ported yet.
+
+``grad_accum`` = k is ``optax.MultiSteps``'s accumulation: the train step
+(:func:`vlp3d_torch.train.state.make_train_step`) adds the gradients of
+``loss / k`` over k micro-batches into ``.grad`` and calls :meth:`step`
+on every k-th, so the moments, the weight decay and ``step_count`` (which
+the LR schedule reads) move once a k micro-batches, with the mean
+gradient; BatchNorm statistics move on every micro-batch. A caller
+passes ``steps_per_epoch`` already divided by k (the solver does).
 """
 
 from __future__ import annotations
@@ -53,8 +65,8 @@ class AdamW(torch.optim.Optimizer):
     with ``step`` the count of updates already taken."""
 
     def __init__(self, groups, *, lr_schedule, steps_per_epoch: int,
-                 weight_decay: float, amsgrad: bool, b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8):
+                 weight_decay: float, amsgrad: bool, grad_accum: int = 1,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         for g in groups:
             g["lr"] = g["base_lr"]
         super().__init__(groups, dict(weight_decay=weight_decay))
@@ -63,6 +75,39 @@ class AdamW(torch.optim.Optimizer):
         self.amsgrad = amsgrad
         self.b1, self.b2, self.eps = b1, b2, eps
         self.step_count = 0
+        # micro-batches whose gradients .grad holds since the last update
+        self.grad_accum = max(int(grad_accum), 1)
+        self.micro_step = 0
+
+    def state_dict(self):
+        """torch's state dict plus the step count and, mid-window, the
+        micro-batch count and the gradients accumulated so far (what
+        optax.MultiSteps keeps in its state)."""
+        sd = super().state_dict()
+        sd["step_count"] = self.step_count
+        sd["micro_step"] = self.micro_step
+        if self.micro_step:
+            sd["accumulated"] = [
+                None if p.grad is None else p.grad.detach().cpu()
+                for g in self.param_groups for p in g["params"]]
+        return sd
+
+    def load_state_dict(self, state_dict):
+        """Restore the moments, counts and accumulated gradients; the
+        groups' learning rates and weight decay stay this optimizer's, as
+        a restored optax state takes them from the code that built it."""
+        state_dict = dict(state_dict)
+        self.step_count = state_dict.pop("step_count", self.step_count)
+        self.micro_step = state_dict.pop("micro_step", 0)
+        accumulated = state_dict.pop("accumulated", None)
+        hyper = [{k: v for k, v in g.items() if k != "params"}
+                 for g in self.param_groups]
+        super().load_state_dict(state_dict)
+        for group, h in zip(self.param_groups, hyper):
+            group.update(h)
+        params = [p for g in self.param_groups for p in g["params"]]
+        for p, g in zip(params, accumulated or [None] * len(params)):
+            p.grad = None if g is None else g.to(p.device)
 
     def group_lr(self, group) -> float:
         if self.lr_schedule is None:
@@ -78,10 +123,11 @@ class AdamW(torch.optim.Optimizer):
         bc2 = 1.0 - b2 ** count
         for group in self.param_groups:
             lr = group["lr"] = self.group_lr(group)
-            params = [p for p in group["params"] if p.grad is not None]
+            params = group["params"]
             if not params:
                 continue
-            grads = [p.grad for p in params]
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                     for p in params]
             for p in params:
                 st = self.state[p]
                 if not st:
@@ -123,8 +169,7 @@ def make_optimizer(model: nn.Module, *, base_lr: float = 2e-3,
     base LR (CosineAnnealingLR anneals every group to the same eta_min)."""
     for name, value, default in (("optim_name", optim_name, "adamw"),
                                  ("single_group", single_group, False),
-                                 ("clip_grad_value", clip_grad_value, 0.0),
-                                 ("grad_accum", grad_accum, 1)):
+                                 ("clip_grad_value", clip_grad_value, 0.0)):
         if value != default:
             raise NotImplementedError(
                 f"vlp3d_torch does not implement {name}={value!r} yet; "
@@ -142,4 +187,4 @@ def make_optimizer(model: nn.Module, *, base_lr: float = 2e-3,
     ]
     return AdamW(groups, lr_schedule=lr_schedule,
                  steps_per_epoch=steps_per_epoch, weight_decay=weight_decay,
-                 amsgrad=amsgrad)
+                 amsgrad=amsgrad, grad_accum=grad_accum)

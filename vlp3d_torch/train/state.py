@@ -32,25 +32,44 @@ def _scalars(metrics: dict) -> dict:
             if torch.is_tensor(v) and v.dim() == 0}
 
 
+def backward_and_step(loss: torch.Tensor, optimizer) -> None:
+    """One micro-batch of ``optimizer.grad_accum`` = k: clear ``.grad`` at
+    a window's start, add the gradients of ``loss / k``, and update the
+    parameters on the window's k-th call (every call when k = 1)."""
+    k = optimizer.grad_accum
+    if optimizer.micro_step == 0:
+        optimizer.zero_grad(set_to_none=True)
+    (loss / k if k > 1 else loss).backward()
+    optimizer.micro_step += 1
+    if optimizer.micro_step == k:
+        optimizer.step()
+        optimizer.micro_step = 0
+
+
 def make_train_step(model: JointNet, config: Config, optimizer) -> Callable:
     """Returns ``train_step(batch, generator=None) -> metrics``: forward
     in training mode, the joint loss, gradients, one optimizer update and
     new BatchNorm statistics, all in place in ``model`` and ``optimizer``.
 
+    With ``optimizer.grad_accum`` = k > 1 a call is one micro-batch: it
+    adds the gradients of ``loss / k`` to ``.grad`` (cleared at the start
+    of each window of k) and updates the parameters on every k-th call,
+    so k micro-batches of B take the step of one batch of k x B; the
+    BatchNorm statistics move on every call.
+
     ``batch`` holds tensors on the model's device
     (:func:`batch_to_device`); ``generator`` (a ``torch.Generator`` on
     that device) draws the dropout masks, the global generator when None.
     ``metrics`` are the scalar entries of the loss's metrics, as 0-dim
-    tensors on the device (reading one synchronises).
+    tensors on the device (reading one synchronises). ``optimizer`` is
+    :func:`vlp3d_torch.train.optimizer.make_optimizer`'s.
     """
 
     def train_step(batch: dict, generator: torch.Generator | None = None):
         set_dropout_generator(model, generator)
         out = model(batch, train=True)
         loss, metrics = compute_joint_loss(config, out, batch)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
+        backward_and_step(loss, optimizer)
         return _scalars(metrics)
 
     return train_step
