@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of vlp3d_torch on one CUDA card: grounding inference, the
-joint train step, the predict path, the trainer behind run.sh and the
-HTTP grounding server.
+joint train step, the predict path, the trainer behind run.sh, the HTTP
+grounding server and Scan2Cap captioning.
 
     python3 chip_smoke.py
 
@@ -167,7 +167,37 @@ nothing of the vlp3d package. Phases, each fatal on failure:
    p50 / p99 request ms and device-batch ms from /stats, and the split
    of a request on the server's threads (decode, resample and tokenise;
    the handler as a whole);
-10. print {"kernels": [...]} with every kernel of the five paths (the
+10. captioning at run.sh's widths (3 + 132 channels, 256 proposals, a
+   6-layer d=128 decoder, vocab 30522, max_des_len 30). Built while the
+   CLI processes run: CaptionPredictor over phase 5's model with seeded
+   caption weights; the KV-cached greedy decode of phase 5's first
+   batch (2048 captions) against greedy_decode_uncached, and beam width 1
+   against greedy up to the first SEP, both by the tie rule (a row may
+   differ only where the reference side's top-2 logit margin at the
+   first differing step is below TIE_MARGIN; the excused rows are
+   counted); the use_con caption model and the caption + MLM model on
+   phase 6's batch, each kernel step against the plain-op step (loss
+   within STEP_LOSS_RTOL, gradients within STEP_GRAD_TOL of the largest
+   entry; a probe under a decoder ReLU that decided differently in the
+   two runs is reported, not held, and that ReLU's input must lie within
+   FLIP_TOL of 0); a server with a ground and a caption service, warmed
+   up, and each request's reference from the caption predictor alone.
+   CLI processes: caption_predict and caption_eval over stand-in assets
+   (started with phase 8's; pred.json's boxes 8 x 3 and string
+   captions, every metric finite) and train_caption with run.sh's flags
+   + --synthetic --epoch 1 --pretrain <phase 8's model.pth> beside the
+   --auto_resume run (exit 0, its restored / fresh counts, cap_loss
+   finite). With the card to itself, counts at 0 before each: one
+   CaptionPredictor call on phase 5's second batch (one forward's
+   launches), forward and decode timed apart for greedy and beam width
+   3, peak memory, a trace of the greedy decode; 3 train steps of each
+   caption model (each step FPS 5, ball query 5, three-NN 2, gather 11,
+   its backward 5, the interpolation's backward 2; cap_loss, cap_acc,
+   mlm_loss finite), step ms and peak memory; 6 concurrent /v1/caption
+   requests (b64 clouds of 40960 x 135) and one /v1/ground: all 200,
+   one forward's launches a device batch, captions equal to the
+   predictor's alone by the tie rule, boxes within BOX_TOL;
+11. print {"kernels": [...]} with every kernel of the eight paths (the
    CUDA functions behind each in kernel_functions, host_us beside the
    times, the launches of each path, and per_step and per_remat_step
    as counted in phase 8), the
@@ -238,6 +268,22 @@ REMAT_STEP = dict(PER_STEP, group_points=15, three_nn=4)
 # fill a device batch
 HTTP_REQUESTS = 12
 HTTP_MAX_WAIT_MS = 20.0
+# the captioning phase: run.sh's widths (decoder layers, d_model, vocab,
+# max_des_len, proposals, feature channels)
+CAPTION_WIDTHS = (6, 128, 30522, 30, 256, 132)
+# caption_predict / caption_eval: run.sh's flags; they decode captions
+# whatever --no_caption says
+CAPTION_CLI_FLAGS = [f for f in RUN_SH_FLAGS if f != "--no_caption"]
+CAPTION_BEAMS = 3
+CAPTION_STEPS = 3  # timed caption train steps of each model
+CAPTION_HTTP_REQUESTS = 6
+SEP = 102
+# two decodes agree when their rows are equal, or a row's first differing
+# step had a top-2 logit margin below this on the reference side
+TIE_MARGIN = 1e-4
+# a decoder ReLU input that lands on the other side of 0 in the kernel and
+# the plain-op runs must lie within this of 0
+FLIP_TOL = 1e-3
 
 
 _T0 = time.perf_counter()
@@ -1021,11 +1067,13 @@ def profile_call(torch, fn, tag: str, what: str, top: int = 15):
 
 
 def kernel_line(rows, serving, train, predict, solver, http, per_step,
-                per_remat_step):
+                per_remat_step, captions):
     """The {"kernels": [...]} line. ``rows`` holds the per-call-site checks
     of each kernel; ``serving`` / ``train`` / ``predict`` / ``solver`` /
-    ``http`` the launch counts of the five main-path runs; ``per_step``
-    and ``per_remat_step`` those of one Solver step and one remat step."""
+    ``http`` the launch counts of the five grounding main-path runs,
+    ``captions`` those of the three captioning ones (``caption_serve``,
+    ``caption_step``, ``caption_http``); ``per_step`` and
+    ``per_remat_step`` those of one Solver step and one remat step."""
     sources = {
         "fps": ("vlp3d_torch/csrc/fps.cu", "vlp3d/ops/sampling.py:60"),
         "ball_query": ("vlp3d_torch/csrc/ball_query.cu",
@@ -1067,12 +1115,14 @@ def kernel_line(rows, serving, train, predict, solver, http, per_step,
             "source": sources[name][0],
             "replaces": sources[name][1],
             "launches": (serving[name] + train[name] + predict[name]
-                         + solver[name] + http[name]),
+                         + solver[name] + http[name]
+                         + sum(c[name] for c in captions.values())),
             "launches_serving": serving[name],
             "launches_train": train[name],
             "launches_predict": predict[name],
             "launches_solver": solver[name],
             "launches_http": http[name],
+            **{f"launches_{path}": c[name] for path, c in captions.items()},
             "per_step": per_step[name],
             "per_remat_step": per_remat_step[name],
             "max_abs_err": max(r["max_abs_err"] for r in rs),
@@ -1528,17 +1578,19 @@ def check_gather_grad_bounds(torch, site):
           "gradient")
 
 
-def loss_and_grads(torch, model, config, batch, names, seed):
-    """One train forward + backward with dropout drawn from ``seed``;
-    returns (loss, {name: gradient}) and leaves no gradient behind."""
+def loss_and_grads(torch, model, config, batch, names, seed, caption=False):
+    """One train forward + backward with dropout (and the caption / MLM
+    token masks) drawn from ``seed``; returns (loss, {name: gradient}) and
+    leaves no gradient behind."""
     from vlp3d_torch.losses.joint import compute_joint_loss
     from vlp3d_torch.models.layers import set_dropout_generator
 
     gen = torch.Generator(device=batch["point_clouds"].device)
     gen.manual_seed(seed)
     set_dropout_generator(model, gen)
+    model.mask_generator = gen
     out = model(batch, train=True)
-    loss, _ = compute_joint_loss(config, out, batch)
+    loss, _ = compute_joint_loss(config, out, batch, caption=caption)
     loss.backward()
     grads = {n: model.get_parameter(n).grad.detach().clone() for n in names}
     model.zero_grad(set_to_none=True)
@@ -1581,7 +1633,8 @@ def step_phases(torch, model, config, optimizer, batch, gen, reps: int = 3):
 
 
 def drive_train(torch, batch_size, num_points, smi):
-    """Phase 6; returns (per-call kernel rows, train-path launch counts)."""
+    """Phase 6; returns (per-call kernel rows, train-path launch counts,
+    the host batch)."""
     import numpy as np
 
     from vlp3d_torch import ops
@@ -1719,7 +1772,7 @@ def drive_train(torch, batch_size, num_points, smi):
     profile_call(torch, lambda: train_step(batch, gen), "6", "train step",
                  top=25)
     stamp("6", "train path")
-    return rows, launches
+    return rows, launches, host
 
 
 def _predict_path(torch, smi, model, ds, device, args, config):
@@ -1914,28 +1967,53 @@ def drive_predict(torch, smi, after_timing=lambda: None):
     return launches
 
 
+def _cli(module, argv, result):
+    """`python -m <module> <argv>`; returns (exit code, output, seconds).
+    The process joins result["procs"] while it runs, for the main thread
+    to kill."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", module, *argv], cwd=REPO, env=child_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    result.setdefault("procs", []).append(proc)
+    out, _ = proc.communicate(timeout=600)
+    return proc.returncode, out, time.perf_counter() - t0
+
+
 def _train_cli(argv, workdir, result):
     """`python -m vlp3d_torch.cli.train_3dvlp` with run.sh's flags plus
-    ``argv``; returns (exit code, output, seconds). The process stands in
-    result["proc"] while it runs, for the main thread to kill."""
-    t0, wall0 = time.perf_counter(), time.time()
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "vlp3d_torch.cli.train_3dvlp",
-         *RUN_SH_TRAIN_FLAGS, "--synthetic", "--workdir", workdir, *argv],
-        cwd=REPO, env=child_env(), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
-    result["proc"] = proc
-    out, _ = proc.communicate(timeout=600)
+    ``argv``; returns (exit code, output, seconds)."""
+    wall0 = time.time()
+    run = _cli("vlp3d_torch.cli.train_3dvlp",
+               [*RUN_SH_TRAIN_FLAGS, "--synthetic", "--workdir", workdir,
+                *argv], result)
     result.setdefault("started", []).append(wall0)
     result.setdefault("ended", []).append(time.time())
-    return proc.returncode, out, time.perf_counter() - t0
+    return run
+
+
+def _train_caption_cli(pretrain, workdir, result):
+    """Phase 10's `python -m vlp3d_torch.cli.train_caption` with run.sh's
+    flags (it drops --no_caption) + --synthetic --epoch 1, warm-started
+    from phase 8's model.pth."""
+    try:
+        result["caption_train"] = _cli(
+            "vlp3d_torch.cli.train_caption",
+            [*RUN_SH_TRAIN_FLAGS, "--synthetic", "--epoch", "1",
+             "--workdir", workdir, "--pretrain", pretrain], result)
+    except Exception as e:  # noqa: BLE001 — reported by the main thread
+        result["error"] = repr(e)
 
 
 def train_cli_runs(workdir, result):
     """Phase 8's subprocesses, one after the other (run in a thread
-    beside the in-process work): 2 epochs, then --epoch 3 --auto_resume;
-    leaves {"runs": [(rc, output, s), ...]} or {"error": ...} in
-    ``result``."""
+    beside the in-process work): 2 epochs, then --epoch 3 --auto_resume,
+    and beside that run phase 10's train_caption from the first run's
+    model.pth; leaves {"runs": [(rc, output, s), ...], "caption_train":
+    (rc, output, s)} or {"error": ...} in ``result``."""
+    import shutil
+    import threading
+
     try:
         result["runs"] = [_train_cli(["--epoch", "2"], workdir, result)]
         if result["runs"][0][0] == 0 and not result.get("stop"):
@@ -1943,19 +2021,29 @@ def train_cli_runs(workdir, result):
                 result["lines_before_resume"] = len(f.readlines())
             result["info_mtime"] = os.path.getmtime(
                 os.path.join(workdir, "info.json"))
+            root = os.path.dirname(workdir)
+            pretrain = os.path.join(root, "pretrain.pth")
+            shutil.copyfile(os.path.join(workdir, "model.pth"), pretrain)
+            caption = threading.Thread(
+                target=_train_caption_cli,
+                args=(pretrain, os.path.join(root, "caption"), result),
+                daemon=True)
+            caption.start()
             result["runs"].append(_train_cli(
                 ["--epoch", "3", "--auto_resume"], workdir, result))
+            caption.join()
     except Exception as e:  # noqa: BLE001 — reported by the main thread
         result["error"] = repr(e)
 
 
 def stop_train_cli(cli, result):
-    """End phase 8's subprocess thread: kill a process still running."""
+    """End phase 8's subprocess thread: kill every process still
+    running."""
     result["stop"] = True
-    for _ in range(2):  # the second run may start while the first ends
-        proc = result.get("proc")
-        if proc is not None and proc.poll() is None:
-            proc.kill()
+    for _ in range(3):  # a run may start while another ends
+        for proc in result.get("procs", []):
+            if proc.poll() is None:
+                proc.kill()
         cli.join(timeout=30)
 
 
@@ -2446,8 +2534,590 @@ def drive_http(torch, smi, phase):
                                                            50))}
 
 
+# ---------------------------------------------------------------- phase 10
+
+
+def first_diff(a, b):
+    """The first step at which two id rows differ (None when equal)."""
+    idx = (a != b).nonzero()
+    return None if idx.numel() == 0 else int(idx[0])
+
+
+def tie_rule(torch, ref, got, ref_logits, what: str, tag: str = "10") -> int:
+    """Rows of ``got`` (N, T) equal ``ref``'s, or are excused: at the first
+    differing step s the reference side's top-2 logit margin
+    (``ref_logits(rows, s)`` -> (len(rows), vocab)) is below TIE_MARGIN.
+    Any other difference is fatal; returns the count of excused rows."""
+    rows = (ref != got).any(dim=1).nonzero().flatten().tolist()
+    excused = 0
+    for r in rows:
+        s = first_diff(ref[r], got[r])
+        top2 = torch.topk(ref_logits([r], s)[0].float(), 2).values
+        margin = float(top2[0] - top2[1])
+        if margin >= TIE_MARGIN:
+            fail(f"{what}: row {r} differs at step {s} with a top-2 margin "
+                 f"of {margin}")
+        excused += 1
+    print(f"[{tag}] {what}: {ref.shape[0]} rows, {excused} excused by the "
+          f"tie rule (top-2 margin below {TIE_MARGIN} at the first "
+          f"differing step), every other row equal")
+    return excused
+
+
+def cut_at_sep(ys):
+    """Each row's ids up to and including its first SEP."""
+    out = []
+    for row in ys.tolist():
+        out.append(row[:row.index(SEP) + 1] if SEP in row else row)
+    return out
+
+
+@contextlib.contextmanager
+def relu_inputs(model, heads):
+    """Record every caption / MLM decoder layer's ReLU input (the
+    feed-forward's first linear) while open: {(head, layer): tensor}."""
+    seen, hooks = {}, []
+    for head in heads:
+        for i, layer in enumerate(getattr(model, head).model.decoder.layers):
+            hooks.append(layer.feed_forward.w_1.register_forward_hook(
+                lambda m, a, o, key=(head, i): seen.__setitem__(
+                    key, o.detach().clone())))
+    try:
+        yield seen
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def above_flips(name: str, flipped: dict) -> bool:
+    """Whether a parameter's gradient lies above every decoder ReLU that
+    decided differently (``flipped``: head -> its deepest such layer):
+    the detection and language modules lie under both decoders (their
+    object tokens), a decoder's embedding under its layers."""
+    head = name.split(".")[0]
+    if head not in ("caption", "mlm"):
+        return not flipped
+    if head not in flipped:
+        return True
+    if ".layers." in name:
+        return int(name.split(".")[4]) > flipped[head]
+    return ".tgt_embed." not in name
+
+
+class CaptionClis:
+    """Phase 10's caption_predict and caption_eval processes over
+    stand-in assets (seeded weights), started beside phase 8."""
+
+    def __init__(self):
+        import tempfile
+
+        from vlp3d_torch.data.standins import write_standin_assets
+
+        self.tmp = tempfile.TemporaryDirectory()
+        self.paths = write_standin_assets(self.tmp.name)
+        self.assets = [
+            "--scanrefer_dir", self.paths["scanrefer_dir"],
+            "--scannet_data", self.paths["scannet_data"], "--bert_vocab",
+            os.path.join(self.paths["bert_dir"], "vocab.txt")]
+        self.out = {m: os.path.join(self.tmp.name, f"{m}.json")
+                    for m in ("caption_predict", "caption_eval")}
+        self.procs = {}
+
+    def start(self):
+        for module, out in self.out.items():
+            self.procs[module] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-m", f"vlp3d_torch.cli.{module}",
+                 *CAPTION_CLI_FLAGS, *self.assets, "--out", out], cwd=REPO,
+                env=child_env(), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        stamp("10", "caption_predict and caption_eval CLIs started")
+
+    def check(self):
+        import numpy as np
+
+        for module, (t0, proc) in self.procs.items():
+            out, _ = proc.communicate(timeout=600)
+            sec = time.perf_counter() - t0
+            if proc.returncode != 0:
+                fail(f"python -m vlp3d_torch.cli.{module} exited "
+                     f"{proc.returncode}:\n{out[-3000:]}")
+            print(f"[10] {module} CLI: exit 0 in {sec:.1f} s; last line "
+                  f"{out.strip().splitlines()[-1][:160]!r}")
+        with open(self.out["caption_predict"]) as f:
+            pred = json.load(f)
+        recs = [r for scene in pred.values() for r in scene]
+        if not pred or any(
+                np.asarray(r["box"]).shape != (8, 3)
+                or not isinstance(r["caption"], str)
+                or not r["caption"].endswith("[SEP]") for r in recs):
+            fail(f"caption pred.json over the stand-ins: {str(pred)[:400]}")
+        with open(self.out["caption_eval"]) as f:
+            metrics = json.load(f)
+        names = {"bleu-1", "bleu-2", "bleu-3", "bleu-4", "cider", "rouge",
+                 "meteor"}
+        if set(metrics) != names or not all(np.isfinite(v)
+                                            for v in metrics.values()):
+            fail(f"caption_eval metrics {metrics}")
+        print(f"[10] caption pred.json: {len(pred)} scenes, {len(recs)} "
+              f"kept proposals, boxes 8 x 3, captions such as "
+              f"{recs[0]['caption'][:80]!r}; caption_eval "
+              f"{json.dumps(metrics)}")
+
+    def stop(self):
+        for _, proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        self.tmp.cleanup()
+
+
+def check_train_caption(result, workdir):
+    """train_caption's process (run beside phase 8's --auto_resume run):
+    exit 0, its warm-start counts, the caption loss finite."""
+    import numpy as np
+
+    if "caption_train" not in result:
+        fail("the train_caption CLI did not run")
+    rc, out, sec = result["caption_train"]
+    if rc != 0:
+        fail(f"python -m vlp3d_torch.cli.train_caption exited {rc}:\n"
+             f"{out[-4000:]}")
+    line = [ln for ln in out.splitlines() if ln.startswith("warm-started")]
+    with open(os.path.join(workdir, "log.jsonl")) as f:
+        train = [r for r in map(json.loads, f) if r["phase"] == "train"]
+    if not line or " 0 fresh" in line[0] or not train or not all(
+            np.isfinite(r["cap_loss"]) and np.isfinite(r["cap_acc"])
+            for r in train):
+        fail(f"train_caption: {line} {train}")
+    print(f"[10] train_caption CLI (--pretrain phase 8's model.pth, "
+          f"--synthetic --epoch 1): exit 0 in {sec:.1f} s; {line[0]}; "
+          f"cap_loss {[round(r['cap_loss'], 4) for r in train]}")
+
+
+class CaptionPhase:
+    """Phase 10 in this process: the models, the untimed checks (cached
+    against uncached decode, beam width 1 against greedy, the kernel
+    step against the plain-op step) and the HTTP services, all made while
+    the CLI processes run; :meth:`drive` then times the main paths with
+    the card to itself."""
+
+    def __init__(self, torch, smi, scenes, ground_state, train_host):
+        import dataclasses
+
+        from vlp3d_torch.config import Config, ModelConfig
+        from vlp3d_torch.serve import InferenceService, make_server
+        from vlp3d_torch.serving import CaptionPredictor
+
+        import threading
+
+        self.smi, self.scenes, self.train_host = smi, scenes, train_host
+        t0 = time.perf_counter()
+        config = Config(model=ModelConfig(use_con=False, no_caption=False))
+        self.config = config
+        self.pred = CaptionPredictor(config, batch_size=B)
+        # phase 5's model, with seeded caption weights
+        self.pred.model.load_state_dict(
+            {**self.pred.model.state_dict(), **ground_state}, strict=True)
+        cfg = config.model
+        dec = self.pred.model.caption.model
+        if (dec.n_layers, dec.d_model, dec.vocab_size, cfg.max_des_len,
+                cfg.num_proposal, cfg.input_feature_dim) != CAPTION_WIDTHS:
+            fail(f"caption model is not run.sh's: {dec} {cfg}")
+        print(f"[10] caption model built in {time.perf_counter() - t0:.1f} s"
+              f" (phase 5's weights + a seeded {dec.n_layers}-layer "
+              f"d={dec.d_model} decoder, vocab {dec.vocab_size})")
+        self.check_decodes(torch)
+        self.train = {mlm: self.check_step(torch, mlm) for mlm in (False,
+                                                                    True)}
+        state = self.pred.model.state_dict()
+        self.services = {
+            task: InferenceService(
+                dataclasses.replace(config, dataset=dataclasses.replace(
+                    config.dataset, num_points=N)), state, task=task,
+                batch_size=B, max_wait_ms=HTTP_MAX_WAIT_MS)
+            for task in ("ground", "caption")}
+        self.server = make_server(self.services)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        for s in self.services.values():
+            s.warmup()
+        self.http_refs(torch)
+        stamp("10", "caption models, untimed checks and HTTP services")
+
+    # -- (a) untimed: decodes against their oracles ----------------------
+
+    def check_decodes(self, torch):
+        from vlp3d_torch.models.caption import (
+            beam_decode,
+            greedy_decode,
+            greedy_decode_uncached,
+        )
+
+        pred, cfg = self.pred, self.config.model
+        dec = pred.model.caption.model
+        out = pred.forward(pred._to_device(self.scenes[0]))
+        obj = out["aggregated_vote_features"].reshape(
+            B * cfg.num_proposal, 1, -1)
+        cached = greedy_decode(dec, obj, cfg.max_des_len)
+        plain = greedy_decode_uncached(dec, obj, cfg.max_des_len)
+
+        def plain_logits(rows, s):
+            return dec.decode_step(obj[rows], plain[rows], s - 1)
+
+        self.excused = tie_rule(torch, plain, cached, plain_logits,
+                                "KV-cached greedy against uncached")
+
+        def cached_logits(rows, s):
+            return dec.decode_step(obj[rows], cached[rows], s - 1)
+
+        beam1, _ = beam_decode(dec, obj, cfg.max_des_len, 1)
+        a, b = cut_at_sep(cached), cut_at_sep(beam1)
+        differ = [r for r in range(len(a)) if a[r] != b[r]]
+        for r in differ:  # the tie rule, on the prefix up to SEP
+            s = next(i for i, (x, y) in enumerate(zip(a[r], b[r])) if x != y)
+            top2 = torch.topk(cached_logits([r], s)[0], 2).values
+            if float(top2[0] - top2[1]) >= TIE_MARGIN:
+                fail(f"beam width 1 differs from greedy at row {r}, step {s}")
+        self.beam1_excused = len(differ)
+        if any(r[0] != 101 for r in a):
+            fail("a caption does not start with CLS")
+        print(f"[10] beam width 1 against greedy up to the first SEP: "
+              f"{len(a)} rows, {len(differ)} excused by the tie rule; "
+              f"{sum(SEP in r for r in a)} greedy rows reach SEP")
+
+    # -- (b) untimed: the kernel step against the plain-op step ----------
+
+    def check_step(self, torch, mlm):
+        from vlp3d_torch.config import Config, ModelConfig
+        from vlp3d_torch.models import JointNet
+        from vlp3d_torch.train import (
+            batch_to_device,
+            make_optimizer,
+            make_train_step,
+        )
+        from vlp3d_torch.train.schedules import cosine_lr
+
+        config = Config(model=ModelConfig(use_con=True, no_caption=False,
+                                          use_mlm=mlm))
+        model = JointNet(config)
+        with torch.no_grad():  # phase 6's nudges
+            model.vgen.conv3.weight.mul_(0.05)
+            model.vgen.conv3.bias.mul_(0.05)
+            model.proposal.proposal.box_predictor.bias.fill_(-1.0)
+        batch = batch_to_device(self.train_host, next(
+            model.parameters()).device)
+        heads = ("caption", "mlm") if mlm else ("caption",)
+        probe = ["backbone_net.sa1.mlp_module.layer0.conv.weight",
+                 "proposal.vote_aggregation.mlp_module.layer0.conv.weight",
+                 "match.match.0.weight"]
+        for head in heads:
+            probe += [f"{head}.model.generator.proj.weight",
+                      f"{head}.model.decoder.norm.a_2",
+                      f"{head}.model.decoder.layers.5.feed_forward.w_1.weight",
+                      f"{head}.model.decoder.layers.0.self_attn.linears.0."
+                      f"weight", f"{head}.model.tgt_embed.0.lut.weight"]
+        with relu_inputs(model, heads) as pre_k:
+            loss_k, grads_k = loss_and_grads(torch, model, config, batch,
+                                             probe, 11, caption=True)
+        with plain_ops(), relu_inputs(model, heads) as pre_p:
+            loss_p, grads_p = loss_and_grads(torch, model, config, batch,
+                                             probe, 11, caption=True)
+        # a decoder ReLU on the other side of 0 in the two runs (their
+        # forwards differ in the interpolation's order of summation) moves
+        # the gradients of its layer and everything under it by that
+        # unit's share: those probes are reported, not held
+        flipped = {}
+        for (head, i), a in pre_k.items():
+            flips = (a > 0) != (pre_p[(head, i)] > 0)
+            if bool(flips.any()):
+                near = max(float(a[flips].abs().max()),
+                           float(pre_p[(head, i)][flips].abs().max()))
+                if near > FLIP_TOL:
+                    fail(f"{head} layer {i}: a ReLU input {near} from 0 "
+                         "decided differently in the two runs")
+                flipped[head] = max(flipped.get(head, -1), i)
+        loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+        errs, held = {}, True
+        for n in probe:
+            scale = grads_p[n].abs().max().item()
+            errs[n] = (grads_k[n] - grads_p[n]).abs().max().item() / max(
+                scale, 1e-30)
+        under = [n for n in probe if not above_flips(n, flipped)]
+        worst = max(v for n, v in errs.items() if n not in under)
+        print(f"[10] caption{'+MLM' if mlm else ''} step, kernels against "
+              f"plain ops on the card: loss {loss_k.item()} vs "
+              f"{loss_p.item()} (relative {loss_rel}); largest gradient "
+              f"difference {worst} of the tensor's largest entry over "
+              f"{len(probe) - len(under)} tensors; decoder ReLUs decided "
+              f"differently (head: deepest layer) {flipped}, probes under "
+              f"them reported only: "
+              f"{ {n: errs[n] for n in under} }")
+        if loss_rel > STEP_LOSS_RTOL or worst > STEP_GRAD_TOL:
+            fail("the caption kernel step differs from the plain-op step")
+        optimizer = make_optimizer(
+            model, lr_schedule=lambda e, lr0: cosine_lr(e, lr0, 200),
+            steps_per_epoch=100)
+        step = make_train_step(model, config, optimizer, caption=True)
+        step(batch, torch.Generator(device=batch["point_clouds"].device))
+        torch.cuda.synchronize()  # the first step's costs, untimed
+        return model, step, batch
+
+    # -- (d) untimed: the HTTP requests and their references -------------
+
+    def http_refs(self, torch):
+        import base64
+
+        import numpy as np
+
+        from vlp3d_torch.serving import STREAM_KEYS
+
+        rng = np.random.default_rng(10)
+        svc = self.services["caption"]
+        c = 3 + self.config.model.input_feature_dim
+        self.reqs, self.refs = [], []
+        for i in range(CAPTION_HTTP_REQUESTS):
+            pc = rng.uniform(0, 4, (N, c)).astype(np.float32)
+            req = {"point_cloud": {"b64": base64.b64encode(
+                pc.astype("<f4").tobytes()).decode(), "shape": list(pc.shape)}}
+            if i % 2:
+                req["queries"] = ["the brown chair by the window"]
+            self.reqs.append(req)
+            item, _ = svc._make_item(req)
+            dev = svc._pred._to_device({k: np.asarray(item[k])[None]
+                                        for k in STREAM_KEYS})
+            dev = {k: torch.cat([v] * B) for k, v in dev.items()}
+            out = svc._pred.forward(dev)
+            got = svc._pred.decode(out)
+            self.refs.append((out["aggregated_vote_features"][0],
+                              {k: v[0].cpu() for k, v in got.items()}))
+        self.ground_req = dict(self.reqs[0], queries=["the chair"])
+        self.bodies = [json.dumps(r).encode() for r in self.reqs]
+
+    # -- the timed main paths, with the card to itself -------------------
+
+    def drive(self, torch):
+        """(a), (b) and (d) with every count at 0 before each; returns
+        ({path: launch counts}, numbers for the results line)."""
+        launches, numbers = {}, {}
+        try:
+            launches["caption_serve"], numbers["serve"] = self.serve(torch)
+            launches["caption_step"], numbers["step"] = self.steps(torch)
+            launches["caption_http"], numbers["http"] = self.http(torch)
+        finally:
+            self.stop()
+        return launches, numbers
+
+    def serve(self, torch):
+        import numpy as np
+
+        from vlp3d_torch import ops
+
+        pred, smi = self.pred, self.smi
+        cfg = self.config.model
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # every model of this process is resident: peaks are reported
+        # above what was allocated before the work
+        resident = torch.cuda.memory_allocated()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = pred([self.scenes[1]])[0]  # the entry point a user calls
+        call_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(ops.launches)
+        peak = torch.cuda.max_memory_allocated() - resident
+        if launches != PER_FORWARD:
+            fail(f"caption serving launches {launches} != {PER_FORWARD}")
+        ids = res["caption_ids"]
+        if ids.shape != (B, cfg.num_proposal, cfg.max_des_len + 2) or not (
+                ids[..., 0] == 101).all():
+            fail(f"caption ids {ids.shape}")
+        for key in ("pred_center", "pred_size", "objectness_scores",
+                    "sem_cls_scores"):
+            if not np.isfinite(res[key]).all():
+                fail(f"caption serving: non-finite {key}")
+        # forward and decode timed apart, greedy and beam width 3 (median
+        # of 3, host clock to a synchronise, batch already on the card)
+        dev = pred._to_device(self.scenes[2])
+        out = pred.forward(dev)
+        times, peaks = {}, {}
+        for name, beams in (("forward", None), ("greedy", 1),
+                            (f"beam{CAPTION_BEAMS}", CAPTION_BEAMS)):
+            pred.num_beams = beams or 1
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            times[name] = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                pred.forward(dev) if beams is None else pred.decode(out)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+            peaks[name] = (torch.cuda.max_memory_allocated()
+                           - resident) / 2**30
+        pred.num_beams = 1
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        captions = B * cfg.num_proposal
+        print(f"[10] caption serving at B={B}, N={N}: {captions} captions a "
+              f"batch, launches a batch {launches}; the whole call "
+              f"{call_ms:.3f} ms (host batch to host predictions, peak "
+              f"{peak / 2**30:.3f} GiB above the resident models); median "
+              f"of 3, ms: forward "
+              f"{med['forward']:.3f}, greedy decode {med['greedy']:.3f}, "
+              f"beam-{CAPTION_BEAMS} decode {med[f'beam{CAPTION_BEAMS}']:.3f}"
+              f"; peak GiB above the resident models and batch "
+              f"{json.dumps(peaks)}; excused rows: cached "
+              f"{self.excused}, beam-1 {self.beam1_excused} ({smi})")
+        profile_call(torch, lambda: pred.decode(out), "10", "greedy decode",
+                     top=12)
+        stamp("10", "caption serving")
+        return launches, {"call_ms": call_ms, "forward_ms": med["forward"],
+                          "greedy_ms": med["greedy"],
+                          "beam_ms": med[f"beam{CAPTION_BEAMS}"],
+                          "peak_gib": peaks, "excused": self.excused}
+
+    def steps(self, torch):
+        import numpy as np
+
+        from vlp3d_torch import ops
+
+        total = {k: 0 for k in PER_STEP}
+        numbers = {}
+        for mlm, (model, step, batch) in self.train.items():
+            gen = torch.Generator(device=batch["point_clouds"].device)
+            gen.manual_seed(0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            ms, history = [], []
+            for _ in range(CAPTION_STEPS):
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                history.append(step(batch, gen))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                one = dict(ops.launches)
+                if one != PER_STEP:
+                    fail(f"caption step launches {one} != {PER_STEP}")
+                total = {k: total[k] + one[k] for k in total}
+            peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+            history = [{k: v.item() for k, v in m.items()} for m in history]
+            keys = ("cap_loss", "cap_acc") + (("mlm_loss",) if mlm else ())
+            for m in history:
+                for k, v in m.items():
+                    if not np.isfinite(v):
+                        fail(f"caption step: non-finite {k}")
+                if any(k not in m for k in keys):
+                    fail(f"caption step metrics {sorted(m)}")
+            name = "caption+mlm" if mlm else "caption"
+            numbers[name] = {"ms": ms, "peak_gib": peak}
+            print(f"[10] {name} train step at B={B}, N={N}: ms {ms} (host "
+                  f"clock to a synchronise), peak {peak:.3f} GiB above the "
+                  f"resident models, optimizers and batch; launches "
+                  f"a step {one}; "
+                  + json.dumps({k: [round(m[k], 5) for m in history]
+                                for k in ("loss",) + keys})
+                  + f" ({self.smi})")
+        self.train.clear()
+        torch.cuda.empty_cache()
+        stamp("10", "caption train steps")
+        return total, numbers
+
+    def http(self, torch):
+        import threading
+        import urllib.request
+
+        import numpy as np
+
+        from vlp3d_torch import ops
+
+        svc = self.services["caption"]
+        port = self.server.server_address[1]
+        served = []  # (caption ids, captions) of every answer
+        proposals = svc._proposals
+
+        def recording(out):
+            props = proposals(out)
+            served.append((out["caption_ids"], [p["caption"] for p in props]))
+            return props
+
+        svc._proposals = recording
+        answers = [None] * len(self.bodies)
+
+        def call(i):
+            answers[i] = _post(port, "/v1/caption", self.bodies[i])
+
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        before = {t: s.stats()["device_batches"]
+                  for t, s in self.services.items()}
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(len(self.bodies))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        ground = _post(port, "/v1/ground", json.dumps(self.ground_req).encode())
+        for t in threads:
+            t.join(timeout=600)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(ops.launches)
+        svc._proposals = proposals
+        batches = {t: s.stats()["device_batches"] - before[t]
+                   for t, s in self.services.items()}
+        codes = [a[0] if a else None for a in answers] + [ground[0]]
+        print(f"[10] {len(self.bodies)} concurrent /v1/caption requests "
+              f"(b64 clouds of {N} x {3 + self.config.model.input_feature_dim}"
+              f") and one /v1/ground in {wall_ms:.3f} ms: codes {codes}, "
+              f"device batches {batches}, launches {launches}")
+        if codes != [200] * len(codes):
+            fail(f"caption HTTP requests failed: {codes}")
+        n_batches = sum(batches.values())
+        if launches != {k: n_batches * v for k, v in PER_FORWARD.items()}:
+            fail(f"caption HTTP launches {launches} over {n_batches} batches")
+        dec = svc._pred.model.caption.model
+        excused, worst = 0, 0.0
+        for (code, ans), (feat, ref) in zip(answers, self.refs):
+            caps = [p["caption"] for p in ans["proposals"]]
+            ids = next(torch.as_tensor(i) for i, c in served if c == caps)
+            want = ref["caption_ids"]
+
+            def ref_logits(rows, s, feat=feat, want=want):
+                dev = feat.device
+                return dec.decode_step(feat[rows][:, None],
+                                       want[rows].to(dev), s - 1)
+
+            excused += tie_rule(torch, want, ids, ref_logits,
+                                "an HTTP caption against the predictor "
+                                "alone")
+            for k, p in enumerate(ans["proposals"]):
+                for key in ("center", "size"):
+                    worst = max(worst, float(np.abs(np.asarray(p[key]) -
+                                                    ref[f"pred_{key}"][k]
+                                                    .numpy()).max()))
+        if worst > BOX_TOL:
+            fail(f"HTTP caption boxes differ from the predictor's by {worst}")
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats",
+                                    timeout=60) as r:
+            stats = json.loads(r.read())
+        print(f"[10] HTTP captions equal the predictor's alone ({excused} "
+              f"rows excused), boxes within {worst} (tolerance {BOX_TOL}); "
+              f"caption device-batch ms {stats['caption']['batch_ms']}, "
+              f"request ms {stats['caption']['latency_ms']} ({self.smi})")
+        stamp("10", "caption HTTP")
+        return launches, {"wall_ms": wall_ms, "batches": batches,
+                          "excused": excused}
+
+    def stop(self):
+        self.server.shutdown()
+        self.server.server_close()
+        for s in self.services.values():
+            s.close()
+        self.thread.join(timeout=30)
+
+
 def drive(torch, config, batch_size, num_points, smi):
-    """Phases 3-5; returns (per-call kernel rows, main-path launch counts)."""
+    """Phases 3-5; returns (per-call kernel rows, main-path launch counts,
+    (the host scenes, the model's weights on the card))."""
     import numpy as np
 
     from vlp3d_torch import ops
@@ -2533,7 +3203,7 @@ def drive(torch, config, batch_size, num_points, smi):
           f"pred_ref equal, cluster_ref max abs err {err}")
     profile_call(torch, lambda: pred([scenes[0]]), "5", "request")
     stamp("5", "serving path")
-    return rows, launches
+    return rows, launches, (scenes, pred.model.state_dict())
 
 
 def main() -> int:
@@ -2583,19 +3253,25 @@ def main() -> int:
 
     # 3-5. the full-width model: Config() grounding defaults, B=8, N=40960
     config = Config(model=ModelConfig(use_con=False, no_caption=True))
-    rows, serving = drive(torch, config, B, N, smi)
+    rows, serving, (scenes, ground_state) = drive(torch, config, B, N, smi)
     torch.cuda.empty_cache()
 
     # 6. the joint train step at the same width
-    train_rows, train = drive_train(torch, B, N, smi)
+    train_rows, train, train_host = drive_train(torch, B, N, smi)
     rows.update(train_rows)
     torch.cuda.empty_cache()
 
     # 7. the predict / evaluate path through the data loader and the CLIs;
-    # phase 8's training-CLI processes start once phase 7's timing is done
-    cli = TrainCli()
+    # phase 8's training-CLI processes and phase 10's caption_predict and
+    # caption_eval processes start once phase 7's timing is done
+    cli, caption_clis = TrainCli(), CaptionClis()
+
+    def start_clis():
+        cli.start()
+        caption_clis.start()
+
     try:
-        predict = drive_predict(torch, smi, after_timing=cli.start)
+        predict = drive_predict(torch, smi, after_timing=start_clis)
         torch.cuda.empty_cache()
 
         # 8. training: the Solver in this process beside the training
@@ -2607,6 +3283,8 @@ def main() -> int:
         remat = remat_models(torch, solver_config, state)
         del state
         http_phase = HttpPhase(torch, config)
+        caption = CaptionPhase(torch, smi, scenes, ground_state, train_host)
+        del ground_state
         t0 = time.perf_counter()
         cli.thread.join(timeout=900)
         if cli.thread.is_alive():
@@ -2615,21 +3293,33 @@ def main() -> int:
               "training CLI")
         check_train_cli(cli.result, cli.workdir)
         stamp("8", "training CLI")
+        check_train_caption(cli.result, os.path.join(cli.tmp.name,
+                                                     "caption"))
+        caption_clis.check()
+        stamp("10", "caption CLIs")
     finally:
         cli.stop()
+        caption_clis.stop()
     remat, per_remat_step = check_remat(torch, smi, remat, batch)
     del batch
     http, latency = drive_http(torch, smi, http_phase)
+    # 10. captioning with the card to itself: serving, train steps, HTTP
+    captions, caption_numbers = caption.drive(torch)
     for name in rows:
-        if train[name] == 0 or solver[name] == 0 or (PER_FORWARD[name] > 0 and (
-                serving[name] == 0 or predict[name] == 0 or http[name] == 0)):
+        if train[name] == 0 or solver[name] == 0 \
+                or captions["caption_step"][name] == 0 \
+                or (PER_FORWARD[name] > 0 and (
+                    serving[name] == 0 or predict[name] == 0
+                    or http[name] == 0 or captions["caption_serve"][name] == 0
+                    or captions["caption_http"][name] == 0)):
             fail(f"kernel {name} was not launched on a main path")
 
-    # 10. results
+    # 11. results
     line = kernel_line(rows, serving, train, predict, solver, http,
-                       per_step, per_remat_step)
+                       per_step, per_remat_step, captions)
     line["remat_step"] = remat
     line["http"] = latency
+    line["caption"] = caption_numbers
     print(json.dumps(line))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

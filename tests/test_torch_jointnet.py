@@ -159,7 +159,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("use_answer", True), ("use_mlm", True), ("no_caption", False),
+    ("use_answer", True),
     ("use_mlcv_net", True), ("use_distil", True), ("use_lang_emb", True),
     ("use_reg_head", True), ("use_vote_weight", True), ("mask_box", True),
     ("reference_obj_gather", True), ("use_kl_loss", True),
@@ -169,3 +169,12 @@ def test_unported_flags_raise(flag, value):
     overrides = {**FLAGS, flag: value}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         JointNet(tiny_config(**overrides), device="cpu")
+
+
+@pytest.mark.parametrize("flag,value,head", [("use_mlm", True, "mlm"),
+                                             ("no_caption", False, "caption")])
+def test_caption_flags_build_their_heads(flag, value, head):
+    """The captioning flags, which raised until the captioning slice,
+    build their decoders."""
+    model = JointNet(tiny_config(**{**FLAGS, flag: value}), device="cpu")
+    assert any(k.startswith(f"{head}.model.") for k in model.state_dict())

@@ -765,3 +765,67 @@ def test_solver_epoch_on_the_card_counts_launches_a_step(cuda, tmp_path,
     assert ops.launches == {k: 2 * want[k] + 2 * forward[k] for k in want}
     assert np.isfinite(best["loss"]) and "iou_rate_0.5" in best
     assert (tmp_path / "model_last.pth").exists()
+
+
+FORWARD = {"fps": 5, "ball_query": 5, "three_nn": 2, "group_points": 11,
+           "group_points_grad": 0, "three_interpolate_grad": 0}
+
+
+@pytest.mark.gpu
+def test_caption_serve_batch_on_the_card_counts_launches(cuda):
+    """One CaptionPredictor batch: one forward's kernels (FPS 5, ball
+    query 5, three-NN 2, the gather 11, no backward), a caption for every
+    proposal, the cached decode equal to the uncached one by the tie
+    rule."""
+    from vlp3d_torch.models.caption import (
+        greedy_decode,
+        greedy_decode_uncached,
+    )
+    from vlp3d_torch.serving import CaptionPredictor
+
+    config = tiny_config(use_con=False, no_caption=False)
+    pred = CaptionPredictor(config, batch_size=2, device=cuda)
+    b = make_batch(config, batch_size=2, num_points=512, seed=3, istrain=0)
+    ops.reset_launches()
+    out = pred([{k: b[k] for k in STREAM_KEYS}])[0]
+    assert ops.launches == FORWARD
+    k = config.model.num_proposal
+    assert out["caption_ids"].shape == (2, k, config.model.max_des_len + 2)
+    assert (out["caption_ids"][..., 0] == 101).all()
+    with torch.no_grad():
+        fwd = pred.forward(pred._to_device(b))
+    obj = fwd["aggregated_vote_features"].reshape(2 * k, 1, -1)
+    dec = pred.model.caption.model
+    cached = greedy_decode(dec, obj, config.model.max_des_len)
+    plain = greedy_decode_uncached(dec, obj, config.model.max_des_len)
+    for r in torch.nonzero((cached != plain).any(dim=1)).flatten().tolist():
+        s = int(torch.nonzero(cached[r] != plain[r])[0])
+        top2 = torch.topk(dec.decode_step(obj[r:r + 1], plain[r:r + 1],
+                                          s - 1)[0], 2).values
+        assert float(top2[0] - top2[1]) < 1e-4, (r, s)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mlm", [False, True])
+def test_caption_train_step_on_the_card_counts_launches(cuda, mlm):
+    """One caption train step (and one with the MLM branch): the step's
+    kernels are a grounding step's (FPS 5, ball query 5, three-NN 2, the
+    gather 11, its backward 5, the interpolation's backward 2); cap_loss,
+    cap_acc and mlm_loss finite."""
+    from vlp3d_torch.train.optimizer import make_optimizer
+    from vlp3d_torch.train.state import batch_to_device, make_train_step
+
+    config = tiny_config(use_con=True, no_caption=False, use_mlm=mlm)
+    model = JointNet(config, device=cuda)
+    step = make_train_step(model, config, make_optimizer(model),
+                           caption=True)
+    batch = batch_to_device(make_batch(config, batch_size=2,
+                                       num_points=512, seed=4), cuda)
+    ops.reset_launches()
+    metrics = step(batch, torch.Generator(device=cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    assert ops.launches == dict(FORWARD, group_points_grad=5,
+                                three_interpolate_grad=2)
+    keys = ("cap_loss", "cap_acc") + (("mlm_loss",) if mlm else ())
+    for key in keys:
+        assert np.isfinite(float(metrics[key])), key

@@ -1,6 +1,7 @@
-"""The port's HTTP grounding server (vlp3d_torch/serve.py, cli/serve.py)
-on the CPU: wire format, micro-batching and consistency with the direct
-predictor, the ground-task counterpart of tests/test_serve_http.py.
+"""The port's HTTP server (vlp3d_torch/serve.py, cli/serve.py) on the
+CPU: wire format, micro-batching and consistency with the direct
+predictor for the ground and caption tasks, the counterpart of
+tests/test_serve_http.py.
 
 A real ThreadingHTTPServer on an ephemeral port serves the tiny
 synthetic config (seeded weights) and urllib drives it. The request
@@ -282,13 +283,17 @@ def test_service_warmup_runs_one_batch(ground_service):
 @pytest.mark.parametrize("task,item", [("caption", "A16"), ("answer", "A17")])
 def test_service_for_other_tasks_names_its_roadmap_item(ground_service, task,
                                                         item):
-    """The JAX server's other task routes answer 404, naming the ROADMAP
-    item they wait for."""
+    """A task route the server does not serve answers 404. /v1/answer
+    names the ROADMAP item it waits for (A17); /v1/caption, ported by
+    A16, names the routes this ground-only server does serve (a server
+    with the caption task answers it: test_caption_roundtrip_...)."""
     _, port, _ = ground_service
     with pytest.raises(urllib.error.HTTPError) as ei:
         _post(port, f"/v1/{task}", {"queries": ["the chair"]})
     assert ei.value.code == 404
-    assert item in json.loads(ei.value.read())["error"]
+    error = json.loads(ei.value.read())["error"]
+    assert "serving /v1/ground" in error
+    assert (item in error) == (task == "answer")
 
 
 def test_serve_cli_build_and_roundtrip(tmp_path):
@@ -331,9 +336,9 @@ def test_serve_cli_build_and_roundtrip(tmp_path):
 
 
 @pytest.mark.parametrize("argv,err,match", [
-    (["--task", "caption"], NotImplementedError, "A16"),
+    (["--task", "caption,answer"], NotImplementedError, "A17"),
     (["--task", "answer"], NotImplementedError, "A17"),
-    (["--task", "all"], NotImplementedError, "A16"),
+    (["--task", "all"], NotImplementedError, "A17"),
     (["--data_devices", "2"], NotImplementedError, "A18"),
 ])
 def test_serve_cli_rejects_unported_tasks_and_devices(argv, err, match):
@@ -346,3 +351,149 @@ def test_serve_cli_rejects_unported_tasks_and_devices(argv, err, match):
 def test_serve_cli_rejects_an_unknown_task():
     with pytest.raises(SystemExit):
         serve_cli.parse_args(["--task", "detect"])
+
+
+# ---------------------------------------------------------------- captioning
+
+
+def _caption_config():
+    config = tiny_config(no_caption=False, use_con=False)
+    return dataclasses.replace(
+        config, dataset=dataclasses.replace(config.dataset, num_points=NPTS))
+
+
+@pytest.fixture(scope="module")
+def two_tasks():
+    """One server routing /v1/ground and /v1/caption over one model's
+    weights, each task with its own micro-batching queue."""
+    config = _caption_config()
+    from vlp3d_torch.models import JointNet
+
+    state = JointNet(config, device="cpu").state_dict()
+    services = {task: InferenceService(config, state, task=task,
+                                       batch_size=BATCH, max_wait_ms=30.0,
+                                       device="cpu")
+                for task in ("ground", "caption")}
+    server = make_server(services)
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    yield services, server.server_address[1], config
+    server.shutdown()
+    server.server_close()
+    for s in services.values():
+        s.close()
+    t.join(timeout=10)
+
+
+def _caption_reference(service, payload):
+    """The caption predictor's answer on that cloud alone."""
+    item, _ = service._make_item(payload)
+    ref = service._pred.run_padded(
+        {k: np.asarray(item[k])[None] for k in STREAM_KEYS})
+    return {k: v[0] for k, v in ref.items()}
+
+
+@pytest.mark.parametrize("queries", [None, ["the chair by the window"]])
+def test_caption_roundtrip_matches_direct_predictor(two_tasks, queries):
+    services, port, config = two_tasks
+    service = services["caption"]
+    pc = _scene(20, channels=3 + config.model.input_feature_dim)
+    payload = {"point_cloud": _b64(pc)}
+    if queries:
+        payload["queries"] = queries
+    resp = _post(port, "/v1/caption", payload)
+    ref = _caption_reference(service, payload)
+    props = resp["proposals"]
+    assert len(props) == config.model.num_proposal
+    assert ref["caption_ids"].shape == (config.model.num_proposal,
+                                        config.model.max_des_len + 2)
+    for k, p in enumerate(props):
+        assert set(p) == {"center", "size", "heading", "objectness",
+                          "sem_class", "caption"}
+        assert p["caption"] == service.tokenizer.decode(
+            ref["caption_ids"][k])
+        np.testing.assert_allclose(p["center"], ref["pred_center"][k],
+                                   atol=BOX_TOL)
+        np.testing.assert_allclose(p["size"], ref["pred_size"][k],
+                                   atol=BOX_TOL)
+        assert p["objectness"] == int(np.argmax(ref["objectness_scores"][k]))
+        assert p["sem_class"] == int(np.argmax(ref["sem_cls_scores"][k]))
+
+
+def test_two_tasks_share_one_server(two_tasks):
+    services, port, config = two_tasks
+    h = _get(port, "/healthz")
+    assert h["status"] == "ok" and set(h["tasks"]) == {"ground", "caption"}
+    assert h["tasks"]["caption"]["task"] == "caption"
+    pc = _scene(21, channels=3 + config.model.input_feature_dim).tolist()
+    ground = _post(port, "/v1/ground", {"point_cloud": pc,
+                                        "queries": ["the desk"]})
+    assert len(ground["boxes"]) == 1
+    before = _get(port, "/stats")
+    results = [None] * 3
+    go = threading.Barrier(3)
+
+    def call(i):
+        go.wait(timeout=30)
+        results[i] = _post(port, "/v1/caption",
+                           {"point_cloud": _scene(30 + i).tolist()})
+
+    ts = [threading.Thread(target=call, args=(i,)) for i in range(3)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=120)
+    assert all(r is not None and len(r["proposals"]) ==
+               config.model.num_proposal for r in results)
+    after = _get(port, "/stats")
+    assert after["caption"]["requests"] - before["caption"]["requests"] == 3
+    assert after["ground"]["requests"] == before["ground"]["requests"]
+    with pytest.raises(urllib.error.HTTPError) as ei:
+        _post(port, "/v1/answer", {"point_cloud": pc})
+    assert ei.value.code == 404
+    assert "A17" in json.loads(ei.value.read())["error"]
+
+
+def test_caption_bad_requests_400(two_tasks):
+    _, port, _ = two_tasks
+    for payload in ({}, {"point_cloud": [[0.0, 1.0]]},
+                    {"point_cloud": _scene(4).tolist(), "queries": "x"}):
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            _post(port, "/v1/caption", payload)
+        assert ei.value.code == 400
+
+
+def test_serve_cli_serves_ground_and_caption(tmp_path):
+    """--task ground,caption over one save_params snapshot, beam decode
+    flags accepted: both routes answer, the caption one equal to its
+    predictor alone."""
+    from vlp3d_torch.models import JointNet
+    from vlp3d_torch.train.checkpoint import save_params
+
+    model = JointNet(tiny_config(no_caption=False, use_con=False),
+                     device="cpu")
+    save_params(str(tmp_path), "model", model.state_dict())
+    args, tasks = serve_cli.parse_args(
+        ["--smoke", "--task", "ground,caption", "--port", "0",
+         "--serve_batch_size", str(BATCH), "--model_dir", str(tmp_path),
+         "--device", "cpu", "--num_beams", "2", "--length_penalty", "0.8"])
+    assert tasks == ("ground", "caption")
+    server, services = serve_cli.build_server(args, tasks)
+    assert services["caption"]._pred.num_beams == 2
+    assert services["caption"]._pred.length_penalty == 0.8
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    try:
+        port = server.server_address[1]
+        n = _get(port, "/healthz")["tasks"]["caption"]["num_points"]
+        payload = {"point_cloud": _scene(12, n=n).tolist()}
+        resp = _post(port, "/v1/caption", payload)
+        assert resp == services["caption"].handle(payload)
+        assert len(_post(port, "/v1/ground", {**payload, "queries": [
+            "the desk"]})["boxes"]) == 1
+    finally:
+        server.shutdown()
+        server.server_close()
+        for s in services.values():
+            s.close()
+        t.join(timeout=10)

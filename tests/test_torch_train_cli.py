@@ -80,8 +80,8 @@ def _signal_at(monkeypatch, epoch, step_in_epoch, where="after"):
     (``"optimizer"``)."""
     real = state_mod.make_train_step
 
-    def make(model, config, optimizer):
-        step = real(model, config, optimizer)
+    def make(model, config, optimizer, **kw):
+        step = real(model, config, optimizer, **kw)
         seen = {"n": 0}
 
         def train_step(batch, generator=None):
@@ -333,7 +333,7 @@ class _Toy(nn.Module):
         return {"pred": self.match(torch.relu(self.backbone_net(batch["x"])))}
 
 
-def _mse(config, out, batch):
+def _mse(config, out, batch, **_):
     loss = ((out["pred"] - batch["y"]) ** 2).mean()
     return loss, {"loss": loss}
 
@@ -549,8 +549,50 @@ def test_world_size_above_one_raises(tmp_path, monkeypatch):
         main(ARGS + ["--workdir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("kw,item", [({"caption": True}, "A16"),
-                                     ({"mesh": object()}, "A18"),
+def test_solver_trains_and_scores_captions(tmp_path):
+    """Solver(caption=True) with a caption_eval_ctx: the caption loss
+    trains, each eval epoch scores the val split's captions, and the best
+    caption sum keeps a caption_model snapshot."""
+    from vlp3d_torch.data.synthetic import make_synthetic_dataset
+    from vlp3d_torch.data.tokenizer import HashTokenizer
+    from vlp3d_torch.eval.captioning import organize_scanrefer, prepare_corpus
+
+    config = dataclasses.replace(
+        tiny_config(no_caption=False, use_con=True),
+        train=dataclasses.replace(tiny_config().train, batch_size=2))
+    train = make_synthetic_dataset(config, n_scenes=2, anns_per_scene=4,
+                                   seed=1)
+    val = make_synthetic_dataset(config, n_scenes=2, anns_per_scene=4,
+                                 split="val", seed=2)
+    anns = [{"scene_id": f"scene{s:04d}_00", "object_id": str(10 + o),
+             "object_name": "chair", "ann_id": str(o),
+             "token": ["the", "chair"]} for s in range(2) for o in range(2)]
+    ctx = {"corpus": prepare_corpus(anns), "organized": organize_scanrefer(anns),
+           "tokenizer": HashTokenizer()}
+    solver = solver_mod.Solver(config, train, val, str(tmp_path),
+                               caption=True, caption_eval_ctx=ctx,
+                               log_every=1, device="cpu")
+    solver.init_state()
+    best = solver(1)
+    solver.close()
+    records = _records(str(tmp_path))
+    train_recs = [r for r in records if r["phase"] == "train"]
+    val_recs = [r for r in records if r["phase"] == "val"]
+    assert train_recs and all(r["cap_loss"] > 0 for r in train_recs)
+    assert all(0 <= r["cap_acc"] <= 1 for r in train_recs)
+    metrics = ("bleu-1", "bleu-2", "bleu-3", "bleu-4", "cider", "rouge",
+               "meteor")
+    assert len(val_recs) == 1 and all(np.isfinite(val_recs[0][m])
+                                      for m in metrics)
+    # the eval step leaves the caption loss out, as the JAX one does
+    assert "cap_loss" not in val_recs[0]
+    assert best["best_caption_epoch"] == 1
+    assert best["caption_sum"] == pytest.approx(sum(
+        val_recs[0][m] for m in ("bleu-4", "cider", "rouge", "meteor")))
+    assert os.path.exists(tmp_path / "caption_model.pth")
+
+
+@pytest.mark.parametrize("kw,item", [({"mesh": object()}, "A18"),
                                      ({"tp": 2}, "A19"),
                                      ({"zero1": True}, "A19"),
                                      ({"detection": False}, "A9a"),

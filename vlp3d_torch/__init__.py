@@ -18,7 +18,11 @@ CLIs (:mod:`vlp3d_torch.cli`). Slice 7 adds the trainer behind run.sh
 vlp3d_torch.cli.train_3dvlp``: resume, warm start, gradient
 accumulation, rematerialisation, the TensorBoard / wandb / JSONL logs of
 :mod:`vlp3d_torch.utils`) and the HTTP grounding server
-(:mod:`vlp3d_torch.serve`, ``python -m vlp3d_torch.cli.serve``).
+(:mod:`vlp3d_torch.serve`, ``python -m vlp3d_torch.cli.serve``). Slice 8
+adds Scan2Cap captioning: the caption decoder with KV-cached greedy and
+beam decode (:mod:`vlp3d_torch.models.caption`), the caption and MLM
+losses, :class:`~vlp3d_torch.serving.CaptionPredictor`, ``/v1/caption``,
+and the ``caption_predict`` / ``caption_eval`` / ``train_caption`` CLIs.
 Activations are channels-last (B, N, C), as in the JAX package; weights
 load from the reference-layout state dict
 (:func:`vlp3d_torch.convert.jax_to_torch_state_dict`).

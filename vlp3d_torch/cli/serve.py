@@ -1,21 +1,25 @@
-"""Online grounding server.
+"""Online grounding and captioning server.
 
-The port's counterpart of ``vlp3d/cli/serve.py`` for the ground task on
-one device: a JSON-over-HTTP endpoint (:mod:`vlp3d_torch.serve`) with
-micro-batching in front of the grounding predictor.
+The port's counterpart of ``vlp3d/cli/serve.py`` for the ground and
+caption tasks on one device: a JSON-over-HTTP endpoint
+(:mod:`vlp3d_torch.serve`) with micro-batching in front of the
+predictors.
 
     python -m vlp3d_torch.cli.serve --model_dir out/run1 --port 8080 \\
-        --use_multiview --use_normal --no_caption
+        --use_multiview --use_normal --task ground,caption
     curl -s localhost:8080/healthz
     curl -s -X POST localhost:8080/v1/ground -d \\
       '{"point_cloud": [[...], ...], "queries": ["the brown chair"]}'
+    curl -s -X POST localhost:8080/v1/caption -d '{"point_cloud": ...}'
 
+``--task`` takes one task or a comma-separated subset: the tasks share
+one checkpoint, each routed at ``/v1/<task>`` with its own micro-batching
+queue; ``--num_beams`` / ``--length_penalty`` set the caption decode.
 ``--model_dir`` loads the ``model`` snapshot a training run saved
 (``save_params``); without it the weights are the seeded random ones
 (``--smoke``: the tiny synthetic configuration, ``--device cpu`` for the
-plain PyTorch ops). ``--task caption`` / ``answer`` / ``all`` raise
-(ROADMAP.md queue A items A16 / A17), as does ``--data_devices`` other
-than 1 (A18).
+plain PyTorch ops). ``--task answer`` and ``all`` raise (ROADMAP.md
+queue A item A17), as does ``--data_devices`` other than 1 (A18).
 """
 
 from __future__ import annotations
@@ -34,7 +38,8 @@ def parse_args(argv=None):
     add_common_args(p)
     p.add_argument("--task", type=str, default="ground",
                    help="one of ground/caption/answer, a comma-separated "
-                        "subset, or 'all'; the port serves ground only")
+                        "subset, or 'all' (tasks share the checkpoint); the "
+                        "port serves ground and caption")
     p.add_argument("--model_dir", type=str, default="",
                    help="run directory holding a save_params 'model' "
                         "snapshot (a training run's output); random "
@@ -55,6 +60,12 @@ def parse_args(argv=None):
                    help="accepted for the JAX CLI's flag set and does "
                         "nothing: the port compiles no device programs "
                         "(its kernels are built once, at first use)")
+    p.add_argument("--num_beams", type=int, default=1,
+                   help="caption-task beam width (1 = greedy; >1 trades "
+                        "~num_beams x decode cost for caption quality)")
+    p.add_argument("--length_penalty", type=float, default=1.0,
+                   help="caption-task beam-search length normalisation "
+                        "exponent")
     args = p.parse_args(argv)
 
     tasks = TASKS if args.task == "all" else tuple(
@@ -68,7 +79,7 @@ def parse_args(argv=None):
 
 
 def build_server(args, tasks):
-    """Build (without starting) the HTTP server and its service —
+    """Build (without starting) the HTTP server and its services —
     separated from main() so tests can drive the full startup path.
     Returns (server, {task: service})."""
     from vlp3d_torch.cli.common import resolve_config
@@ -90,29 +101,41 @@ def build_server(args, tasks):
             f"vlp3d_torch serves on one device (--data_devices "
             f"{args.data_devices}); see {DATA_PARALLEL_ITEM}")
 
-    # the served task decides the heads: grounding carries no caption
-    # head (its weights would go unused)
-    args.no_caption = True
+    # the served tasks decide the heads: the caption head only where the
+    # caption task is served (its weights would go unused otherwise)
+    args.no_caption = "caption" not in tasks
     config = resolve_config(args)
-    service = InferenceService(
-        config,
-        load_params(args.model_dir, "model") if args.model_dir else None,
-        tokenizer=load_tokenizer(args.vocab_path or None),
-        batch_size=args.serve_batch_size,
-        max_wait_ms=args.max_wait_ms,
-        device=args.device,
-    )
+    state_dict = (load_params(args.model_dir, "model") if args.model_dir
+                  else None)
+    tokenizer = load_tokenizer(args.vocab_path or None)
+    services = {
+        task: InferenceService(
+            config,
+            state_dict,
+            task=task,
+            tokenizer=tokenizer,
+            batch_size=args.serve_batch_size,
+            max_wait_ms=args.max_wait_ms,
+            device=args.device,
+            num_beams=args.num_beams,
+            length_penalty=args.length_penalty,
+        )
+        for task in tasks
+    }
     if not args.no_warmup:
-        print("| vlp3d_torch serve: warming up /v1/ground...", flush=True)
-        service.warmup()
-    server = make_server(service, host=args.host, port=args.port)
+        for task, service in services.items():
+            print(f"| vlp3d_torch serve: warming up /v1/{task}...",
+                  flush=True)
+            service.warmup()
+    server = make_server(services, host=args.host, port=args.port)
+    device = next(iter(services.values()))._pred.device
     print(
-        f"| vlp3d_torch serve: /v1/ground on "
+        f"| vlp3d_torch serve: {', '.join(f'/v1/{t}' for t in tasks)} on "
         f"http://{args.host}:{server.server_address[1]} "
-        f"(batch {args.serve_batch_size}, {service._pred.device})",
+        f"(batch {args.serve_batch_size}, {device})",
         flush=True,
     )
-    return server, {"ground": service}
+    return server, services
 
 
 def main(argv=None):

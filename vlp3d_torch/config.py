@@ -6,9 +6,10 @@ The port's own copy of the dataclasses in ``vlp3d/config.py``
 package reads the same in the other. The port imports nothing from
 ``vlp3d``.
 
-The grounding flags (inference and the joint train step) are implemented
-so far; :func:`check_supported` names the ROADMAP item that ports each
-other one.
+The grounding and captioning flags (inference and the joint train step,
+``no_caption=False`` and ``use_mlm`` included) are implemented so far;
+:func:`check_supported` names the ROADMAP item that ports each other
+one.
 """
 
 from __future__ import annotations
@@ -157,8 +158,6 @@ _SLICE1_OPTIONS = "ROADMAP.md queue A item 9a (options of slice 1)"
 # and is skipped at inference (is_eval).
 _UNPORTED = {
     "use_answer": (True, "ROADMAP.md queue A item 17 (VQA)"),
-    "use_mlm": (True, "ROADMAP.md queue A item 16 (captioning/MLM)"),
-    "no_caption": (False, "ROADMAP.md queue A item 16 (captioning/MLM)"),
     "use_mlcv_net": (True, "ROADMAP.md queue A item 20 (variant models)"),
     "use_distil": (True, _SLICE1_OPTIONS),
     "use_lang_emb": (True, _SLICE1_OPTIONS),

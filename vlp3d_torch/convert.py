@@ -1,9 +1,9 @@
 """JAX (flax) trees -> the port's reference-layout state dict.
 
 The port's own copy of the numpy export code in
-``vlp3d/models/torch_export.py``, restricted to the submodules of the
-grounding slices (backbone, voting, proposal, relation, BERT text mode,
-match, contrast). Takes the flax ``params`` and ``batch_stats`` as
+``vlp3d/models/torch_export.py``, restricted to the submodules the port
+has (backbone, voting, proposal, relation, BERT text mode, match,
+contrast, the caption and MLM decoders). Takes the flax ``params`` and ``batch_stats`` as
 nested dicts of numpy arrays and returns a dict of CPU tensors that
 ``vlp3d_torch.models.JointNet.load_state_dict(sd, strict=True)`` accepts.
 The key names are the reference 3DVLP checkpoint's, so the port loads
@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from vlp3d_torch.models.caption import PE_ROWS, sinusoidal_positions
 
 __all__ = ["jax_to_torch_state_dict"]
 
@@ -223,6 +225,36 @@ def convert_contrast(params, prefix: str, out: dict):
     out[f"{prefix}nce_loss.tau"] = _f32(params["tau"])
 
 
+def ref_norm(p, name: str, out: dict):
+    """RefLayerNorm (the annotated transformer's a_2 / b_2 naming)."""
+    out[name + ".a_2"] = _f32(p["scale"])
+    out[name + ".b_2"] = _f32(p["bias"])
+
+
+def convert_caption(params, prefix: str, out: dict):
+    """CaptionDecoder -> TransformerDecoderModel keys under ``prefix``
+    (``caption.model.`` / ``mlm.model.``), as
+    ``export_caption_state_dict`` writes them but without the dead
+    early-guide entries (``src_attn``, ``sublayer.1``), which the port's
+    decoder has no module for."""
+    emb = _f32(params["embed"]["embedding"])
+    out[prefix + "tgt_embed.0.lut.weight"] = emb
+    out[prefix + "tgt_embed.1.pe"] = sinusoidal_positions(
+        PE_ROWS, emb.shape[1])[None]
+    ref_norm(params["final_ln"], prefix + "decoder.norm", out)
+    lin(params["generator"], prefix + "generator.proj", out)
+    i = 0
+    while f"layer_{i}" in params:
+        lp, q = params[f"layer_{i}"], f"{prefix}decoder.layers.{i}"
+        ref_norm(lp["ln_attn"], f"{q}.sublayer.0.norm", out)
+        ref_norm(lp["ln_ffn"], f"{q}.sublayer.2.norm", out)
+        for j, k in enumerate(("q", "k", "v", "o")):
+            lin(lp["self_attn"][k], f"{q}.self_attn.linears.{j}", out)
+        lin(lp["ffn1"], f"{q}.feed_forward.w_1", out)
+        lin(lp["ffn2"], f"{q}.feed_forward.w_2", out)
+        i += 1
+
+
 def to_tensors(sd: dict) -> dict:
     # np.array copies: flax leaves may be read-only views
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
@@ -231,10 +263,10 @@ def to_tensors(sd: dict) -> dict:
 def jax_to_torch_state_dict(params, batch_stats) -> dict:
     """JAX JointNet (params, batch_stats) -> the port's JointNet state dict.
 
-    Submodules outside the grounding slices (caption, MLM, answer) are
-    not carried: the port's JointNet has none of them. A gradient tree has
-    the parameters' structure and converts the same way (pass the
-    parameters' ``batch_stats`` for the statistics' slots).
+    The answer head (VQA) is not carried: the port's JointNet has none.
+    A gradient tree has the parameters' structure and converts the same
+    way (pass the parameters' ``batch_stats`` for the statistics' slots;
+    the caption decoders' ``pe`` slot holds the position table).
     """
     params, stats = dict(params), dict(batch_stats)
     sd: dict = {}
@@ -249,4 +281,7 @@ def jax_to_torch_state_dict(params, batch_stats) -> dict:
         convert_match(params["match"], "match.", sd)
     if "constrast" in params:  # the reference's spelling
         convert_contrast(params["constrast"], "constrast.", sd)
+    for head in ("caption", "mlm"):
+        if head in params:
+            convert_caption(params[head], f"{head}.model.", sd)
     return to_tensors(sd)

@@ -9,6 +9,7 @@ always present):
         + ref * (0.3 if epoch < 50 else 1.0)
         + 0.3 * diou + 0.3 * lang + 0.3 * attr
         + (epoch >= 50) * (0.5 * lang_con + 2.5 * iou_con)
+        + 10 * mlm + cap
   where box = 0.1 * heading_cls + heading_reg + 0.1 * sem_cls
             + 20 * size_distance.
 
@@ -21,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from vlp3d_torch.config import Config
+from vlp3d_torch.losses.captioning import compute_cap_loss, compute_mlm_loss
 from vlp3d_torch.losses.detection import (
     compute_box_and_sem_cls_loss,
     compute_objectness_loss,
@@ -35,10 +37,14 @@ from vlp3d_torch.losses.grounding import (
 from vlp3d_torch.models.jointnet import ref_gt_boxes
 
 
-def compute_joint_loss(config: Config, outputs: dict, batch: dict):
+def compute_joint_loss(config: Config, outputs: dict, batch: dict, *,
+                       caption: bool = False):
     """Returns (total_loss, metrics dict). ``outputs`` is JointNet's
     forward dict; ``batch`` carries the GT labels and the epoch / istrain
-    / random scalars, all as tensors on the outputs' device."""
+    / random scalars, all as tensors on the outputs' device. The MLM term
+    counts whenever the outputs hold ``lang_mlm``, the caption term and
+    ``cap_acc`` with ``caption`` (the JAX package's flag: its eval step
+    leaves them out)."""
     cfg_l, cfg_m, ds = config.loss, config.model, config.dataset
     dev = outputs["seed_xyz"].device
     mean_size = torch.as_tensor(ds.mean_size_arr(), device=dev)
@@ -119,6 +125,24 @@ def compute_joint_loss(config: Config, outputs: dict, batch: dict):
         m["iou_con_loss"] = outputs["iou_con_loss"]
         m["con_loss"] = con
         loss = loss + con  # the epoch >= 50 gate is inside ContrastModule
+
+    if cfg_m.use_mlm and "lang_mlm" in outputs:
+        good = outputs.get("good_bbox_masks")
+        if good is None:  # no caption branch: every slot counts
+            good = torch.ones(outputs["lang_mlm"].shape[0], dtype=torch.bool,
+                              device=dev)
+        mlm = compute_mlm_loss(outputs["lang_mlm"], batch["input_ids"],
+                               outputs["mlm_mask_index"], good)
+        m["mlm_loss"] = mlm
+        loss = loss + cfg_l.mlm_weight * mlm
+
+    if caption and "lang_cap" in outputs:
+        cap_loss, cap_acc = compute_cap_loss(
+            outputs["lang_cap"], batch["input_ids"],
+            outputs["good_bbox_masks"])
+        m["cap_loss"] = cap_loss
+        m["cap_acc"] = cap_acc
+        loss = loss + cap_loss
 
     m["loss"] = loss
     return loss, m

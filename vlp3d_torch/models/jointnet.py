@@ -1,16 +1,23 @@
-"""JointNet for ScanRefer grounding: inference and the joint train forward.
+"""JointNet for ScanRefer grounding and Scan2Cap captioning: inference and
+the joint train forward.
 
-Counterpart of ``vlp3d/models/jointnet.py:118-218``: backbone -> voting
+Counterpart of ``vlp3d/models/jointnet.py:118-280``: backbone -> voting
 (votes L2-normalised) -> proposal -> relation -> BERT language branch ->
-match -> contrast (OCC/OSC loss inputs; needs GT reference boxes, so it is
-skipped at ``is_eval``, the serving case). Flags the port does not
-implement raise NotImplementedError
+[masked LM] -> match -> contrast (OCC/OSC loss inputs; needs GT reference
+boxes, so it is skipped at ``is_eval``, the serving case) -> [caption].
+The caption branch (``no_caption=False``) is the teacher-forced decoder
+over each sentence's object token, skipped at ``is_eval``: serving
+decodes outside the module (:mod:`vlp3d_torch.models.caption`). The
+masked-LM branch (``use_mlm``) runs in training only. Flags the port does
+not implement raise NotImplementedError
 (:func:`vlp3d_torch.config.check_supported`).
 
 Submodule names are the reference's (``backbone_net``, ``vgen``,
 ``proposal``, ``relation``, ``lang``, ``match``, ``constrast``: the
-reference's spelling), so
-``load_state_dict(jax_to_torch_state_dict(...), strict=True)`` works.
+reference's spelling, ``caption``, ``mlm``), so
+``load_state_dict(jax_to_torch_state_dict(...), strict=True)`` works. A
+reference dict's dead early-guide decoder keys are dropped on load
+(``_drop_dead_caption_keys``).
 """
 
 from __future__ import annotations
@@ -23,6 +30,14 @@ from vlp3d_torch.config import Config, check_supported
 from vlp3d_torch.device import resolve_device
 from vlp3d_torch.models.backbone import PointNet2Backbone
 from vlp3d_torch.models.bert import BertConfig, LangModule
+from vlp3d_torch.models.caption import (
+    DEAD_KEYS,
+    CaptionHead,
+    causal_caption_mask,
+    mask_caption_tokens,
+    nearest_proposal_token,
+    padding_caption_mask,
+)
 from vlp3d_torch.models.contrast import ContrastModule
 from vlp3d_torch.models.layers import PReLU
 from vlp3d_torch.models.match import MatchModule
@@ -36,6 +51,9 @@ class JointNet(nn.Module):
     ones with ``load_state_dict(..., strict=True)``. Every parameter is
     trainable except the frozen BERT text encoder. The module starts in
     evaluation mode; ``forward(batch, train=True)`` switches it (and back).
+    ``mask_generator`` (a ``torch.Generator`` on the model's device, set by
+    the train step; the global generator when None) draws the caption and
+    MLM token masks.
     """
 
     def __init__(self, config: Config, *, device=None):
@@ -63,11 +81,17 @@ class JointNet(nn.Module):
         self.match = MatchModule(device=device)
         if cfg.use_con:
             self.constrast = ContrastModule(device=device)
+        if not cfg.no_caption:
+            self.caption = CaptionHead(cfg.vocab_size, device=device)
+        if cfg.use_mlm:
+            self.mlm = CaptionHead(cfg.vocab_size, device=device)
+        self.mask_generator: torch.Generator | None = None
         self.register_buffer(
             "mean_size_arr",
             torch.from_numpy(ds.mean_size_arr()).to(device), persistent=False)
         init_weights_(self, 0)
         self.eval()
+        self._register_load_state_dict_pre_hook(_drop_dead_caption_keys)
 
     def forward(self, batch: dict, *, train: bool = False,
                 is_eval: bool = False) -> dict:
@@ -107,6 +131,8 @@ class JointNet(nn.Module):
             out["seed_inds"], out["aggregated_vote_inds"],
         ))
         out.update(self.lang(batch["input_ids"], batch["bert_attention_mask"]))
+        if cfg.use_mlm and train and not is_eval:
+            out.update(self._forward_mlm(batch, out))
         out.update(self.match(
             out["bbox_feature"], out["lang_fea"], out["objectness_masks"],
             lang_num_max=batch["input_ids"].shape[1],
@@ -119,7 +145,60 @@ class JointNet(nn.Module):
                 out["pred_size"], gt_center, gt_size,
                 out["objectness_masks"], batch["lang_num"], batch["epoch"],
             ))
+        if not cfg.no_caption and not is_eval:
+            out.update(self._forward_caption_train(batch, out, train))
         return out
+
+    def _object_tokens(self, batch: dict, out: dict):
+        return nearest_proposal_token(
+            out["aggregated_vote_features"], out["aggregated_vote_xyz"],
+            batch["ref_center_label_list"][..., 0:3])
+
+    def _forward_caption_train(self, batch: dict, out: dict, train: bool):
+        """Teacher-forced caption log-probs of every sentence slot from its
+        object token; in training the input tokens are masked 80/10/10
+        first."""
+        ids = batch["input_ids"]
+        b, l, t = ids.shape
+        obj_token, match_idx, dist = self._object_tokens(batch, out)
+        # the captioner reads des sequences capped at max_des_len + 2
+        # (transformer_captioner.py trains on 32-token des ids, not the
+        # 50-token BERT inputs)
+        t_cap = min(t, self.config.model.max_des_len + 2)
+        seq = ids.reshape(b * l, t)[:, :t_cap][:, :-1]
+        if train:
+            seq, _ = mask_caption_tokens(seq, self.config.model.vocab_size,
+                                         generator=self.mask_generator)
+        logp = self.caption.model(obj_token, seq, causal_caption_mask(seq))
+        return {
+            "lang_cap": logp[:, 1:],  # the object token's row dropped
+            "match_idx": match_idx,
+            # the reference's target_ious = chamfer dist > -1: always good
+            "good_bbox_masks": dist > -1.0,
+            "pred_ious": dist.mean(),
+        }
+
+    def _forward_mlm(self, batch: dict, out: dict):
+        ids = batch["input_ids"]
+        b, l, t = ids.shape
+        obj_token, _, _ = self._object_tokens(batch, out)
+        seq = ids.reshape(b * l, t)[:, :-1]
+        mask_seq, mask_index = mask_caption_tokens(
+            seq, self.config.model.vocab_size, generator=self.mask_generator)
+        logp = self.mlm.model(obj_token, mask_seq,
+                              padding_caption_mask(mask_seq))
+        return {"lang_mlm": logp[:, 1:], "mlm_mask_index": mask_index}
+
+
+def _drop_dead_caption_keys(state_dict, prefix, *args):
+    """The loader's one filter: a reference-layout dict's dead early-guide
+    decoder entries (``src_attn``, ``sublayer.1``;
+    ``export_jointnet_state_dict`` writes them as zero attention and
+    identity norms) have no module here, so they are removed in place."""
+    heads = (f"{prefix}caption.model.", f"{prefix}mlm.model.")
+    for key in [k for k in state_dict if k.startswith(heads)]:
+        if any(s in key for s in DEAD_KEYS):
+            del state_dict[key]
 
 
 def ref_gt_boxes(batch: dict, mean_size_arr: torch.Tensor):
@@ -135,7 +214,8 @@ def init_weights_(module: nn.Module, seed: int) -> None:
     """Fill every parameter and BN statistic from a numpy generator seeded
     with ``seed``, in state-dict order: fan-in-scaled normal weights,
     small biases, unit-ish norm scales, random BN running statistics
-    (so a random model exercises the BN arithmetic)."""
+    (so a random model exercises the BN arithmetic). The caption
+    decoders' sin/cos position table keeps its values."""
     rng = np.random.default_rng(seed)
     named = dict(module.named_modules())
     with torch.no_grad():
@@ -143,7 +223,7 @@ def init_weights_(module: nn.Module, seed: int) -> None:
             owner, _, leaf = name.rpartition(".")
             mod = named[owner]
             shape = tuple(t.shape)
-            if leaf in ("num_batches_tracked", "position_ids"):
+            if leaf in ("num_batches_tracked", "position_ids", "pe"):
                 continue
             if leaf == "running_mean":
                 v = rng.normal(0.0, 0.1, shape)
@@ -151,7 +231,7 @@ def init_weights_(module: nn.Module, seed: int) -> None:
                 v = rng.uniform(0.5, 1.5, shape)
             elif isinstance(mod, nn.Embedding):
                 v = rng.normal(0.0, 0.02, shape)
-            elif leaf == "bias":
+            elif leaf in ("bias", "b_2"):
                 v = rng.normal(0.0, 0.01, shape)
             elif t.dim() == 1:  # LayerNorm / BN scales, PReLU slopes
                 base = 0.25 if isinstance(mod, PReLU) else 1.0

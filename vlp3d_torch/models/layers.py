@@ -2,7 +2,8 @@
 
 Counterparts of ``PointMLP``, ``SAModule``, ``FPModule`` and ``PReLU`` in
 ``vlp3d/models/layers.py``, plus the port's :class:`BatchNorm` and
-:class:`Dropout` (flax semantics, see each). A module follows
+:class:`Dropout` (flax semantics, see each) and the captioner's
+:class:`RefLayerNorm`. A module follows
 ``nn.Module.training``: BatchNorm then normalises with batch statistics
 and updates its running ones, Dropout draws a mask, and the SA module
 with ``leaf_inputs`` gathers raw rows. Activations are channels-last
@@ -151,6 +152,29 @@ class PReLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.where(x >= 0, x, self.weight * x)
+
+
+class RefLayerNorm(nn.Module):
+    """The annotated-transformer LayerNorm of the caption decoder
+    (transformer_captioner.py:115-127; ``RefLayerNorm`` in
+    ``vlp3d/models/layers.py``): ``a_2 * (x - mean) / (std + eps) + b_2``
+    with std Bessel-corrected and eps = 1e-6 added to the std, not to the
+    variance, so not ``torch.nn.LayerNorm``. The variance is the JAX
+    module's ``var(x) * d / (d - 1)``."""
+
+    eps = 1e-6
+
+    def __init__(self, d: int, *, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.a_2 = nn.Parameter(torch.ones(d, device=device))
+        self.b_2 = nn.Parameter(torch.zeros(d, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = x.shape[-1]
+        mean = x.mean(dim=-1, keepdim=True)
+        var = (x - mean).square().mean(dim=-1, keepdim=True) * (d / (d - 1))
+        return self.a_2 * (x - mean) / (var.sqrt() + self.eps) + self.b_2
 
 
 class _BNHolder(nn.Module):

@@ -1,26 +1,28 @@
-"""Network serving: a JSON-over-HTTP API around the grounding predictor.
+"""Network serving: a JSON-over-HTTP API around the grounding and
+captioning predictors.
 
-The port's counterpart of ``vlp3d/serve.py`` for the ground task on one
-device: a stdlib ThreadingHTTPServer front end and a micro-batching
-queue that coalesces concurrent requests into device batches of at most
-``batch_size`` rows, in front of
-:meth:`vlp3d_torch.serving.GroundingPredictor.run_padded` (which copies
-only the occupied rows and pads on the device). Zero dependencies beyond
-the stdlib and the port.
+The port's counterpart of ``vlp3d/serve.py`` for the ground and caption
+tasks on one device: a stdlib ThreadingHTTPServer front end and, for each
+task, a micro-batching queue that coalesces concurrent requests into
+device batches of at most ``batch_size`` rows, in front of the
+predictor's ``run_padded`` (which copies only the occupied rows and pads
+on the device). Zero dependencies beyond the stdlib and the port.
 
 Endpoints (all JSON):
 
-- ``POST /v1/ground`` — ``{"point_cloud": ..., "queries": [str, ...]}``
+- ``POST /v1/ground``  — ``{"point_cloud": ..., "queries": [str, ...]}``
   → per-query referred box (center/size/heading + proposal index).
-- ``GET /healthz``    — model/task/shape info.
-- ``GET /stats``      — request count, device batches, mean occupancy,
+- ``POST /v1/caption`` — ``{"point_cloud": ...}`` → per-proposal box,
+  objectness, semantic class and caption.
+- ``GET /healthz``     — model/task/shape info.
+- ``GET /stats``       — request count, device batches, mean occupancy,
   p50/p90/p99 request latency and device-batch time (ms, sliding
   window of the last 1024), the device's memory.
 
-``/v1/caption`` and ``/v1/answer`` are routes of the JAX server that the
-port does not serve yet (ROADMAP.md queue A items A16 and A17): they
-answer 404 as any unknown route does, with an error naming their item.
-Serving over a device mesh waits for A18.
+A server routes each task it serves at ``/v1/<task>``. ``/v1/answer`` is
+a route of the JAX server that the port does not serve yet (ROADMAP.md
+queue A item A17): it answers 404 as any unknown route does, with an
+error naming its item. Serving over a device mesh waits for A18.
 
 ``point_cloud`` is either a nested list ``(N, C)`` or
 ``{"b64": <base64 of little-endian float32>, "shape": [N, C]}``. ``C``
@@ -46,13 +48,15 @@ import numpy as np
 
 from vlp3d_torch.config import Config
 from vlp3d_torch.data.tokenizer import load_tokenizer
-from vlp3d_torch.serving import STREAM_KEYS, GroundingPredictor
+from vlp3d_torch.serving import (
+    STREAM_KEYS,
+    CaptionPredictor,
+    GroundingPredictor,
+)
 from vlp3d_torch.utils.memory import device_memory_mb
 
-UNPORTED_TASKS = {
-    "caption": "ROADMAP.md queue A item A16 (captioning)",
-    "answer": "ROADMAP.md queue A item A17 (VQA)",
-}
+TASKS = ("ground", "caption")
+UNPORTED_TASKS = {"answer": "ROADMAP.md queue A item A17 (VQA)"}
 
 
 class MicroBatcher:
@@ -224,11 +228,14 @@ def _parse_point_cloud(req: dict, num_points: int, in_dim: int) -> np.ndarray:
 
 
 class InferenceService:
-    """Grounding predictor + tokenizer + micro-batcher, independent of
+    """A task's predictor + tokenizer + micro-batcher, independent of
     HTTP (drive it directly in tests or embed it in another server).
 
-    ``state_dict``: reference-layout weights (a ``save_params`` snapshot),
-    loaded strictly; None keeps the seeded random initialisation.
+    ``task``: "ground" (:class:`GroundingPredictor`) or "caption"
+    (:class:`CaptionPredictor`, decoding with ``num_beams`` and
+    ``length_penalty``). ``state_dict``: reference-layout weights (a
+    ``save_params`` snapshot), loaded strictly; None keeps the seeded
+    random initialisation.
     """
 
     def __init__(
@@ -236,20 +243,30 @@ class InferenceService:
         config: Config,
         state_dict: dict | None = None,
         *,
+        task: str = "ground",
         tokenizer=None,
         batch_size: int = 8,
         max_wait_ms: float = 5.0,
         device=None,
+        num_beams: int = 1,
+        length_penalty: float = 1.0,
     ):
+        if task not in TASKS:
+            raise ValueError(f"unknown task {task!r}")
         self.config = config
+        self.task = task
         self.tokenizer = tokenizer or load_tokenizer()
         self.num_points = config.dataset.num_points
         self.in_dim = config.model.input_feature_dim
         self.lang_num_max = config.model.lang_num_max
         self.seq_len = config.model.bert_seq_len
-        self._pred = GroundingPredictor(
-            config, state_dict, batch_size=batch_size, device=device
-        )
+        if task == "ground":
+            self._pred = GroundingPredictor(
+                config, state_dict, batch_size=batch_size, device=device)
+        else:
+            self._pred = CaptionPredictor(
+                config, state_dict, batch_size=batch_size, device=device,
+                num_beams=num_beams, length_penalty=length_penalty)
         self._batcher = MicroBatcher(
             self._run_batch, batch_size, max_wait_ms
         )
@@ -263,8 +280,9 @@ class InferenceService:
         batch = {k: np.stack([it[k] for it in items]) for k in STREAM_KEYS}
         # copies only the occupied rows; pads on the device (run_padded)
         out = self._pred.run_padded(batch)
-        out["cluster_ref"] = out["cluster_ref"].reshape(
-            self._pred.batch_size, self.lang_num_max, -1)
+        if self.task == "ground":
+            out["cluster_ref"] = out["cluster_ref"].reshape(
+                self._pred.batch_size, self.lang_num_max, -1)
         return [
             {k: np.asarray(v[i]) for k, v in out.items()}
             for i in range(len(items))
@@ -275,7 +293,7 @@ class InferenceService:
     def _make_item(self, req: dict) -> tuple[dict, int]:
         pc = _parse_point_cloud(req, self.num_points, self.in_dim)
         queries = req.get("queries") or []
-        if not queries:
+        if self.task == "ground" and not queries:
             raise BadRequest("missing 'queries'")
         if not isinstance(queries, list) or not all(
                 isinstance(q, str) for q in queries):
@@ -288,20 +306,28 @@ class InferenceService:
             )
         input_ids = np.zeros((self.lang_num_max, self.seq_len), np.int32)
         attention = np.zeros_like(input_ids)
-        enc = self.tokenizer(list(queries), max_length=self.seq_len)
-        input_ids[: len(queries)] = enc["input_ids"]
-        attention[: len(queries)] = enc["attention_mask"]
+        if queries:
+            enc = self.tokenizer(list(queries), max_length=self.seq_len)
+            input_ids[: len(queries)] = enc["input_ids"]
+            attention[: len(queries)] = enc["attention_mask"]
+        else:
+            # a caption request without queries: CLS-only rows keep the
+            # language branch's inputs valid
+            input_ids[:, 0] = self.tokenizer.cls_token_id
+            attention[:, 0] = 1
         item = {
             "point_clouds": pc,
             "input_ids": input_ids,
             "bert_attention_mask": attention,
-            "lang_num": np.int32(len(queries)),
+            "lang_num": np.int32(max(len(queries), 1)),
         }
         return item, len(queries)
 
     def handle(self, req: dict) -> dict:
         item, n_queries = self._make_item(req)
         out = self._batcher.submit(item)
+        if self.task == "caption":
+            return {"proposals": self._proposals(out)}
         boxes = []
         for qi in range(n_queries):
             p = int(out["pred_ref"][qi])
@@ -315,19 +341,39 @@ class InferenceService:
             )
         return {"boxes": boxes}
 
+    def _proposals(self, out: dict) -> list:
+        """Per-proposal box, objectness, class and caption
+        (``vlp3d/serve.py:344-362``)."""
+        obj = np.argmax(out["objectness_scores"], -1)
+        sem = np.argmax(out["sem_cls_scores"], -1)
+        return [
+            {
+                "center": out["pred_center"][k].tolist(),
+                "size": out["pred_size"][k].tolist(),
+                "heading": float(out["pred_heading"][k]),
+                "objectness": int(obj[k]),
+                "sem_class": int(sem[k]),
+                "caption": self.tokenizer.decode(out["caption_ids"][k]),
+            }
+            for k in range(out["pred_center"].shape[0])
+        ]
+
     def warmup(self) -> None:
         """One occupancy-1 batch through the predictor before serving
         traffic: the first forward on a card pays cuBLAS's and the
         kernels' first-use costs, which a server pays before it binds,
         not on a client's first request."""
         pc = np.zeros((self.num_points, 3 + self.in_dim), np.float32)
-        item, _ = self._make_item({"point_cloud": pc, "queries": ["warmup"]})
+        req = {"point_cloud": pc}
+        if self.task == "ground":
+            req["queries"] = ["warmup"]
+        item, _ = self._make_item(req)
         self._batcher.submit(item)
 
     def health(self) -> dict:
         return {
             "status": "ok",
-            "task": "ground",
+            "task": self.task,
             "num_points": self.num_points,
             "point_channels": 3 + self.in_dim,
             "lang_num_max": self.lang_num_max,
@@ -343,11 +389,20 @@ class InferenceService:
         return s
 
 
-def make_server(service: InferenceService, host="127.0.0.1", port=0):
-    """Build (without starting) a ThreadingHTTPServer routing
-    ``/v1/ground`` to ``service``. Call ``serve_forever()`` on the
-    result; ``server_address[1]`` is the bound port (pass port=0 for an
-    ephemeral one)."""
+def make_server(services, host="127.0.0.1", port=0):
+    """Build (without starting) a ThreadingHTTPServer.
+
+    ``services``: one :class:`InferenceService` or a ``{task: service}``
+    dict (tasks sharing one checkpoint); each task is routed at
+    ``/v1/<task>`` with its own micro-batching queue. Call
+    ``serve_forever()`` on the result; ``server_address[1]`` is the bound
+    port (pass port=0 for an ephemeral one)."""
+    if isinstance(services, InferenceService):
+        services = {services.task: services}
+    routes = {f"/v1/{t}": s for t, s in services.items()}
+    only = next(iter(services.values())) if len(services) == 1 else None
+    serving = ", ".join(sorted(routes))
+
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):  # quiet by default
             pass
@@ -362,19 +417,23 @@ def make_server(service: InferenceService, host="127.0.0.1", port=0):
 
         def do_GET(self):
             if self.path == "/healthz":
-                self._send(200, service.health())
+                self._send(200, only.health() if only is not None else {
+                    "status": "ok",
+                    "tasks": {t: s.health() for t, s in services.items()}})
             elif self.path == "/stats":
-                self._send(200, service.stats())
+                self._send(200, only.stats() if only is not None else
+                           {t: s.stats() for t, s in services.items()})
             else:
                 self._send(404, {"error": f"no route {self.path}"})
 
         def do_POST(self):
-            if self.path != "/v1/ground":
+            service = routes.get(self.path)
+            if service is None:
                 task = self.path.removeprefix("/v1/")
                 waits = (f"; the {task} task waits for {UNPORTED_TASKS[task]}"
                          if task in UNPORTED_TASKS else "")
                 self._send(404, {"error": f"no route {self.path} (serving "
-                                          f"/v1/ground){waits}"})
+                                          f"{serving}){waits}"})
                 return
             try:
                 n = int(self.headers.get("Content-Length", 0))

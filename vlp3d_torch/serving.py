@@ -1,6 +1,7 @@
-"""Grounding inference executor.
+"""Grounding and captioning inference executors.
 
-Counterpart of ``vlp3d/serving.py``'s ``GroundingPredictor`` (no mesh):
+Counterpart of ``vlp3d/serving.py``'s ``GroundingPredictor`` and
+``CaptionPredictor`` (no mesh):
 ``predictor(batches)`` runs a list of equally-shaped host batches and
 returns one host dict per batch; ``run_padded(batch_k)`` runs one batch
 of k <= batch_size occupied rows, transferring only those rows and
@@ -10,16 +11,21 @@ micro-batcher's convention).
 The per-sentence prediction is the argmax of objectness-masked
 confidences (eval_ground.py:100-120): ``argmax(cluster_ref * mask)``,
 which picks a masked proposal when every unmasked confidence is negative,
-as the reference does.
+as the reference does. A caption is decoded for every proposal from its
+aggregated feature (greedy, KV-cached; beam search with ``num_beams`` >
+1).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from vlp3d_torch.config import Config
 from vlp3d_torch.device import resolve_device
+from vlp3d_torch.models.caption import beam_decode, greedy_decode
 from vlp3d_torch.models.jointnet import JointNet
 
 # batch keys the grounding forward consumes (everything else is labels;
@@ -52,6 +58,29 @@ def ground(model: JointNet, batch: dict) -> dict:
         "pred_heading": out["pred_heading"],
         "cluster_ref": out["cluster_ref"],
     }
+
+
+# the caption task's per-proposal outputs besides the caption ids
+CAPTION_KEYS = ("pred_center", "pred_size", "pred_heading",
+                "objectness_scores", "sem_cls_scores")
+
+
+@torch.no_grad()
+def decode_captions(model: JointNet, features: torch.Tensor, *,
+                    num_beams: int = 1,
+                    length_penalty: float = 1.0) -> torch.Tensor:
+    """Caption ids (B, K, max_des_len + 2) of every proposal from its
+    aggregated feature (B, K, C), through the model's caption decoder."""
+    b, k, c = features.shape
+    obj_token = features.reshape(b * k, 1, c)
+    decoder = model.caption.model
+    max_len = model.config.model.max_des_len
+    if num_beams > 1:
+        ys, _ = beam_decode(decoder, obj_token, max_len, num_beams,
+                            length_penalty=length_penalty)
+    else:
+        ys = greedy_decode(decoder, obj_token, max_len)
+    return ys.reshape(b, k, -1)
 
 
 class GroundingPredictor:
@@ -102,3 +131,38 @@ class GroundingPredictor:
                 for key, v in dev.items()
             }
         return self._to_host(self.predict(dev))
+
+
+class CaptionPredictor(GroundingPredictor):
+    """Scan2Cap inference on one device: the grounding forward at
+    ``is_eval``, then a caption for each of the B x K proposals (greedy
+    decode, or beam search when ``num_beams`` > 1). Its predictions are
+    ``caption_ids`` (B, K, max_des_len + 2) and the proposals' boxes,
+    objectness and class scores (``vlp3d/serving.py:238-245``). The model
+    carries the caption decoder whatever ``config.model.no_caption``
+    says."""
+
+    def __init__(self, config: Config, state_dict: dict | None = None, *,
+                 batch_size: int = 8, device=None, num_beams: int = 1,
+                 length_penalty: float = 1.0):
+        config = dataclasses.replace(config, model=dataclasses.replace(
+            config.model, no_caption=False))
+        super().__init__(config, state_dict, batch_size=batch_size,
+                         device=device)
+        self.num_beams = num_beams
+        self.length_penalty = length_penalty
+
+    @torch.no_grad()
+    def forward(self, batch: dict) -> dict:
+        """The grounding forward of one device batch."""
+        return self.model(batch, is_eval=True)
+
+    def decode(self, out: dict) -> dict:
+        """The forward's outputs -> the caption predictions."""
+        ids = decode_captions(self.model, out["aggregated_vote_features"],
+                              num_beams=self.num_beams,
+                              length_penalty=self.length_penalty)
+        return {"caption_ids": ids, **{k: out[k] for k in CAPTION_KEYS}}
+
+    def predict(self, batch: dict) -> dict:
+        return self.decode(self.forward(batch))

@@ -15,7 +15,13 @@ device:
     one minus this), and 0.1 without the schedule (flax's 0.9);
   * checkpoints: model_last every epoch, epoch_50 at epoch 49,
     ground_model / ground_model_25 / ground_model_5 / model on val best,
-    the full resume checkpoint every 10 epochs and at the end;
+    caption_model on the best bleu-4 + cider + rouge + meteor (with a
+    ``caption_eval_ctx``), the full resume checkpoint every 10 epochs and
+    at the end;
+  * ``caption=True`` trains the caption branch (its loss joins the
+    joint loss; the CLI then runs without the BatchNorm schedule, as the
+    JAX one does) and, given a ``caption_eval_ctx``, scores Scan2Cap
+    captions of the val split after each eval epoch;
   * phase timers (fetch / iter, see :mod:`vlp3d_torch.utils.timers` for
     which steps synchronise), the JSONL log, TensorBoard and wandb.
 
@@ -37,8 +43,7 @@ Where the port differs from the JAX solver, and why:
     steps from iteration 2 of epoch 0.
 
 Still to port, each raising NotImplementedError naming its ROADMAP.md
-item: ``caption=True`` and the caption eval (A16), the answer EM of the
-VQA heads (A17), ``mesh`` and multi-process runs (A18), ``tp`` and
+item: the answer EM of the VQA heads (A17), ``mesh`` and multi-process runs (A18), ``tp`` and
 ``zero1`` (A19), ``detection=False`` and ``reference=False`` (A9a).
 """
 
@@ -56,7 +61,9 @@ import torch
 from vlp3d_torch.config import Config
 from vlp3d_torch.data.dataset import BatchIterator
 from vlp3d_torch.device import resolve_device
+from vlp3d_torch.eval.captioning import score_captions
 from vlp3d_torch.eval.grounding import final_eval_breakdown, get_eval
+from vlp3d_torch.eval.scan2cap import collect_batch
 from vlp3d_torch.models.jointnet import JointNet
 from vlp3d_torch.models.layers import BatchNorm
 from vlp3d_torch.train import checkpoint as ckpt
@@ -77,8 +84,10 @@ EVAL_KEYS = ("objectness_scores", "cluster_ref", "pred_center", "pred_size",
              "pred_heading", "sem_cls_scores", "lang_scores")
 # steps in the --profile_dir trace (the JAX solver's default window)
 PROFILE_STEPS = 3
+# the metrics whose sum picks the caption_model snapshot
+# (solver_3dvlp.py:1166-1181)
+CAPTION_METRICS = ("bleu-4", "cider", "rouge", "meteor")
 _UNPORTED = {
-    "caption": "ROADMAP.md queue A item A16 (captioning)",
     "answer": "ROADMAP.md queue A item A17 (VQA)",
     "mesh": "ROADMAP.md queue A item A18 (data parallel)",
     "tp": "ROADMAP.md queue A item A19 (the other parallel modes)",
@@ -112,12 +121,14 @@ class Solver:
         zero1: bool = False,
         grad_accum: int = 1,
         seed: int = 42,
+        caption_eval_ctx: dict | None = None,
         use_wandb: bool = False,
         profile_dir: str | None = None,
         device=None,
     ):
-        if caption:
-            raise _unported("caption=True", "caption")
+        """caption_eval_ctx (optional): {"corpus", "organized",
+        "tokenizer"}, the Scan2Cap scoring of each eval epoch (the
+        reference's Solver._eval -> eval_cap, solver_3dvlp.py:720-765)."""
         if mesh is not None:
             raise _unported("a device mesh", "mesh")
         if tp != 1:
@@ -133,6 +144,8 @@ class Solver:
         self.val_dataset = val_dataset
         self.workdir = workdir
         os.makedirs(workdir, exist_ok=True)
+        self.caption = caption
+        self.caption_eval_ctx = caption_eval_ctx
         self.use_bn_schedule = use_bn_schedule
         self.log_every = log_every
         # best-model criterion: 'sum' = 2 x iou_rate_0.5
@@ -234,7 +247,8 @@ class Solver:
             clip_grad_value=cfg.train.clip_grad_value,
             grad_accum=self.grad_accum,
         )
-        self.train_step = make_train_step(self.model, cfg, self.optimizer)
+        self.train_step = make_train_step(self.model, cfg, self.optimizer,
+                                          caption=self.caption)
         self.eval_step = make_eval_step(self.model, cfg)
 
     # ------------------------------------------------------------ feeds
@@ -388,6 +402,8 @@ class Solver:
             "lang_acc": float(np.mean(lang_accs)) if lang_accs else 0.0,
             **final_eval_breakdown(ious, multiple, others),
         }
+        if self.caption and self.caption_eval_ctx is not None:
+            result.update(self.caption_eval(epoch))
         if scalars:
             for k in scalars[0]:
                 result[k] = float(np.mean([s[k] for s in scalars]))
@@ -408,6 +424,25 @@ class Solver:
         )
         self._log({"phase": "val", "epoch": epoch, **val_scalars})
         return result
+
+    def caption_eval(self, epoch: int) -> dict:
+        """A greedy caption for every proposal of the val split, gated by
+        NMS and IoU >= 0.5 against the assigned GT box, scored as
+        BLEU / CIDEr / ROUGE-L / METEOR (eval_cap,
+        lib/joint/eval_helper.py:278-357)."""
+        ctx = self.caption_eval_ctx
+        loader = BatchIterator(
+            self.val_dataset, self.config.train.batch_size, epoch=epoch,
+            num_workers=self.config.train.num_workers, rng=self.np_rng)
+        candidates: dict = {}
+        for host in loader:
+            arrays = {k: v for k, v in host.items()
+                      if not isinstance(v, list)}
+            out, _ = self.eval_step(batch_to_device(arrays, self.device))
+            collect_batch(self.model, out, arrays, host["scene_id"],
+                          ctx["tokenizer"], ctx["organized"], candidates)
+            self._check_interrupt()
+        return score_captions(ctx["corpus"], candidates)
 
     # ------------------------------------------------------------ loop
     def _snapshot(self, name: str) -> None:
@@ -472,6 +507,14 @@ class Solver:
                 if val["iou_rate_0.5"] > self.best["ground_5"]:
                     self.best["ground_5"] = val["iou_rate_0.5"]
                     self._snapshot("ground_model_5")
+                if "bleu-4" in val:
+                    caption_sum = float(sum(val[m] for m in CAPTION_METRICS))
+                    if caption_sum > self.best["caption_sum"]:
+                        self.best["caption_sum"] = caption_sum
+                        self.best["best_caption_epoch"] = epoch + 1
+                        for m in CAPTION_METRICS:
+                            self.best[f"best_caption_{m}"] = float(val[m])
+                        self._snapshot("caption_model")
 
                 # the epoch counts as done only once its eval + best-model
                 # snapshotting completed: an interrupt landing during

@@ -46,7 +46,8 @@ def backward_and_step(loss: torch.Tensor, optimizer) -> None:
         optimizer.micro_step = 0
 
 
-def make_train_step(model: JointNet, config: Config, optimizer) -> Callable:
+def make_train_step(model: JointNet, config: Config, optimizer, *,
+                    caption: bool = False) -> Callable:
     """Returns ``train_step(batch, generator=None) -> metrics``: forward
     in training mode, the joint loss, gradients, one optimizer update and
     new BatchNorm statistics, all in place in ``model`` and ``optimizer``.
@@ -59,16 +60,19 @@ def make_train_step(model: JointNet, config: Config, optimizer) -> Callable:
 
     ``batch`` holds tensors on the model's device
     (:func:`batch_to_device`); ``generator`` (a ``torch.Generator`` on
-    that device) draws the dropout masks, the global generator when None.
-    ``metrics`` are the scalar entries of the loss's metrics, as 0-dim
+    that device) draws the dropout masks and the caption / MLM token
+    masks, the global generator when None. ``caption`` adds the caption
+    loss (the Solver's ``caption``). ``metrics`` are the scalar entries of the loss's metrics, as 0-dim
     tensors on the device (reading one synchronises). ``optimizer`` is
     :func:`vlp3d_torch.train.optimizer.make_optimizer`'s.
     """
 
     def train_step(batch: dict, generator: torch.Generator | None = None):
         set_dropout_generator(model, generator)
+        model.mask_generator = generator
         out = model(batch, train=True)
-        loss, metrics = compute_joint_loss(config, out, batch)
+        loss, metrics = compute_joint_loss(config, out, batch,
+                                           caption=caption)
         backward_and_step(loss, optimizer)
         return _scalars(metrics)
 
@@ -78,7 +82,9 @@ def make_train_step(model: JointNet, config: Config, optimizer) -> Callable:
 def make_eval_step(model: JointNet, config: Config) -> Callable:
     """Returns ``eval_step(batch) -> (outputs, metrics)``: the forward at
     evaluation (running BatchNorm statistics, no dropout, no gradient)
-    and the loss's scalar metrics."""
+    and the loss's scalar metrics, without the caption term (the JAX
+    solver's eval step leaves it out; a caption model's outputs still
+    hold ``lang_cap``)."""
 
     def eval_step(batch: dict):
         out = model(batch, train=False)
