@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of vlp3d_torch on one CUDA card: grounding inference, the
 joint train step, the predict path, the trainer behind run.sh, the HTTP
-grounding server and Scan2Cap captioning.
+grounding server, Scan2Cap captioning and ScanQA question answering.
 
     python3 chip_smoke.py
 
@@ -176,12 +176,13 @@ nothing of the vlp3d package. Phases, each fatal on failure:
    differ only where the reference side's top-2 logit margin at the
    first differing step is below TIE_MARGIN; the excused rows are
    counted); the use_con caption model and the caption + MLM model on
-   phase 6's batch, each kernel step against the plain-op step (loss
-   within STEP_LOSS_RTOL, gradients within STEP_GRAD_TOL of the largest
-   entry; a probe under a decoder ReLU that decided differently in the
-   two runs is reported, not held, and that ReLU's input must lie within
-   FLIP_TOL of 0); a server with a ground and a caption service, warmed
-   up, and each request's reference from the caption predictor alone.
+   phase 6's batch, each kernel step against the plain-op step by
+   check_kernel_step (the kernel run follows the plain run's side of 0
+   at every ReLU input, which must lie within FLIP_TOL of 0 where they
+   differ; loss within STEP_LOSS_RTOL, every probe's gradient within
+   STEP_GRAD_TOL of its largest entry); a server with a ground and a
+   caption service, warmed up, and each request's reference from the
+   caption predictor alone.
    CLI processes: caption_predict and caption_eval over stand-in assets
    (started with phase 8's; pred.json's boxes 8 x 3 and string
    captions, every metric finite) and train_caption with run.sh's flags
@@ -197,7 +198,36 @@ nothing of the vlp3d package. Phases, each fatal on failure:
    requests (b64 clouds of 40960 x 135) and one /v1/ground: all 200,
    one forward's launches a device batch, captions equal to the
    predictor's alone by the tie rule, boxes within BOX_TOL;
-11. print {"kernels": [...]} with every kernel of the eight paths (the
+11. question answering at run.sh's widths (3 + 132 channels, 256
+   proposals, 8 questions a scene, the config's 8192 answers). Built
+   while the CLI processes run: AnswerPredictor over phase 5's model
+   with a seeded answer head, its top-10 answers of phase 5's first
+   batch against the same forward with the plain ops (logits within
+   VQA_SCORE_TOL of the largest; ids equal, or excused by the tie rule:
+   the reference's logits of the two ids within TIE_MARGIN); the
+   VQA-recipe model (use_con=False, phase 6's nudges) on phase 6's batch
+   with seeded multi-hot answer labels and soft scores, the kernel step
+   against the plain-op step by check_kernel_step, as phase 10's (12
+   probes from SA1 to the answer head); a Solver eval batch over
+   synthetic ScanQA scenes of 40000 points (one
+   forward's launches; answer_acc_at1 <= answer_acc_at10 reported); a
+   server with a ground and an answer service, warmed up, and each
+   request's reference from the answer predictor alone. CLI process:
+   train_qa with VQA_CLI_FLAGS + --synthetic --epoch 1 --pretrain
+   <phase 8's model.pth> beside the --auto_resume run (exit 0, its
+   restored / fresh counts, the answer head's 10 entries fresh,
+   answer_loss finite, the val EM logged). With the card to itself,
+   counts at 0 before each: one AnswerPredictor call on phase 5's
+   second batch (one forward's launches; ids in range, best first),
+   forward + top-10 timed with the batch on the card, peak memory; 3
+   VQA-recipe train steps (Adam with coupled L2, one group, clip 1.0;
+   each step FPS 5, ball query 5, three-NN 2, gather 11, its backward
+   5, the interpolation's backward 2; answer_loss finite), step ms and
+   peak memory; 4 concurrent /v1/answer requests (b64 clouds of 40960 x
+   135, 1-7 questions) and one /v1/ground: all 200, one forward's
+   launches a device batch, each request's top-10 ids equal to the
+   predictor's alone by the tie rule, logits within VQA_SCORE_TOL;
+12. print {"kernels": [...]} with every kernel of the twelve paths (the
    CUDA functions behind each in kernel_functions, host_us beside the
    times, the launches of each path, and per_step and per_remat_step
    as counted in phase 8), the
@@ -281,9 +311,20 @@ SEP = 102
 # two decodes agree when their rows are equal, or a row's first differing
 # step had a top-2 logit margin below this on the reference side
 TIE_MARGIN = 1e-4
-# a decoder ReLU input that lands on the other side of 0 in the kernel and
-# the plain-op runs must lie within this of 0
+# a ReLU input that lands on the other side of 0 in the kernel and the
+# plain-op runs must lie within this of 0
 FLIP_TOL = 1e-3
+# the question-answering phase: run.sh's widths and the config's answer
+# vocabulary (input channels, proposals, answers, questions a scene)
+VQA_WIDTHS = (132, 256, 8192, 8)
+VQA_TOPK = 10
+VQA_STEPS = 3  # timed VQA-recipe train steps
+VQA_HTTP_REQUESTS = 4
+VQA_SCORE_TOL = 1e-4  # answer logits, kernel against plain, of the largest
+# train_qa's process: run.sh's widths; the synthetic ScanQA set holds 2
+# scenes of 4 questions, so a batch of 2 gives one step and one eval batch
+VQA_CLI_FLAGS = ["--use_multiview", "--use_normal", "--lang_num_max", "8",
+                 "--batch_size", "2"]
 
 
 _T0 = time.perf_counter()
@@ -1067,13 +1108,15 @@ def profile_call(torch, fn, tag: str, what: str, top: int = 15):
 
 
 def kernel_line(rows, serving, train, predict, solver, http, per_step,
-                per_remat_step, captions):
+                per_remat_step, paths):
     """The {"kernels": [...]} line. ``rows`` holds the per-call-site checks
     of each kernel; ``serving`` / ``train`` / ``predict`` / ``solver`` /
     ``http`` the launch counts of the five grounding main-path runs,
-    ``captions`` those of the three captioning ones (``caption_serve``,
-    ``caption_step``, ``caption_http``); ``per_step`` and
-    ``per_remat_step`` those of one Solver step and one remat step."""
+    ``paths`` those of the captioning and question-answering ones
+    (``caption_serve``, ``caption_step``, ``caption_http``,
+    ``answer_eval``, ``answer_serve``, ``answer_step``, ``answer_http``);
+    ``per_step`` and ``per_remat_step`` those of one Solver step and one
+    remat step."""
     sources = {
         "fps": ("vlp3d_torch/csrc/fps.cu", "vlp3d/ops/sampling.py:60"),
         "ball_query": ("vlp3d_torch/csrc/ball_query.cu",
@@ -1116,13 +1159,13 @@ def kernel_line(rows, serving, train, predict, solver, http, per_step,
             "replaces": sources[name][1],
             "launches": (serving[name] + train[name] + predict[name]
                          + solver[name] + http[name]
-                         + sum(c[name] for c in captions.values())),
+                         + sum(c[name] for c in paths.values())),
             "launches_serving": serving[name],
             "launches_train": train[name],
             "launches_predict": predict[name],
             "launches_solver": solver[name],
             "launches_http": http[name],
-            **{f"launches_{path}": c[name] for path, c in captions.items()},
+            **{f"launches_{path}": c[name] for path, c in paths.items()},
             "per_step": per_step[name],
             "per_remat_step": per_remat_step[name],
             "max_abs_err": max(r["max_abs_err"] for r in rs),
@@ -2005,12 +2048,26 @@ def _train_caption_cli(pretrain, workdir, result):
         result["error"] = repr(e)
 
 
+def _train_qa_cli(pretrain, workdir, result):
+    """Phase 11's `python -m vlp3d_torch.cli.train_qa` at run.sh's widths
+    (VQA_CLI_FLAGS) + --synthetic --epoch 1, warm-started from phase 8's
+    model.pth."""
+    try:
+        result["qa_train"] = _cli(
+            "vlp3d_torch.cli.train_qa",
+            [*VQA_CLI_FLAGS, "--synthetic", "--epoch", "1", "--workdir",
+             workdir, "--pretrain", pretrain], result)
+    except Exception as e:  # noqa: BLE001 — reported by the main thread
+        result["error"] = repr(e)
+
+
 def train_cli_runs(workdir, result):
     """Phase 8's subprocesses, one after the other (run in a thread
     beside the in-process work): 2 epochs, then --epoch 3 --auto_resume,
-    and beside that run phase 10's train_caption from the first run's
-    model.pth; leaves {"runs": [(rc, output, s), ...], "caption_train":
-    (rc, output, s)} or {"error": ...} in ``result``."""
+    and beside that run phase 10's train_caption and phase 11's train_qa
+    from the first run's model.pth; leaves {"runs": [(rc, output, s),
+    ...], "caption_train": (rc, output, s), "qa_train": (rc, output, s)}
+    or {"error": ...} in ``result``."""
     import shutil
     import threading
 
@@ -2024,14 +2081,16 @@ def train_cli_runs(workdir, result):
             root = os.path.dirname(workdir)
             pretrain = os.path.join(root, "pretrain.pth")
             shutil.copyfile(os.path.join(workdir, "model.pth"), pretrain)
-            caption = threading.Thread(
-                target=_train_caption_cli,
-                args=(pretrain, os.path.join(root, "caption"), result),
-                daemon=True)
-            caption.start()
+            stages = [threading.Thread(target=fn, args=(
+                pretrain, os.path.join(root, name), result), daemon=True)
+                for fn, name in ((_train_caption_cli, "caption"),
+                                 (_train_qa_cli, "qa"))]
+            for t in stages:
+                t.start()
             result["runs"].append(_train_cli(
                 ["--epoch", "3", "--auto_resume"], workdir, result))
-            caption.join()
+            for t in stages:
+                t.join()
     except Exception as e:  # noqa: BLE001 — reported by the main thread
         result["error"] = repr(e)
 
@@ -2543,25 +2602,38 @@ def first_diff(a, b):
     return None if idx.numel() == 0 else int(idx[0])
 
 
-def tie_rule(torch, ref, got, ref_logits, what: str, tag: str = "10") -> int:
+def tie_rule(ref, got, margin, what: str, tag: str) -> int:
     """Rows of ``got`` (N, T) equal ``ref``'s, or are excused: at the first
-    differing step s the reference side's top-2 logit margin
-    (``ref_logits(rows, s)`` -> (len(rows), vocab)) is below TIE_MARGIN.
-    Any other difference is fatal; returns the count of excused rows."""
+    place s where row r differs, ``margin(r, s)``, the reference side's
+    logit margin there (``top2_margin`` of its logits, or ``ids_margin``),
+    is below TIE_MARGIN. Any other difference is fatal; returns the count of
+    excused rows."""
     rows = (ref != got).any(dim=1).nonzero().flatten().tolist()
     excused = 0
     for r in rows:
         s = first_diff(ref[r], got[r])
-        top2 = torch.topk(ref_logits([r], s)[0].float(), 2).values
-        margin = float(top2[0] - top2[1])
-        if margin >= TIE_MARGIN:
-            fail(f"{what}: row {r} differs at step {s} with a top-2 margin "
-                 f"of {margin}")
+        m = margin(r, s)
+        if m >= TIE_MARGIN:
+            fail(f"{what}: row {r} differs at place {s} with a logit margin "
+                 f"of {m}")
         excused += 1
     print(f"[{tag}] {what}: {ref.shape[0]} rows, {excused} excused by the "
-          f"tie rule (top-2 margin below {TIE_MARGIN} at the first "
-          f"differing step), every other row equal")
+          f"tie rule (logit margin below {TIE_MARGIN} at the first "
+          f"differing place), every other row equal")
     return excused
+
+
+def top2_margin(torch, logits) -> float:
+    """The gap between the two largest logits of a (vocab,) row."""
+    top2 = torch.topk(logits.float(), 2).values
+    return float(top2[0] - top2[1])
+
+
+def ids_margin(ref_ids, got_ids, ref_scores):
+    """``tie_rule``'s margin for top-k id rows: the reference's logits of
+    the two ids at the differing place."""
+    return lambda r, j: abs(float(ref_scores[r, ref_ids[r, j]]
+                                  - ref_scores[r, got_ids[r, j]]))
 
 
 def cut_at_sep(ys):
@@ -2572,36 +2644,96 @@ def cut_at_sep(ys):
     return out
 
 
+def relu_input(name: str, mod) -> bool:
+    """Whether a ReLU or PReLU reads this module's output: every
+    BatchNorm, the relation distance-MLP's two hidden linears, and the
+    first linear of every feed-forward block (the attention blocks' and
+    the caption / MLM decoders')."""
+    from vlp3d_torch.models.layers import BatchNorm
+
+    parts = name.split(".")
+    return isinstance(mod, BatchNorm) or name.endswith(
+        (".linear1", ".feed_forward.w_1")) or (
+            parts[:2] == ["relation", "self_attn_fc"] and len(parts) == 4
+            and parts[3] in ("0", "3"))
+
+
 @contextlib.contextmanager
-def relu_inputs(model, heads):
-    """Record every caption / MLM decoder layer's ReLU input (the
-    feed-forward's first linear) while open: {(head, layer): tensor}."""
-    seen, hooks = {}, []
-    for head in heads:
-        for i, layer in enumerate(getattr(model, head).model.decoder.layers):
-            hooks.append(layer.feed_forward.w_1.register_forward_hook(
-                lambda m, a, o, key=(head, i): seen.__setitem__(
-                    key, o.detach().clone())))
+def kinks(model, follow=None):
+    """While open, record the output of every module ``relu_input`` names,
+    call by call ({module: [tensor, ...]}). With ``follow``, such a record
+    of another run of the same forward, a unit on the other side of 0 from
+    ``follow``'s takes that run's value (its gradient flows straight
+    through to this run's), so that both runs take the same branch of
+    every ReLU. Yields (the record, {module: (units moved, largest |input|
+    of a moved unit on either side)})."""
+    seen, moved, hooks = {}, {}, []
+
+    def hook(mod, args, out, name):
+        calls = seen.setdefault(name, [])
+        if follow is None:
+            calls.append(out.detach().clone())
+            return None
+        ref = follow[name][len(calls)]
+        calls.append(None)
+        flipped = (out > 0) != (ref > 0)
+        if not bool(flipped.any()):
+            return None
+        units, near = moved.get(name, (0, 0.0))
+        moved[name] = (units + int(flipped.sum()), max(
+            near, float(out.detach()[flipped].abs().max()),
+            float(ref[flipped].abs().max())))
+        return out + (ref - out.detach()).masked_fill(~flipped, 0.0)
+
+    for name, mod in model.named_modules():
+        if relu_input(name, mod):
+            hooks.append(mod.register_forward_hook(
+                lambda m, a, o, name=name: hook(m, a, o, name)))
     try:
-        yield seen
+        yield seen, moved
     finally:
         for h in hooks:
             h.remove()
 
 
-def above_flips(name: str, flipped: dict) -> bool:
-    """Whether a parameter's gradient lies above every decoder ReLU that
-    decided differently (``flipped``: head -> its deepest such layer):
-    the detection and language modules lie under both decoders (their
-    object tokens), a decoder's embedding under its layers."""
-    head = name.split(".")[0]
-    if head not in ("caption", "mlm"):
-        return not flipped
-    if head not in flipped:
-        return True
-    if ".layers." in name:
-        return int(name.split(".")[4]) > flipped[head]
-    return ".tgt_embed." not in name
+def check_kernel_step(torch, tag, model, config, batch, probe, what,
+                      caption=False):
+    """The kernel train step against the plain-op step on one batch, with
+    one dropout (and token-mask) draw: the plain-op run first, recording
+    every ReLU input, then the kernel run following its side of 0 (the two
+    forwards differ in the interpolation's order of summation, and a unit
+    within rounding of 0 would move the gradient of its whole BatchNorm
+    channel and of everything the forward ran before it). A moved unit
+    must lie within FLIP_TOL of 0; then the loss is held to
+    STEP_LOSS_RTOL and every probe's gradient to STEP_GRAD_TOL of its
+    largest entry. Returns (loss_rel, worst, {module: units moved})."""
+    with plain_ops(), kinks(model) as (pre_p, _):
+        loss_p, grads_p = loss_and_grads(torch, model, config, batch,
+                                         probe, 11, caption=caption)
+    with kinks(model, follow=pre_p) as (_, moved):
+        loss_k, grads_k = loss_and_grads(torch, model, config, batch,
+                                         probe, 11, caption=caption)
+    del pre_p
+    for name, (units, near) in moved.items():
+        if near > FLIP_TOL:
+            fail(f"{what}: {units} ReLU inputs of {name}, up to {near} from "
+                 "0, decided differently in the two runs")
+    errs = {}
+    for n in probe:
+        scale = grads_p[n].abs().max().item()
+        errs[n] = (grads_k[n] - grads_p[n]).abs().max().item() / max(
+            scale, 1e-30)
+    worst = max(errs.values())
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    print(f"[{tag}] {what}, kernels against plain ops on the card: loss "
+          f"{loss_k.item()} vs {loss_p.item()} (relative {loss_rel}); "
+          f"gradient difference of each probe, of its largest entry: "
+          f"{errs}; ReLU "
+          f"inputs that followed the plain run (module: units, largest "
+          f"|input|) {moved}")
+    if loss_rel > STEP_LOSS_RTOL or worst > STEP_GRAD_TOL:
+        fail(f"the {what} differs from the plain-op step")
+    return loss_rel, worst, {k: v[0] for k, v in moved.items()}
 
 
 class CaptionClis:
@@ -2765,8 +2897,10 @@ class CaptionPhase:
         def plain_logits(rows, s):
             return dec.decode_step(obj[rows], plain[rows], s - 1)
 
-        self.excused = tie_rule(torch, plain, cached, plain_logits,
-                                "KV-cached greedy against uncached")
+        self.excused = tie_rule(
+            plain, cached,
+            lambda r, s: top2_margin(torch, plain_logits([r], s)[0]),
+            "KV-cached greedy against uncached", "10")
 
         def cached_logits(rows, s):
             return dec.decode_step(obj[rows], cached[rows], s - 1)
@@ -2776,8 +2910,7 @@ class CaptionPhase:
         differ = [r for r in range(len(a)) if a[r] != b[r]]
         for r in differ:  # the tie rule, on the prefix up to SEP
             s = next(i for i, (x, y) in enumerate(zip(a[r], b[r])) if x != y)
-            top2 = torch.topk(cached_logits([r], s)[0], 2).values
-            if float(top2[0] - top2[1]) >= TIE_MARGIN:
+            if top2_margin(torch, cached_logits([r], s)[0]) >= TIE_MARGIN:
                 fail(f"beam width 1 differs from greedy at row {r}, step {s}")
         self.beam1_excused = len(differ)
         if any(r[0] != 101 for r in a):
@@ -2817,44 +2950,9 @@ class CaptionPhase:
                       f"{head}.model.decoder.layers.5.feed_forward.w_1.weight",
                       f"{head}.model.decoder.layers.0.self_attn.linears.0."
                       f"weight", f"{head}.model.tgt_embed.0.lut.weight"]
-        with relu_inputs(model, heads) as pre_k:
-            loss_k, grads_k = loss_and_grads(torch, model, config, batch,
-                                             probe, 11, caption=True)
-        with plain_ops(), relu_inputs(model, heads) as pre_p:
-            loss_p, grads_p = loss_and_grads(torch, model, config, batch,
-                                             probe, 11, caption=True)
-        # a decoder ReLU on the other side of 0 in the two runs (their
-        # forwards differ in the interpolation's order of summation) moves
-        # the gradients of its layer and everything under it by that
-        # unit's share: those probes are reported, not held
-        flipped = {}
-        for (head, i), a in pre_k.items():
-            flips = (a > 0) != (pre_p[(head, i)] > 0)
-            if bool(flips.any()):
-                near = max(float(a[flips].abs().max()),
-                           float(pre_p[(head, i)][flips].abs().max()))
-                if near > FLIP_TOL:
-                    fail(f"{head} layer {i}: a ReLU input {near} from 0 "
-                         "decided differently in the two runs")
-                flipped[head] = max(flipped.get(head, -1), i)
-        loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
-        errs, held = {}, True
-        for n in probe:
-            scale = grads_p[n].abs().max().item()
-            errs[n] = (grads_k[n] - grads_p[n]).abs().max().item() / max(
-                scale, 1e-30)
-        under = [n for n in probe if not above_flips(n, flipped)]
-        worst = max(v for n, v in errs.items() if n not in under)
-        print(f"[10] caption{'+MLM' if mlm else ''} step, kernels against "
-              f"plain ops on the card: loss {loss_k.item()} vs "
-              f"{loss_p.item()} (relative {loss_rel}); largest gradient "
-              f"difference {worst} of the tensor's largest entry over "
-              f"{len(probe) - len(under)} tensors; decoder ReLUs decided "
-              f"differently (head: deepest layer) {flipped}, probes under "
-              f"them reported only: "
-              f"{ {n: errs[n] for n in under} }")
-        if loss_rel > STEP_LOSS_RTOL or worst > STEP_GRAD_TOL:
-            fail("the caption kernel step differs from the plain-op step")
+        check_kernel_step(torch, "10", model, config, batch, probe,
+                          f"caption{'+MLM' if mlm else ''} step",
+                          caption=True)
         optimizer = make_optimizer(
             model, lr_schedule=lambda e, lr0: cosine_lr(e, lr0, 200),
             steps_per_epoch=100)
@@ -3086,9 +3184,10 @@ class CaptionPhase:
                 return dec.decode_step(feat[rows][:, None],
                                        want[rows].to(dev), s - 1)
 
-            excused += tie_rule(torch, want, ids, ref_logits,
-                                "an HTTP caption against the predictor "
-                                "alone")
+            excused += tie_rule(
+                want, ids,
+                lambda r, s, f=ref_logits: top2_margin(torch, f([r], s)[0]),
+                "an HTTP caption against the predictor alone", "10")
             for k, p in enumerate(ans["proposals"]):
                 for key in ("center", "size"):
                     worst = max(worst, float(np.abs(np.asarray(p[key]) -
@@ -3106,6 +3205,439 @@ class CaptionPhase:
         stamp("10", "caption HTTP")
         return launches, {"wall_ms": wall_ms, "batches": batches,
                           "excused": excused}
+
+    def stop(self):
+        self.server.shutdown()
+        self.server.server_close()
+        for s in self.services.values():
+            s.close()
+        self.thread.join(timeout=30)
+
+
+# ---------------------------------------------------------------- phase 11
+
+
+def check_train_qa(result, workdir):
+    """train_qa's process (run beside phase 8's --auto_resume run): exit
+    0, its warm-start counts (the answer head fresh), the answer loss
+    finite, the val EM logged, info.json's num_answers."""
+    import numpy as np
+
+    if "qa_train" not in result:
+        fail("the train_qa CLI did not run")
+    rc, out, sec = result["qa_train"]
+    if rc != 0:
+        fail(f"python -m vlp3d_torch.cli.train_qa exited {rc}:\n"
+             f"{out[-4000:]}")
+    line = [ln for ln in out.splitlines() if ln.startswith("warm-started")]
+    with open(os.path.join(workdir, "log.jsonl")) as f:
+        records = [json.loads(r) for r in f]
+    with open(os.path.join(workdir, "info.json")) as f:
+        info = json.load(f)
+    train = [r for r in records if r["phase"] == "train"]
+    val = [r for r in records if r["phase"] == "val"]
+    if not line or " 10 fresh" not in line[0] or not train or not all(
+            np.isfinite(r["answer_loss"]) for r in train) or not val \
+            or "answer_acc_at1" not in val[-1] or info["num_answers"] < 1:
+        fail(f"train_qa: {line} {train} {val} {info.get('num_answers')}")
+    print(f"[11] train_qa CLI (--pretrain phase 8's model.pth, "
+          f"{' '.join(VQA_CLI_FLAGS)} --synthetic --epoch 1): exit 0 in "
+          f"{sec:.1f} s; {line[0]}; num_answers {info['num_answers']}; "
+          f"answer_loss {[round(r['answer_loss'], 4) for r in train]}; val "
+          f"EM@1 {val[-1]['answer_acc_at1']}, EM@10 "
+          f"{val[-1]['answer_acc_at10']}")
+
+
+class VqaPhase:
+    """Phase 11 in this process: ScanQA at run.sh's widths. The models,
+    the untimed checks (the kernel forward's answers and the VQA-recipe
+    step against the plain ops, a Solver eval batch) and the HTTP services
+    are made while the CLI processes run; :meth:`drive` then times the
+    main paths with the card to itself."""
+
+    def __init__(self, torch, smi, scenes, ground_state, train_host):
+        import dataclasses
+        import threading
+
+        from vlp3d_torch.config import Config, ModelConfig
+        from vlp3d_torch.serve import InferenceService, make_server
+        from vlp3d_torch.serving import AnswerPredictor
+
+        self.smi, self.scenes = smi, scenes
+        t0 = time.perf_counter()
+        config = Config(model=ModelConfig(use_con=False, no_caption=True,
+                                          use_answer=True))
+        self.config = config
+        self.pred = AnswerPredictor(config, batch_size=B, topk=VQA_TOPK)
+        # phase 5's model, with the seeded answer head
+        self.pred.model.load_state_dict(
+            {**self.pred.model.state_dict(), **ground_state}, strict=True)
+        cfg = config.model
+        widths = (cfg.input_feature_dim, cfg.num_proposal, cfg.num_answers,
+                  cfg.lang_num_max)
+        if widths != VQA_WIDTHS:
+            fail(f"answer model is not at run.sh's widths: {widths}")
+        print(f"[11] answer model built in {time.perf_counter() - t0:.1f} s"
+              f" (phase 5's weights + a seeded answer head over "
+              f"{cfg.num_answers} answers)")
+        self.check_answers(torch)
+        self.step = self.check_step(torch, train_host)
+        self.eval_launches, self.eval_result = self.solver_eval(torch)
+        state = self.pred.model.state_dict()
+        self.services = {
+            task: InferenceService(
+                dataclasses.replace(config, dataset=dataclasses.replace(
+                    config.dataset, num_points=N)), state, task=task,
+                batch_size=B, max_wait_ms=HTTP_MAX_WAIT_MS)
+            for task in ("ground", "answer")}
+        self.server = make_server(self.services)
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        for s in self.services.values():
+            s.warmup()
+        self.http_refs()
+        stamp("11", "answer models, untimed checks and HTTP services")
+
+    # -- (a) untimed: the kernel forward's answers against the plain ops -
+
+    def check_answers(self, torch):
+        from vlp3d_torch.serving import answer
+
+        pred, l = self.pred, self.config.model.lang_num_max
+        dev = pred._to_device(self.scenes[0])
+        got = answer(pred.model, dev, VQA_TOPK)
+        with plain_ops():
+            want = answer(pred.model, dev, VQA_TOPK)
+        scores_k = got["answer_scores"].reshape(B * l, -1)
+        scores_p = want["answer_scores"].reshape(B * l, -1)
+        scale = float(scores_p.abs().max())
+        err = float((scores_k - scores_p).abs().max()) / scale
+        ids_p = want["answer_top_ids"].reshape(B * l, -1)
+        ids_k = got["answer_top_ids"].reshape(B * l, -1)
+        self.excused = tie_rule(
+            ids_p, ids_k, ids_margin(ids_p, ids_k, scores_p),
+            "top-10 answers, kernels against plain ops", "11")
+        print(f"[11] answers of {B * l} questions, kernels against plain ops "
+              f"on the card: logits within {err} of the largest "
+              f"({scale}); top-{VQA_TOPK} ids equal, {self.excused} rows "
+              f"excused by the tie rule")
+        if err > VQA_SCORE_TOL:
+            fail(f"answer logits differ from the plain forward's by {err}")
+
+    # -- (b) untimed: the VQA-recipe step against the plain-op step -----
+
+    def check_step(self, torch, train_host):
+        import numpy as np
+
+        from vlp3d_torch.models import JointNet
+        from vlp3d_torch.train import (
+            batch_to_device,
+            make_optimizer,
+            make_train_step,
+        )
+        from vlp3d_torch.train.schedules import step_lr
+
+        config = self.config
+        model = JointNet(config)
+        with torch.no_grad():  # phase 6's nudges
+            model.vgen.conv3.weight.mul_(0.05)
+            model.vgen.conv3.bias.mul_(0.05)
+            model.proposal.proposal.box_predictor.bias.fill_(-1.0)
+        # phase 6's batch with ScanQA labels: a few answers a question,
+        # soft scores from the train frequency's steps
+        rng = np.random.default_rng(11)
+        l, a = config.model.lang_num_max, config.model.num_answers
+        cats = np.zeros((B, l, a), np.float32)
+        for i in range(B):
+            for j in range(l):
+                cats[i, j, rng.choice(a, 1 + j % 3, replace=False)] = 1.0
+        host = dict(train_host, answer_cats=cats,
+                    answer_cat_scores=cats * rng.choice(
+                        [0.3, 0.6, 0.9, 1.0], size=cats.shape).astype(
+                            np.float32),
+                    answer_cat=np.argmax(cats, -1).astype(np.int32))
+        batch = batch_to_device(host, next(model.parameters()).device)
+        probe = ["backbone_net.sa1.mlp_module.layer0.conv.weight",
+                 "backbone_net.fp2.mlp.layer0.conv.weight",
+                 "proposal.vote_aggregation.mlp_module.layer0.conv.weight",
+                 "relation.features_concat.0.weight",
+                 "match.grounding_cross_attn.0.enc_dec_attention.attention."
+                 "fc_q.weight", "match.match.0.weight", "lang.proj.weight",
+                 "answer.attflat_visual.mlp.fc.linear.weight",
+                 "answer.attflat_visual.linear_merge.weight",
+                 "answer.answer_cls.0.weight", "answer.answer_cls.3.weight",
+                 "answer.answer_cls.3.bias"]
+        loss_rel, worst, moved = check_kernel_step(
+            torch, "11", model, config, batch, probe, "VQA step")
+        optimizer = make_optimizer(
+            model, base_lr=5e-4, module_lr=5e-4, weight_decay=1e-5,
+            lr_schedule=lambda e, lr0: step_lr(e, lr0, (100, 200), 0.2),
+            steps_per_epoch=100, optim_name="adam", single_group=True,
+            clip_grad_value=1.0)
+        step = make_train_step(model, config, optimizer)
+        step(batch, torch.Generator(device=batch["point_clouds"].device))
+        torch.cuda.synchronize()  # the first step's costs, untimed
+        self.step_numbers = {"loss_rel": loss_rel, "grad_err": worst,
+                             "flips": moved}
+        return model, step, batch
+
+    # -- (c) untimed: a Solver eval batch --------------------------------
+
+    def solver_eval(self, torch):
+        import tempfile
+
+        from vlp3d_torch import ops
+        from vlp3d_torch.data.synthetic import synthetic_qa
+        from vlp3d_torch.data.tokenizer import HashTokenizer
+        from vlp3d_torch.data.vqa_dataset import (
+            ScanQADataset,
+            build_answer_vocab,
+        )
+        from vlp3d_torch.train.solver import Solver
+
+        config = self.config
+        qa, source = synthetic_qa(config)
+        vocab, counter = build_answer_vocab(qa)
+        ds = ScanQADataset(
+            qa, source, HashTokenizer(), split="val", answer_vocab=vocab,
+            answer_counter=counter, num_answers=config.model.num_answers,
+            num_points=config.dataset.num_points,
+            lang_num_max=config.model.lang_num_max,
+            bert_max_len=config.model.bert_seq_len,
+            mean_size_arr=config.dataset.mean_size_arr())
+        with tempfile.TemporaryDirectory() as tmp:
+            solver = Solver(config, ds, ds, tmp, log_every=1)
+            solver.init_state()
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            res = solver.eval_epoch(0)
+            sec = time.perf_counter() - t0
+            launches = dict(ops.launches)
+            solver.close()
+            del solver
+        torch.cuda.empty_cache()
+        batches = -(-len(ds) // config.train.batch_size)
+        if launches != {k: batches * v for k, v in PER_FORWARD.items()}:
+            fail(f"solver eval launches {launches} over {batches} batches")
+        if not ("answer_acc_at1" in res and "answer_acc_at10" in res
+                and 0 <= res["answer_acc_at1"] <= res["answer_acc_at10"]
+                <= 1):
+            fail(f"solver eval result {sorted(res)}")
+        print(f"[11] Solver eval over {len(ds)} ScanQA items of "
+              f"{config.dataset.num_points} points ({batches} partial "
+              f"batch): answer_acc_at1 {res['answer_acc_at1']}, "
+              f"answer_acc_at10 {res['answer_acc_at10']}, answer_loss "
+              f"{res['answer_loss']}, {sec * 1e3:.3f} ms, launches "
+              f"{launches} ({self.smi})")
+        return launches, {k: res[k] for k in (
+            "answer_acc_at1", "answer_acc_at10", "answer_loss")}
+
+    # -- (d) untimed: the HTTP requests and their references -------------
+
+    def http_refs(self):
+        import base64
+
+        import numpy as np
+
+        from vlp3d_torch.serving import STREAM_KEYS
+
+        rng = np.random.default_rng(12)
+        svc = self.services["answer"]
+        c = 3 + self.config.model.input_feature_dim
+        words = ["what", "color", "is", "the", "chair", "where", "table",
+                 "how", "many", "beds"]
+        self.reqs, self.refs = [], []
+        for i in range(VQA_HTTP_REQUESTS):
+            pc = rng.uniform(0, 4, (N, c)).astype(np.float32)
+            req = {"point_cloud": {"b64": base64.b64encode(
+                pc.astype("<f4").tobytes()).decode(), "shape": list(pc.shape)},
+                "queries": [" ".join(rng.choice(words, 5)) for _ in range(
+                    min(1 + 2 * i, self.config.model.lang_num_max))]}
+            self.reqs.append(req)
+            item, _ = svc._make_item(req)
+            ref = svc._pred.run_padded({k: np.asarray(item[k])[None]
+                                        for k in STREAM_KEYS})
+            self.refs.append({k: v[0] for k, v in ref.items()})
+        self.ground_req = dict(self.reqs[0], queries=["the chair"])
+        self.bodies = [json.dumps(r).encode() for r in self.reqs]
+
+    # -- the timed main paths, with the card to itself -------------------
+
+    def drive(self, torch):
+        """(a), (b) and (d) with every count at 0 before each; returns
+        ({path: launch counts}, numbers for the results line)."""
+        launches, numbers = {"answer_eval": self.eval_launches}, {
+            "eval": self.eval_result, "step_check": self.step_numbers}
+        try:
+            launches["answer_serve"], numbers["serve"] = self.serve(torch)
+            launches["answer_step"], numbers["step"] = self.steps(torch)
+            launches["answer_http"], numbers["http"] = self.http(torch)
+        finally:
+            self.stop()
+        return launches, numbers
+
+    def serve(self, torch):
+        import numpy as np
+
+        from vlp3d_torch import ops
+
+        pred, cfg = self.pred, self.config.model
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = pred([self.scenes[1]])[0]  # the entry point a user calls
+        call_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(ops.launches)
+        peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+        if launches != PER_FORWARD:
+            fail(f"answer serving launches {launches} != {PER_FORWARD}")
+        ids, top = res["answer_top_ids"], res["answer_top_scores"]
+        if ids.shape != (B, cfg.lang_num_max, VQA_TOPK) or ids.min() < 0 \
+                or ids.max() >= cfg.num_answers \
+                or not np.isfinite(res["answer_scores"]).all() \
+                or (np.diff(top, axis=-1) > 0).any():
+            fail(f"answer predictions {ids.shape} {ids.min()} {ids.max()}")
+        dev = pred._to_device(self.scenes[2])
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred.predict(dev)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        fwd = float(np.median(times))
+        print(f"[11] answer serving at B={B}, N={N}: "
+              f"{B * cfg.lang_num_max} questions, top-{VQA_TOPK} of "
+              f"{cfg.num_answers}; the whole call {call_ms:.3f} ms (host "
+              f"batch to host answers, peak {peak:.3f} GiB above the "
+              f"resident models), forward + top-{VQA_TOPK} median of 3 "
+              f"{fwd:.3f} ms (batch on the card; {times}); launches "
+              f"{launches} ({self.smi})")
+        stamp("11", "answer serving")
+        return launches, {"call_ms": call_ms, "forward_ms": fwd,
+                          "peak_gib": peak, "excused": self.excused}
+
+    def steps(self, torch):
+        import numpy as np
+
+        from vlp3d_torch import ops
+
+        model, step, batch = self.step
+        gen = torch.Generator(device=batch["point_clouds"].device)
+        gen.manual_seed(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        total = {k: 0 for k in PER_STEP}
+        ms, history = [], []
+        for _ in range(VQA_STEPS):
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            history.append(step(batch, gen))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            one = dict(ops.launches)
+            if one != PER_STEP:
+                fail(f"VQA step launches {one} != {PER_STEP}")
+            total = {k: total[k] + one[k] for k in total}
+        peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+        history = [{k: v.item() for k, v in m.items()} for m in history]
+        for m in history:
+            if "answer_loss" not in m or not all(
+                    np.isfinite(v) for v in m.values()):
+                fail(f"VQA step metrics {m}")
+        print(f"[11] VQA-recipe train step (Adam, coupled L2, one group, "
+              f"clip 1.0) at B={B}, N={N}: ms {ms} (host clock to a "
+              f"synchronise), peak {peak:.3f} GiB above the resident "
+              f"models, optimizer and batch; launches a step {one}; "
+              + json.dumps({k: [round(m[k], 5) for m in history]
+                            for k in ("loss", "answer_loss", "vote_loss")})
+              + f" ({self.smi})")
+        self.step = None
+        torch.cuda.empty_cache()
+        stamp("11", "VQA train steps")
+        return total, {"ms": ms, "peak_gib": peak}
+
+    def http(self, torch):
+        import threading
+        import urllib.request
+
+        import numpy as np
+
+        from vlp3d_torch import ops
+
+        svc = self.services["answer"]
+        port = self.server.server_address[1]
+        answers = [None] * len(self.bodies)
+
+        def call(i):
+            answers[i] = _post(port, "/v1/answer", self.bodies[i])
+
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        before = {t: s.stats()["device_batches"]
+                  for t, s in self.services.items()}
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(len(self.bodies))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        ground = _post(port, "/v1/ground",
+                       json.dumps(self.ground_req).encode())
+        for t in threads:
+            t.join(timeout=600)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(ops.launches)
+        batches = {t: s.stats()["device_batches"] - before[t]
+                   for t, s in self.services.items()}
+        codes = [a[0] if a else None for a in answers] + [ground[0]]
+        print(f"[11] {len(self.bodies)} concurrent /v1/answer requests "
+              f"(b64 clouds of {N} x {3 + self.config.model.input_feature_dim}"
+              f", {[len(r['queries']) for r in self.reqs]} questions) and one "
+              f"/v1/ground "
+              f"in {wall_ms:.3f} ms: codes {codes}, device batches "
+              f"{batches}, launches {launches}")
+        if codes != [200] * len(codes):
+            fail(f"answer HTTP requests failed: {codes}")
+        n_batches = sum(batches.values())
+        if launches != {k: n_batches * v for k, v in PER_FORWARD.items()}:
+            fail(f"answer HTTP launches {launches} over {n_batches} batches")
+        excused, worst = 0, 0.0
+        for (code, ans), req, ref in zip(answers, self.reqs, self.refs):
+            n = len(req["queries"])
+            if len(ans["answers"]) != n:
+                fail(f"{len(ans['answers'])} answer lists for {n} questions")
+            got = torch.as_tensor([[a["answer_id"] for a in q]
+                                   for q in ans["answers"]])
+            want = torch.as_tensor(ref["answer_top_ids"][:n])
+            excused += tie_rule(
+                want, got, ids_margin(want, got, torch.as_tensor(
+                    ref["answer_scores"][:n])),
+                "an HTTP answer against the predictor alone", "11")
+            scores = np.asarray([[a["score"] for a in q]
+                                 for q in ans["answers"]])
+            same = (got == want).all(dim=1).numpy()
+            worst = max(worst, float(np.abs(
+                scores[same] - ref["answer_top_scores"][:n][same]).max(
+                    initial=0.0)))
+        scale = float(np.abs(self.refs[0]["answer_scores"]).max())
+        if worst > VQA_SCORE_TOL * scale:
+            fail(f"HTTP answer logits differ from the predictor's by {worst}")
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/stats",
+                                    timeout=60) as r:
+            stats = json.loads(r.read())
+        print(f"[11] HTTP answers equal the predictor's alone ({excused} "
+              f"rows excused), logits within {worst}; answer device-batch "
+              f"ms {stats['answer']['batch_ms']}, request ms "
+              f"{stats['answer']['latency_ms']} ({self.smi})")
+        stamp("11", "answer HTTP")
+        return launches, {"wall_ms": wall_ms, "batches": batches,
+                          "excused": excused,
+                          "latency_ms": stats["answer"]["latency_ms"]}
 
     def stop(self):
         self.server.shutdown()
@@ -3284,6 +3816,7 @@ def main() -> int:
         del state
         http_phase = HttpPhase(torch, config)
         caption = CaptionPhase(torch, smi, scenes, ground_state, train_host)
+        vqa = VqaPhase(torch, smi, scenes, ground_state, train_host)
         del ground_state
         t0 = time.perf_counter()
         cli.thread.join(timeout=900)
@@ -3295,6 +3828,7 @@ def main() -> int:
         stamp("8", "training CLI")
         check_train_caption(cli.result, os.path.join(cli.tmp.name,
                                                      "caption"))
+        check_train_qa(cli.result, os.path.join(cli.tmp.name, "qa"))
         caption_clis.check()
         stamp("10", "caption CLIs")
     finally:
@@ -3305,21 +3839,29 @@ def main() -> int:
     http, latency = drive_http(torch, smi, http_phase)
     # 10. captioning with the card to itself: serving, train steps, HTTP
     captions, caption_numbers = caption.drive(torch)
+    # 11. question answering with the card to itself: serving, train
+    # steps, HTTP
+    answers, vqa_numbers = vqa.drive(torch)
+    paths = {**captions, **answers}
     for name in rows:
         if train[name] == 0 or solver[name] == 0 \
-                or captions["caption_step"][name] == 0 \
+                or paths["caption_step"][name] == 0 \
+                or paths["answer_step"][name] == 0 \
                 or (PER_FORWARD[name] > 0 and (
                     serving[name] == 0 or predict[name] == 0
-                    or http[name] == 0 or captions["caption_serve"][name] == 0
-                    or captions["caption_http"][name] == 0)):
+                    or http[name] == 0 or any(
+                        paths[p][name] == 0 for p in (
+                            "caption_serve", "caption_http", "answer_eval",
+                            "answer_serve", "answer_http")))):
             fail(f"kernel {name} was not launched on a main path")
 
-    # 11. results
+    # 12. results
     line = kernel_line(rows, serving, train, predict, solver, http,
-                       per_step, per_remat_step, captions)
+                       per_step, per_remat_step, paths)
     line["remat_step"] = remat
     line["http"] = latency
     line["caption"] = caption_numbers
+    line["vqa"] = vqa_numbers
     print(json.dumps(line))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ outputs agree within atol 1e-4 / rtol 1e-4, and ``pred_ref`` from the
 port's GroundingPredictor equals the JAX GroundingPredictor's through
 ``__call__`` and ``run_padded``. Also checked: the port imports no JAX
 and nothing of vlp3d, a default-device construction raises without a
-card, and unported flags raise.
+card, unported flags raise, and the captioning and answer flags build
+their heads.
 """
 
 import os
@@ -159,7 +160,6 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("flag,value", [
-    ("use_answer", True),
     ("use_mlcv_net", True), ("use_distil", True), ("use_lang_emb", True),
     ("use_reg_head", True), ("use_vote_weight", True), ("mask_box", True),
     ("reference_obj_gather", True), ("use_kl_loss", True),
@@ -169,6 +169,26 @@ def test_unported_flags_raise(flag, value):
     overrides = {**FLAGS, flag: value}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         JointNet(tiny_config(**overrides), device="cpu")
+
+
+@pytest.mark.parametrize("no_caption", [True, False])
+def test_answer_flag_builds_its_head(no_caption):
+    """use_answer, which raised until the question-answering slice, builds
+    the answer head (the reference's ``answer.*`` keys) beside whatever
+    else the flags ask for, and the forward gives ``answer_scores`` of
+    each question slot."""
+    config = tiny_config(**{**FLAGS, "use_answer": True,
+                            "no_caption": no_caption})
+    model = JointNet(config, device="cpu")
+    keys = [k for k in model.state_dict() if k.startswith("answer.")]
+    assert len(keys) == 10
+    assert any(k.startswith("caption.") for k in model.state_dict()) == (
+        not no_caption)
+    b = _scenes(3, batch_size=2)
+    out = model({k: torch.from_numpy(v) for k, v in b.items()},
+                is_eval=True)
+    assert out["answer_scores"].shape == (2 * config.model.lang_num_max,
+                                          config.model.num_answers)
 
 
 @pytest.mark.parametrize("flag,value,head", [("use_mlm", True, "mlm"),

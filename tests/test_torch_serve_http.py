@@ -1,6 +1,6 @@
 """The port's HTTP server (vlp3d_torch/serve.py, cli/serve.py) on the
 CPU: wire format, micro-batching and consistency with the direct
-predictor for the ground and caption tasks, the counterpart of
+predictor for the ground, caption and answer tasks, the counterpart of
 tests/test_serve_http.py.
 
 A real ThreadingHTTPServer on an ephemeral port serves the tiny
@@ -283,17 +283,18 @@ def test_service_warmup_runs_one_batch(ground_service):
 @pytest.mark.parametrize("task,item", [("caption", "A16"), ("answer", "A17")])
 def test_service_for_other_tasks_names_its_roadmap_item(ground_service, task,
                                                         item):
-    """A task route the server does not serve answers 404. /v1/answer
-    names the ROADMAP item it waits for (A17); /v1/caption, ported by
-    A16, names the routes this ground-only server does serve (a server
-    with the caption task answers it: test_caption_roundtrip_...)."""
+    """A task route the server does not serve answers 404, naming the
+    routes this ground-only server does serve. Both tasks are ported
+    (captioning by A16, question answering by A17), so the error names
+    no ROADMAP item any more; a server with the task answers it
+    (test_caption_roundtrip_..., test_answer_roundtrip_...)."""
     _, port, _ = ground_service
     with pytest.raises(urllib.error.HTTPError) as ei:
         _post(port, f"/v1/{task}", {"queries": ["the chair"]})
     assert ei.value.code == 404
     error = json.loads(ei.value.read())["error"]
     assert "serving /v1/ground" in error
-    assert (item in error) == (task == "answer")
+    assert item not in error and "ROADMAP" not in error
 
 
 def test_serve_cli_build_and_roundtrip(tmp_path):
@@ -335,17 +336,47 @@ def test_serve_cli_build_and_roundtrip(tmp_path):
         t.join(timeout=10)
 
 
+# Every task is served now (--task answer and all raised until the
+# question-answering slice: test_serve_cli_builds_the_answer_task); what
+# still raises is serving over more than one device and the parallel
+# run-time flags.
 @pytest.mark.parametrize("argv,err,match", [
-    (["--task", "caption,answer"], NotImplementedError, "A17"),
-    (["--task", "answer"], NotImplementedError, "A17"),
-    (["--task", "all"], NotImplementedError, "A17"),
     (["--data_devices", "2"], NotImplementedError, "A18"),
+    (["--task", "answer", "--data_devices", "0"], NotImplementedError,
+     "A18"),
+    (["--task", "all", "--tp", "2"], NotImplementedError, "A19"),
+    (["--zero1"], NotImplementedError, "A19"),
 ])
 def test_serve_cli_rejects_unported_tasks_and_devices(argv, err, match):
     args, tasks = serve_cli.parse_args(
         ["--smoke", "--device", "cpu", "--port", "0"] + argv)
     with pytest.raises(err, match=match):
         serve_cli.build_server(args, tasks)
+
+
+@pytest.mark.parametrize("task,routes", [
+    ("answer", ("answer",)), ("caption,answer", ("caption", "answer")),
+    ("all", ("ground", "caption", "answer"))])
+def test_serve_cli_builds_the_answer_task(task, routes):
+    """--task answer, a subset with it and all build their services
+    (warm-up skipped); the model carries the answer head and the caption
+    decoder only where those tasks are served."""
+    args, tasks = serve_cli.parse_args(
+        ["--smoke", "--device", "cpu", "--port", "0", "--task", task,
+         "--no_warmup"])
+    assert tasks == routes
+    server, services = serve_cli.build_server(args, tasks)
+    try:
+        assert tuple(services) == routes
+        for service in services.values():
+            sd = service._pred.model.state_dict()
+            assert any(k.startswith("answer.") for k in sd)
+            assert any(k.startswith("caption.") for k in sd) == (
+                "caption" in routes)
+    finally:
+        server.server_close()
+        for s in services.values():
+            s.close()
 
 
 def test_serve_cli_rejects_an_unknown_task():
@@ -450,8 +481,9 @@ def test_two_tasks_share_one_server(two_tasks):
     assert after["ground"]["requests"] == before["ground"]["requests"]
     with pytest.raises(urllib.error.HTTPError) as ei:
         _post(port, "/v1/answer", {"point_cloud": pc})
-    assert ei.value.code == 404
-    assert "A17" in json.loads(ei.value.read())["error"]
+    assert ei.value.code == 404  # this server does not serve the task
+    error = json.loads(ei.value.read())["error"]
+    assert "serving /v1/caption, /v1/ground" in error and "A17" not in error
 
 
 def test_caption_bad_requests_400(two_tasks):
@@ -497,3 +529,86 @@ def test_serve_cli_serves_ground_and_caption(tmp_path):
         for s in services.values():
             s.close()
         t.join(timeout=10)
+
+
+# ------------------------------------------------------------ answering
+
+
+@pytest.fixture(scope="module")
+def answer_server():
+    """One server routing /v1/ground and /v1/answer over one model's
+    weights, with an answer vocabulary."""
+    config = dataclasses.replace(_config(), model=dataclasses.replace(
+        _config().model, use_answer=True))
+    from vlp3d_torch.models import JointNet
+
+    state = JointNet(config, device="cpu").state_dict()
+    vocab = [f"answer {i}" for i in range(config.model.num_answers - 2)]
+    services = {task: InferenceService(config, state, task=task,
+                                       batch_size=BATCH, max_wait_ms=30.0,
+                                       device="cpu", answer_vocab=vocab)
+                for task in ("ground", "answer")}
+    server = make_server(services)
+    t = threading.Thread(target=server.serve_forever, daemon=True)
+    t.start()
+    yield services, server.server_address[1], config, vocab
+    server.shutdown()
+    server.server_close()
+    for s in services.values():
+        s.close()
+    t.join(timeout=10)
+
+
+def test_answer_roundtrip_matches_direct_predictor(answer_server):
+    """Three concurrent /v1/answer requests (1-3 questions, so device
+    batches of more than one request) and a /v1/ground: each answer is
+    the AnswerPredictor's on that cloud alone, every question its own
+    top 10, best first, named from the vocabulary where it has the id."""
+    services, port, config, vocab = answer_server
+    service = services["answer"]
+    c = 3 + config.model.input_feature_dim
+    questions = [["what color is the chair"],
+                 ["where is the table", "how many beds"],
+                 ["is the door open", "what is on the desk", "which sofa"]]
+    payloads = [{"point_cloud": _b64(_scene(30 + i, channels=c)),
+                 "queries": q} for i, q in enumerate(questions)]
+    results = [None] * len(payloads)
+
+    def call(i):
+        results[i] = _post(port, "/v1/answer", payloads[i])
+
+    before = service.stats()["requests"]
+    threads = [threading.Thread(target=call, args=(i,))
+               for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    ground = _post(port, "/v1/ground", {**payloads[0], "queries": ["chair"]})
+    for t in threads:
+        t.join(timeout=120)
+    assert len(ground["boxes"]) == 1
+    assert service.stats()["requests"] - before == len(payloads)
+    for payload, resp in zip(payloads, results):
+        item, n = service._make_item(payload)
+        ref = service._pred.run_padded(
+            {k: np.asarray(item[k])[None] for k in STREAM_KEYS})
+        assert len(resp["answers"]) == n == len(payload["queries"])
+        for q, answers in enumerate(resp["answers"]):
+            assert [a["answer_id"] for a in answers] == \
+                ref["answer_top_ids"][0, q].tolist()
+            np.testing.assert_allclose([a["score"] for a in answers],
+                                       ref["answer_top_scores"][0, q],
+                                       atol=BOX_TOL)
+            for a in answers:
+                assert ("answer" in a) == (a["answer_id"] < len(vocab))
+                if "answer" in a:
+                    assert a["answer"] == vocab[a["answer_id"]]
+
+
+def test_answer_requests_need_questions(answer_server):
+    _, port, config, _ = answer_server
+    pc = _scene(4, channels=3 + config.model.input_feature_dim).tolist()
+    for payload in ({"point_cloud": pc}, {"point_cloud": pc, "queries": []},
+                    {"point_cloud": pc, "queries": ["a"] * 9}):
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            _post(port, "/v1/answer", payload)
+        assert ei.value.code == 400

@@ -259,14 +259,43 @@ def test_adamw_grad_accum_trajectory_matches_jax(amsgrad):
                 atol=1e-6, err_msg=f"{name} after micro-batch {micro + 1}")
 
 
-# grad_accum is ported; with an unported option beside it the call
-# still raises
+# The VQA recipe's options (optim_name "adam", single_group,
+# clip_grad_value) raised until the question-answering slice; each now
+# builds an optimizer that moves as the JAX package's optax chain does
+# (the test keeps the name it had then). tests/test_torch_train_qa.py
+# holds the recipe as a whole.
 @pytest.mark.parametrize("kw", [{"optim_name": "adam"}, {"single_group": True},
                                 {"clip_grad_value": 1.0},
-                                {"grad_accum": 2, "optim_name": "adam"}])
+                                {"grad_accum": 2, "optim_name": "adam"},
+                                {"optim_name": "adam", "single_group": True,
+                                 "clip_grad_value": 0.5, "amsgrad": True}])
 def test_unported_optimizer_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_optimizer(_Toy(np.random.default_rng(0)), **kw)
+    rng = np.random.default_rng(6)
+    toy = _Toy(rng)
+    params = jax.tree_util.tree_map(jnp.asarray, toy.tree())
+    kw = dict(base_lr=2e-3, module_lr=5e-4, weight_decay=0.1,
+              steps_per_epoch=2, **kw)
+    jopt = jax_make_optimizer(**kw)
+    opt = make_optimizer(toy, **kw)
+    groups = 1 if kw.get("single_group") else 2
+    assert len(opt.param_groups) == groups
+    state = jopt.init(params)
+    for micro in range(3 * kw.get("grad_accum", 1)):
+        grads = jax.tree_util.tree_map(
+            lambda a: (2.0 * rng.normal(size=a.shape)).astype(np.float32),
+            toy.tree())
+        grads["lang"]["text_encoder"]["w"][:] = 0.0
+        updates, state = jopt.update(
+            jax.tree_util.tree_map(jnp.asarray, grads), state, params)
+        params = optax.apply_updates(params, updates)
+        loss = sum((toy.get_parameter(name) * torch.from_numpy(g)).sum()
+                   for name, g in _leaves(grads).items()
+                   if toy.get_parameter(name).requires_grad)
+        backward_and_step(loss, opt)
+        for name, want in _leaves(jax.device_get(params)).items():
+            np.testing.assert_allclose(
+                toy.get_parameter(name).detach().numpy(), want, rtol=1e-6,
+                atol=1e-6, err_msg=f"{name} after micro-batch {micro + 1}")
 
 
 def test_remat_raises(monkeypatch):

@@ -262,6 +262,55 @@ def resume_solver(solver, args, workdir: str) -> int:
     return start_epoch
 
 
+def run_training(args, config: Config, train_ds, val_ds, workdir: str, *,
+                 caption: bool, use_bn_schedule: bool) -> dict:
+    """The training CLIs' common end: the Solver over the datasets, its
+    state, the ``--pretrain`` warm start (strict=False, from a previous
+    stage's snapshot: the staged grounding -> caption -> QA recipe,
+    train_3dvlp.py:115-121, train_caption.py:110-115, train_qa.py:
+    129-134), ``--use_checkpoint`` / ``--auto_resume``, the epochs; prints
+    and returns the best-model record."""
+    from vlp3d_torch.data.dataset import BatchIterator
+    from vlp3d_torch.train.solver import Solver
+
+    solver = Solver(
+        config,
+        train_ds,
+        val_ds,
+        workdir,
+        caption=caption,
+        detection=not args.no_detection,
+        reference=not config.model.no_reference,
+        use_bn_schedule=use_bn_schedule,
+        log_every=args.verbose,
+        criterion=args.criterion,
+        tp=args.tp,
+        zero1=args.zero1,
+        grad_accum=args.grad_accum,
+        seed=args.seed,
+        use_wandb=args.use_wandb,
+        profile_dir=args.profile_dir or None,
+        device=args.device,
+    )
+    try:
+        sample = next(iter(BatchIterator(train_ds, config.train.batch_size)))
+        solver.init_state(sample)
+        if args.pretrain:
+            n_restored, n_skipped = solver.warm_start(args.pretrain)
+            print(f"warm-started from {args.pretrain}: {n_restored} "
+                  f"entries restored, {n_skipped} fresh")
+        # --auto_resume: a stable --workdir + rerunning the same command
+        # is the whole preemption-recovery story (SIGTERM -> save-and-exit
+        # -> restart -> continue); a first run falls through to a fresh
+        # start
+        start_epoch = resume_solver(solver, args, workdir)
+        best = solver(config.train.epochs, start_epoch=start_epoch)
+    finally:
+        solver.close()
+    print(json.dumps({k: v for k, v in best.items()}, default=float))
+    return best
+
+
 def config_from_args(args) -> Config:
     # input channel arithmetic mirrors train_3dvlp.py:82-83:
     # 3 + color*3 + (not no_height) + normal*3 + multiview*128

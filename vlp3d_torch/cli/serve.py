@@ -1,7 +1,7 @@
-"""Online grounding and captioning server.
+"""Online grounding, captioning and question-answering server.
 
-The port's counterpart of ``vlp3d/cli/serve.py`` for the ground and
-caption tasks on one device: a JSON-over-HTTP endpoint
+The port's counterpart of ``vlp3d/cli/serve.py`` for the ground, caption
+and answer tasks on one device: a JSON-over-HTTP endpoint
 (:mod:`vlp3d_torch.serve`) with micro-batching in front of the
 predictors.
 
@@ -11,15 +11,19 @@ predictors.
     curl -s -X POST localhost:8080/v1/ground -d \\
       '{"point_cloud": [[...], ...], "queries": ["the brown chair"]}'
     curl -s -X POST localhost:8080/v1/caption -d '{"point_cloud": ...}'
+    curl -s -X POST localhost:8080/v1/answer -d \\
+      '{"point_cloud": ..., "queries": ["what color is the chair"]}'
 
-``--task`` takes one task or a comma-separated subset: the tasks share
-one checkpoint, each routed at ``/v1/<task>`` with its own micro-batching
-queue; ``--num_beams`` / ``--length_penalty`` set the caption decode.
-``--model_dir`` loads the ``model`` snapshot a training run saved
-(``save_params``); without it the weights are the seeded random ones
-(``--smoke``: the tiny synthetic configuration, ``--device cpu`` for the
-plain PyTorch ops). ``--task answer`` and ``all`` raise (ROADMAP.md
-queue A item A17), as does ``--data_devices`` other than 1 (A18).
+``--task`` takes one task, a comma-separated subset, or ``all``: the
+tasks share one checkpoint, each routed at ``/v1/<task>`` with its own
+micro-batching queue; ``--num_beams`` / ``--length_penalty`` set the
+caption decode, ``--answer_vocab`` (a json list, id -> text; train_qa
+writes one as answer_vocab.json) names the answers. ``--model_dir``
+loads the ``model`` snapshot a training run saved (``save_params``); the
+answer head's width is read from it. Without it the weights are the seeded
+random ones (``--smoke``: the tiny synthetic configuration,
+``--device cpu`` for the plain PyTorch ops). ``--data_devices`` other
+than 1 raises (ROADMAP.md queue A item A18).
 """
 
 from __future__ import annotations
@@ -38,8 +42,7 @@ def parse_args(argv=None):
     add_common_args(p)
     p.add_argument("--task", type=str, default="ground",
                    help="one of ground/caption/answer, a comma-separated "
-                        "subset, or 'all' (tasks share the checkpoint); the "
-                        "port serves ground and caption")
+                        "subset, or 'all' (tasks share the checkpoint)")
     p.add_argument("--model_dir", type=str, default="",
                    help="run directory holding a save_params 'model' "
                         "snapshot (a training run's output); random "
@@ -53,6 +56,8 @@ def parse_args(argv=None):
                         "serves on one")
     p.add_argument("--vocab_path", type=str, default="",
                    help="WordPiece vocab.txt (hash tokenizer when empty)")
+    p.add_argument("--answer_vocab", type=str, default="",
+                   help="answer-id -> text json list (answer task)")
     p.add_argument("--no_warmup", action="store_true",
                    help="skip the warm-up batch before binding (the first "
                         "client request pays the first-use costs instead)")
@@ -82,31 +87,36 @@ def build_server(args, tasks):
     """Build (without starting) the HTTP server and its services —
     separated from main() so tests can drive the full startup path.
     Returns (server, {task: service})."""
+    import dataclasses
+    import json
+
     from vlp3d_torch.cli.common import resolve_config
     from vlp3d_torch.data.tokenizer import load_tokenizer
-    from vlp3d_torch.serve import (
-        UNPORTED_TASKS,
-        InferenceService,
-        make_server,
-    )
+    from vlp3d_torch.serve import InferenceService, make_server
     from vlp3d_torch.train.checkpoint import load_params
 
-    for task in tasks:
-        if task in UNPORTED_TASKS:
-            raise NotImplementedError(
-                f"vlp3d_torch does not serve the {task} task yet; see "
-                f"{UNPORTED_TASKS[task]}")
     if args.data_devices != 1:
         raise NotImplementedError(
             f"vlp3d_torch serves on one device (--data_devices "
             f"{args.data_devices}); see {DATA_PARALLEL_ITEM}")
 
     # the served tasks decide the heads: the caption head only where the
-    # caption task is served (its weights would go unused otherwise)
+    # caption task is served (its weights would go unused otherwise), the
+    # answer head where the answer task is
     args.no_caption = "caption" not in tasks
+    args.use_answer = args.use_answer or "answer" in tasks
     config = resolve_config(args)
     state_dict = (load_params(args.model_dir, "model") if args.model_dir
                   else None)
+    head = (state_dict or {}).get("answer.answer_cls.3.weight")
+    if config.model.use_answer and head is not None:
+        # a train_qa snapshot's vocabulary size
+        config = dataclasses.replace(config, model=dataclasses.replace(
+            config.model, num_answers=int(head.shape[0])))
+    answer_vocab = None
+    if args.answer_vocab:
+        with open(args.answer_vocab, encoding="utf-8") as f:
+            answer_vocab = json.load(f)
     tokenizer = load_tokenizer(args.vocab_path or None)
     services = {
         task: InferenceService(
@@ -119,6 +129,7 @@ def build_server(args, tasks):
             device=args.device,
             num_beams=args.num_beams,
             length_penalty=args.length_penalty,
+            answer_vocab=answer_vocab,
         )
         for task in tasks
     }

@@ -30,7 +30,7 @@ def main(argv=None):
         build_datasets,
         resolve_config,
         resolve_workdir,
-        resume_solver,
+        run_training,
     )
 
     p = argparse.ArgumentParser()
@@ -47,50 +47,9 @@ def main(argv=None):
     with open(os.path.join(workdir, "info.json"), "w") as f:
         json.dump({"args": vars(args)}, f, indent=2)
 
-    from vlp3d_torch.data.dataset import BatchIterator
-    from vlp3d_torch.train.solver import Solver
-
-    solver = Solver(
-        config,
-        train_ds,
-        val_ds,
-        workdir,
-        caption=not config.model.no_caption,
-        detection=not args.no_detection,
-        reference=not config.model.no_reference,
-        use_bn_schedule=config.model.no_caption,
-        log_every=args.verbose,
-        criterion=args.criterion,
-        tp=args.tp,
-        zero1=args.zero1,
-        grad_accum=args.grad_accum,
-        seed=args.seed,
-        use_wandb=args.use_wandb,
-        profile_dir=args.profile_dir or None,
-        device=args.device,
-    )
-    try:
-        sample = next(iter(BatchIterator(train_ds, config.train.batch_size)))
-        solver.init_state(sample)
-
-        if args.pretrain:
-            # strict=False warm start from a previous stage's snapshot —
-            # the staged grounding -> caption -> QA recipe
-            # (train_3dvlp.py:115-121, train_caption.py:110-115)
-            n_restored, n_skipped = solver.warm_start(args.pretrain)
-            print(f"warm-started from {args.pretrain}: {n_restored} "
-                  f"entries restored, {n_skipped} fresh")
-
-        # --auto_resume: a stable --workdir + rerunning the same command
-        # is the whole preemption-recovery story (SIGTERM -> save-and-exit
-        # -> restart -> continue); a first run falls through to a fresh
-        # start
-        start_epoch = resume_solver(solver, args, workdir)
-        best = solver(config.train.epochs, start_epoch=start_epoch)
-    finally:
-        solver.close()
-    print(json.dumps({k: v for k, v in best.items()}, default=float))
-    return best
+    return run_training(args, config, train_ds, val_ds, workdir,
+                        caption=not config.model.no_caption,
+                        use_bn_schedule=config.model.no_caption)
 
 
 if __name__ == "__main__":

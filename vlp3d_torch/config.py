@@ -6,10 +6,10 @@ The port's own copy of the dataclasses in ``vlp3d/config.py``
 package reads the same in the other. The port imports nothing from
 ``vlp3d``.
 
-The grounding and captioning flags (inference and the joint train step,
-``no_caption=False`` and ``use_mlm`` included) are implemented so far;
-:func:`check_supported` names the ROADMAP item that ports each other
-one.
+The grounding, captioning and question-answering flags (inference and
+the joint train step, ``no_caption=False``, ``use_mlm`` and
+``use_answer`` included) are implemented so far; :func:`check_supported`
+names the ROADMAP item that ports each other one.
 """
 
 from __future__ import annotations
@@ -157,7 +157,6 @@ _SLICE1_OPTIONS = "ROADMAP.md queue A item 9a (options of slice 1)"
 # use_con builds the contrast head: it feeds the OCC/OSC training losses
 # and is skipped at inference (is_eval).
 _UNPORTED = {
-    "use_answer": (True, "ROADMAP.md queue A item 17 (VQA)"),
     "use_mlcv_net": (True, "ROADMAP.md queue A item 20 (variant models)"),
     "use_distil": (True, _SLICE1_OPTIONS),
     "use_lang_emb": (True, _SLICE1_OPTIONS),

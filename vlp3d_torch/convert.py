@@ -3,8 +3,9 @@
 The port's own copy of the numpy export code in
 ``vlp3d/models/torch_export.py``, restricted to the submodules the port
 has (backbone, voting, proposal, relation, BERT text mode, match,
-contrast, the caption and MLM decoders). Takes the flax ``params`` and ``batch_stats`` as
-nested dicts of numpy arrays and returns a dict of CPU tensors that
+contrast, the caption and MLM decoders, the answer head). Takes the flax
+``params`` and ``batch_stats`` as nested dicts of numpy arrays and
+returns a dict of CPU tensors that
 ``vlp3d_torch.models.JointNet.load_state_dict(sd, strict=True)`` accepts.
 The key names are the reference 3DVLP checkpoint's, so the port loads
 those checkpoints too.
@@ -255,6 +256,22 @@ def convert_caption(params, prefix: str, out: dict):
         i += 1
 
 
+def convert_attflat(params, prefix: str, out: dict):
+    """AttFlat -> MCAN's keys: ``mlp.fc.linear``, ``mlp.linear``,
+    ``linear_merge``."""
+    lin(params["Dense_0"], f"{prefix}mlp.fc.linear", out)
+    lin(params["Dense_1"], f"{prefix}mlp.linear", out)
+    lin(params["linear_merge"], f"{prefix}linear_merge", out)
+
+
+def convert_answer(params, prefix: str, out: dict):
+    """AnswerModule -> ``attflat_visual`` and the ``answer_cls``
+    Sequential (linears at 0 and 3)."""
+    convert_attflat(params["attflat_visual"], f"{prefix}attflat_visual.", out)
+    lin(params["Dense_0"], f"{prefix}answer_cls.0", out)
+    lin(params["Dense_1"], f"{prefix}answer_cls.3", out)
+
+
 def to_tensors(sd: dict) -> dict:
     # np.array copies: flax leaves may be read-only views
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
@@ -263,7 +280,7 @@ def to_tensors(sd: dict) -> dict:
 def jax_to_torch_state_dict(params, batch_stats) -> dict:
     """JAX JointNet (params, batch_stats) -> the port's JointNet state dict.
 
-    The answer head (VQA) is not carried: the port's JointNet has none.
+    Every head the tree holds is carried, the answer head (VQA) included.
     A gradient tree has the parameters' structure and converts the same
     way (pass the parameters' ``batch_stats`` for the statistics' slots;
     the caption decoders' ``pe`` slot holds the position table).
@@ -284,4 +301,6 @@ def jax_to_torch_state_dict(params, batch_stats) -> dict:
     for head in ("caption", "mlm"):
         if head in params:
             convert_caption(params[head], f"{head}.model.", sd)
+    if "answer" in params:
+        convert_answer(params["answer"], "answer.", sd)
     return to_tensors(sd)

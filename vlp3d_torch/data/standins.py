@@ -1,14 +1,15 @@
 """Stand-in assets in the layouts of the real downloads.
 
-The port's own copy of the grounding half of ``vlp3d/data/standins.py``:
-one preprocessed ScanNet scene (the ``_preprocess_val`` / ``_ins_label``
-/ ``_sem_label`` / ``_aligned_bbox`` npys, columns xyz, normals,
-128-d multiview), ``ScanRefer_filtered_val.json``, and a BERT
-``vocab.txt``. The same seed writes the same files as the JAX writers,
-so both packages read one stand-in directory alike. The multiview hdf5
-flavour waits for a machine with ``h5py``; ScanQA is ROADMAP.md queue A
-item A17; the BERT weights file is not needed by the grounding path,
-whose text encoder weights come from the model's state dict.
+The port's own copy of ``vlp3d/data/standins.py``'s grounding and
+ScanQA writers: one preprocessed ScanNet scene (the ``_preprocess_val`` /
+``_ins_label`` / ``_sem_label`` / ``_aligned_bbox`` npys, columns xyz,
+normals, 128-d multiview), ``ScanRefer_filtered_val.json``,
+``ScanQA_v1.0_val.json`` and a BERT ``vocab.txt``. The same seed writes
+the same files as the JAX writers, so both packages read one stand-in
+directory alike. The multiview hdf5 flavour waits for a machine with
+``h5py`` (ROADMAP.md queue A item A22); the BERT weights file is not
+needed by the port, whose text encoder weights come from the model's
+state dict.
 """
 
 from __future__ import annotations
@@ -87,6 +88,24 @@ def write_scanrefer(scanrefer_dir) -> None:
         json.dump(anns, f)
 
 
+def write_scanqa(scanqa_dir) -> None:
+    """ScanQA_v1.0_val.json: three questions about the scene."""
+    qa = [
+        {
+            "scene_id": SCENE, "question_id": f"val-{SCENE}-{k}",
+            "question": q, "answers": a,
+            "object_ids": [0], "object_names": ["chair"],
+        }
+        for k, (q, a) in enumerate([
+            ("what color is the chair", ["brown"]),
+            ("where is the table", ["next to the chair", "center"]),
+            ("how many chairs are there", ["2"]),
+        ])
+    ]
+    with open(os.path.join(scanqa_dir, "ScanQA_v1.0_val.json"), "w") as f:
+        json.dump(qa, f)
+
+
 def write_standin_assets(root: str, seed: int = 7) -> dict:
     """The vocabulary, the scene and the annotations under ``root``;
     returns the directory of each by the CLI flag that takes it
@@ -96,10 +115,12 @@ def write_standin_assets(root: str, seed: int = 7) -> dict:
         "bert_dir": os.path.join(root, "bert"),
         "scannet_data": os.path.join(root, "scannet_data"),
         "scanrefer_dir": os.path.join(root, "scanrefer"),
+        "scanqa_dir": os.path.join(root, "scanqa"),
     }
     for p in paths.values():
         os.makedirs(p, exist_ok=True)
     write_bert_vocab(paths["bert_dir"])
     write_scene_assets(paths["scannet_data"], rng)
     write_scanrefer(paths["scanrefer_dir"])
+    write_scanqa(paths["scanqa_dir"])
     return paths

@@ -1,8 +1,10 @@
 """Synthetic scene generator (numpy) for tests and the chip smoke run.
 
 The port's own copy of ``make_batch``, ``make_synthetic_dataset`` and
-``tiny_config`` from ``vlp3d/data/synthetic.py``: the same seed gives the
-same arrays, so the two packages can be fed identical scenes.
+``tiny_config`` from ``vlp3d/data/synthetic.py``, and of the synthetic
+ScanQA maker the JAX trainers share (``_synthetic_qa`` in
+``vlp3d/cli/train_scanqa.py``): the same seed gives the same arrays, so
+the two packages can be fed identical scenes.
 """
 
 from __future__ import annotations
@@ -179,6 +181,33 @@ def make_synthetic_dataset(config: Config, *, n_scenes: int = 2,
         lang_num_max=config.model.lang_num_max,
         bert_max_len=config.model.bert_seq_len,
         mean_size_arr=config.dataset.mean_size_arr(), **dataset_kwargs)
+
+
+def synthetic_qa(config: Config, n_scenes: int = 2,
+                 questions_per_scene: int = 4):
+    """Synthetic scenes and ScanQA-style questions about them (no assets):
+    (qa annotations, scene source). The JAX maker also returns a GloVe
+    dictionary for its LSTM model; JointNet reads BERT ids and needs
+    none."""
+    from vlp3d_torch.data.dataset import InMemorySceneSource
+
+    base = make_synthetic_dataset(config, n_scenes=n_scenes,
+                                  n_points=config.dataset.num_points)
+    scenes = base.scene_source.scenes
+    names = ["chair", "table", "bed", "sofa"]
+    qa = []
+    for sid in scenes:
+        for q in range(questions_per_scene):
+            name = names[q % 4]
+            qa.append({
+                "scene_id": sid,
+                "question_id": f"{sid}-{q}",
+                "question": f"what color is the {name} near the wall",
+                "object_ids": [10 + q % 4],
+                "object_names": [name],
+                "answers": [["red", "blue", "two", "wood"][q % 4]],
+            })
+    return qa, InMemorySceneSource(scenes)
 
 
 def tiny_config(**overrides) -> Config:

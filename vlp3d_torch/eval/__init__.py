@@ -3,4 +3,4 @@
 ``parse_predictions``, ``APCalculator``), ``capeval`` and ``meteor``
 (BLEU, CIDEr, ROUGE-L, METEOR 1.5 without its optional synonym and
 paraphrase tables) and ``captioning`` (the Scan2Cap candidates and
-scores)."""
+scores); ``vqa``, the answer EM, takes its top-k on the torch tensors."""

@@ -9,7 +9,7 @@ always present):
         + ref * (0.3 if epoch < 50 else 1.0)
         + 0.3 * diou + 0.3 * lang + 0.3 * attr
         + (epoch >= 50) * (0.5 * lang_con + 2.5 * iou_con)
-        + 10 * mlm + cap
+        + 10 * mlm + answer + cap
   where box = 0.1 * heading_cls + heading_reg + 0.1 * sem_cls
             + 20 * size_distance.
 
@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from vlp3d_torch.config import Config
+from vlp3d_torch.losses.answering import compute_answer_classification_loss
 from vlp3d_torch.losses.captioning import compute_cap_loss, compute_mlm_loss
 from vlp3d_torch.losses.detection import (
     compute_box_and_sem_cls_loss,
@@ -42,8 +43,11 @@ def compute_joint_loss(config: Config, outputs: dict, batch: dict, *,
     """Returns (total_loss, metrics dict). ``outputs`` is JointNet's
     forward dict; ``batch`` carries the GT labels and the epoch / istrain
     / random scalars, all as tensors on the outputs' device. The MLM term
-    counts whenever the outputs hold ``lang_mlm``, the caption term and
-    ``cap_acc`` with ``caption`` (the JAX package's flag: its eval step
+    counts whenever the outputs hold ``lang_mlm``, the answer term
+    whenever they hold ``answer_scores`` (BCE on ``answer_cat_scores``
+    when the batch has them, else cross-entropy on ``answer_cat``; labels
+    of shape (B, L, ...) are flattened to the B*L rows), the caption term
+    and ``cap_acc`` with ``caption`` (the JAX package's flag: its eval step
     leaves them out)."""
     cfg_l, cfg_m, ds = config.loss, config.model, config.dataset
     dev = outputs["seed_xyz"].device
@@ -135,6 +139,20 @@ def compute_joint_loss(config: Config, outputs: dict, batch: dict, *,
                                outputs["mlm_mask_index"], good)
         m["mlm_loss"] = mlm
         loss = loss + cfg_l.mlm_weight * mlm
+
+    if cfg_m.use_answer and "answer_scores" in outputs:
+        n_rows = outputs["answer_scores"].shape[0]
+
+        def rows(x):
+            if x is None or x.dim() < 2 or x.shape[0] == n_rows:
+                return x
+            return x.reshape(n_rows, *x.shape[2:])
+
+        ans = compute_answer_classification_loss(
+            outputs["answer_scores"], rows(batch.get("answer_cat_scores")),
+            rows(batch.get("answer_cat")))
+        m["answer_loss"] = ans
+        loss = loss + ans
 
     if caption and "lang_cap" in outputs:
         cap_loss, cap_acc = compute_cap_loss(

@@ -1,5 +1,5 @@
-"""JointNet for ScanRefer grounding and Scan2Cap captioning: inference and
-the joint train forward.
+"""JointNet for ScanRefer grounding, Scan2Cap captioning and ScanQA
+question answering: inference and the joint train forward.
 
 Counterpart of ``vlp3d/models/jointnet.py:118-280``: backbone -> voting
 (votes L2-normalised) -> proposal -> relation -> BERT language branch ->
@@ -8,13 +8,15 @@ boxes, so it is skipped at ``is_eval``, the serving case) -> [caption].
 The caption branch (``no_caption=False``) is the teacher-forced decoder
 over each sentence's object token, skipped at ``is_eval``: serving
 decodes outside the module (:mod:`vlp3d_torch.models.caption`). The
-masked-LM branch (``use_mlm``) runs in training only. Flags the port does
-not implement raise NotImplementedError
+masked-LM branch (``use_mlm``) runs in training only. The answer head
+(``use_answer``) gives ``answer_scores`` (B*L, num_answers) from the
+match module's ``cross_box_feature``, in training and at ``is_eval``.
+Flags the port does not implement raise NotImplementedError
 (:func:`vlp3d_torch.config.check_supported`).
 
 Submodule names are the reference's (``backbone_net``, ``vgen``,
 ``proposal``, ``relation``, ``lang``, ``match``, ``constrast``: the
-reference's spelling, ``caption``, ``mlm``), so
+reference's spelling, ``caption``, ``mlm``, ``answer``), so
 ``load_state_dict(jax_to_torch_state_dict(...), strict=True)`` works. A
 reference dict's dead early-guide decoder keys are dropped on load
 (``_drop_dead_caption_keys``).
@@ -28,6 +30,7 @@ from torch import nn
 
 from vlp3d_torch.config import Config, check_supported
 from vlp3d_torch.device import resolve_device
+from vlp3d_torch.models.answer import AnswerModule
 from vlp3d_torch.models.backbone import PointNet2Backbone
 from vlp3d_torch.models.bert import BertConfig, LangModule
 from vlp3d_torch.models.caption import (
@@ -85,6 +88,8 @@ class JointNet(nn.Module):
             self.caption = CaptionHead(cfg.vocab_size, device=device)
         if cfg.use_mlm:
             self.mlm = CaptionHead(cfg.vocab_size, device=device)
+        if cfg.use_answer:
+            self.answer = AnswerModule(cfg.num_answers, device=device)
         self.mask_generator: torch.Generator | None = None
         self.register_buffer(
             "mean_size_arr",
@@ -147,6 +152,8 @@ class JointNet(nn.Module):
             ))
         if not cfg.no_caption and not is_eval:
             out.update(self._forward_caption_train(batch, out, train))
+        if cfg.use_answer:
+            out["answer_scores"] = self.answer(out["cross_box_feature"])
         return out
 
     def _object_tokens(self, batch: dict, out: dict):

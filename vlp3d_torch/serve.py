@@ -1,12 +1,13 @@
-"""Network serving: a JSON-over-HTTP API around the grounding and
-captioning predictors.
+"""Network serving: a JSON-over-HTTP API around the grounding,
+captioning and question-answering predictors.
 
-The port's counterpart of ``vlp3d/serve.py`` for the ground and caption
-tasks on one device: a stdlib ThreadingHTTPServer front end and, for each
-task, a micro-batching queue that coalesces concurrent requests into
-device batches of at most ``batch_size`` rows, in front of the
-predictor's ``run_padded`` (which copies only the occupied rows and pads
-on the device). Zero dependencies beyond the stdlib and the port.
+The port's counterpart of ``vlp3d/serve.py`` for the ground, caption
+and answer tasks on one device: a stdlib ThreadingHTTPServer front end
+and, for each task, a micro-batching queue that coalesces concurrent
+requests into device batches of at most ``batch_size`` rows, in front
+of the predictor's ``run_padded`` (which copies only the occupied rows
+and pads on the device). Zero dependencies beyond the stdlib and the
+port.
 
 Endpoints (all JSON):
 
@@ -14,15 +15,17 @@ Endpoints (all JSON):
   → per-query referred box (center/size/heading + proposal index).
 - ``POST /v1/caption`` — ``{"point_cloud": ...}`` → per-proposal box,
   objectness, semantic class and caption.
+- ``POST /v1/answer``  — ``{"point_cloud": ..., "queries": [str, ...]}``
+  → per-question top-k answers (id, logit and, given an
+  ``answer_vocab``, text).
 - ``GET /healthz``     — model/task/shape info.
 - ``GET /stats``       — request count, device batches, mean occupancy,
   p50/p90/p99 request latency and device-batch time (ms, sliding
   window of the last 1024), the device's memory.
 
-A server routes each task it serves at ``/v1/<task>``. ``/v1/answer`` is
-a route of the JAX server that the port does not serve yet (ROADMAP.md
-queue A item A17): it answers 404 as any unknown route does, with an
-error naming its item. Serving over a device mesh waits for A18.
+A server routes each task it serves at ``/v1/<task>``; any other route
+answers 404, naming the routes it serves. Serving over a device mesh
+waits for ROADMAP.md queue A item A18.
 
 ``point_cloud`` is either a nested list ``(N, C)`` or
 ``{"b64": <base64 of little-endian float32>, "shape": [N, C]}``. ``C``
@@ -50,13 +53,13 @@ from vlp3d_torch.config import Config
 from vlp3d_torch.data.tokenizer import load_tokenizer
 from vlp3d_torch.serving import (
     STREAM_KEYS,
+    AnswerPredictor,
     CaptionPredictor,
     GroundingPredictor,
 )
 from vlp3d_torch.utils.memory import device_memory_mb
 
-TASKS = ("ground", "caption")
-UNPORTED_TASKS = {"answer": "ROADMAP.md queue A item A17 (VQA)"}
+TASKS = ("ground", "caption", "answer")
 
 
 class MicroBatcher:
@@ -231,9 +234,11 @@ class InferenceService:
     """A task's predictor + tokenizer + micro-batcher, independent of
     HTTP (drive it directly in tests or embed it in another server).
 
-    ``task``: "ground" (:class:`GroundingPredictor`) or "caption"
+    ``task``: "ground" (:class:`GroundingPredictor`), "caption"
     (:class:`CaptionPredictor`, decoding with ``num_beams`` and
-    ``length_penalty``). ``state_dict``: reference-layout weights (a
+    ``length_penalty``) or "answer" (:class:`AnswerPredictor`, the top 10
+    answers of each question; ``answer_vocab``, an id -> text list,
+    names them). ``state_dict``: reference-layout weights (a
     ``save_params`` snapshot), loaded strictly; None keeps the seeded
     random initialisation.
     """
@@ -250,12 +255,14 @@ class InferenceService:
         device=None,
         num_beams: int = 1,
         length_penalty: float = 1.0,
+        answer_vocab: list[str] | None = None,
     ):
         if task not in TASKS:
             raise ValueError(f"unknown task {task!r}")
         self.config = config
         self.task = task
         self.tokenizer = tokenizer or load_tokenizer()
+        self.answer_vocab = answer_vocab
         self.num_points = config.dataset.num_points
         self.in_dim = config.model.input_feature_dim
         self.lang_num_max = config.model.lang_num_max
@@ -263,10 +270,13 @@ class InferenceService:
         if task == "ground":
             self._pred = GroundingPredictor(
                 config, state_dict, batch_size=batch_size, device=device)
-        else:
+        elif task == "caption":
             self._pred = CaptionPredictor(
                 config, state_dict, batch_size=batch_size, device=device,
                 num_beams=num_beams, length_penalty=length_penalty)
+        else:
+            self._pred = AnswerPredictor(
+                config, state_dict, batch_size=batch_size, device=device)
         self._batcher = MicroBatcher(
             self._run_batch, batch_size, max_wait_ms
         )
@@ -293,7 +303,7 @@ class InferenceService:
     def _make_item(self, req: dict) -> tuple[dict, int]:
         pc = _parse_point_cloud(req, self.num_points, self.in_dim)
         queries = req.get("queries") or []
-        if self.task == "ground" and not queries:
+        if self.task in ("ground", "answer") and not queries:
             raise BadRequest("missing 'queries'")
         if not isinstance(queries, list) or not all(
                 isinstance(q, str) for q in queries):
@@ -328,6 +338,8 @@ class InferenceService:
         out = self._batcher.submit(item)
         if self.task == "caption":
             return {"proposals": self._proposals(out)}
+        if self.task == "answer":
+            return {"answers": self._answers(out, n_queries)}
         boxes = []
         for qi in range(n_queries):
             p = int(out["pred_ref"][qi])
@@ -358,6 +370,24 @@ class InferenceService:
             for k in range(out["pred_center"].shape[0])
         ]
 
+    def _answers(self, out: dict, n_queries: int) -> list:
+        """Each question's top-k answers, best first (``vlp3d/serve.py:
+        364-384``)."""
+        vocab = self.answer_vocab or []
+        return [
+            [
+                {
+                    "answer_id": int(a),
+                    "score": float(s),
+                    **({"answer": vocab[int(a)]} if int(a) < len(vocab)
+                       else {}),
+                }
+                for a, s in zip(out["answer_top_ids"][qi],
+                                out["answer_top_scores"][qi])
+            ]
+            for qi in range(n_queries)
+        ]
+
     def warmup(self) -> None:
         """One occupancy-1 batch through the predictor before serving
         traffic: the first forward on a card pays cuBLAS's and the
@@ -365,7 +395,7 @@ class InferenceService:
         not on a client's first request."""
         pc = np.zeros((self.num_points, 3 + self.in_dim), np.float32)
         req = {"point_cloud": pc}
-        if self.task == "ground":
+        if self.task in ("ground", "answer"):
             req["queries"] = ["warmup"]
         item, _ = self._make_item(req)
         self._batcher.submit(item)
@@ -429,11 +459,8 @@ def make_server(services, host="127.0.0.1", port=0):
         def do_POST(self):
             service = routes.get(self.path)
             if service is None:
-                task = self.path.removeprefix("/v1/")
-                waits = (f"; the {task} task waits for {UNPORTED_TASKS[task]}"
-                         if task in UNPORTED_TASKS else "")
                 self._send(404, {"error": f"no route {self.path} (serving "
-                                          f"{serving}){waits}"})
+                                          f"{serving})"})
                 return
             try:
                 n = int(self.headers.get("Content-Length", 0))

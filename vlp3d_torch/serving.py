@@ -1,7 +1,7 @@
-"""Grounding and captioning inference executors.
+"""Grounding, captioning and question-answering inference executors.
 
-Counterpart of ``vlp3d/serving.py``'s ``GroundingPredictor`` and
-``CaptionPredictor`` (no mesh):
+Counterpart of ``vlp3d/serving.py``'s ``GroundingPredictor``,
+``CaptionPredictor`` and ``AnswerPredictor`` (no mesh):
 ``predictor(batches)`` runs a list of equally-shaped host batches and
 returns one host dict per batch; ``run_padded(batch_k)`` runs one batch
 of k <= batch_size occupied rows, transferring only those rows and
@@ -13,7 +13,8 @@ confidences (eval_ground.py:100-120): ``argmax(cluster_ref * mask)``,
 which picks a masked proposal when every unmasked confidence is negative,
 as the reference does. A caption is decoded for every proposal from its
 aggregated feature (greedy, KV-cached; beam search with ``num_beams`` >
-1).
+1). An answer is the top-k of each question's answer logits, ties to the
+lowest answer index (``lax.top_k``'s order).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 
 from vlp3d_torch.config import Config
 from vlp3d_torch.device import resolve_device
-from vlp3d_torch.models.caption import beam_decode, greedy_decode
+from vlp3d_torch.models.caption import beam_decode, greedy_decode, top_k_first
 from vlp3d_torch.models.jointnet import JointNet
 
 # batch keys the grounding forward consumes (everything else is labels;
@@ -166,3 +167,43 @@ class CaptionPredictor(GroundingPredictor):
 
     def predict(self, batch: dict) -> dict:
         return self.decode(self.forward(batch))
+
+
+@torch.no_grad()
+def answer(model: JointNet, batch: dict, topk: int = 10) -> dict:
+    """One device batch -> the top ``topk`` answers of each question slot
+    (all of them when the vocabulary is smaller): ``answer_top_ids`` /
+    ``answer_top_scores`` (B, L, k), descending, ties to the lowest id,
+    and the logits ``answer_scores`` (B, L, A)."""
+    out = model(batch, is_eval=True)
+    scores = out["answer_scores"]  # (B*L, A)
+    b, l = batch["input_ids"].shape[:2]
+    top_scores, top_ids = top_k_first(scores, min(topk, scores.shape[1]))
+    return {
+        "answer_scores": scores.reshape(b, l, -1),
+        "answer_top_ids": top_ids.reshape(b, l, -1),
+        "answer_top_scores": top_scores.reshape(b, l, -1),
+    }
+
+
+class AnswerPredictor(GroundingPredictor):
+    """ScanQA inference on one device: the joint forward at ``is_eval``
+    with the answer head, then the top ``topk`` answer ids and logits of
+    each question (``vlp3d/serving.py:253-283``). The model carries the
+    answer head whatever ``config.model.use_answer`` says.
+
+    The JAX predictor returns its top-k as (B * L, topk) rows, which its
+    HTTP service then splits by request as if they were (B, ...): the
+    rows of request i's questions are not row i. These predictions are
+    (B, L, topk), so a request's answers are its own."""
+
+    def __init__(self, config: Config, state_dict: dict | None = None, *,
+                 topk: int = 10, batch_size: int = 8, device=None):
+        config = dataclasses.replace(config, model=dataclasses.replace(
+            config.model, use_answer=True))
+        super().__init__(config, state_dict, batch_size=batch_size,
+                         device=device)
+        self.topk = topk
+
+    def predict(self, batch: dict) -> dict:
+        return answer(self.model, batch, self.topk)

@@ -1,4 +1,5 @@
-"""Optimizer: decoupled AdamW with per-module LR groups.
+"""Optimizer: decoupled AdamW with per-module LR groups, and the VQA
+recipe's Adam.
 
 Counterpart of ``vlp3d/train/optimizer.py`` (the reference's vendored
 AdamW + set_params_lr_dict, scripts/utils/AdamW.py,
@@ -19,16 +20,26 @@ with ``amsgrad`` the running maximum is over the raw second moment and is
 bias-corrected when read, torch's formulation (AdamW.py:100-110). Each
 term runs as one ``torch._foreach_*`` call over a group's tensors: a loop
 over ~200 parameters costs ~2000 small launches a step, which on the card
-is host time the device waits for. The Adam (coupled decay),
-single-group and value-clipping variants belong to the VQA path and are
-not ported yet.
+is host time the device waits for.
+
+The VQA recipe (``optim_name="adam"``, ``single_group``,
+``clip_grad_value``; scripts/joint_scripts/train_qa.py:145-159,
+lib/vqa/solver.py:336-339) is optax's chain ``clip -> add_decayed_weights
+-> scale_by_adam -> scale_by_learning_rate`` in the JAX package: every
+gradient value is clipped to [-c, c] first, then the L2 term ``wd * p``
+is added to it before the moments (coupled, torch's ``optim.Adam``), and
+the update is ``p -= lr * m_hat / (sqrt(v_hat) + eps)``; one group at
+``base_lr`` holds every trained parameter. The frozen BERT parameters
+are in no group under either recipe. A parameter without a gradient
+gets the zero gradient here too, so under coupled L2 its decay enters
+its moments.
 
 ``grad_accum`` = k is ``optax.MultiSteps``'s accumulation: the train step
 (:func:`vlp3d_torch.train.state.make_train_step`) adds the gradients of
 ``loss / k`` over k micro-batches into ``.grad`` and calls :meth:`step`
-on every k-th, so the moments, the weight decay and ``step_count`` (which
-the LR schedule reads) move once a k micro-batches, with the mean
-gradient; BatchNorm statistics move on every micro-batch. A caller
+on every k-th, so the clip, the moments, the weight decay and
+``step_count`` (which the LR schedule reads) act once a k micro-batches,
+on the mean gradient; BatchNorm statistics move on every micro-batch. A caller
 passes ``steps_per_epoch`` already divided by k (the solver does).
 """
 
@@ -43,29 +54,34 @@ MODULE_LR_GROUPS = ("lang", "relation", "match", "caption")
 # parameter-name prefixes the model freezes (lang_bert_module.py:84-95)
 FROZEN_PREFIXES = ("lang.text_encoder.",)
 
-_VQA = "ROADMAP.md queue A item 17 (VQA)"
+OPTIMIZERS = ("adamw", "adam")
 
 
-def label_params(model: nn.Module) -> dict:
-    """name -> 'frozen' | 'module' | 'base' for every parameter."""
+def label_params(model: nn.Module, single_group: bool = False) -> dict:
+    """name -> 'frozen' | 'module' | 'base' for every parameter ('module'
+    only without ``single_group``)."""
     labels = {}
     for name, _ in model.named_parameters():
         if name.startswith(FROZEN_PREFIXES):
             labels[name] = "frozen"
-        elif name.split(".")[0] in MODULE_LR_GROUPS:
+        elif not single_group and name.split(".")[0] in MODULE_LR_GROUPS:
             labels[name] = "module"
         else:
             labels[name] = "base"
     return labels
 
 
-class AdamW(torch.optim.Optimizer):
-    """Decoupled AdamW over groups that carry ``base_lr``; the group's
-    ``lr`` of a step is ``lr_schedule(step // steps_per_epoch, base_lr)``,
-    with ``step`` the count of updates already taken."""
+class Adam(torch.optim.Optimizer):
+    """Adam over groups that carry ``base_lr``, with decoupled weight
+    decay (AdamW, ``decoupled=True``) or coupled L2 (Adam), after an
+    optional clip of the gradient values to [-clip_grad_value,
+    clip_grad_value]; the group's ``lr`` of a step is
+    ``lr_schedule(step // steps_per_epoch, base_lr)``, with ``step`` the
+    count of updates already taken."""
 
     def __init__(self, groups, *, lr_schedule, steps_per_epoch: int,
-                 weight_decay: float, amsgrad: bool, grad_accum: int = 1,
+                 weight_decay: float, amsgrad: bool, decoupled: bool = True,
+                 clip_grad_value: float = 0.0, grad_accum: int = 1,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         for g in groups:
             g["lr"] = g["base_lr"]
@@ -73,6 +89,8 @@ class AdamW(torch.optim.Optimizer):
         self.lr_schedule = lr_schedule
         self.steps_per_epoch = steps_per_epoch
         self.amsgrad = amsgrad
+        self.decoupled = decoupled
+        self.clip_grad_value = clip_grad_value
         self.b1, self.b2, self.eps = b1, b2, eps
         self.step_count = 0
         # micro-batches whose gradients .grad holds since the last update
@@ -128,6 +146,12 @@ class AdamW(torch.optim.Optimizer):
                 continue
             grads = [torch.zeros_like(p) if p.grad is None else p.grad
                      for p in params]
+            if self.clip_grad_value > 0:
+                grads = torch._foreach_clamp_min(grads, -self.clip_grad_value)
+                torch._foreach_clamp_max_(grads, self.clip_grad_value)
+            if not self.decoupled:  # coupled L2: into the moments
+                grads = torch._foreach_add(grads, params,
+                                           alpha=group["weight_decay"])
             for p in params:
                 st = self.state[p]
                 if not st:
@@ -152,7 +176,9 @@ class AdamW(torch.optim.Optimizer):
             torch._foreach_add_(denom, self.eps)
             update = torch._foreach_div(mus, bc1)
             torch._foreach_div_(update, denom)
-            torch._foreach_add_(update, params, alpha=group["weight_decay"])
+            if self.decoupled:
+                torch._foreach_add_(update, params,
+                                    alpha=group["weight_decay"])
             torch._foreach_add_(params, update, alpha=-lr)
         self.step_count = count
 
@@ -163,28 +189,30 @@ def make_optimizer(model: nn.Module, *, base_lr: float = 2e-3,
                    steps_per_epoch: int = 1, amsgrad: bool = False,
                    optim_name: str = "adamw", single_group: bool = False,
                    clip_grad_value: float = 0.0,
-                   grad_accum: int = 1) -> AdamW:
+                   grad_accum: int = 1) -> Adam:
     """``lr_schedule`` maps (epoch, group_base_lr) -> the group's absolute
     LR: torch LR schedulers run per parameter group on the group's own
-    base LR (CosineAnnealingLR anneals every group to the same eta_min)."""
-    for name, value, default in (("optim_name", optim_name, "adamw"),
-                                 ("single_group", single_group, False),
-                                 ("clip_grad_value", clip_grad_value, 0.0)):
-        if value != default:
-            raise NotImplementedError(
-                f"vlp3d_torch does not implement {name}={value!r} yet; "
-                f"see {_VQA}")
-    labels = label_params(model)
+    base LR (CosineAnnealingLR anneals every group to the same eta_min).
+    ``optim_name`` "adamw" (decoupled decay) or "adam" (coupled L2);
+    ``single_group``: one group at ``base_lr`` instead of the base /
+    module split; ``clip_grad_value`` > 0 clips the gradient values
+    first."""
+    if optim_name not in OPTIMIZERS:
+        raise ValueError(f"optim_name {optim_name!r} is not one of "
+                         f"{OPTIMIZERS}")
+    labels = label_params(model, single_group)
     by_label = {"base": [], "module": []}
     for name, p in model.named_parameters():
         if labels[name] == "frozen":
             p.requires_grad_(False)
         elif p.requires_grad:
             by_label[labels[name]].append(p)
-    groups = [
-        dict(params=by_label["base"], base_lr=base_lr, name="base"),
-        dict(params=by_label["module"], base_lr=module_lr, name="module"),
-    ]
-    return AdamW(groups, lr_schedule=lr_schedule,
-                 steps_per_epoch=steps_per_epoch, weight_decay=weight_decay,
-                 amsgrad=amsgrad, grad_accum=grad_accum)
+    groups = [dict(params=by_label["base"], base_lr=base_lr, name="base")]
+    if not single_group:
+        groups.append(dict(params=by_label["module"], base_lr=module_lr,
+                           name="module"))
+    return Adam(groups, lr_schedule=lr_schedule,
+                steps_per_epoch=steps_per_epoch, weight_decay=weight_decay,
+                amsgrad=amsgrad, decoupled=optim_name == "adamw",
+                clip_grad_value=clip_grad_value or 0.0,
+                grad_accum=grad_accum)

@@ -22,6 +22,14 @@ device:
     joint loss; the CLI then runs without the BatchNorm schedule, as the
     JAX one does) and, given a ``caption_eval_ctx``, scores Scan2Cap
     captions of the val split after each eval epoch;
+  * a model with the answer head (``use_answer``) adds its loss to the
+    joint loss, and each eval epoch reports the answer EM@1 / EM@10
+    (``answer_acc_at1`` / ``answer_acc_at10``, lib/vqa/eval_helper.py:
+    221-235) over the question slots each item fills (``lang_num``),
+    ties to the lowest answer index as ``vlp3d.eval.vqa`` breaks them
+    (the JAX solver's ``np.argpartition`` leaves the order of values
+    tied at the tenth place unspecified); ``criterion="answer_acc_at1"``
+    selects the best model on it (lib/vqa/solver.py:503-506);
   * phase timers (fetch / iter, see :mod:`vlp3d_torch.utils.timers` for
     which steps synchronise), the JSONL log, TensorBoard and wandb.
 
@@ -36,15 +44,16 @@ Where the port differs from the JAX solver, and why:
   * the trailing partial val batch runs as it is. JAX pads it to the
     batch size (one compiled shape) and unpads the outputs; its loss
     scalars of that batch then count the repeated last row, the port's
-    do not (ROADMAP.md C5);
+    do not (ROADMAP.md C5). The grounding and answer metrics read only
+    the real rows in both, so they agree;
   * no donation: the optimizer updates in place, so there is no buffer
     to donate (the CLI accepts ``--no_donate`` and does nothing);
   * ``profile_dir``: a torch.profiler Chrome trace over ``PROFILE_STEPS``
     steps from iteration 2 of epoch 0.
 
 Still to port, each raising NotImplementedError naming its ROADMAP.md
-item: the answer EM of the VQA heads (A17), ``mesh`` and multi-process runs (A18), ``tp`` and
-``zero1`` (A19), ``detection=False`` and ``reference=False`` (A9a).
+item: ``mesh`` and multi-process runs (A18), ``tp`` and ``zero1``
+(A19), ``detection=False`` and ``reference=False`` (A9a).
 """
 
 from __future__ import annotations
@@ -64,6 +73,7 @@ from vlp3d_torch.device import resolve_device
 from vlp3d_torch.eval.captioning import score_captions
 from vlp3d_torch.eval.grounding import final_eval_breakdown, get_eval
 from vlp3d_torch.eval.scan2cap import collect_batch
+from vlp3d_torch.eval.vqa import answer_hits
 from vlp3d_torch.models.jointnet import JointNet
 from vlp3d_torch.models.layers import BatchNorm
 from vlp3d_torch.train import checkpoint as ckpt
@@ -88,7 +98,6 @@ PROFILE_STEPS = 3
 # (solver_3dvlp.py:1166-1181)
 CAPTION_METRICS = ("bleu-4", "cider", "rouge", "meteor")
 _UNPORTED = {
-    "answer": "ROADMAP.md queue A item A17 (VQA)",
     "mesh": "ROADMAP.md queue A item A18 (data parallel)",
     "tp": "ROADMAP.md queue A item A19 (the other parallel modes)",
     "zero1": "ROADMAP.md queue A item A19 (the other parallel modes)",
@@ -372,15 +381,20 @@ class Solver:
             rng=self.np_rng,
         )
         ious, multiple, others, lang_accs, scalars = [], [], [], [], []
+        ans_hit1 = ans_hit10 = 0.0
+        ans_n = 0
         for host in loader:
             # a trailing partial batch runs as it is
             arrays = {
                 k: v for k, v in host.items() if not isinstance(v, list)
             }
-            out, metrics = self.eval_step(
-                batch_to_device(arrays, self.device))
-            if "answer_scores" in out:
-                raise _unported("the answer EM of eval_epoch", "answer")
+            batch = batch_to_device(arrays, self.device)
+            out, metrics = self.eval_step(batch)
+            if "answer_scores" in out and "answer_cats" in batch:
+                hit1, hit10, n = self._answer_hits(out, batch)
+                ans_hit1 += hit1
+                ans_hit10 += hit10
+                ans_n += n
             out_np = {k: out[k].cpu().numpy() for k in EVAL_KEYS if k in out}
             g = get_eval(
                 out_np,
@@ -402,6 +416,9 @@ class Solver:
             "lang_acc": float(np.mean(lang_accs)) if lang_accs else 0.0,
             **final_eval_breakdown(ious, multiple, others),
         }
+        if ans_n:
+            result["answer_acc_at1"] = ans_hit1 / ans_n
+            result["answer_acc_at10"] = ans_hit10 / ans_n
         if self.caption and self.caption_eval_ctx is not None:
             result.update(self.caption_eval(epoch))
         if scalars:
@@ -424,6 +441,20 @@ class Solver:
         )
         self._log({"phase": "val", "epoch": epoch, **val_scalars})
         return result
+
+    @staticmethod
+    def _answer_hits(out: dict, batch: dict):
+        """(EM@1 hits, EM@10 hits, questions) of one eval batch, over the
+        question slots its items fill (``lang_num``; the padded slots
+        repeat a question and count in the loss only)."""
+        cats = batch["answer_cats"]
+        b, l = cats.shape[:2]
+        hit1, hit10 = answer_hits(out["answer_scores"],
+                                  cats.reshape(b * l, -1))
+        valid = (torch.arange(l, device=cats.device)[None, :]
+                 < batch["lang_num"][:, None]).reshape(-1)
+        return (float(hit1[valid].sum()), float(hit10[valid].sum()),
+                int(valid.sum()))
 
     def caption_eval(self, epoch: int) -> dict:
         """A greedy caption for every proposal of the val split, gated by
