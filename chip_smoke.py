@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of vlp3d_torch on one CUDA card: grounding inference, the
 joint train step, the predict path, the trainer behind run.sh, the HTTP
-grounding server, Scan2Cap captioning and ScanQA question answering.
+grounding server, Scan2Cap captioning, ScanQA question answering and the
+grounding model's options.
 
     python3 chip_smoke.py
 
@@ -227,7 +228,31 @@ nothing of the vlp3d package. Phases, each fatal on failure:
    135, 1-7 questions) and one /v1/ground: all 200, one forward's
    launches a device batch, each request's top-10 ids equal to the
    predictor's alone by the tie rule, logits within VQA_SCORE_TOL;
-12. print {"kernels": [...]} with every kernel of the twelve paths (the
+12. the grounding model's options at run.sh's widths. Built while the
+   CLI processes run: (a) a use_con model with every option on
+   (FLAG_OPTIONS: the vote-weight predictor, the KL head, box masking,
+   the reference's multiview read, DistilBERT, the lang-emb scorer, the
+   regression head, no language classifier) from a seed with phase 6's
+   nudges, on phase 6's batch: its evaluation forward against the
+   plain-op forward (indices equal, the rows the reference read gathers
+   equal, cluster_ref within CLUSTER_REF_TOL), and one train step
+   against the plain-op step by check_kernel_step (both runs draw their
+   box masks from one generator seed); (b) compute_dtype="bfloat16":
+   phase 5's serving model (pred_ref equal and cluster_ref within
+   CLUSTER_REF_TOL of the plain-op forward) and phase 6's step model
+   (check_kernel_step), each beside its float32 twin; (c) one synthetic
+   epoch each of Solver(reference=False) over a no_reference model and
+   Solver(detection=False), launches counted, every logged loss finite.
+   CLI process: train_3dvlp with run.sh's flags + --synthetic
+   --no_reference --epoch 1 beside phase 8's first run (exit 0, finite
+   losses, no reference term logged). With the card to itself, counts
+   at 0 before each: the every-option evaluation forward and train step
+   (one forward's and one step's launches each; median of 5 ms, peak
+   memory), the reference read's (B, C, N) copy of the multiview
+   channels timed alone, and the float32 and bfloat16 serving forwards
+   and train steps (median of 5, peak memory; cluster_ref difference
+   and pred_ref agreement of bfloat16 against float32);
+13. print {"kernels": [...]} with every kernel of the main paths (the
    CUDA functions behind each in kernel_functions, host_us beside the
    times, the launches of each path, and per_step and per_remat_step
    as counted in phase 8), the
@@ -325,6 +350,34 @@ VQA_SCORE_TOL = 1e-4  # answer logits, kernel against plain, of the largest
 # scenes of 4 questions, so a batch of 2 gives one step and one eval batch
 VQA_CLI_FLAGS = ["--use_multiview", "--use_normal", "--lang_num_max", "8",
                  "--batch_size", "2"]
+# the options phase: every option of the grounding model at once, at
+# run.sh's widths (input channels, SA points, proposals, text-encoder
+# layers, sentences)
+FLAG_OPTIONS = dict(use_distil=True, use_lang_emb=True, use_reg_head=True,
+                    use_vote_weight=True, mask_box=True,
+                    reference_obj_gather=True, use_kl_loss=True,
+                    use_lang_classifier=False)
+FLAG_WIDTHS = (132, (2048, 1024, 512, 256), 256, 6, 8)
+# gradients held in the every-option step: SA1 to the options' heads
+FLAG_PROBE = ["backbone_net.sa1.mlp_module.layer0.conv.weight",
+              "backbone_net.fp2.mlp.layer0.conv.weight",
+              "proposal.votes_weight_predictor.0.weight",
+              "proposal.vote_aggregation.mlp_module.layer0.conv.weight",
+              "proposal.proposal.alpha_predictor.weight",
+              "relation.obj_embedding.0.weight",
+              "relation.features_concat.0.weight",
+              "match.lang_emb_cross_attn.attention.fc_q.weight",
+              "match.lang_emb_proj.0.weight", "match.reg_head.0.weight",
+              "match.match.0.weight", "lang.proj.weight"]
+# the bfloat16 step's gradients, kernel against plain run, of each
+# tensor's largest entry: a gradient is rounded to bfloat16 where it
+# crosses a bfloat16 layer, and one bfloat16 unit is 2^-8 of a value
+BF16_STEP_GRAD_TOL = 2.0 ** -6
+BF16_PROBE = ["backbone_net.sa1.mlp_module.layer1.conv.weight",
+              "backbone_net.sa2.mlp_module.layer0.conv.weight",
+              "backbone_net.fp2.mlp.layer1.conv.weight", "vgen.conv3.weight",
+              "proposal.vote_aggregation.mlp_module.layer0.conv.weight",
+              "relation.features_concat.0.weight", "match.match.0.weight"]
 
 
 _T0 = time.perf_counter()
@@ -1112,9 +1165,12 @@ def kernel_line(rows, serving, train, predict, solver, http, per_step,
     """The {"kernels": [...]} line. ``rows`` holds the per-call-site checks
     of each kernel; ``serving`` / ``train`` / ``predict`` / ``solver`` /
     ``http`` the launch counts of the five grounding main-path runs,
-    ``paths`` those of the captioning and question-answering ones
+    ``paths`` those of the captioning, question-answering and option ones
     (``caption_serve``, ``caption_step``, ``caption_http``,
-    ``answer_eval``, ``answer_serve``, ``answer_step``, ``answer_http``);
+    ``answer_eval``, ``answer_serve``, ``answer_step``, ``answer_http``,
+    ``flags_forward``, ``flags_step``, ``float32_forward``,
+    ``float32_step``, ``bfloat16_forward``, ``bfloat16_step``,
+    ``flags_solver_reference``, ``flags_solver_detection``);
     ``per_step`` and ``per_remat_step`` those of one Solver step and one
     remat step."""
     sources = {
@@ -2061,16 +2117,34 @@ def _train_qa_cli(pretrain, workdir, result):
         result["error"] = repr(e)
 
 
+def _no_reference_cli(workdir, result):
+    """Phase 12's `python -m vlp3d_torch.cli.train_3dvlp` with run.sh's
+    flags + --synthetic --no_reference --epoch 1: the detection-only
+    stage."""
+    try:
+        result["no_reference"] = _cli(
+            "vlp3d_torch.cli.train_3dvlp",
+            [*RUN_SH_TRAIN_FLAGS, "--synthetic", "--no_reference", "--epoch",
+             "1", "--workdir", workdir], result)
+    except Exception as e:  # noqa: BLE001 — reported by the main thread
+        result["error"] = repr(e)
+
+
 def train_cli_runs(workdir, result):
     """Phase 8's subprocesses, one after the other (run in a thread
     beside the in-process work): 2 epochs, then --epoch 3 --auto_resume,
     and beside that run phase 10's train_caption and phase 11's train_qa
-    from the first run's model.pth; leaves {"runs": [(rc, output, s),
-    ...], "caption_train": (rc, output, s), "qa_train": (rc, output, s)}
-    or {"error": ...} in ``result``."""
+    from the first run's model.pth; phase 12's --no_reference run beside
+    the first; leaves {"runs": [(rc, output, s), ...], "caption_train":
+    (rc, output, s), "qa_train": (rc, output, s), "no_reference": (rc,
+    output, s)} or {"error": ...} in ``result``."""
     import shutil
     import threading
 
+    detection_only = threading.Thread(target=_no_reference_cli, args=(
+        os.path.join(os.path.dirname(workdir), "no_reference"), result),
+        daemon=True)
+    detection_only.start()
     try:
         result["runs"] = [_train_cli(["--epoch", "2"], workdir, result)]
         if result["runs"][0][0] == 0 and not result.get("stop"):
@@ -2093,6 +2167,7 @@ def train_cli_runs(workdir, result):
                 t.join()
     except Exception as e:  # noqa: BLE001 — reported by the main thread
         result["error"] = repr(e)
+    detection_only.join()
 
 
 def stop_train_cli(cli, result):
@@ -2104,6 +2179,27 @@ def stop_train_cli(cli, result):
             if proc.poll() is None:
                 proc.kill()
         cli.join(timeout=30)
+
+
+def check_no_reference_cli(result, workdir):
+    """Phase 12's --no_reference process: exit 0, every logged loss
+    finite, no reference term."""
+    import numpy as np
+
+    if "no_reference" not in result:
+        fail("the --no_reference training CLI did not run")
+    rc, out, sec = result["no_reference"]
+    if rc != 0:
+        fail(f"train_3dvlp --no_reference exited {rc}:\n{out[-4000:]}")
+    with open(os.path.join(workdir, "log.jsonl")) as f:
+        records = [json.loads(r) for r in f]
+    logged = [r for r in records if r["phase"] in ("train", "val")]
+    if not logged or any("ref_loss" in r or not np.isfinite(r["loss"])
+                         for r in logged):
+        fail(f"train_3dvlp --no_reference logged {logged}")
+    print(f"[12] train_3dvlp --synthetic --no_reference --epoch 1: exit 0 "
+          f"in {sec:.1f} s, loss "
+          f"{[(r['phase'], round(r['loss'], 4)) for r in logged]}")
 
 
 def check_train_cli(result, workdir):
@@ -2659,14 +2755,15 @@ def relu_input(name: str, mod) -> bool:
 
 
 @contextlib.contextmanager
-def kinks(model, follow=None):
+def kinks(model, follow=None, take_all=False):
     """While open, record the output of every module ``relu_input`` names,
     call by call ({module: [tensor, ...]}). With ``follow``, such a record
     of another run of the same forward, a unit on the other side of 0 from
     ``follow``'s takes that run's value (its gradient flows straight
     through to this run's), so that both runs take the same branch of
-    every ReLU. Yields (the record, {module: (units moved, largest |input|
-    of a moved unit on either side)})."""
+    every ReLU; with ``take_all`` every unit takes it. Yields (the record,
+    {module: (units moved, largest |input| of a moved unit on either side,
+    or with ``take_all`` the largest change)})."""
     seen, moved, hooks = {}, {}, []
 
     def hook(mod, args, out, name):
@@ -2676,6 +2773,12 @@ def kinks(model, follow=None):
             return None
         ref = follow[name][len(calls)]
         calls.append(None)
+        if take_all:
+            change = (ref - out.detach()).to(out.dtype)
+            units, near = moved.get(name, (0, 0.0))
+            moved[name] = (units + int((change != 0).sum()),
+                           max(near, float(change.abs().max())))
+            return out + change
         flipped = (out > 0) != (ref > 0)
         if not bool(flipped.any()):
             return None
@@ -2697,25 +2800,30 @@ def kinks(model, follow=None):
 
 
 def check_kernel_step(torch, tag, model, config, batch, probe, what,
-                      caption=False):
+                      caption=False, take_all=False,
+                      grad_tol=STEP_GRAD_TOL):
     """The kernel train step against the plain-op step on one batch, with
-    one dropout (and token-mask) draw: the plain-op run first, recording
-    every ReLU input, then the kernel run following its side of 0 (the two
-    forwards differ in the interpolation's order of summation, and a unit
-    within rounding of 0 would move the gradient of its whole BatchNorm
-    channel and of everything the forward ran before it). A moved unit
-    must lie within FLIP_TOL of 0; then the loss is held to
-    STEP_LOSS_RTOL and every probe's gradient to STEP_GRAD_TOL of its
-    largest entry. Returns (loss_rel, worst, {module: units moved})."""
+    one dropout (and token- and box-mask) draw: the plain-op run first,
+    recording every ReLU input, then the kernel run following its side of
+    0 (the two forwards differ in the interpolation's order of summation,
+    and a unit within rounding of 0 would move the gradient of its whole
+    BatchNorm channel and of everything the forward ran before it). A
+    moved unit must lie within FLIP_TOL of 0; then the loss is held to
+    STEP_LOSS_RTOL and every probe's gradient to ``grad_tol`` of its
+    largest entry. With ``take_all`` (bfloat16 point MLPs, where that
+    order moves whole bfloat16 units through the batch statistics) the
+    kernel run takes the plain run's value at every unit of those
+    modules, and the backward alone is compared. Returns (loss_rel,
+    worst, {module: units moved})."""
     with plain_ops(), kinks(model) as (pre_p, _):
         loss_p, grads_p = loss_and_grads(torch, model, config, batch,
                                          probe, 11, caption=caption)
-    with kinks(model, follow=pre_p) as (_, moved):
+    with kinks(model, follow=pre_p, take_all=take_all) as (_, moved):
         loss_k, grads_k = loss_and_grads(torch, model, config, batch,
                                          probe, 11, caption=caption)
     del pre_p
     for name, (units, near) in moved.items():
-        if near > FLIP_TOL:
+        if near > FLIP_TOL and not take_all:
             fail(f"{what}: {units} ReLU inputs of {name}, up to {near} from "
                  "0, decided differently in the two runs")
     errs = {}
@@ -2730,8 +2838,8 @@ def check_kernel_step(torch, tag, model, config, batch, probe, what,
           f"gradient difference of each probe, of its largest entry: "
           f"{errs}; ReLU "
           f"inputs that followed the plain run (module: units, largest "
-          f"|input|) {moved}")
-    if loss_rel > STEP_LOSS_RTOL or worst > STEP_GRAD_TOL:
+          f"{'change' if take_all else '|input|'}) {moved}")
+    if loss_rel > STEP_LOSS_RTOL or worst > grad_tol:
         fail(f"the {what} differs from the plain-op step")
     return loss_rel, worst, {k: v[0] for k, v in moved.items()}
 
@@ -3647,6 +3755,327 @@ class VqaPhase:
         self.thread.join(timeout=30)
 
 
+# ---------------------------------------------------------------- phase 12
+
+
+def nudge(torch, model):
+    """Phase 6's nudges to seeded weights (votes stay near their seeds,
+    boxes start ~0.7 m wide, so that every loss is live), with the box
+    predictor's weights scaled as the vote offsets' are: the seeded
+    weights of a model with other modules draw other box weights, and
+    unscaled they gave boxes of up to ~740 m, whose relation-attention
+    logits of ~1e5 carry float32 rounding (C3's interpolation order) into
+    the attention weights."""
+    with torch.no_grad():
+        model.vgen.conv3.weight.mul_(0.05)
+        model.vgen.conv3.bias.mul_(0.05)
+        model.proposal.proposal.box_predictor.weight.mul_(0.05)
+        model.proposal.proposal.box_predictor.bias.fill_(-1.0)
+
+
+def median_ms(torch, fn, reps: int = 5):
+    """Median host-clock ms of fn() to a synchronise, and the peak memory
+    (GiB) above what was allocated before."""
+    import numpy as np
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+    return float(np.median(times)), peak
+
+
+class FlagsPhase:
+    """Phase 12 in this process: the grounding model's options at run.sh's
+    widths. The models, the untimed checks (kernel against plain ops) and
+    the detection-only Solver epochs run while the CLI processes run;
+    :meth:`drive` then times the paths with the card to itself."""
+
+    def __init__(self, torch, smi, scenes, ground_state, train_host):
+        from vlp3d_torch.config import Config, ModelConfig
+        from vlp3d_torch.models import JointNet
+        from vlp3d_torch.serving import GroundingPredictor
+        from vlp3d_torch.train import batch_to_device
+
+        self.smi, self.scenes = smi, scenes
+        t0 = time.perf_counter()
+        # (a) every option of the grounding model at once
+        self.config = Config(model=ModelConfig(
+            use_con=True, no_caption=True, **FLAG_OPTIONS))
+        self.model = JointNet(self.config)
+        nudge(torch, self.model)
+        cfg = self.config.model
+        layers = len(self.model.lang.text_encoder.bert.encoder.layer)
+        widths = (cfg.input_feature_dim, tuple(cfg.sa_npoints),
+                  cfg.num_proposal, layers, cfg.lang_num_max)
+        if widths != FLAG_WIDTHS:
+            fail(f"option model is not at run.sh's widths: {widths}")
+        device = next(self.model.parameters()).device
+        self.batch = batch_to_device(train_host, device)
+        print(f"[12] option model ({sorted(FLAG_OPTIONS)}) built in "
+              f"{time.perf_counter() - t0:.1f} s")
+        self.forward_check = self.check_forward(torch)
+        self.step_check = check_kernel_step(
+            torch, "12", self.model, self.config, self.batch, FLAG_PROBE,
+            "every-option step")[:2]
+        # (b) compute_dtype="bfloat16": phase 5's serving model, phase 6's
+        # step
+        t0 = time.perf_counter()
+        self.preds = {}
+        for dtype in ("float32", "bfloat16"):
+            pred = GroundingPredictor(Config(model=ModelConfig(
+                use_con=False, no_caption=True, compute_dtype=dtype)),
+                ground_state, batch_size=B)
+            self.preds[dtype] = pred
+        self.train_models = {}
+        for dtype in ("float32", "bfloat16"):
+            config = Config(model=ModelConfig(use_con=True, no_caption=True,
+                                              compute_dtype=dtype))
+            model = JointNet(config)
+            nudge(torch, model)  # phase 6's weights
+            self.train_models[dtype] = (config, model)
+        print(f"[12] float32 and bfloat16 serving and train models built in "
+              f"{time.perf_counter() - t0:.1f} s")
+        self.bf16_check = self.check_bf16(torch)
+        # (c) detection-only training, untimed
+        self.solvers = self.detection_only(torch)
+        stamp("12", "option models, untimed checks and detection-only "
+              "solvers")
+
+    # -- (a) untimed: the kernel forward against the plain ops ------------
+
+    def check_forward(self, torch):
+        """The evaluation forward with every option: indices equal to the
+        plain-op forward's, the reference read's rows too (a pure
+        gather), cluster_ref within CLUSTER_REF_TOL."""
+        model, rows = self.model, []
+        hook = model.relation.obj_embedding[0].register_forward_pre_hook(
+            lambda mod, args: rows.append(args[0].detach().clone()) and None)
+        try:
+            got = model(self.batch)
+            with plain_ops():
+                want = model(self.batch)
+        finally:
+            hook.remove()
+        idx = {k: index_err(torch, got[k], want[k]) for k in (
+            "sa1_inds", "sa2_inds", "fp2_inds", "aggregated_vote_inds")}
+        gather = float((rows[0] - rows[1]).abs().max())
+        err = float((got["cluster_ref"] - want["cluster_ref"]).abs().max())
+        print(f"[12] every-option forward, kernels against plain ops on the "
+              f"card: index differences {idx}, the reference read's rows "
+              f"{tuple(rows[0].shape)} differ by {gather}, cluster_ref max "
+              f"abs err {err}")
+        if any(idx.values()) or gather != 0.0 or err > CLUSTER_REF_TOL:
+            fail("the every-option forward differs from the plain-op one")
+        for k in ("vote_weights", "alpha", "pred_center_reg",
+                  "pred_size_reg"):
+            if not bool(torch.isfinite(got[k]).all()):
+                fail(f"non-finite {k}")
+        return {"index_err": max(idx.values()), "gather_err": gather,
+                "cluster_ref_err": err}
+
+    # -- (b) untimed: bfloat16 against the plain ops -----------------------
+
+    def check_bf16(self, torch):
+        """The bfloat16 serving forward against the plain-op forward
+        (pred_ref equal, cluster_ref within CLUSTER_REF_TOL), and the
+        bfloat16 train step against the plain-op step (check_kernel_step).
+        """
+        import numpy as np
+
+        pred = self.preds["bfloat16"]
+        got = pred([self.scenes[0]])[0]
+        with plain_ops():
+            want = pred([self.scenes[0]])[0]
+        err = float(np.abs(got["cluster_ref"] - want["cluster_ref"]).max())
+        same = bool(np.array_equal(got["pred_ref"], want["pred_ref"]))
+        print(f"[12] bfloat16 serving forward, kernels against plain ops on "
+              f"the card: pred_ref equal {same}, cluster_ref max abs err "
+              f"{err}")
+        if not same or err > CLUSTER_REF_TOL:
+            fail("the bfloat16 forward differs from the plain-op one")
+        config, model = self.train_models["bfloat16"]
+        loss_rel, worst, moved = check_kernel_step(
+            torch, "12", model, config, self.batch, BF16_PROBE,
+            "bfloat16 step", take_all=True, grad_tol=BF16_STEP_GRAD_TOL)
+        return {"cluster_ref_err": err, "step_loss_rel": loss_rel,
+                "step_grad_err": worst, "flips": moved}
+
+    # -- (c) untimed: detection-only training -----------------------------
+
+    def detection_only(self, torch):
+        """Solver(reference=False) over a no_reference model and
+        Solver(detection=False) over phase 6's, one synthetic epoch each
+        at run.sh's widths: every logged loss finite, the launches of each
+        step and eval batch counted."""
+        import tempfile
+
+        import numpy as np
+
+        from vlp3d_torch import ops
+        from vlp3d_torch.config import Config, ModelConfig
+        from vlp3d_torch.data.synthetic import make_synthetic_dataset
+        from vlp3d_torch.train.solver import Solver
+
+        out = {}
+        for name, flags, kw in (
+                ("reference", {"no_reference": True}, {"reference": False}),
+                ("detection", {}, {"detection": False})):
+            config = Config(model=ModelConfig(use_con=True, no_caption=True,
+                                              **flags))
+            train = make_synthetic_dataset(
+                config, n_scenes=B, n_points=PREDICT_POINTS,
+                anns_per_scene=config.model.lang_num_max, augment=True,
+                shuffle=True, seed=5)
+            val = make_synthetic_dataset(
+                config, n_scenes=2, n_points=PREDICT_POINTS,
+                anns_per_scene=config.model.lang_num_max, split="val",
+                seed=6)
+            with tempfile.TemporaryDirectory() as tmp:
+                solver = Solver(config, train, val, tmp, log_every=1, **kw)
+                solver.init_state()
+                nudge(torch, solver.model)
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                best = solver(1)
+                sec = time.perf_counter() - t0
+                launches = dict(ops.launches)
+                solver.close()
+                with open(os.path.join(tmp, "log.jsonl")) as f:
+                    records = [json.loads(r) for r in f]
+                del solver
+            torch.cuda.empty_cache()
+            steps = len(train) // config.train.batch_size
+            evals = -(-len(val) // config.train.batch_size)
+            want = {k: steps * PER_STEP[k] + evals * PER_FORWARD[k]
+                    for k in PER_STEP}
+            logged = [r for r in records if r["phase"] in ("train", "val")]
+            losses = {r["phase"]: r["loss"] for r in logged}
+            if launches != want or len(logged) != steps + 1 or not all(
+                    np.isfinite(v) for r in logged for v in r.values()
+                    if isinstance(v, float)):
+                fail(f"Solver({kw}): launches {launches} (want {want}), "
+                     f"records {logged}")
+            print(f"[12] Solver({kw}) one epoch ({steps} step, {evals} eval "
+                  f"batch) in {sec:.1f} s: loss {losses}, best epoch "
+                  f"{best['epoch']}, launches {launches}")
+            out[name] = (launches, {"s": sec, "loss": losses})
+        return out
+
+    # -- the timed paths, with the card to itself --------------------------
+
+    def drive(self, torch):
+        """(a) and (b) timed, with every count at 0 before each; returns
+        ({path: launch counts}, numbers for the results line)."""
+        import numpy as np
+
+        from vlp3d_torch import ops
+        from vlp3d_torch.train import make_optimizer, make_train_step
+        from vlp3d_torch.train.schedules import cosine_lr
+
+        launches, numbers = {}, {"forward_check": self.forward_check,
+                                 "step_check": self.step_check,
+                                 "bf16_check": self.bf16_check}
+        for name, (counts, res) in self.solvers.items():
+            launches[f"flags_solver_{name}"] = counts
+            numbers[f"solver_{name}"] = res
+
+        def counted(path, fn, per, reps=5):
+            ops.reset_launches()
+            fn()
+            torch.cuda.synchronize()
+            one = dict(ops.launches)
+            if one != per:
+                fail(f"{path}: launches {one} != {per}")
+            ms, peak = median_ms(torch, fn, reps)
+            launches[path] = dict(ops.launches)
+            return ms, peak
+
+        def stepper(config, model):
+            opt = make_optimizer(
+                model, lr_schedule=lambda e, lr0: cosine_lr(e, lr0, 200),
+                steps_per_epoch=100)
+            step = make_train_step(model, config, opt)
+            gen = torch.Generator(device=self.batch["point_clouds"].device)
+            gen.manual_seed(0)
+            history = []
+            return lambda: history.append(step(self.batch, gen)), history
+
+        # (a) every option: forward, step, the reference read's copy
+        fwd_ms, fwd_peak = counted(
+            "flags_forward", lambda: self.model(self.batch), PER_FORWARD)
+        run, history = stepper(self.config, self.model)
+        step_ms, step_peak = counted("flags_step", run, PER_STEP)
+        for m in history:
+            for k in ("loss", "kl_loss", "vote_weight_loss", "diou_loss"):
+                if not np.isfinite(m[k].item()):
+                    fail(f"every-option step: {k} = {m[k].item()}")
+        off, c = self.config.model.multiview_offset, \
+            self.config.model.multiview_dim
+        obj = self.batch["point_clouds"][..., off:off + c]
+        copy_ms = cuda_ms(torch, lambda: obj.transpose(1, 2).contiguous(),
+                          reps=20)
+        copy_bytes = 2 * obj.numel() * 4
+        print(f"[12] every-option model at B={B}, N={N}: evaluation forward "
+              f"median {fwd_ms:.3f} ms (peak {fwd_peak:.3f} GiB above the "
+              f"resident models), train step median {step_ms:.3f} ms (peak "
+              f"{step_peak:.3f} GiB); the reference read's (B, C, N) copy of "
+              f"{obj.numel() * 4 / 1e6:.1f} MB {copy_ms:.4f} ms "
+              f"({copy_bytes / copy_ms / 1e6:.1f} GB/s read + write; bound "
+              f"{bound_ms(copy_bytes, 0)[0]:.4f} ms); "
+              f"launches a forward {PER_FORWARD}, a step {PER_STEP}; losses "
+              + json.dumps({k: [round(m[k].item(), 5) for m in history]
+                            for k in ("loss", "kl_loss", "vote_weight_loss")})
+              + f" ({self.smi})")
+        numbers["flags"] = {"forward_ms": fwd_ms, "forward_peak_gib":
+                            fwd_peak, "step_ms": step_ms, "step_peak_gib":
+                            step_peak, "obj_copy_ms": copy_ms,
+                            "obj_copy_bound_ms": bound_ms(copy_bytes, 0)[0]}
+        self.model = None
+        torch.cuda.empty_cache()
+
+        # (b) bfloat16 beside float32, in this run
+        res = {}
+        outs = {}
+        for dtype, pred in self.preds.items():
+            dev = pred._to_device(self.scenes[1])
+            fwd, fpeak = counted(f"{dtype}_forward",
+                                 lambda: pred.predict(dev), PER_FORWARD)
+            outs[dtype] = {k: v.cpu().numpy()
+                           for k, v in pred.predict(dev).items()}
+            config, model = self.train_models[dtype]
+            run, history = stepper(config, model)
+            stp, speak = counted(f"{dtype}_step", run, PER_STEP)
+            res[dtype] = {"forward_ms": fwd, "forward_peak_gib": fpeak,
+                          "step_ms": stp, "step_peak_gib": speak,
+                          "loss": [m["loss"].item() for m in history]}
+            self.train_models[dtype] = None
+            torch.cuda.empty_cache()
+        diff = float(np.abs(outs["bfloat16"]["cluster_ref"]
+                            - outs["float32"]["cluster_ref"]).max())
+        agree = float((outs["bfloat16"]["pred_ref"]
+                       == outs["float32"]["pred_ref"]).mean())
+        print(f"[12] compute_dtype at B={B}, N={N}: "
+              + json.dumps(res) + f"; bfloat16 against float32: cluster_ref"
+              f" max abs difference {diff}, pred_ref agreement {agree} "
+              f"({self.smi})")
+        for dtype in res:
+            if not np.isfinite(res[dtype]["loss"]).all():
+                fail(f"{dtype} step losses {res[dtype]['loss']}")
+        numbers["compute_dtype"] = dict(res, cluster_ref_diff=diff,
+                                        pred_ref_agreement=agree)
+        self.preds = None
+        torch.cuda.empty_cache()
+        stamp("12", "option and compute-dtype paths")
+        return launches, numbers
+
+
 def drive(torch, config, batch_size, num_points, smi):
     """Phases 3-5; returns (per-call kernel rows, main-path launch counts,
     (the host scenes, the model's weights on the card))."""
@@ -3817,6 +4246,7 @@ def main() -> int:
         http_phase = HttpPhase(torch, config)
         caption = CaptionPhase(torch, smi, scenes, ground_state, train_host)
         vqa = VqaPhase(torch, smi, scenes, ground_state, train_host)
+        flags = FlagsPhase(torch, smi, scenes, ground_state, train_host)
         del ground_state
         t0 = time.perf_counter()
         cli.thread.join(timeout=900)
@@ -3829,6 +4259,8 @@ def main() -> int:
         check_train_caption(cli.result, os.path.join(cli.tmp.name,
                                                      "caption"))
         check_train_qa(cli.result, os.path.join(cli.tmp.name, "qa"))
+        check_no_reference_cli(cli.result, os.path.join(cli.tmp.name,
+                                                        "no_reference"))
         caption_clis.check()
         stamp("10", "caption CLIs")
     finally:
@@ -3842,26 +4274,33 @@ def main() -> int:
     # 11. question answering with the card to itself: serving, train
     # steps, HTTP
     answers, vqa_numbers = vqa.drive(torch)
-    paths = {**captions, **answers}
+    # 12. the grounding model's options with the card to itself
+    options, flag_numbers = flags.drive(torch)
+    paths = {**captions, **answers, **options}
     for name in rows:
         if train[name] == 0 or solver[name] == 0 \
                 or paths["caption_step"][name] == 0 \
                 or paths["answer_step"][name] == 0 \
+                or any(paths[p][name] == 0 for p in (
+                    "flags_step", "bfloat16_step", "float32_step",
+                    "flags_solver_reference", "flags_solver_detection")) \
                 or (PER_FORWARD[name] > 0 and (
                     serving[name] == 0 or predict[name] == 0
                     or http[name] == 0 or any(
                         paths[p][name] == 0 for p in (
                             "caption_serve", "caption_http", "answer_eval",
-                            "answer_serve", "answer_http")))):
+                            "answer_serve", "answer_http", "flags_forward",
+                            "bfloat16_forward", "float32_forward")))):
             fail(f"kernel {name} was not launched on a main path")
 
-    # 12. results
+    # 13. results
     line = kernel_line(rows, serving, train, predict, solver, http,
                        per_step, per_remat_step, paths)
     line["remat_step"] = remat
     line["http"] = latency
     line["caption"] = caption_numbers
     line["vqa"] = vqa_numbers
+    line["options"] = flag_numbers
     print(json.dumps(line))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

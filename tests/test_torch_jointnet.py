@@ -6,10 +6,15 @@ random BatchNorm statistics; its tree goes through
 same seeded scenes then go through both: index outputs are equal, float
 outputs agree within atol 1e-4 / rtol 1e-4, and ``pred_ref`` from the
 port's GroundingPredictor equals the JAX GroundingPredictor's through
-``__call__`` and ``run_padded``. Also checked: the port imports no JAX
-and nothing of vlp3d, a default-device construction raises without a
-card, unported flags raise, and the captioning and answer flags build
-their heads.
+``__call__`` and ``run_padded``. Each model option (``use_distil``,
+``use_lang_emb``, ``use_reg_head``, ``use_vote_weight``, ``mask_box``,
+``reference_obj_gather``, ``use_kl_loss``, ``use_lang_classifier=False``,
+``no_reference``) builds and its evaluation forward matches JAX's, from
+seeded weights in the shapes of the flax init (tests/test_torch_flags.py
+holds the options in training and at the module level). Also checked:
+the port imports no JAX and nothing of vlp3d, a default-device
+construction raises without a card, ``use_mlcv_net`` raises, and the
+captioning and answer flags build their heads.
 """
 
 import os
@@ -159,16 +164,77 @@ def test_default_device_raises_without_cuda(monkeypatch):
         GroundingPredictor(tiny_config(**FLAGS))
 
 
-@pytest.mark.parametrize("flag,value", [
-    ("use_mlcv_net", True), ("use_distil", True), ("use_lang_emb", True),
-    ("use_reg_head", True), ("use_vote_weight", True), ("mask_box", True),
-    ("reference_obj_gather", True), ("use_kl_loss", True),
-    ("use_lang_classifier", False), ("no_reference", True),
-])
+@pytest.mark.parametrize("flag,value", [("use_mlcv_net", True)])
 def test_unported_flags_raise(flag, value):
     overrides = {**FLAGS, flag: value}
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         JointNet(tiny_config(**overrides), device="cpu")
+
+
+def _seeded_variables(model, batch, seed):
+    """Seeded numpy weights in the shapes of the flax init (no compile):
+    fan-in-scaled kernels, small biases, unit-ish scales, distinct PReLU
+    slopes, random BatchNorm statistics."""
+    shapes = jax.eval_shape(lambda b: model.init(
+        {"params": jax.random.key(0)}, b, train=False), batch)
+    rng = np.random.default_rng(seed)
+
+    def param(path, a):
+        name = path[-1].key
+        if name == "alpha":
+            return (0.25 + rng.normal(0.0, 0.1, a.shape)).astype(np.float32)
+        if name == "scale":
+            return (1.0 + rng.normal(0.0, 0.05, a.shape)).astype(np.float32)
+        if name == "bias" or len(a.shape) < 2:
+            return rng.normal(0.0, 0.01, a.shape).astype(np.float32)
+        if name == "embedding":
+            return rng.normal(0.0, 0.02, a.shape).astype(np.float32)
+        fan_in = int(np.prod(a.shape[:-1]))
+        return rng.normal(0.0, fan_in ** -0.5, a.shape).astype(np.float32)
+
+    def stat(path, a):
+        if path[-1].key == "var":
+            return rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
+        return rng.normal(0.0, 0.1, a.shape).astype(np.float32)
+
+    return {"params": jax.tree_util.tree_map_with_path(param,
+                                                       shapes["params"]),
+            "batch_stats": jax.tree_util.tree_map_with_path(
+                stat, shapes["batch_stats"])}
+
+
+# each raised NotImplementedError (test_unported_flags_raise) until the
+# slice that ported the model options
+@pytest.mark.parametrize("flag,value", [
+    ("use_distil", True), ("use_lang_emb", True), ("use_reg_head", True),
+    ("use_vote_weight", True), ("mask_box", True),
+    ("reference_obj_gather", True), ("use_kl_loss", True),
+    ("use_lang_classifier", False), ("no_reference", True),
+])
+def test_flag_builds_and_matches_jax(flag, value):
+    """The option builds, and the evaluation forward from converted
+    weights matches JAX's: indices equal, every float output within
+    TOL."""
+    overrides = {**FLAGS, flag: value}
+    model = JaxJointNet(jax_tiny_config(**overrides))
+    batch = _scenes(9, batch_size=2)
+    v = _seeded_variables(model, batch, 2)
+    want = jax.device_get(jax.jit(
+        lambda vv, b: model.apply(vv, b, train=False, is_eval=True))(v, batch))
+    port = JointNet(tiny_config(**overrides), device="cpu")
+    port.load_state_dict(jax_to_torch_state_dict(v["params"],
+                                                 v["batch_stats"]),
+                         strict=True)
+    got = port({k: torch.from_numpy(a) for k, a in batch.items()},
+               is_eval=True)
+    assert set(got) == set(want), set(got) ^ set(want)
+    for k, w in want.items():
+        w = np.asarray(w)
+        if np.issubdtype(w.dtype, np.integer):
+            np.testing.assert_array_equal(got[k].numpy(), w, err_msg=k)
+        else:
+            np.testing.assert_allclose(got[k].numpy(), w, err_msg=k, **TOL)
+    assert ("cluster_ref" in got) == (flag != "no_reference")
 
 
 @pytest.mark.parametrize("no_caption", [True, False])

@@ -259,17 +259,13 @@ def test_adamw_grad_accum_trajectory_matches_jax(amsgrad):
                 atol=1e-6, err_msg=f"{name} after micro-batch {micro + 1}")
 
 
-# The VQA recipe's options (optim_name "adam", single_group,
-# clip_grad_value) raised until the question-answering slice; each now
-# builds an optimizer that moves as the JAX package's optax chain does
-# (the test keeps the name it had then). tests/test_torch_train_qa.py
-# holds the recipe as a whole.
+# tests/test_torch_train_qa.py holds the VQA recipe as a whole.
 @pytest.mark.parametrize("kw", [{"optim_name": "adam"}, {"single_group": True},
                                 {"clip_grad_value": 1.0},
                                 {"grad_accum": 2, "optim_name": "adam"},
                                 {"optim_name": "adam", "single_group": True,
                                  "clip_grad_value": 0.5, "amsgrad": True}])
-def test_unported_optimizer_options_raise(kw):
+def test_vqa_optimizer_options_match_optax(kw):
     rng = np.random.default_rng(6)
     toy = _Toy(rng)
     params = jax.tree_util.tree_map(jnp.asarray, toy.tree())

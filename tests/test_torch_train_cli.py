@@ -12,7 +12,10 @@ restored count does in JAX); ``--pretrain``; gradient accumulation (k
 micro-batches equal one step on the batch k times as large, as
 ``tests/test_grad_accum.py`` pins for JAX); remat (gradients and
 BatchNorm statistics equal to a plain step's, FPS and ball query once a
-block); ``--profile_dir``; and the flags that still raise.
+block); ``--profile_dir``; the model options in a smoke run
+(``--no_reference``, the detection-only stage, and ``--no_detection``
+with every option of the grounding model); ``Solver(detection=False)``
+and ``Solver(reference=False)``; and the flags that still raise.
 """
 
 import dataclasses
@@ -594,9 +597,7 @@ def test_solver_trains_and_scores_captions(tmp_path):
 
 @pytest.mark.parametrize("kw,item", [({"mesh": object()}, "A18"),
                                      ({"tp": 2}, "A19"),
-                                     ({"zero1": True}, "A19"),
-                                     ({"detection": False}, "A9a"),
-                                     ({"reference": False}, "A9a")])
+                                     ({"zero1": True}, "A19")])
 def test_solver_options_still_to_port_raise(tmp_path, kw, item):
     from vlp3d_torch.data.synthetic import make_synthetic_dataset
 
@@ -604,3 +605,77 @@ def test_solver_options_still_to_port_raise(tmp_path, kw, item):
     ds = make_synthetic_dataset(config, n_scenes=1, anns_per_scene=2)
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         solver_mod.Solver(config, ds, ds, str(tmp_path), device="cpu", **kw)
+
+
+# detection=False and reference=False raised NotImplementedError
+# (test_solver_options_still_to_port_raise) until the slice that ported
+# the grounding model's options
+@pytest.mark.parametrize("kw", [{"detection": False}, {"reference": False}])
+def test_solver_trains_without_a_loss_part(tmp_path, kw):
+    """One epoch of each: the detection terms leave the sum (their
+    metrics are still logged), or the reference terms do, with a
+    no_reference model whose eval epoch logs the eval step's loss and
+    detection scalars and keeps the last epoch as the best."""
+    from vlp3d_torch.data.synthetic import make_synthetic_dataset
+
+    reference = kw.get("reference", True)
+    config = dataclasses.replace(
+        tiny_config(no_caption=True, use_con=True,
+                    no_reference=not reference),
+        train=dataclasses.replace(tiny_config().train, batch_size=2))
+    train = make_synthetic_dataset(config, n_scenes=2, anns_per_scene=4,
+                                   seed=1)
+    val = make_synthetic_dataset(config, n_scenes=2, anns_per_scene=4,
+                                 split="val", seed=2)
+    solver = solver_mod.Solver(config, train, val, str(tmp_path),
+                               log_every=1, device="cpu", **kw)
+    solver.init_state()
+    best = solver(1)
+    solver.close()
+    records = _records(str(tmp_path))
+    train_recs = [r for r in records if r["phase"] == "train"]
+    (val_rec,) = [r for r in records if r["phase"] == "val"]
+    assert train_recs
+    for r in train_recs + [val_rec]:
+        assert np.isfinite(r["loss"]) and r["vote_loss"] > 0
+        assert "box_loss" in r and "obj_acc" in r
+    if reference:
+        for r in train_recs:  # the sum holds no detection term (epoch 0)
+            assert r["loss"] == pytest.approx(
+                0.3 * (r["ref_loss"] + r["diou_loss"] + r["lang_loss"])
+                + r["con_loss"], rel=1e-5)
+        assert "iou_rate_0.5" in val_rec and "ref_loss" in val_rec
+    else:
+        for r in train_recs:
+            assert r["loss"] == pytest.approx(10 * (
+                r["vote_loss"] + 0.1 * r["objectness_loss"]
+                + r["box_loss"]), rel=1e-5)
+        assert "iou_rate_0.5" not in val_rec and "ref_loss" not in val_rec
+        assert best["epoch"] == 1 and best["loss"] == val_rec["loss"]
+        assert os.path.exists(tmp_path / "model.pth")
+        assert not os.path.exists(tmp_path / "ground_model.pth")
+
+
+@pytest.mark.parametrize("argv", [
+    ["--no_reference"],
+    ["--no_detection", "--use_vote_weight", "--use_kl_loss",
+     "--use_reg_head", "--use_lang_emb", "--mask_box", "--use_distil",
+     "--no_lang_cls"]])
+def test_cli_smoke_with_model_options(tmp_path, argv):
+    """The training CLI runs to its end with the detection-only stage, and
+    with every option of the grounding model (the smoke configuration
+    keeps the model flags)."""
+    best = main(ARGS + ["--workdir", str(tmp_path)] + argv)
+    records = _records(str(tmp_path))
+    train_recs = [r for r in records if r["phase"] == "train"]
+    assert _trained_epochs(records) == [0, 1]
+    assert all(np.isfinite(r["loss"]) for r in train_recs)
+    if "--no_reference" in argv:
+        assert "ref_loss" not in train_recs[0] and best["epoch"] == 2
+    else:
+        for key in ("kl_loss", "vote_weight_loss", "ref_loss"):
+            assert all(np.isfinite(r[key]) for r in train_recs), key
+        assert "lang_loss" not in train_recs[0]
+        sd = ckpt.load_params(str(tmp_path), "model_last")
+        assert "proposal.votes_weight_predictor.2.weight" in sd
+        assert not any("token_type" in k for k in sd)

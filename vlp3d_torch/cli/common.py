@@ -3,11 +3,13 @@ the datasets, the run directory and the solver's resume.
 
 The port's own copy of ``vlp3d/cli/common.py``: the same flags (plus
 ``--device``), the same config arithmetic, the same datasets and the
-same resume rules. Flags of model options the port lacks raise
-NotImplementedError in :func:`config_from_args`
-(:func:`vlp3d_torch.config.check_supported` names the ROADMAP item of
-each), and the run-time flags it lacks (:data:`UNPORTED_RUN_FLAGS`) in
-:func:`resolve_config`.
+same resume rules. ``--use_mlcv_net``, the one model option the port
+lacks, raises NotImplementedError in :func:`config_from_args`
+(:func:`vlp3d_torch.config.check_supported` names its ROADMAP item), and
+the run-time flags it lacks (:data:`UNPORTED_RUN_FLAGS`) in
+:func:`resolve_config`. Unlike the JAX CLIs, ``--smoke`` keeps the model
+options (:func:`model_flags`) in its tiny configuration, so that a smoke
+run trains the model they describe.
 """
 
 from __future__ import annotations
@@ -41,6 +43,27 @@ UNPORTED_RUN_FLAGS = {
     "tp": (1, "queue A item A19 (the other parallel modes)"),
     "zero1": (False, "queue A item A19 (the other parallel modes)"),
 }
+
+
+def model_flags(args) -> dict:
+    """The ModelConfig options the CLI flags set (the run.sh flag ->
+    field mapping of train_3dvlp.py:588-774)."""
+    return dict(
+        no_caption=args.no_caption,
+        no_reference=args.no_reference,
+        use_lang_classifier=not args.no_lang_cls,
+        use_con=args.use_con,
+        use_mlm=args.use_mlm,
+        use_answer=args.use_answer,
+        use_reg_head=args.use_reg_head,
+        use_kl_loss=args.use_kl_loss,
+        use_lang_emb=args.use_lang_emb,
+        use_vote_weight=args.use_vote_weight,
+        mask_box=args.mask_box,
+        use_distil=args.use_distil,
+        use_mlcv_net=getattr(args, "use_mlcv_net", False),
+        remat=getattr(args, "remat", False),
+    )
 
 
 def add_common_args(p: argparse.ArgumentParser):
@@ -338,20 +361,7 @@ def config_from_args(args) -> Config:
         multiview_dim=mv_dim,
         num_proposal=args.num_proposals,
         lang_num_max=args.lang_num_max,
-        no_caption=args.no_caption,
-        no_reference=args.no_reference,
-        use_lang_classifier=not args.no_lang_cls,
-        use_con=args.use_con,
-        use_mlm=args.use_mlm,
-        use_answer=args.use_answer,
-        use_reg_head=args.use_reg_head,
-        use_kl_loss=args.use_kl_loss,
-        use_lang_emb=args.use_lang_emb,
-        use_vote_weight=args.use_vote_weight,
-        mask_box=args.mask_box,
-        use_distil=args.use_distil,
-        use_mlcv_net=getattr(args, "use_mlcv_net", False),
-        remat=getattr(args, "remat", False),
+        **model_flags(args),
     )
     config = Config(
         dataset=DatasetConfig(
@@ -396,12 +406,7 @@ def resolve_config(args) -> Config:
                 f"vlp3d_torch does not implement --{flag} yet; see "
                 f"ROADMAP.md {item}")
     if getattr(args, "smoke", False):
-        tiny = tiny_config(
-            no_caption=args.no_caption,
-            use_con=args.use_con,
-            use_mlm=args.use_mlm,
-            use_answer=args.use_answer,
-        )
+        tiny = tiny_config(**model_flags(args))
         args.synthetic = True
         config = dataclasses.replace(
             tiny,

@@ -36,8 +36,9 @@ from vlp3d_torch.train.checkpoint import load_params
 
 def evaluate(model, loader, device, mean_size, *,
              detection_map: bool = False) -> dict:
-    """Acc@0.25/0.5 breakdown and lang_acc over the loader's batches; with
-    ``detection_map`` also mAP@0.25 and mAP@0.5."""
+    """Acc@0.25/0.5 breakdown and lang_acc (0 without the language
+    classifier) over the loader's batches; with ``detection_map`` also
+    mAP@0.25 and mAP@0.5."""
     keys = ("objectness_scores", "cluster_ref", "pred_center", "pred_size",
             "pred_heading", "sem_cls_scores", "lang_scores")
     ious, multiple, others, lang_accs = [], [], [], []
@@ -47,7 +48,8 @@ def evaluate(model, loader, device, mean_size, *,
             out = model(to_device(batch, device), is_eval=True)
         out = {k: out[k].cpu().numpy() for k in keys if k in out}
         arrays = {k: v for k, v in batch.items() if not isinstance(v, list)}
-        g = get_eval(out, arrays, mean_size_arr=mean_size)
+        g = get_eval(out, arrays, mean_size_arr=mean_size,
+                     use_lang_classifier=model.config.model.use_lang_classifier)
         ious += g["ref_iou"]
         multiple += g["ref_multiple_mask"]
         others += g["ref_others_mask"]

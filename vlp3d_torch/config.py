@@ -6,10 +6,9 @@ The port's own copy of the dataclasses in ``vlp3d/config.py``
 package reads the same in the other. The port imports nothing from
 ``vlp3d``.
 
-The grounding, captioning and question-answering flags (inference and
-the joint train step, ``no_caption=False``, ``use_mlm`` and
-``use_answer`` included) are implemented so far; :func:`check_supported`
-names the ROADMAP item that ports each other one.
+Every grounding, captioning and question-answering flag is implemented
+(inference and the joint train step); :func:`check_supported` names the
+ROADMAP item of the one that is not (``use_mlcv_net``).
 """
 
 from __future__ import annotations
@@ -152,34 +151,31 @@ class Config:
     train: TrainConfig = TrainConfig()
 
 
-_SLICE1_OPTIONS = "ROADMAP.md queue A item 9a (options of slice 1)"
 # flag -> (value that is not ported yet, the ROADMAP item that ports it).
 # use_con builds the contrast head: it feeds the OCC/OSC training losses
 # and is skipped at inference (is_eval).
 _UNPORTED = {
     "use_mlcv_net": (True, "ROADMAP.md queue A item 20 (variant models)"),
-    "use_distil": (True, _SLICE1_OPTIONS),
-    "use_lang_emb": (True, _SLICE1_OPTIONS),
-    "use_reg_head": (True, _SLICE1_OPTIONS),
-    "use_vote_weight": (True, _SLICE1_OPTIONS),
-    "mask_box": (True, _SLICE1_OPTIONS),
-    "reference_obj_gather": (True, _SLICE1_OPTIONS),
-    "use_kl_loss": (True, _SLICE1_OPTIONS),
-    "use_lang_classifier": (False, _SLICE1_OPTIONS),
-    "no_reference": (True, _SLICE1_OPTIONS),
 }
+# the SA/FP point MLPs' compute dtypes (ModelConfig.compute_dtype)
+COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
 def check_supported(config: Config) -> None:
-    """Raise NotImplementedError for a model flag the port lacks."""
+    """Raise NotImplementedError for a model flag the port lacks, and
+    ValueError for a compute dtype it does not know or a head that reads
+    the grounding branch of a ``no_reference`` model."""
     cfg = config.model
     for flag, (bad, item) in _UNPORTED.items():
         if getattr(cfg, flag) == bad:
             raise NotImplementedError(
                 f"vlp3d_torch does not implement {flag}={bad} yet; see {item}"
             )
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"vlp3d_torch computes in float32 only (compute_dtype="
-            f"{cfg.compute_dtype!r}); see {_SLICE1_OPTIONS}"
-        )
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(
+            f"compute_dtype={cfg.compute_dtype!r}: the point MLPs compute "
+            f"in one of {COMPUTE_DTYPES}")
+    if cfg.no_reference and cfg.use_answer:
+        raise ValueError(
+            "use_answer reads the match module's cross_box_feature, which "
+            "a no_reference model does not build")

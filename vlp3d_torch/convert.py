@@ -14,7 +14,10 @@ Layouts: a flax Dense kernel (in, out) becomes a Linear weight (out, in)
 or a k=1 conv weight (out, in, 1[, 1]); flax BatchNorm params + stats
 become weight/bias/running_mean/running_var + num_batches_tracked=0; the
 SA first layer's split ``first_xyz``/``first_feat`` kernels are joined
-into one conv weight over [xyz_rel, features].
+into one conv weight over [xyz_rel, features]; a PReLU keeps its slope a
+channel (the JAX export, ``torch_export.py``, writes the mean where the
+reference declares one slope; the port computes what JAX computes, so it
+keeps them all).
 
 Every ``convert_*`` function takes the module's subtree and writes into
 ``out`` under ``prefix`` (empty, or ending in ".").
@@ -115,10 +118,12 @@ def convert_voting(params, stats, prefix: str, out: dict):
 
 
 def convert_proposal(params, stats, prefix: str, out: dict):
-    if "Dense_0" in params:
-        raise NotImplementedError(
-            "use_vote_weight trees are not ported yet; see ROADMAP.md "
-            "queue A item 9a (options of slice 1)")
+    if "Dense_0" in params:  # use_vote_weight
+        q = f"{prefix}votes_weight_predictor."
+        dense(params["Dense_0"], q + "0", out)
+        bn(params["BatchNorm_0"], stats["BatchNorm_0"], q + "1", out)
+        out[q + "2.weight"] = _f32(params["PReLU_0"]["alpha"])
+        dense(params["Dense_1"], q + "3", out)
     convert_sa(params["vote_aggregation"], stats["vote_aggregation"],
                f"{prefix}vote_aggregation.", out)
     rp, rs = params["roi_heads"], stats["roi_heads"]
@@ -176,7 +181,8 @@ def convert_text_encoder(params, prefix: str, out: dict):
     e = params["embeddings"]
     for name in ("word_embeddings", "position_embeddings",
                  "token_type_embeddings"):
-        out[f"{p}embeddings.{name}.weight"] = _f32(e[name]["embedding"])
+        if name in e:  # DistilBERT has no token-type table
+            out[f"{p}embeddings.{name}.weight"] = _f32(e[name]["embedding"])
     ln(e["LayerNorm"], f"{p}embeddings.LayerNorm", out)
     max_pos = np.asarray(e["position_embeddings"]["embedding"]).shape[0]
     out[f"{p}embeddings.position_ids"] = np.arange(max_pos,
@@ -203,13 +209,34 @@ def convert_lang(params, prefix: str, out: dict):
         lin(params["lang_cls"], f"{prefix}lang_cls.0", out)
 
 
-def convert_match(params, prefix: str, out: dict):
-    if "Dense_3" in params or "Dense_6" in params:
-        raise NotImplementedError(
-            "use_lang_emb / use_reg_head trees are not ported yet; see "
-            "ROADMAP.md queue A item 9a (options of slice 1)")
+def convert_match(params, prefix: str, out: dict, stats=None):
+    """MatchModule -> ``match.{0,3,6}``, the cross-attention layers and,
+    where the tree has them, ``lang_emb_cross_attn`` / ``lang_emb_proj``
+    (convs) and ``reg_head`` (linears), whose BatchNorms read ``stats``.
+    flax numbers the Dense and BatchNorm modules in call order: the
+    lang-emb branch (it has ``prelu0``) takes Dense_3-5 and BatchNorm_0-1,
+    the regression head the next three and two."""
     for i, idx in enumerate((0, 3, 6)):
         lin(params[f"Dense_{i}"], f"{prefix}match.{idx}", out)
+    d = n = 0
+    if "prelu0" in params:  # use_lang_emb
+        convert_mha(params["lang_emb_cross_attn"],
+                    f"{prefix}lang_emb_cross_attn.", out)
+        q = f"{prefix}lang_emb_proj."
+        for j, idx in enumerate((0, 3, 6)):
+            dense(params[f"Dense_{3 + j}"], f"{q}{idx}", out)
+        for j, idx in enumerate((1, 4)):
+            bn(params[f"BatchNorm_{j}"], stats[f"BatchNorm_{j}"], f"{q}{idx}",
+               out)
+            out[f"{q}{idx + 1}.weight"] = _f32(params[f"prelu{j}"]["alpha"])
+        d, n = 3, 2
+    if f"Dense_{3 + d}" in params:  # use_reg_head
+        q = f"{prefix}reg_head."
+        for j, idx in enumerate((0, 3, 6)):
+            lin(params[f"Dense_{3 + d + j}"], f"{q}{idx}", out)
+        for j, idx in enumerate((1, 4)):
+            bn(params[f"BatchNorm_{n + j}"], stats[f"BatchNorm_{n + j}"],
+               f"{q}{idx}", out)
     i = 0
     while f"grounding_cross_attn_{i}" in params:
         convert_decoder_layer(params[f"grounding_cross_attn_{i}"],
@@ -295,7 +322,8 @@ def jax_to_torch_state_dict(params, batch_stats) -> dict:
     if "lang" in params:
         convert_lang(params["lang"], "lang.", sd)
     if "match" in params:
-        convert_match(params["match"], "match.", sd)
+        convert_match(params["match"], "match.", sd,
+                      stats=stats.get("match", {}))
     if "constrast" in params:  # the reference's spelling
         convert_contrast(params["constrast"], "constrast.", sd)
     for head in ("caption", "mlm"):

@@ -1,5 +1,6 @@
-"""Grounding losses: OID (IoU-guided DIoU reference loss), language
-classification, attribute (vote compactness), and the ranking losses.
+"""Grounding losses: OID (IoU-guided DIoU reference loss) with its KL
+branch, language classification, attribute (vote compactness), the
+vote-weight BCE, and the ranking losses.
 
 Counterpart of ``vlp3d/losses/grounding.py``
 (lib/loss_helper/loss_grounding.py as masked (B, L, K) tensor math). Quirks
@@ -14,8 +15,8 @@ of the reference that are kept:
     per-batch mean over valid sentences.
 
 ``argmax`` ties go to the lowest index, as in the JAX package. The
-heteroscedastic KL branch (``alpha``) and the vote-weight BCE belong to
-flags the port does not implement yet.
+heteroscedastic KL branch (``alpha``, ``use_kl_loss``) keeps the
+reference's quirks, listed at :func:`compute_diou_loss`.
 """
 
 from __future__ import annotations
@@ -83,22 +84,40 @@ def sigmoid_ranking_focal_loss(inputs, targets, mask=None, gamma=2.0,
 
 def compute_diou_loss(*, pred_center, pred_size, cluster_ref,
                       objectness_masks, gt_center, gt_size, lang_num, epoch,
-                      istrain, random_gate) -> dict:
+                      istrain, random_gate, pred_center_reg=None,
+                      pred_size_reg=None, alpha=None) -> dict:
     """OID loss (loss_grounding.py:129-365).
 
     pred_center/size (B, K, 3); cluster_ref (B*L, K); objectness_masks
     (B, K) float; gt_center/size (B, L, 3) per-sentence reference boxes;
     lang_num (B,); epoch, istrain, random_gate scalars (the gate is the
-    step's one uniform draw, shared with the match copy-paste).
+    step's one uniform draw, shared with the match copy-paste);
+    pred_center_reg / pred_size_reg (B, L, K, 3), the regression head's
+    offsets, added to every sentence's boxes before the IoU; alpha (B, K,
+    6), the KL head's log-variances.
 
     Returns ref_loss, diou_loss, cluster_labels (raw one-hot),
-    smooth_labels, ious (B, L, K), max_iou_rate_0.25 / 0.5.
+    smooth_labels, ious (B, L, K), max_iou_rate_0.25 / 0.5, and with
+    ``alpha`` the heteroscedastic kl_loss (loss_grounding.py:309-321),
+    whose quirks are the reference's:
+
+      * alpha channel 3 is unused: center = alpha[..., 0:3], size =
+        alpha[..., 4:6];
+      * the SmoothL1 is mean-reduced to one scalar a scene, which then
+        multiplies the whole exp(-alpha_center) map;
+      * the size branch is SmoothL1(pred, pred) = 0, so it is exactly
+        0.5 * sum(alpha_size);
+      * predictions and GT are detached: only alpha gets a gradient;
+      * a sentence's target proposal is the raw (unmasked) IoU argmax.
     """
     b, k = pred_center.shape[:2]
     l = gt_center.shape[1]
     dev = pred_center.device
-    ious, dious = box3d_diou(pred_center[:, None], pred_size[:, None],
-                             gt_center[:, :, None], gt_size[:, :, None])
+    pc, ps = pred_center[:, None], pred_size[:, None]
+    if pred_center_reg is not None:
+        pc, ps = pc + pred_center_reg, ps + pred_size_reg
+    ious, dious = box3d_diou(pc, ps, gt_center[:, :, None],
+                             gt_size[:, :, None])
     lang_mask = _lang_mask(lang_num, l)  # (B, L)
 
     with torch.no_grad():  # the labels carry no gradient
@@ -128,7 +147,7 @@ def compute_diou_loss(*, pred_center, pred_size, cluster_ref,
     ref_loss = softmax_ranking_loss(preds, smooth_labels, lang_mask).mean()
     diou_loss = ((1.0 - dious) * smooth_labels * lang_mask[..., None]).sum() / b
     total_lang = torch.clamp(lang_num.sum(), min=1)
-    return {
+    out = {
         "ref_loss": ref_loss,
         "diou_loss": diou_loss,
         "cluster_labels": labels,
@@ -138,6 +157,21 @@ def compute_diou_loss(*, pred_center, pred_size, cluster_ref,
         "max_iou_rate_0.5": ((max_ious >= 0.5).float() * lang_mask).sum()
         / total_lang,
     }
+    if alpha is not None:
+        alpha_center, alpha_size = alpha[..., 0:3], alpha[..., 4:6]
+        with torch.no_grad():
+            kl_center = torch.gather(
+                pred_center, 1, raw_ind[..., None].expand(-1, -1, 3))
+            d = (kl_center - gt_center).abs()  # (B, L, 3)
+            sl1 = torch.where(d < 1.0, 0.5 * d * d, d - 0.5)  # beta 1
+            # nn.SmoothL1Loss()'s mean over a scene's (lang_num, 3) rows
+            sl1_mean = (sl1 * lang_mask[..., None]).sum(dim=(1, 2)) / \
+                torch.clamp(3.0 * lang_num.float(), min=1.0)  # (B,)
+        center_term = (sl1_mean * torch.exp(-alpha_center).sum(dim=(1, 2))
+                       + 0.5 * alpha_center.sum(dim=(1, 2)))
+        size_term = 0.5 * alpha_size.sum(dim=(1, 2))
+        out["kl_loss"] = (center_term + size_term).sum() / b
+    return out
 
 
 def compute_lang_classification_loss(lang_scores, object_cat, lang_num):
@@ -219,3 +253,13 @@ def compute_attr_loss(vote_xyz, seed_inds, instance_labels, vote_label_mask,
     seg_mean = seg_sum / torch.clamp(seg_cnt, min=1.0)[:, None]
     attr_dist = (flat - seg_mean[seg]).abs().sum(dim=-1).reshape(b, s)
     return (attr_dist * seed_mask).sum() / (seed_mask.sum() + 1e-6)
+
+
+def compute_vote_weight_loss(vote_weights, seed_inds, vote_label_mask):
+    """BCE of the predicted vote weights (B, S, 1) against the GT vote
+    mask at the seeds (loss_grounding.py:60-69): p clipped to [1e-7,
+    1 - 1e-7], the mean over B x S."""
+    target = take_rows(vote_label_mask, seed_inds).float()
+    p = torch.clamp(vote_weights[..., 0], 1e-7, 1.0 - 1e-7)
+    return -(target * torch.log(p)
+             + (1.0 - target) * torch.log(1.0 - p)).mean()

@@ -1,17 +1,23 @@
 """Joint loss orchestrator.
 
 Counterpart of ``vlp3d/losses/joint.py`` (get_joint_loss,
-lib/loss_helper/loss_joint.py:26-227) for the flags the port implements
-(detection and reference losses always on, the language classifier
-always present):
+lib/loss_helper/loss_joint.py:26-227):
 
-  total = 10 * (vote + 0.1 * objectness + box)
-        + ref * (0.3 if epoch < 50 else 1.0)
-        + 0.3 * diou + 0.3 * lang + 0.3 * attr
-        + (epoch >= 50) * (0.5 * lang_con + 2.5 * iou_con)
+  total = 10 * (vote + 0.1 * objectness + box)              [detection]
+        + ref * (0.3 if epoch < 50 else 1.0) + 0.3 * diou   [reference]
+        + 0.3 * kl + 0.3 * lang + 0.3 * attr + 0.3 * vote_weight
+        + (epoch >= 50) * (0.5 * lang_con + 2.5 * iou_con)  [reference]
         + 10 * mlm + answer + cap
   where box = 0.1 * heading_cls + heading_reg + 0.1 * sem_cls
             + 20 * size_distance.
+
+The detection terms and metrics are computed either way; ``detection``
+decides only whether they join the sum. kl, lang, attr and vote_weight
+belong to the reference terms and each counts under its flag
+(``use_kl_loss``, ``use_lang_classifier``, ``use_attr_loss``,
+``use_vote_weight``). The DIoU reads the boxes plus the regression
+head's offsets where the outputs hold them (``use_reg_head``); nothing
+else reads the offsets.
 
 The epoch-conditional weights are tensor ``where`` gates, so ``epoch`` may
 be a tensor on the device and no step synchronises on it.
@@ -34,11 +40,13 @@ from vlp3d_torch.losses.grounding import (
     compute_debug_diagnostics,
     compute_diou_loss,
     compute_lang_classification_loss,
+    compute_vote_weight_loss,
 )
 from vlp3d_torch.models.jointnet import ref_gt_boxes
 
 
 def compute_joint_loss(config: Config, outputs: dict, batch: dict, *,
+                       detection: bool = True, reference: bool = True,
                        caption: bool = False):
     """Returns (total_loss, metrics dict). ``outputs`` is JointNet's
     forward dict; ``batch`` carries the GT labels and the epoch / istrain
@@ -48,7 +56,9 @@ def compute_joint_loss(config: Config, outputs: dict, batch: dict, *,
     when the batch has them, else cross-entropy on ``answer_cat``; labels
     of shape (B, L, ...) are flattened to the B*L rows), the caption term
     and ``cap_acc`` with ``caption`` (the JAX package's flag: its eval step
-    leaves them out)."""
+    leaves them out). ``detection`` and ``reference`` are the Solver's
+    switches of the detection and the reference terms (a
+    ``no_reference`` model has no reference outputs: ``reference=False``)."""
     cfg_l, cfg_m, ds = config.loss, config.model, config.dataset
     dev = outputs["seed_xyz"].device
     mean_size = torch.as_tensor(ds.mean_size_arr(), device=dev)
@@ -83,52 +93,13 @@ def compute_joint_loss(config: Config, outputs: dict, batch: dict, *,
              size_distance_loss=size_dist, sem_cls_loss=sem_cls,
              box_loss=box_loss)
 
-    loss = ((vote_loss + 0.1 * objectness_loss + box_loss)
-            * cfg_l.detection_scale)
-
-    gt_center, gt_size = ref_gt_boxes(batch, mean_size)
-    diou = compute_diou_loss(
-        pred_center=outputs["pred_center"],
-        pred_size=outputs["pred_size"],
-        cluster_ref=outputs["cluster_ref"],
-        objectness_masks=outputs["objectness_masks"],
-        gt_center=gt_center, gt_size=gt_size,
-        lang_num=batch["lang_num"], epoch=epoch,
-        istrain=batch["istrain"], random_gate=batch["random"],
-    )
-    for key in ("ref_loss", "diou_loss", "cluster_labels",
-                "max_iou_rate_0.25", "max_iou_rate_0.5"):
-        m[key] = diou[key]
-    if cfg_l.debug:
-        m.update(compute_debug_diagnostics(
-            ious=diou["ious"], cluster_ref=outputs["cluster_ref"],
-            object_cat=batch["object_cat_list"], gt_size=gt_size,
-            lang_num=batch["lang_num"]))
-    ref_w = torch.where(
-        epoch < cfg_l.num_ground_epoch,
-        loss.new_tensor(cfg_l.ref_weight_before_50),
-        loss.new_tensor(cfg_l.ref_weight_after_50))
-    loss = loss + ref_w * diou["ref_loss"]
-    if cfg_l.use_diou_loss:
-        loss = loss + cfg_l.diou_weight * diou["diou_loss"]
-    lang_loss = compute_lang_classification_loss(
-        outputs["lang_scores"], batch["object_cat_list"], batch["lang_num"])
-    m["lang_loss"] = lang_loss
-    loss = loss + cfg_l.lang_weight * lang_loss
-    if cfg_l.use_attr_loss:
-        attr = compute_attr_loss(
-            outputs["vote_xyz"], outputs["seed_inds"],
-            batch["instance_labels"], batch["vote_label_mask"])
-        m["attr_loss"] = attr
-        loss = loss + cfg_l.attr_weight * attr
-
-    if cfg_m.use_con:
-        con = (cfg_l.lang_con_weight * outputs["lang_con_loss"]
-               + cfg_l.iou_con_weight * outputs["iou_con_loss"])
-        m["lang_con_loss"] = outputs["lang_con_loss"]
-        m["iou_con_loss"] = outputs["iou_con_loss"]
-        m["con_loss"] = con
-        loss = loss + con  # the epoch >= 50 gate is inside ContrastModule
+    loss = outputs["seed_xyz"].new_zeros(())
+    if detection:
+        loss = ((vote_loss + 0.1 * objectness_loss + box_loss)
+                * cfg_l.detection_scale)
+    if reference:
+        loss = _add_reference_terms(loss, config, outputs, batch, epoch,
+                                    mean_size, m)
 
     if cfg_m.use_mlm and "lang_mlm" in outputs:
         good = outputs.get("good_bbox_masks")
@@ -164,3 +135,67 @@ def compute_joint_loss(config: Config, outputs: dict, batch: dict, *,
 
     m["loss"] = loss
     return loss, m
+
+
+def _add_reference_terms(loss, config: Config, outputs: dict, batch: dict,
+                         epoch, mean_size, m: dict):
+    """``loss`` plus the reference terms (loss_joint.py:112-224), in the
+    JAX package's order; their metrics go into ``m``."""
+    cfg_l, cfg_m = config.loss, config.model
+    gt_center, gt_size = ref_gt_boxes(batch, mean_size)
+    diou = compute_diou_loss(
+        pred_center=outputs["pred_center"],
+        pred_size=outputs["pred_size"],
+        cluster_ref=outputs["cluster_ref"],
+        objectness_masks=outputs["objectness_masks"],
+        gt_center=gt_center, gt_size=gt_size,
+        lang_num=batch["lang_num"], epoch=epoch,
+        istrain=batch["istrain"], random_gate=batch["random"],
+        pred_center_reg=outputs.get("pred_center_reg"),
+        pred_size_reg=outputs.get("pred_size_reg"),
+        alpha=outputs.get("alpha") if cfg_m.use_kl_loss else None,
+    )
+    for key in ("ref_loss", "diou_loss", "cluster_labels",
+                "max_iou_rate_0.25", "max_iou_rate_0.5"):
+        m[key] = diou[key]
+    if cfg_l.debug:
+        m.update(compute_debug_diagnostics(
+            ious=diou["ious"], cluster_ref=outputs["cluster_ref"],
+            object_cat=batch["object_cat_list"], gt_size=gt_size,
+            lang_num=batch["lang_num"]))
+    ref_w = torch.where(
+        epoch < cfg_l.num_ground_epoch,
+        diou["ref_loss"].new_tensor(cfg_l.ref_weight_before_50),
+        diou["ref_loss"].new_tensor(cfg_l.ref_weight_after_50))
+    loss = loss + ref_w * diou["ref_loss"]
+    if cfg_l.use_diou_loss:
+        loss = loss + cfg_l.diou_weight * diou["diou_loss"]
+    if "kl_loss" in diou:
+        m["kl_loss"] = diou["kl_loss"]
+        loss = loss + cfg_l.kl_weight * diou["kl_loss"]
+    if cfg_m.use_lang_classifier:
+        lang_loss = compute_lang_classification_loss(
+            outputs["lang_scores"], batch["object_cat_list"],
+            batch["lang_num"])
+        m["lang_loss"] = lang_loss
+        loss = loss + cfg_l.lang_weight * lang_loss
+    if cfg_l.use_attr_loss:
+        attr = compute_attr_loss(
+            outputs["vote_xyz"], outputs["seed_inds"],
+            batch["instance_labels"], batch["vote_label_mask"])
+        m["attr_loss"] = attr
+        loss = loss + cfg_l.attr_weight * attr
+    if cfg_m.use_vote_weight:
+        vw = compute_vote_weight_loss(outputs["vote_weights"],
+                                      outputs["seed_inds"],
+                                      batch["vote_label_mask"])
+        m["vote_weight_loss"] = vw
+        loss = loss + cfg_l.vote_weight_weight * vw
+    if cfg_m.use_con:
+        con = (cfg_l.lang_con_weight * outputs["lang_con_loss"]
+               + cfg_l.iou_con_weight * outputs["iou_con_loss"])
+        m["lang_con_loss"] = outputs["lang_con_loss"]
+        m["iou_con_loss"] = outputs["iou_con_loss"]
+        m["con_loss"] = con
+        loss = loss + con  # the epoch >= 50 gate is inside ContrastModule
+    return loss

@@ -15,6 +15,10 @@ step launches FPS and ball query 5 times each, as without remat; the
 neighbourhood gather and MLP of SA1-4 and the interpolation and MLP of
 FP1-2 run again, so a remat step launches the row gather 15 times (11
 forward + 4) and three-NN 4 times (2 + 2); the backwards are unchanged.
+
+``dtype`` (``torch.bfloat16`` for ``compute_dtype="bfloat16"``) is the
+SA1-4 and FP1-2 point MLPs' compute dtype (:class:`PointMLP`); every
+output of the backbone, and every input of the kernels, stays float32.
 """
 
 from __future__ import annotations
@@ -38,22 +42,22 @@ class PointNet2Backbone(nn.Module):
     def __init__(self, input_feature_dim: int = 0, *,
                  npoints=(2048, 1024, 512, 256), radii=(0.2, 0.4, 0.8, 1.2),
                  nsamples=(64, 32, 16, 16), remat: bool = False,
-                 device=None):
+                 dtype: torch.dtype | None = None, device=None):
         super().__init__()
         device = resolve_device(device)
         self.remat = remat
         np_, r, ns = npoints, radii, nsamples
         self.sa1 = SAModule(np_[0], r[0], ns[0], [64, 64, 128],
                             input_feature_dim, leaf_inputs=True,
-                            device=device)
+                            dtype=dtype, device=device)
         self.sa2 = SAModule(np_[1], r[1], ns[1], [128, 128, 256], 128,
-                            device=device)
+                            dtype=dtype, device=device)
         self.sa3 = SAModule(np_[2], r[2], ns[2], [128, 128, 256], 256,
-                            device=device)
+                            dtype=dtype, device=device)
         self.sa4 = SAModule(np_[3], r[3], ns[3], [128, 128, 256], 256,
-                            device=device)
-        self.fp1 = FPModule([256, 256], 512, device=device)
-        self.fp2 = FPModule([256, 256], 512, device=device)
+                            dtype=dtype, device=device)
+        self.fp1 = FPModule([256, 256], 512, dtype=dtype, device=device)
+        self.fp2 = FPModule([256, 256], 512, dtype=dtype, device=device)
         if remat and any(isinstance(m, Dropout) for m in self.modules()):
             # the recompute would draw new masks: preserve_rng_state keeps
             # only the global generator, not set_dropout_generator's

@@ -10,7 +10,9 @@ does.
 Parameter names follow the vendored xbert layout the reference state dict
 carries (``text_encoder.bert.encoder.layer.0.attention.self.query``).
 LayerNorm eps is 1e-12; the attention mask is ADDED as
-(1 - mask) * -10000; GELU is the exact erf form.
+(1 - mask) * -10000; GELU is the exact erf form. DistilBERT
+(:func:`distilbert_config`, ``use_distil``) is the same stack with 6
+layers and no token-type table.
 """
 
 from __future__ import annotations
@@ -41,6 +43,14 @@ class BertConfig:
     fusion_layer: int = 6  # text mode runs layers [0, fusion_layer)
 
 
+def distilbert_config() -> BertConfig:
+    """DistilBERT-base-uncased: 6 layers, all run in text mode (the
+    reference's distil path calls the whole distilbert forward,
+    lang_bert_module.py:99-101), and no token-type embeddings
+    (type_vocab_size 0)."""
+    return BertConfig(num_hidden_layers=6, fusion_layer=6, type_vocab_size=0)
+
+
 class BertEmbeddings(nn.Module):
     def __init__(self, c: BertConfig, device):
         super().__init__()
@@ -49,7 +59,8 @@ class BertEmbeddings(nn.Module):
         self.position_embeddings = nn.Embedding(
             c.max_position_embeddings, c.hidden_size, device=device)
         self.token_type_embeddings = nn.Embedding(
-            c.type_vocab_size, c.hidden_size, device=device)
+            c.type_vocab_size, c.hidden_size,
+            device=device) if c.type_vocab_size else None
         self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps,
                                       device=device)
         self.register_buffer(
@@ -60,8 +71,9 @@ class BertEmbeddings(nn.Module):
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         seq = input_ids.shape[-1]
         x = (self.word_embeddings(input_ids)
-             + self.position_embeddings(self.position_ids[:, :seq])
-             + self.token_type_embeddings(torch.zeros_like(input_ids)))
+             + self.position_embeddings(self.position_ids[:, :seq]))
+        if self.token_type_embeddings is not None:
+            x = x + self.token_type_embeddings(torch.zeros_like(input_ids))
         return self.dropout(self.LayerNorm(x))
 
 
@@ -142,10 +154,12 @@ class BertTextEncoder(nn.Module):
 
 class LangModule(nn.Module):
     """BERT text mode -> 768->128 projection, CLS embedding, lang classifier
-    (lang_bert_module.py:98-140)."""
+    (lang_bert_module.py:98-140); without ``use_lang_classifier`` no
+    ``lang_cls`` and no ``lang_scores``."""
 
     def __init__(self, num_class: int = 18, lang_hidden_size: int = 128,
-                 bert_config: BertConfig = BertConfig(), *, device=None):
+                 bert_config: BertConfig = BertConfig(), *,
+                 use_lang_classifier: bool = True, device=None):
         super().__init__()
         device = resolve_device(device)
         self.text_encoder = BertTextEncoder(bert_config, device=device)
@@ -154,7 +168,7 @@ class LangModule(nn.Module):
                               device=device)
         self.lang_cls = nn.Sequential(
             nn.Linear(lang_hidden_size, num_class, device=device),
-            Dropout(0.5))
+            Dropout(0.5)) if use_lang_classifier else None
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: torch.Tensor) -> dict:
@@ -166,5 +180,7 @@ class LangModule(nn.Module):
             hidden = self.text_encoder(ids, amask)
         lang_fea = self.proj(hidden)
         lang_emb = lang_fea[:, 0, :]  # CLS
-        return {"lang_fea": lang_fea, "lang_emb": lang_emb, "lang_mask": amask,
-                "lang_scores": self.lang_cls(lang_emb)}
+        out = {"lang_fea": lang_fea, "lang_emb": lang_emb, "lang_mask": amask}
+        if self.lang_cls is not None:
+            out["lang_scores"] = self.lang_cls(lang_emb)
+        return out

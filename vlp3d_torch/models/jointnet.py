@@ -11,8 +11,15 @@ decodes outside the module (:mod:`vlp3d_torch.models.caption`). The
 masked-LM branch (``use_mlm``) runs in training only. The answer head
 (``use_answer``) gives ``answer_scores`` (B*L, num_answers) from the
 match module's ``cross_box_feature``, in training and at ``is_eval``.
-Flags the port does not implement raise NotImplementedError
-(:func:`vlp3d_torch.config.check_supported`).
+The model options: ``compute_dtype`` (the backbone's point MLPs),
+``use_vote_weight``, ``use_kl_loss`` and ``mask_box`` (the proposal
+module; boxes are masked in training only, drawn from
+``mask_generator``), ``reference_obj_gather`` (the relation module),
+``use_distil`` and ``use_lang_classifier`` (the language module),
+``use_lang_emb`` and ``use_reg_head`` (the match module), and
+``no_reference``, the detection-only model: no ``lang``, ``match`` or
+``constrast`` and no ``cluster_ref``. ``use_mlcv_net`` raises
+NotImplementedError (:func:`vlp3d_torch.config.check_supported`).
 
 Submodule names are the reference's (``backbone_net``, ``vgen``,
 ``proposal``, ``relation``, ``lang``, ``match``, ``constrast``: the
@@ -32,7 +39,7 @@ from vlp3d_torch.config import Config, check_supported
 from vlp3d_torch.device import resolve_device
 from vlp3d_torch.models.answer import AnswerModule
 from vlp3d_torch.models.backbone import PointNet2Backbone
-from vlp3d_torch.models.bert import BertConfig, LangModule
+from vlp3d_torch.models.bert import BertConfig, LangModule, distilbert_config
 from vlp3d_torch.models.caption import (
     DEAD_KEYS,
     CaptionHead,
@@ -55,8 +62,8 @@ class JointNet(nn.Module):
     trainable except the frozen BERT text encoder. The module starts in
     evaluation mode; ``forward(batch, train=True)`` switches it (and back).
     ``mask_generator`` (a ``torch.Generator`` on the model's device, set by
-    the train step; the global generator when None) draws the caption and
-    MLM token masks.
+    the train step; the global generator when None) draws the box masks
+    and the caption and MLM token masks.
     """
 
     def __init__(self, config: Config, *, device=None):
@@ -69,21 +76,31 @@ class JointNet(nn.Module):
             cfg.input_feature_dim, npoints=tuple(cfg.sa_npoints),
             radii=tuple(cfg.sa_radii), nsamples=tuple(cfg.sa_nsamples),
             remat=cfg.remat, device=device,
+            dtype=(torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+                   else None),
         )
         self.vgen = VotingModule(cfg.vote_factor, 256, device=device)
         self.proposal = ProposalModule(
-            ds.num_class, ds.num_heading_bin, cfg.num_proposal, device=device)
+            ds.num_class, ds.num_heading_bin, cfg.num_proposal,
+            use_vote_weight=cfg.use_vote_weight, use_kl_loss=cfg.use_kl_loss,
+            mask_box=cfg.mask_box, device=device)
         self.relation = RelationModule(
             det_channel=128, multiview_offset=cfg.multiview_offset,
-            multiview_dim=cfg.multiview_dim, device=device,
+            multiview_dim=cfg.multiview_dim,
+            reference_obj_gather=cfg.reference_obj_gather, device=device,
         )
-        self.lang = LangModule(
-            ds.num_class, bert_config=BertConfig(fusion_layer=cfg.fusion_layer),
-            device=device,
-        )
-        self.match = MatchModule(device=device)
-        if cfg.use_con:
-            self.constrast = ContrastModule(device=device)
+        if not cfg.no_reference:
+            self.lang = LangModule(
+                ds.num_class,
+                bert_config=(distilbert_config() if cfg.use_distil else
+                             BertConfig(fusion_layer=cfg.fusion_layer)),
+                use_lang_classifier=cfg.use_lang_classifier, device=device,
+            )
+            self.match = MatchModule(
+                num_proposals=cfg.num_proposal, use_lang_emb=cfg.use_lang_emb,
+                use_reg_head=cfg.use_reg_head, device=device)
+            if cfg.use_con:
+                self.constrast = ContrastModule(device=device)
         if not cfg.no_caption:
             self.caption = CaptionHead(cfg.vocab_size, device=device)
         if cfg.use_mlm:
@@ -129,19 +146,33 @@ class JointNet(nn.Module):
         out["vote_xyz"] = vote_xyz
         out["vote_features"] = vote_features
 
-        out.update(self.proposal(vote_xyz, vote_features))
+        out.update(self.proposal(vote_xyz, vote_features,
+                                 generator=self.mask_generator))
         out.update(self.relation(
             out["aggregated_vote_features"], out["pred_center"],
             out["pred_size"], out["pred_heading"], batch["point_clouds"],
             out["seed_inds"], out["aggregated_vote_inds"],
         ))
+        if not cfg.no_reference:
+            self._forward_reference(batch, out, train, is_eval)
+        if not cfg.no_caption and not is_eval:
+            out.update(self._forward_caption_train(batch, out, train))
+        if cfg.use_answer:
+            out["answer_scores"] = self.answer(out["cross_box_feature"])
+        return out
+
+    def _forward_reference(self, batch: dict, out: dict, train: bool,
+                           is_eval: bool) -> None:
+        """The language branch, the masked LM, the match module and the
+        contrast head, into ``out``."""
+        cfg = self.config.model
         out.update(self.lang(batch["input_ids"], batch["bert_attention_mask"]))
         if cfg.use_mlm and train and not is_eval:
             out.update(self._forward_mlm(batch, out))
         out.update(self.match(
             out["bbox_feature"], out["lang_fea"], out["objectness_masks"],
             lang_num_max=batch["input_ids"].shape[1],
-            random_gate=batch.get("random"),
+            random_gate=batch.get("random"), lang_emb=out["lang_emb"],
         ))
         if cfg.use_con and not is_eval:
             gt_center, gt_size = ref_gt_boxes(batch, self.mean_size_arr)
@@ -150,11 +181,6 @@ class JointNet(nn.Module):
                 out["pred_size"], gt_center, gt_size,
                 out["objectness_masks"], batch["lang_num"], batch["epoch"],
             ))
-        if not cfg.no_caption and not is_eval:
-            out.update(self._forward_caption_train(batch, out, train))
-        if cfg.use_answer:
-            out["answer_scores"] = self.answer(out["cross_box_feature"])
-        return out
 
     def _object_tokens(self, batch: dict, out: dict):
         return nearest_proposal_token(

@@ -143,12 +143,23 @@ def set_dropout_generator(module: nn.Module,
 
 
 class PReLU(nn.Module):
-    """Per-channel parametric ReLU (torch nn.PReLU(num_channels))."""
+    """Per-channel parametric ReLU (torch nn.PReLU(num_channels)), as the
+    JAX module's ``PReLU(c)``. Where the reference declares a single
+    slope (``nn.PReLU()``: the vote-weight predictor and the match
+    module's lang-emb branch) its state dict holds a (1,) weight: that
+    loads too, the one slope on every channel."""
 
     def __init__(self, c: int, *, device=None):
         super().__init__()
         device = resolve_device(device)
         self.weight = nn.Parameter(torch.full((c,), 0.25, device=device))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        key = prefix + "weight"
+        w = state_dict.get(key)
+        if w is not None and w.shape == (1,) and self.weight.shape != (1,):
+            state_dict[key] = w.expand(self.weight.shape)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.where(x >= 0, x, self.weight * x)
@@ -193,24 +204,42 @@ class _SharedLayer(nn.Module):
         self.conv = PointwiseConv(cin, cout, rank=2, bias=False, device=device)
         self.bn = _BNHolder(cout, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.bn.bn(self.conv(x)))
+    def forward(self, x: torch.Tensor,
+                dtype: torch.dtype | None = None) -> torch.Tensor:
+        if dtype is None:
+            return F.relu(self.bn.bn(self.conv(x)))
+        # flax's Dense(dtype) and BatchNorm(dtype): input and kernel cast,
+        # the product in dtype; BatchNorm's statistics and normalisation in
+        # float32, its output cast; the ReLU in dtype
+        y = F.linear(x.to(dtype), self.conv.weight.flatten(1).to(dtype))
+        return F.relu(self.bn.bn(y.float()).to(dtype))
 
 
 class PointMLP(nn.Module):
-    """Dense + BatchNorm + ReLU stack over the last axis (SharedMLP)."""
+    """Dense + BatchNorm + ReLU stack over the last axis (SharedMLP).
 
-    def __init__(self, cin: int, channels: Sequence[int], *, device=None):
+    ``dtype`` (None: the input's) is the JAX module's compute dtype: each
+    layer's matmul and ReLU run in it (``torch.bfloat16`` for
+    ``compute_dtype="bfloat16"``), BatchNorm in float32, and the stack's
+    output is cast back to the input's dtype. Parameters and statistics
+    stay float32. Explicit casts, not ``torch.autocast``, which would also
+    change ops the JAX package keeps in float32."""
+
+    def __init__(self, cin: int, channels: Sequence[int], *,
+                 dtype: torch.dtype | None = None, device=None):
         super().__init__()
         device = resolve_device(device)
+        self.dtype = dtype
         for j, c in enumerate(channels):
             self.add_module(f"layer{j}", _SharedLayer(cin, c, device))
             cin = c
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for layer in self.children():
-            x = layer(x)
-        return x
+    def forward(self, x: torch.Tensor, start: int = 0) -> torch.Tensor:
+        """Layers [start:] of the stack."""
+        in_dtype = x.dtype
+        for layer in list(self.children())[start:]:
+            x = layer(x, self.dtype)
+        return x.to(in_dtype)
 
 
 class SAModule(nn.Module):
@@ -233,16 +262,22 @@ class SAModule(nn.Module):
     The max pool is ``amax``, whose gradient is split evenly among tied
     maxima as ``jnp.max``'s is (padded neighbourhoods repeat a row, so
     ties are the rule).
+
+    ``dtype`` is the compute dtype of layers 1 and up, as in the JAX
+    module: the folded first layer and its BatchNorm stay float32, so the
+    gather always moves float32 rows.
     """
 
     def __init__(self, npoint: int, radius: float, nsample: int,
                  mlp: Sequence[int], in_channels: int, *,
-                 leaf_inputs: bool = False, device=None):
+                 leaf_inputs: bool = False, dtype: torch.dtype | None = None,
+                 device=None):
         super().__init__()
         device = resolve_device(device)
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
         self.leaf_inputs = leaf_inputs
-        self.mlp_module = PointMLP(3 + in_channels, mlp, device=device)
+        self.mlp_module = PointMLP(3 + in_channels, mlp, dtype=dtype,
+                                   device=device)
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor):
         """xyz (B, N, 3), features (B, N, C), C may be 0.
@@ -280,18 +315,17 @@ class SAModule(nn.Module):
             # the gather subtracts the centre term on its way out
             x = group_points(pre_all, idx, F.linear(new_xyz, w_xyz) * scale)
         x = F.relu(layers[0].bn.bn(x))
-        for layer in layers[1:]:
-            x = layer(x)
-        return x.amax(dim=2)
+        return self.mlp_module(x, start=1).amax(dim=2)
 
 
 class FPModule(nn.Module):
     """Feature propagation (PointnetFPModule, pointnet2_modules.py:356-416):
     three-NN inverse-distance interpolation + skip concat + shared MLP."""
 
-    def __init__(self, mlp: Sequence[int], in_channels: int, *, device=None):
+    def __init__(self, mlp: Sequence[int], in_channels: int, *,
+                 dtype: torch.dtype | None = None, device=None):
         super().__init__()
-        self.mlp = PointMLP(in_channels, mlp, device=device)
+        self.mlp = PointMLP(in_channels, mlp, dtype=dtype, device=device)
 
     def forward(self, unknown, known, unknown_feats, known_feats):
         interp = interpolate_features(unknown, known, known_feats)

@@ -12,6 +12,21 @@ proposal features are first replaced by object features pooled from the
 whole batch (:func:`copy_paste_features`). The gate is the caller's one
 uniform draw of the step, shared with the DIoU loss; the module never
 draws its own.
+
+Options (match_module.py:148-168):
+
+  * ``use_lang_emb``: each sentence's CLS embedding attends over the
+    (copy-pasted) proposal features (``lang_emb_cross_attn``), and
+    ``lang_emb_proj`` (conv, BN, PReLU, conv, BN, PReLU, conv to K)
+    gives a second (B*L, K) score that is added to the MLP's before
+    anything reads ``cluster_ref``;
+  * ``use_reg_head``: ``reg_head`` (linear, BN, GELU, linear, BN, GELU,
+    linear) gives ``pred_center_reg`` / ``pred_size_reg`` (B, L, K, 3),
+    each sigmoid * 0.1 - 0.05: offsets the DIoU loss adds to the boxes.
+
+The PReLUs keep one slope a channel, as the JAX module does (the
+reference declares one slope; :class:`~vlp3d_torch.models.layers.PReLU`
+loads that too).
 """
 
 from __future__ import annotations
@@ -20,8 +35,11 @@ import torch
 from torch import nn
 
 from vlp3d_torch.device import resolve_device
-from vlp3d_torch.models.attention import CrossAttentionDecoderLayer
-from vlp3d_torch.models.layers import Dropout
+from vlp3d_torch.models.attention import (
+    CrossAttentionDecoderLayer,
+    MultiHeadAttention,
+)
+from vlp3d_torch.models.layers import BatchNorm, Dropout, PointwiseConv, PReLU
 
 
 def copy_paste_features(features: torch.Tensor,
@@ -54,7 +72,8 @@ def copy_paste_features(features: torch.Tensor,
 
 class MatchModule(nn.Module):
     def __init__(self, hidden_size: int = 128, depth: int = 2, heads: int = 4,
-                 *, device=None):
+                 *, num_proposals: int = 256, use_lang_emb: bool = False,
+                 use_reg_head: bool = False, device=None):
         super().__init__()
         device = resolve_device(device)
         h = hidden_size
@@ -68,14 +87,35 @@ class MatchModule(nn.Module):
             Dropout(0.5),
             nn.Linear(h, 1, device=device),
         )
+        self.lang_emb_cross_attn = self.lang_emb_proj = self.reg_head = None
+        if use_lang_emb:
+            self.lang_emb_cross_attn = MultiHeadAttention(h, heads,
+                                                          device=device)
+            self.lang_emb_proj = nn.Sequential(
+                PointwiseConv(h, h, device=device), BatchNorm(h, device=device),
+                PReLU(h, device=device),
+                PointwiseConv(h, h, device=device), BatchNorm(h, device=device),
+                PReLU(h, device=device),
+                PointwiseConv(h, num_proposals, device=device),
+            )
+        if use_reg_head:
+            self.reg_head = nn.Sequential(
+                nn.Linear(h, h, device=device), BatchNorm(h, device=device),
+                nn.GELU(approximate="tanh"),
+                nn.Linear(h, h, device=device), BatchNorm(h, device=device),
+                nn.GELU(approximate="tanh"),
+                nn.Linear(h, 6, device=device),
+            )
 
     def forward(self, bbox_feature: torch.Tensor, lang_fea: torch.Tensor,
                 objectness_masks: torch.Tensor | None = None,
-                *, lang_num_max: int, random_gate=None) -> dict:
+                *, lang_num_max: int, random_gate=None,
+                lang_emb: torch.Tensor | None = None) -> dict:
         """bbox_feature (B, K, H); lang_fea (B*L, T, H); objectness_masks
         (B, K) float and random_gate (a scalar in [0, 1)) drive the
-        train-time copy-paste ->
-        cluster_ref (B*L, K), cross_box_feature (B*L, K, H)."""
+        train-time copy-paste; lang_emb (B*L, H), the CLS embeddings, feeds
+        ``use_lang_emb`` -> cluster_ref (B*L, K), cross_box_feature (B*L,
+        K, H)[, pred_center_reg, pred_size_reg (B, L, K, 3)]."""
         b, k, h = bbox_feature.shape
         l = lang_num_max
         features = bbox_feature
@@ -88,4 +128,15 @@ class MatchModule(nn.Module):
         for layer in self.grounding_cross_attn:
             feature1 = layer(feature1, tokens, tokens)
         confidence = self.match(feature1).reshape(b * l, k)
-        return {"cross_box_feature": feature1, "cluster_ref": confidence}
+        out = {"cross_box_feature": feature1}
+        if self.lang_emb_proj is not None:
+            le = self.lang_emb_cross_attn(lang_emb.reshape(b, l, h), features,
+                                          features)
+            confidence = confidence + self.lang_emb_proj(le.reshape(b * l, h))
+        out["cluster_ref"] = confidence
+        if self.reg_head is not None:
+            reg = torch.sigmoid(self.reg_head(feature1.reshape(b * l * k, h)))
+            reg = (reg * 0.1 - 0.05).reshape(b, l, k, 6)
+            out["pred_center_reg"] = reg[..., 0:3]
+            out["pred_size_reg"] = reg[..., 3:6]
+        return out

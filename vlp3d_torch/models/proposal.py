@@ -4,6 +4,17 @@ Counterpart of ``vlp3d/models/proposal.py``: vote
 aggregation is an SA module (FPS ``num_proposal`` of the votes, r=0.3,
 k=16, mlp [128, 128, 128], normalize_xyz); the head is 2x (conv + BN +
 ReLU) and the predictors of roi_heads.py:15-147; boxes decode on device.
+
+Options (proposal_module_fcos.py, roi_heads.py):
+
+  * ``use_vote_weight``: ``votes_weight_predictor`` (conv 128 -> BN ->
+    PReLU -> conv 1 -> sigmoid) gives each vote a weight in (0, 1),
+    output as ``vote_weights`` (B, V, 1); the vote aggregation groups the
+    weighted features;
+  * ``use_kl_loss``: the head's ``alpha_predictor`` gives ``alpha`` (B, K,
+    6), sigmoid * 0.1 - 0.05, the KL loss's log-variances;
+  * ``mask_box``: in training, 30% of the decoded boxes are replaced by
+    random ones (:func:`mask_boxes`) before anything reads them.
 """
 
 from __future__ import annotations
@@ -15,14 +26,22 @@ from torch import nn
 
 from vlp3d_torch.device import resolve_device
 from vlp3d_torch.geometry.boxes import rotate_rotz_rows
-from vlp3d_torch.models.layers import BatchNorm, PointwiseConv, SAModule
+from vlp3d_torch.models.layers import (
+    BatchNorm,
+    PointwiseConv,
+    PReLU,
+    SAModule,
+)
+
+# share of the boxes mask_boxes replaces (proposal_module_fcos.py:161-178)
+MASK_RATE = 0.3
 
 
 class ROIHeads(nn.Module):
     """BRNet StandardROIHeads (roi_heads.py:15-147), channels-last."""
 
     def __init__(self, num_heading_bin: int = 1, num_class: int = 18, *,
-                 device=None):
+                 use_kl_loss: bool = False, device=None):
         super().__init__()
         device = resolve_device(device)
         self.num_heading_bin = num_heading_bin
@@ -41,11 +60,13 @@ class ROIHeads(nn.Module):
         self.heading_reg_predictor = PointwiseConv(
             128, num_heading_bin, device=device)
         self.sem_cls_predictor = PointwiseConv(128, num_class, device=device)
+        self.alpha_predictor = (PointwiseConv(128, 6, device=device)
+                                if use_kl_loss else None)
 
     def forward(self, features: torch.Tensor) -> dict:
         x = self.convs(features)
         heading_reg = self.heading_reg_predictor(x)
-        return {
+        out = {
             "objectness_scores": self.objectness_predictor(x),
             "rois": torch.exp(self.box_predictor(x)),
             "heading_scores": self.heading_cls_predictor(x),
@@ -53,6 +74,9 @@ class ROIHeads(nn.Module):
             "heading_residuals": heading_reg * (math.pi / self.num_heading_bin),
             "sem_cls_scores": self.sem_cls_predictor(x),
         }
+        if self.alpha_predictor is not None:
+            out["alpha"] = torch.sigmoid(self.alpha_predictor(x)) * 0.1 - 0.05
+        return out
 
 
 def decode_boxes(aggregated_vote_xyz, rois, heading_scores, heading_residuals,
@@ -66,32 +90,73 @@ def decode_boxes(aggregated_vote_xyz, rois, heading_scores, heading_residuals,
     return aggregated_vote_xyz - offset, size, heading
 
 
+def box_mask_draws(b: int, k: int, generator: torch.Generator | None,
+                   device) -> tuple:
+    """The three draws of :func:`mask_boxes` for B x K boxes: which are
+    masked (B, K, 1) bool, Bernoulli(MASK_RATE), their centres N(0, 1) / 2
+    and their sizes 1 + N(0, 1), (B, K, 3) each, from ``generator``."""
+    mask = torch.rand((b, k, 1), generator=generator, device=device) < MASK_RATE
+    center = torch.randn((b, k, 3), generator=generator, device=device) / 2.0
+    size = 1.0 + torch.randn((b, k, 3), generator=generator, device=device)
+    return mask, center, size
+
+
+def mask_boxes(center: torch.Tensor, size: torch.Tensor,
+               generator: torch.Generator | None = None):
+    """Train-time box masking (proposal_module_fcos.py:161-178): a masked
+    box gets a random centre and size (:func:`box_mask_draws`). The JAX
+    package draws from its ``aug`` key; the bits differ, the distribution
+    is the same."""
+    mask, rand_center, rand_size = box_mask_draws(
+        center.shape[0], center.shape[1], generator, center.device)
+    return (torch.where(mask, rand_center, center),
+            torch.where(mask, rand_size, size))
+
+
 class ProposalModule(nn.Module):
     def __init__(self, num_class: int = 18, num_heading_bin: int = 1,
                  num_proposal: int = 256, seed_feat_dim: int = 256, *,
-                 device=None):
+                 use_vote_weight: bool = False, use_kl_loss: bool = False,
+                 mask_box: bool = False, device=None):
         super().__init__()
         device = resolve_device(device)
         self.num_heading_bin = num_heading_bin
+        self.mask_box = mask_box
+        self.votes_weight_predictor = nn.Sequential(
+            PointwiseConv(seed_feat_dim, 128, device=device),
+            BatchNorm(128, device=device),
+            PReLU(128, device=device),
+            PointwiseConv(128, 1, device=device),
+        ) if use_vote_weight else None
         self.vote_aggregation = SAModule(
             num_proposal, 0.3, 16, [128, 128, 128], seed_feat_dim,
             device=device,
         )
-        self.proposal = ROIHeads(num_heading_bin, num_class, device=device)
+        self.proposal = ROIHeads(num_heading_bin, num_class,
+                                 use_kl_loss=use_kl_loss, device=device)
 
-    def forward(self, xyz: torch.Tensor, features: torch.Tensor) -> dict:
-        """xyz (B, V, 3) votes, features (B, V, C) L2-normalised vote features."""
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor, *,
+                generator: torch.Generator | None = None) -> dict:
+        """xyz (B, V, 3) votes, features (B, V, C) L2-normalised vote
+        features; ``generator`` draws the training forward's box masks."""
+        out = {}
+        if self.votes_weight_predictor is not None:
+            w = torch.sigmoid(self.votes_weight_predictor(features))
+            out["vote_weights"] = w  # (B, V, 1)
+            features = features * w
         agg_xyz, agg_features, agg_inds = self.vote_aggregation(xyz, features)
-        out = {
+        out.update({
             "aggregated_vote_xyz": agg_xyz,
             "aggregated_vote_features": agg_features,
             "aggregated_vote_inds": agg_inds,
-        }
+        })
         out.update(self.proposal(agg_features))
         center, size, heading = decode_boxes(
             agg_xyz, out["rois"], out["heading_scores"],
             out["heading_residuals"], self.num_heading_bin,
         )
+        if self.mask_box and self.training:
+            center, size = mask_boxes(center, size, generator)
         out["pred_center"] = center
         out["pred_size"] = size
         out["pred_heading"] = heading

@@ -1,10 +1,17 @@
 """Proposal relation module: 2-layer self-attention with geometric bias.
 
-Counterpart of ``vlp3d/models/relation.py`` (relation_module.py:9-139)
-with the default ``reference_obj_gather=False`` (the other value raises in
-:func:`vlp3d_torch.config.check_supported`): the multiview object
-embedding reads point_clouds[..., off:off+dim] at the point -> seed ->
-proposal index composition.
+Counterpart of ``vlp3d/models/relation.py`` (relation_module.py:9-139).
+The multiview object embedding reads point_clouds[..., off:off+dim] at
+the point -> seed -> proposal index composition. With
+``reference_obj_gather`` it reads what the reference reads instead
+(relation_module.py:101-117), which published weights were trained
+against: the contiguous copy of the (B, C, N) transpose viewed as (B*N,
+C) rows, each row C consecutive point positions of one channel, at row
+``point_idx + b * C`` (C, not N: batch b reads mostly batch 0's block).
+Every such row exists ((B - 1) * C + N - 1 < B * N). The read is one row
+gather (:func:`vlp3d_torch.ops.gather_points`, the kernel on the card)
+over a (1, B*N, C) table; the point cloud is an input without gradient,
+so it has no backward, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -33,10 +40,12 @@ def _dist_mlp(heads: int, device) -> nn.Sequential:
 class RelationModule(nn.Module):
     def __init__(self, hidden_size: int = 128, det_channel: int = 128,
                  heads: int = 4, depth: int = 2, *, multiview_offset: int = 6,
-                 multiview_dim: int = 128, device=None):
+                 multiview_dim: int = 128, reference_obj_gather: bool = False,
+                 device=None):
         super().__init__()
         device = resolve_device(device)
         self.depth = depth
+        self.reference_obj_gather = reference_obj_gather
         self.multiview_offset, self.multiview_dim = (multiview_offset,
                                                      multiview_dim)
         self.features_concat = nn.Sequential(
@@ -64,7 +73,15 @@ class RelationModule(nn.Module):
         off = self.multiview_offset
         obj_feat = point_clouds[..., off:off + self.multiview_dim]
         point_idx = torch.gather(seed_inds, 1, aggregated_vote_inds.long())
-        proposal_mv = gather_points(obj_feat, point_idx)  # (B, K, mv)
+        if self.reference_obj_gather:
+            b, n, c = obj_feat.shape
+            table = obj_feat.transpose(1, 2).contiguous().view(1, b * n, c)
+            rows = point_idx + torch.arange(
+                b, device=point_idx.device, dtype=point_idx.dtype)[:, None] * c
+            proposal_mv = gather_points(table, rows.reshape(1, -1)).view(
+                b, -1, c)
+        else:
+            proposal_mv = gather_points(obj_feat, point_idx)  # (B, K, mv)
 
         # geometric attention bias inputs (centers == mean of corners)
         offsets = pred_center[:, None, :, :] - pred_center[:, :, None, :]

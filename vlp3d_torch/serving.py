@@ -48,6 +48,9 @@ def ground(model: JointNet, batch: dict) -> dict:
     """One device batch (tensors on the model's device) -> device
     predictions: ``pred_ref`` (B, L), the chosen proposal of each
     sentence slot, and the model's boxes and ``cluster_ref``."""
+    if model.config.model.no_reference:
+        raise ValueError("a no_reference model has no grounding head (no "
+                         "cluster_ref) to ground sentences with")
     out = model(batch, is_eval=True)
     masks = out["objectness_masks"]  # (B, K)
     bsz, l = batch["input_ids"].shape[:2]

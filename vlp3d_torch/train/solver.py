@@ -30,6 +30,10 @@ device:
     (the JAX solver's ``np.argpartition`` leaves the order of values
     tied at the tenth place unspecified); ``criterion="answer_acc_at1"``
     selects the best model on it (lib/vqa/solver.py:503-506);
+  * ``detection=False`` (the CLI's ``--no_detection``) leaves the
+    detection terms out of the loss (their metrics are still logged);
+    ``reference=False`` (``--no_reference``, the detection-only stage of
+    a ``no_reference`` model) leaves the reference terms out;
   * phase timers (fetch / iter, see :mod:`vlp3d_torch.utils.timers` for
     which steps synchronise), the JSONL log, TensorBoard and wandb.
 
@@ -49,11 +53,18 @@ Where the port differs from the JAX solver, and why:
   * no donation: the optimizer updates in place, so there is no buffer
     to donate (the CLI accepts ``--no_donate`` and does nothing);
   * ``profile_dir``: a torch.profiler Chrome trace over ``PROFILE_STEPS``
-    steps from iteration 2 of epoch 0.
+    steps from iteration 2 of epoch 0;
+  * ``reference=False``: the JAX solver's eval epoch calls the grounding
+    evaluation, which reads ``cluster_ref``, and a ``no_reference`` model
+    has none (ROADMAP.md C8). The port's eval epoch then skips the
+    grounding evaluation and logs the eval step's loss and detection
+    scalars, and with no grounding metric to select on, the best model
+    is the last epoch's (``model`` is saved every epoch; the
+    ``ground_model*`` snapshots are not written).
 
 Still to port, each raising NotImplementedError naming its ROADMAP.md
 item: ``mesh`` and multi-process runs (A18), ``tp`` and ``zero1``
-(A19), ``detection=False`` and ``reference=False`` (A9a).
+(A19).
 """
 
 from __future__ import annotations
@@ -101,7 +112,6 @@ _UNPORTED = {
     "mesh": "ROADMAP.md queue A item A18 (data parallel)",
     "tp": "ROADMAP.md queue A item A19 (the other parallel modes)",
     "zero1": "ROADMAP.md queue A item A19 (the other parallel modes)",
-    "detection": "ROADMAP.md queue A item A9a (options of slice 1)",
 }
 
 
@@ -144,16 +154,14 @@ class Solver:
             raise _unported(f"tp={tp}", "tp")
         if zero1:
             raise _unported("zero1=True", "zero1")
-        if not detection:
-            raise _unported("detection=False", "detection")
-        if not reference:
-            raise _unported("reference=False", "detection")
         self.config = config
         self.train_dataset = train_dataset
         self.val_dataset = val_dataset
         self.workdir = workdir
         os.makedirs(workdir, exist_ok=True)
         self.caption = caption
+        self.detection = detection
+        self.reference = reference
         self.caption_eval_ctx = caption_eval_ctx
         self.use_bn_schedule = use_bn_schedule
         self.log_every = log_every
@@ -256,9 +264,12 @@ class Solver:
             clip_grad_value=cfg.train.clip_grad_value,
             grad_accum=self.grad_accum,
         )
-        self.train_step = make_train_step(self.model, cfg, self.optimizer,
-                                          caption=self.caption)
-        self.eval_step = make_eval_step(self.model, cfg)
+        self.train_step = make_train_step(
+            self.model, cfg, self.optimizer, caption=self.caption,
+            reference=self.reference, detection=self.detection)
+        self.eval_step = make_eval_step(self.model, cfg,
+                                        reference=self.reference,
+                                        detection=self.detection)
 
     # ------------------------------------------------------------ feeds
     def _log(self, record: dict):
@@ -390,6 +401,10 @@ class Solver:
             }
             batch = batch_to_device(arrays, self.device)
             out, metrics = self.eval_step(batch)
+            scalars.append({k: float(v) for k, v in metrics.items()})
+            self._check_interrupt()
+            if not self.reference:  # no cluster_ref to evaluate (C8)
+                continue
             if "answer_scores" in out and "answer_cats" in batch:
                 hit1, hit10, n = self._answer_hits(out, batch)
                 ans_hit1 += hit1
@@ -406,16 +421,18 @@ class Solver:
             multiple += g["ref_multiple_mask"]
             others += g["ref_others_mask"]
             lang_accs.append(g["lang_acc"])
-            scalars.append({k: float(v) for k, v in metrics.items()})
-            self._check_interrupt()
 
-        ious_np = np.asarray(ious)
-        result = {
-            "iou_rate_0.25": float((ious_np >= 0.25).mean()) if len(ious) else 0.0,
-            "iou_rate_0.5": float((ious_np >= 0.5).mean()) if len(ious) else 0.0,
-            "lang_acc": float(np.mean(lang_accs)) if lang_accs else 0.0,
-            **final_eval_breakdown(ious, multiple, others),
-        }
+        result = {}
+        if self.reference:
+            ious_np = np.asarray(ious)
+            result = {
+                "iou_rate_0.25": float((ious_np >= 0.25).mean())
+                if len(ious) else 0.0,
+                "iou_rate_0.5": float((ious_np >= 0.5).mean())
+                if len(ious) else 0.0,
+                "lang_acc": float(np.mean(lang_accs)) if lang_accs else 0.0,
+                **final_eval_breakdown(ious, multiple, others),
+            }
         if ans_n:
             result["answer_acc_at1"] = ans_hit1 / ans_n
             result["answer_acc_at10"] = ans_hit10 / ans_n
@@ -511,41 +528,7 @@ class Solver:
                 if epoch == 49:
                     self._snapshot("epoch_50")
 
-                val = self.eval_epoch(epoch)
-                ground_sum = val["iou_rate_0.5"]
-                # criterion 'sum' = 2 x iou_rate_0.5 (solver:1126-1128);
-                # any val-metric name selects on that metric; unknown
-                # names leave cur_best 0 as the joint reference does
-                # (:1129-1135)
-                cur_best = (
-                    ground_sum * 2 if self.criterion == "sum"
-                    else float(val.get(self.criterion, 0.0))
-                )
-                if cur_best > self.best["sum"]:
-                    self.best.update(
-                        epoch=epoch + 1, sum=cur_best, **{
-                            k: v for k, v in val.items()
-                            if np.ndim(v) == 0
-                        }
-                    )
-                    self._snapshot("model")
-                if ground_sum > self.best["ground_sum"]:
-                    self.best["ground_sum"] = ground_sum
-                    self._snapshot("ground_model")
-                if val["iou_rate_0.25"] > self.best["ground_25"]:
-                    self.best["ground_25"] = val["iou_rate_0.25"]
-                    self._snapshot("ground_model_25")
-                if val["iou_rate_0.5"] > self.best["ground_5"]:
-                    self.best["ground_5"] = val["iou_rate_0.5"]
-                    self._snapshot("ground_model_5")
-                if "bleu-4" in val:
-                    caption_sum = float(sum(val[m] for m in CAPTION_METRICS))
-                    if caption_sum > self.best["caption_sum"]:
-                        self.best["caption_sum"] = caption_sum
-                        self.best["best_caption_epoch"] = epoch + 1
-                        for m in CAPTION_METRICS:
-                            self.best[f"best_caption_{m}"] = float(val[m])
-                        self._snapshot("caption_model")
+                self._select_best(epoch, self.eval_epoch(epoch))
 
                 # the epoch counts as done only once its eval + best-model
                 # snapshotting completed: an interrupt landing during
@@ -579,6 +562,44 @@ class Solver:
         self._save_full_checkpoint(epochs - 1)
         self._finish()
         return self.best
+
+    def _select_best(self, epoch: int, val: dict) -> None:
+        """The best-model taxonomy after an eval epoch, and its snapshots.
+        Without ``reference`` there is no grounding metric: the last epoch
+        is the best."""
+        scalars = {k: v for k, v in val.items() if np.ndim(v) == 0}
+        if not self.reference:
+            self.best.update(epoch=epoch + 1, **scalars)
+            self._snapshot("model")
+            return
+        ground_sum = val["iou_rate_0.5"]
+        # criterion 'sum' = 2 x iou_rate_0.5 (solver:1126-1128); any
+        # val-metric name selects on that metric; unknown names leave
+        # cur_best 0 as the joint reference does (:1129-1135)
+        cur_best = (
+            ground_sum * 2 if self.criterion == "sum"
+            else float(val.get(self.criterion, 0.0))
+        )
+        if cur_best > self.best["sum"]:
+            self.best.update(epoch=epoch + 1, sum=cur_best, **scalars)
+            self._snapshot("model")
+        if ground_sum > self.best["ground_sum"]:
+            self.best["ground_sum"] = ground_sum
+            self._snapshot("ground_model")
+        if val["iou_rate_0.25"] > self.best["ground_25"]:
+            self.best["ground_25"] = val["iou_rate_0.25"]
+            self._snapshot("ground_model_25")
+        if val["iou_rate_0.5"] > self.best["ground_5"]:
+            self.best["ground_5"] = val["iou_rate_0.5"]
+            self._snapshot("ground_model_5")
+        if "bleu-4" in val:
+            caption_sum = float(sum(val[m] for m in CAPTION_METRICS))
+            if caption_sum > self.best["caption_sum"]:
+                self.best["caption_sum"] = caption_sum
+                self.best["best_caption_epoch"] = epoch + 1
+                for m in CAPTION_METRICS:
+                    self.best[f"best_caption_{m}"] = float(val[m])
+                self._snapshot("caption_model")
 
     def _save_full_checkpoint(self, epoch: int) -> None:
         ckpt.save_checkpoint(self.workdir, self.model, self.optimizer,

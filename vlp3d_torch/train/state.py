@@ -47,7 +47,8 @@ def backward_and_step(loss: torch.Tensor, optimizer) -> None:
 
 
 def make_train_step(model: JointNet, config: Config, optimizer, *,
-                    caption: bool = False) -> Callable:
+                    caption: bool = False, reference: bool = True,
+                    detection: bool = True) -> Callable:
     """Returns ``train_step(batch, generator=None) -> metrics``: forward
     in training mode, the joint loss, gradients, one optimizer update and
     new BatchNorm statistics, all in place in ``model`` and ``optimizer``.
@@ -60,9 +61,12 @@ def make_train_step(model: JointNet, config: Config, optimizer, *,
 
     ``batch`` holds tensors on the model's device
     (:func:`batch_to_device`); ``generator`` (a ``torch.Generator`` on
-    that device) draws the dropout masks and the caption / MLM token
-    masks, the global generator when None. ``caption`` adds the caption
-    loss (the Solver's ``caption``). ``metrics`` are the scalar entries of the loss's metrics, as 0-dim
+    that device) draws the dropout masks, the ``mask_box`` masks and the
+    caption / MLM token masks, the global generator when None; it advances
+    every step. ``caption`` adds the caption loss; ``reference`` and
+    ``detection`` switch the loss's terms (the Solver's, see
+    :func:`~vlp3d_torch.losses.joint.compute_joint_loss`). ``metrics`` are
+    the scalar entries of the loss's metrics, as 0-dim
     tensors on the device (reading one synchronises). ``optimizer`` is
     :func:`vlp3d_torch.train.optimizer.make_optimizer`'s.
     """
@@ -71,25 +75,30 @@ def make_train_step(model: JointNet, config: Config, optimizer, *,
         set_dropout_generator(model, generator)
         model.mask_generator = generator
         out = model(batch, train=True)
-        loss, metrics = compute_joint_loss(config, out, batch,
-                                           caption=caption)
+        loss, metrics = compute_joint_loss(
+            config, out, batch, caption=caption, reference=reference,
+            detection=detection)
         backward_and_step(loss, optimizer)
         return _scalars(metrics)
 
     return train_step
 
 
-def make_eval_step(model: JointNet, config: Config) -> Callable:
+def make_eval_step(model: JointNet, config: Config, *,
+                   reference: bool = True, detection: bool = True) -> Callable:
     """Returns ``eval_step(batch) -> (outputs, metrics)``: the forward at
-    evaluation (running BatchNorm statistics, no dropout, no gradient)
-    and the loss's scalar metrics, without the caption term (the JAX
+    evaluation (running BatchNorm statistics, no dropout, no box masks, no
+    gradient) and the loss's scalar metrics, with the train step's
+    ``reference`` / ``detection`` and without the caption term (the JAX
     solver's eval step leaves it out; a caption model's outputs still
     hold ``lang_cap``)."""
 
     def eval_step(batch: dict):
         out = model(batch, train=False)
         with torch.no_grad():
-            _, metrics = compute_joint_loss(config, out, batch)
+            _, metrics = compute_joint_loss(config, out, batch,
+                                            reference=reference,
+                                            detection=detection)
         return out, _scalars(metrics)
 
     return eval_step
