@@ -1,13 +1,24 @@
 #!/usr/bin/env python3
 """Smoke run of vlp3d_torch on one CUDA card: grounding inference, the
 joint train step, the predict path, the trainer behind run.sh, the HTTP
-grounding server, Scan2Cap captioning, ScanQA question answering and the
-grounding model's options.
+grounding server, Scan2Cap captioning, ScanQA question answering, the
+grounding model's options and data parallel.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ranks 4
 
 Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX and
-nothing of the vlp3d package. Phases, each fatal on failure:
+nothing of the vlp3d package. ``--ranks N`` runs instead only data
+parallel over N cards of the host: N ranks over NCCL under
+torch.distributed.run, each building phase 6's model twice from its
+seed; the data-parallel step on the global batch of 8 (8 / N rows a
+card) against the one-process step on the whole batch, which every rank
+runs too (following its ReLU inputs and its max pools' choices, within
+FLIP_TOL; loss, DP_PROBE gradients and BatchNorm statistics at phase
+6's tolerances, parameters equal on every rank, PER_STEP launches), then 9 timed steps each of the one-process
+step, the data-parallel step at 8 and at 8 x N (8 rows a card), in
+turns, the slowest rank's medians. Phases of the run without arguments,
+each fatal on failure:
 
 1. card, power limit, torch / CUDA / nvcc versions;
 2. build every kernel source under vlp3d_torch/csrc (one nvcc each, in
@@ -252,7 +263,30 @@ nothing of the vlp3d package. Phases, each fatal on failure:
    channels timed alone, and the float32 and bfloat16 serving forwards
    and train steps (median of 5, peak memory; cluster_ref difference
    and pred_ref agreement of bfloat16 against float32);
-13. print {"kernels": [...]} with every kernel of the main paths (the
+13. data parallel at world size 1. While the CLI processes run:
+   vlp3d_torch.parallel.distributed.dist_init with an explicit
+   rendezvous of one process on a free 127.0.0.1 port, which must come
+   up over NCCL (no gloo on the card; init_process_group and the first
+   collective, where NCCL builds its communicator, timed);
+   GroundingPredictor over make_mesh(0) (every local card) against the
+   one-device predictor on phase 5's first batch and run_padded at
+   occupancy 3 (pred_ref equal, cluster_ref within CLUSTER_REF_TOL).
+   CLI process: `python -m torch.distributed.run --nproc_per_node 1 -m
+   vlp3d_torch.cli.train_3dvlp --synthetic --smoke --epoch 1` beside
+   phase 8's first run (exit 0, a group of one over NCCL, finite
+   losses). With the card to itself: phase 6's model and batch twice, a
+   step through the data-parallel path (make_train_step over a
+   BatchShard of the group) against the one-process step from the same
+   state and generator seed, the data-parallel run following the
+   one-process run's side of 0 at every ReLU input (kinks, as
+   check_kernel_step): loss within STEP_LOSS_RTOL, the DP_PROBE gradients
+   and every BatchNorm running statistic within STEP_GRAD_TOL of their
+   largest entry, the launches of each step PER_STEP; then DP_STEPS
+   timed steps of each in turns (medians, peak memory above the resident
+   models, every count at 0 before each step); the serve CLI with
+   --data_devices 0 answering phase 9's first request with phase 9's
+   proposals, and --data_devices 2 exiting with the host's one device;
+14. print {"kernels": [...]} with every kernel of the main paths (the
    CUDA functions behind each in kernel_functions, host_us beside the
    times, the launches of each path, and per_step and per_remat_step
    as counted in phase 8), the
@@ -373,6 +407,19 @@ FLAG_PROBE = ["backbone_net.sa1.mlp_module.layer0.conv.weight",
 # tensor's largest entry: a gradient is rounded to bfloat16 where it
 # crosses a bfloat16 layer, and one bfloat16 unit is 2^-8 of a value
 BF16_STEP_GRAD_TOL = 2.0 ** -6
+# phase 13: the gradients held in the data-parallel step, SA1 to the
+# language classifier
+DP_PROBE = ["backbone_net.sa1.mlp_module.layer0.conv.weight",
+            "backbone_net.sa2.mlp_module.layer0.conv.weight",
+            "backbone_net.sa3.mlp_module.layer0.conv.weight",
+            "backbone_net.sa4.mlp_module.layer0.conv.weight",
+            "backbone_net.fp1.mlp.layer0.conv.weight",
+            "backbone_net.fp2.mlp.layer0.conv.weight", "vgen.conv3.weight",
+            "proposal.vote_aggregation.mlp_module.layer0.conv.weight",
+            "proposal.proposal.box_predictor.weight",
+            "relation.features_concat.0.weight", "match.match.0.weight",
+            "lang.lang_cls.0.weight"]
+DP_STEPS = 9  # timed train steps of each path in phase 13
 BF16_PROBE = ["backbone_net.sa1.mlp_module.layer1.conv.weight",
               "backbone_net.sa2.mlp_module.layer0.conv.weight",
               "backbone_net.fp2.mlp.layer1.conv.weight", "vgen.conv3.weight",
@@ -1170,7 +1217,7 @@ def kernel_line(rows, serving, train, predict, solver, http, per_step,
     ``answer_eval``, ``answer_serve``, ``answer_step``, ``answer_http``,
     ``flags_forward``, ``flags_step``, ``float32_forward``,
     ``float32_step``, ``bfloat16_forward``, ``bfloat16_step``,
-    ``flags_solver_reference``, ``flags_solver_detection``);
+    ``flags_solver_reference``, ``flags_solver_detection``, ``dp_step``);
     ``per_step`` and ``per_remat_step`` those of one Solver step and one
     remat step."""
     sources = {
@@ -2071,9 +2118,12 @@ def _cli(module, argv, result):
     The process joins result["procs"] while it runs, for the main thread
     to kill."""
     t0 = time.perf_counter()
+    # a session of its own: stop_train_cli kills the process group, which
+    # holds torchrun's worker as well
     proc = subprocess.Popen(
         [sys.executable, "-m", module, *argv], cwd=REPO, env=child_env(),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
     result.setdefault("procs", []).append(proc)
     out, _ = proc.communicate(timeout=600)
     return proc.returncode, out, time.perf_counter() - t0
@@ -2130,14 +2180,52 @@ def _no_reference_cli(workdir, result):
         result["error"] = repr(e)
 
 
+def _torchrun_cli(workdir, result):
+    """Phase 13's `python -m torch.distributed.run --nproc_per_node 1 -m
+    vlp3d_torch.cli.train_3dvlp --synthetic --smoke --epoch 1`: the
+    training CLI's data-parallel path, one rank over NCCL."""
+    try:
+        result["torchrun"] = _cli(
+            "torch.distributed.run",
+            ["--nproc_per_node", "1", "--master_addr", "127.0.0.1",
+             "--master_port", str(free_port()), "-m",
+             "vlp3d_torch.cli.train_3dvlp", "--synthetic", "--smoke",
+             "--epoch", "1", "--workdir", workdir], result)
+    except Exception as e:  # noqa: BLE001 — reported by the main thread
+        result["error"] = repr(e)
+
+
+def check_torchrun_cli(result, workdir):
+    """Phase 13's torchrun process: exit 0 after joining a group of one
+    over NCCL, a log with finite losses."""
+    import numpy as np
+
+    if "torchrun" not in result:
+        fail("the torchrun training CLI did not run")
+    rc, out, sec = result["torchrun"]
+    if rc != 0 or "distributed init (rank 0/1)" not in out \
+            or "over nccl" not in out:
+        fail(f"torchrun train_3dvlp exited {rc}:\n{out[-4000:]}")
+    with open(os.path.join(workdir, "log.jsonl")) as f:
+        records = [json.loads(r) for r in f]
+    train = [r for r in records if r["phase"] == "train"]
+    if not train or not all(np.isfinite(r["loss"]) for r in train):
+        fail(f"torchrun train_3dvlp logged {train}")
+    print(f"[13] python -m torch.distributed.run --nproc_per_node 1 -m "
+          f"vlp3d_torch.cli.train_3dvlp --synthetic --smoke --epoch 1: exit "
+          f"0 in {sec:.1f} s over NCCL, loss "
+          f"{[round(r['loss'], 4) for r in train]}")
+
+
 def train_cli_runs(workdir, result):
     """Phase 8's subprocesses, one after the other (run in a thread
     beside the in-process work): 2 epochs, then --epoch 3 --auto_resume,
     and beside that run phase 10's train_caption and phase 11's train_qa
-    from the first run's model.pth; phase 12's --no_reference run beside
-    the first; leaves {"runs": [(rc, output, s), ...], "caption_train":
-    (rc, output, s), "qa_train": (rc, output, s), "no_reference": (rc,
-    output, s)} or {"error": ...} in ``result``."""
+    from the first run's model.pth; phase 12's --no_reference run and
+    phase 13's torchrun run beside the first; leaves {"runs": [(rc,
+    output, s), ...], "caption_train": (rc, output, s), "qa_train": (rc,
+    output, s), "no_reference": (rc, output, s), "torchrun": (rc, output,
+    s)} or {"error": ...} in ``result``."""
     import shutil
     import threading
 
@@ -2145,6 +2233,10 @@ def train_cli_runs(workdir, result):
         os.path.join(os.path.dirname(workdir), "no_reference"), result),
         daemon=True)
     detection_only.start()
+    torchrun = threading.Thread(target=_torchrun_cli, args=(
+        os.path.join(os.path.dirname(workdir), "torchrun"), result),
+        daemon=True)
+    torchrun.start()
     try:
         result["runs"] = [_train_cli(["--epoch", "2"], workdir, result)]
         if result["runs"][0][0] == 0 and not result.get("stop"):
@@ -2168,16 +2260,20 @@ def train_cli_runs(workdir, result):
     except Exception as e:  # noqa: BLE001 — reported by the main thread
         result["error"] = repr(e)
     detection_only.join()
+    torchrun.join()
 
 
 def stop_train_cli(cli, result):
     """End phase 8's subprocess thread: kill every process still
     running."""
+    import signal
+
     result["stop"] = True
     for _ in range(3):  # a run may start while another ends
         for proc in result.get("procs", []):
             if proc.poll() is None:
-                proc.kill()
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(proc.pid, signal.SIGKILL)
         cli.join(timeout=30)
 
 
@@ -2791,6 +2887,56 @@ def kinks(model, follow=None, take_all=False):
     for name, mod in model.named_modules():
         if relu_input(name, mod):
             hooks.append(mod.register_forward_hook(
+                lambda m, a, o, name=name: hook(m, a, o, name)))
+    try:
+        yield seen, moved
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+@contextlib.contextmanager
+def pool_ties(model, follow=None):
+    """While open, record the argmax over the neighbourhood (dim 2) of
+    each SA module's shared-MLP output, the input of its max pool, call
+    by call. With ``follow``, such a record of another run of the same
+    forward (in this run's rows), where this run's maximum lies on
+    another neighbour, that neighbour's value and any tied with it go down
+    to the followed neighbour's and the followed one's up to the maximum:
+    the pool's value stays this run's and its gradient goes where the
+    other run's went, as ``kinks`` does at a ReLU. Yields (the record,
+    {module: (channels moved, largest gap between the two values)})."""
+    import torch
+
+    from vlp3d_torch.models.layers import SAModule
+
+    seen, moved, hooks = {}, {}, []
+
+    def hook(mod, args, out, name):
+        calls = seen.setdefault(name, [])
+        val = out.detach()
+        idx = val.argmax(dim=2, keepdim=True)
+        if follow is None:
+            calls.append(idx)
+            return None
+        ref = follow[name][len(calls)]
+        calls.append(None)
+        diff = idx != ref
+        if not bool(diff.any()):
+            return None
+        cur, want = val.gather(2, idx), val.gather(2, ref)
+        units, near = moved.get(name, (0, 0.0))
+        moved[name] = (units + int(diff.sum()),
+                       max(near, float((cur - want)[diff].max())))
+        delta = torch.where((val == cur) & diff, want - val,
+                            torch.zeros_like(val))
+        delta.scatter_(2, ref, torch.where(diff, cur - want,
+                                           torch.zeros_like(cur)))
+        return out + delta
+
+    for name, mod in model.named_modules():
+        if isinstance(mod, SAModule):
+            hooks.append(mod.mlp_module.register_forward_hook(
                 lambda m, a, o, name=name: hook(m, a, o, name)))
     try:
         yield seen, moved
@@ -4076,6 +4222,292 @@ class FlagsPhase:
         return launches, numbers
 
 
+def free_port() -> int:
+    """A free port on 127.0.0.1 for a rendezvous."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class DataParallelPhase:
+    """Phase 13 in this process: the data-parallel path at world size 1
+    over NCCL. The process group and the serving check over make_mesh(0)
+    run while the CLI processes run; :meth:`drive` builds the two train
+    models (so that no other phase's memory holds them), checks the
+    data-parallel step against the one-process step, times both and
+    drives the servers, with the card to itself."""
+
+    def __init__(self, torch, smi, scenes, ground_state, train_host):
+        import torch.distributed as dist
+
+        from vlp3d_torch.parallel import distributed as du
+
+        self.smi, self.train_host = smi, train_host
+        # the process group: an explicit rendezvous of one process; NCCL
+        # builds its communicator at the first collective
+        t0 = time.perf_counter()
+        ctx = du.dist_init(f"127.0.0.1:{free_port()}", 1, 0)
+        init_ms = (time.perf_counter() - t0) * 1e3
+        if dist.get_backend() != "nccl":
+            fail(f"the process group runs over {dist.get_backend()}, not "
+                 "NCCL")
+        t0 = time.perf_counter()
+        du.barrier()
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        self.numbers = {"init_process_group_ms": init_ms,
+                        "first_collective_ms": first_ms}
+        print(f"[13] dist_init(world size 1, {ctx}) over NCCL: "
+              f"init_process_group {init_ms:.3f} ms, first collective (the "
+              f"NCCL communicator) {first_ms:.3f} ms ({smi})")
+        self.numbers["serving"] = self.check_serving(torch, scenes,
+                                                     ground_state)
+        stamp("13", "process group and mesh serving")
+
+    def build(self, torch):
+        """Phase 6's model and batch, twice: for the one-process step and
+        for the data-parallel path (a BatchShard over the group)."""
+        from vlp3d_torch.config import Config, ModelConfig
+        from vlp3d_torch.models import JointNet
+        from vlp3d_torch.parallel import LOCAL, BatchShard
+        from vlp3d_torch.train import (
+            batch_to_device,
+            make_optimizer,
+            make_train_step,
+        )
+        from vlp3d_torch.train.schedules import cosine_lr
+
+        t0 = time.perf_counter()
+        self.config = Config(model=ModelConfig(use_con=True, no_caption=True))
+        self.paths = {}
+        for name, shard in (("one", LOCAL), ("dp", BatchShard.of_group())):
+            model = JointNet(self.config)
+            with torch.no_grad():  # phase 6's nudges
+                model.vgen.conv3.weight.mul_(0.05)
+                model.vgen.conv3.bias.mul_(0.05)
+                model.proposal.proposal.box_predictor.bias.fill_(-1.0)
+            opt = make_optimizer(
+                model, lr_schedule=lambda e, lr0: cosine_lr(e, lr0, 200),
+                steps_per_epoch=100)
+            self.paths[name] = (model, make_train_step(
+                model, self.config, opt, shard=shard))
+        device = next(self.paths["one"][0].parameters()).device
+        self.batch = batch_to_device(self.train_host, device)
+        print(f"[13] the one-process and data-parallel train models built "
+              f"in {time.perf_counter() - t0:.1f} s")
+
+    def check_serving(self, torch, scenes, ground_state):
+        """GroundingPredictor over make_mesh(0) (every local card: one
+        here) against the one-device predictor on phase 5's first batch,
+        and run_padded at occupancy 3."""
+        import numpy as np
+
+        from vlp3d_torch.config import Config, ModelConfig
+        from vlp3d_torch.parallel.mesh import make_mesh
+        from vlp3d_torch.serving import GroundingPredictor
+
+        config = Config(model=ModelConfig(use_con=False, no_caption=True))
+        mesh = make_mesh(0)
+        one = GroundingPredictor(config, ground_state, batch_size=B)
+        many = GroundingPredictor(config, ground_state, batch_size=B,
+                                  devices=mesh)
+        occ = {k: v[:3] for k, v in scenes[0].items()}
+        errs, same = [], []
+        for got, want in ((many([scenes[0]])[0], one([scenes[0]])[0]),
+                          (many.run_padded(occ), one.run_padded(occ))):
+            same.append(bool(np.array_equal(got["pred_ref"],
+                                            want["pred_ref"])))
+            errs.append(float(np.abs(got["cluster_ref"]
+                                     - want["cluster_ref"]).max()))
+        print(f"[13] GroundingPredictor over make_mesh(0) = {mesh} against "
+              f"one device, phase 5's first batch and run_padded at "
+              f"occupancy 3: pred_ref equal {same}, cluster_ref max abs err "
+              f"{errs}")
+        if not all(same) or max(errs) > CLUSTER_REF_TOL:
+            fail("the mesh predictor differs from the one-device one")
+        del one, many
+        torch.cuda.empty_cache()
+        return {"devices": [str(d) for d in mesh], "pred_ref_equal": True,
+                "cluster_ref_err": max(errs)}
+
+    def check_parity(self, torch):
+        """The data-parallel step against the one-process step from the
+        same state and generator seed: the one-process run first,
+        recording every ReLU input, then the data-parallel run following
+        its side of 0 (the global sums add in another order); a moved unit
+        within FLIP_TOL of 0, the loss within STEP_LOSS_RTOL, the DP_PROBE
+        gradients (the ones the update used) and every BatchNorm running
+        statistic within STEP_GRAD_TOL of the tensor's largest entry, and
+        the launches of a step equal, PER_STEP each."""
+        from vlp3d_torch import ops
+
+        (m1, s1), (m2, s2) = self.paths["one"], self.paths["dp"]
+        dev = self.batch["point_clouds"].device
+        ops.reset_launches()
+        with kinks(m1) as (pre, _):
+            r1 = s1(self.batch, torch.Generator(device=dev).manual_seed(0))
+        one_launches = dict(ops.launches)
+        ops.reset_launches()
+        with kinks(m2, follow=pre) as (_, moved):
+            r2 = s2(self.batch, torch.Generator(device=dev).manual_seed(0))
+        dp_launches = dict(ops.launches)
+        del pre
+        for name, (units, near) in moved.items():
+            if near > FLIP_TOL:
+                fail(f"data-parallel step: {units} ReLU inputs of {name}, "
+                     f"up to {near} from 0, decided differently")
+        loss_rel = abs(r2["loss"].item() - r1["loss"].item()) / abs(
+            r1["loss"].item())
+        metric_err = max(abs(r2[k].item() - r1[k].item()) for k in r1)
+        grads = {}
+        for n in DP_PROBE:
+            g1, g2 = m1.get_parameter(n).grad, m2.get_parameter(n).grad
+            grads[n] = ((g2 - g1).abs().max() / g1.abs().max().clamp(
+                min=1e-30)).item()
+        bn = 0.0
+        b2 = dict(m2.named_buffers())
+        for n, v in m1.named_buffers():
+            if n.endswith(("running_mean", "running_var")):
+                bn = max(bn, ((b2[n] - v).abs().max() / v.abs().max().clamp(
+                    min=1e-30)).item())
+        worst = max(grads.values())
+        print(f"[13] data-parallel step (world size 1, NCCL) against the "
+              f"one-process step on phase 6's batch: loss {r2['loss'].item()}"
+              f" vs {r1['loss'].item()} (relative {loss_rel}), largest "
+              f"metric difference {metric_err}; gradient difference of each "
+              f"probe, of its largest entry: {grads}; BatchNorm running "
+              f"statistics within {bn} of their largest entry; ReLU inputs "
+              f"that followed the one-process run {moved}; launches of a "
+              f"step {dp_launches} (one process {one_launches})")
+        if loss_rel > STEP_LOSS_RTOL or worst > STEP_GRAD_TOL \
+                or bn > STEP_GRAD_TOL:
+            fail("the data-parallel step differs from the one-process step")
+        if one_launches != PER_STEP or dp_launches != one_launches:
+            fail(f"launches of a step: data-parallel {dp_launches}, one "
+                 f"process {one_launches}, want {PER_STEP}")
+        return {"loss_rel": loss_rel, "grad_err": worst, "bn_err": bn,
+                "metric_err": metric_err,
+                "relu_followed": {k: v[0] for k, v in moved.items()}}
+
+    def drive(self, torch, http_phase):
+        """With the card to itself: the two models, the parity check, then
+        DP_STEPS timed steps of each path in turns (one process, data parallel, data parallel, one process, ...)
+        after one warm-up each, with every count at 0 before each step;
+        peak memory above what is resident; a trace of a step of each;
+        then the serve CLI over --data_devices 0 and 2. Returns (the data-parallel steps' launch
+        counts, this phase's numbers)."""
+        import numpy as np
+
+        from vlp3d_torch import ops
+        from vlp3d_torch.parallel import distributed as du
+
+        self.build(torch)
+        self.numbers["parity"] = self.check_parity(torch)
+        dev = self.batch["point_clouds"].device
+        gens = {k: torch.Generator(device=dev).manual_seed(1)
+                for k in self.paths}
+        times = {k: [] for k in self.paths}
+        peaks = {k: 0.0 for k in self.paths}
+        launches = {k: {} for k in self.paths}
+        for i in range(DP_STEPS + 1):
+            for name in (("one", "dp") if i % 2 == 0 else ("dp", "one")):
+                _, step = self.paths[name]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                resident = torch.cuda.memory_allocated()
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                metrics = step(self.batch, gens[name])
+                torch.cuda.synchronize()
+                dt = (time.perf_counter() - t0) * 1e3
+                for k, v in ops.launches.items():
+                    launches[name][k] = launches[name].get(k, 0) + v
+                if not np.isfinite(metrics["loss"].item()):
+                    fail(f"{name} step {i}: loss {metrics['loss'].item()}")
+                if i:
+                    times[name].append(dt)
+                    peaks[name] = max(peaks[name], (
+                        torch.cuda.max_memory_allocated() - resident) / 2**30)
+        steps = DP_STEPS + 1
+        for name, counts in launches.items():
+            if counts != {k: v * steps for k, v in PER_STEP.items()}:
+                fail(f"{name} launches over {steps} steps: {counts}")
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        print(f"[13] train step at B={B}, N={N}, median of {DP_STEPS} in "
+              f"turns: data parallel {med['dp']:.3f} ms, one process "
+              f"{med['one']:.3f} ms (x{med['dp'] / med['one']:.4f}); peak "
+              f"memory above the resident models {peaks['dp']:.3f} GiB "
+              f"against {peaks['one']:.3f} GiB; every step "
+              f"{ {k: [round(x, 3) for x in v] for k, v in times.items()} } "
+              f"({self.smi})")
+        self.numbers.update(
+            step_ms=med["dp"], one_process_step_ms=med["one"],
+            peak_gib=peaks["dp"], one_process_peak_gib=peaks["one"])
+        # where the data-parallel step's extra time goes: both traced
+        for name, what in (("dp", "data-parallel"), ("one", "one-process")):
+            step = self.paths[name][1]
+            profile_call(torch, lambda: step(self.batch, gens[name]), "13",
+                         f"{what} train step", top=25)
+        self.numbers["server"] = self.check_server(torch, http_phase)
+        du.dist_close()
+        for model, _ in self.paths.values():
+            model.zero_grad(set_to_none=True)
+        del self.paths, self.batch
+        torch.cuda.empty_cache()
+        stamp("13", "data parallel")
+        return launches["dp"], self.numbers
+
+    def check_server(self, torch, http_phase):
+        """build_server with --data_devices 0 answers phase 9's first
+        request as phase 9's server did; --data_devices 2 exits, naming
+        the one card."""
+        import threading
+
+        from vlp3d_torch.cli import serve as serve_cli
+
+        argv = ["--use_multiview", "--use_normal", "--serve_batch_size",
+                str(B), "--port", "0", "--no_warmup"]
+        args, tasks = serve_cli.parse_args(argv + ["--data_devices", "0"])
+        server, services = serve_cli.build_server(args, tasks)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            t0 = time.perf_counter()
+            code, ans = _post(server.server_address[1], "/v1/ground",
+                              http_phase.bodies[0])
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            server.shutdown()
+            server.server_close()
+            for svc in services.values():
+                svc.close()
+            thread.join(timeout=30)
+        n, ref = http_phase.refs[0]
+        got = [b["proposal"] for b in ans.get("boxes", [])]
+        want = [int(ref["pred_ref"][0, q]) for q in range(n)]
+        devices = [str(d) for d in services["ground"]._pred.devices]
+        print(f"[13] serve CLI --data_devices 0 over {devices}: /v1/ground "
+              f"{code} in {ms:.3f} ms, proposals {got}, phase 9's server "
+              f"{want}")
+        if code != 200 or got != want:
+            fail("the --data_devices 0 server answers otherwise than phase "
+                 "9's")
+        args, tasks = serve_cli.parse_args(argv + ["--data_devices", "2"])
+        try:
+            serve_cli.build_server(args, tasks)
+        except SystemExit as e:
+            msg = str(e)
+        else:
+            fail("--data_devices 2 did not exit")
+        print(f"[13] serve CLI --data_devices 2: exits with {msg!r}")
+        if "exposes 1 device" not in msg:
+            fail(f"--data_devices 2 exited with {msg!r}")
+        return {"devices": devices, "request_ms": ms, "proposals_equal": True,
+                "data_devices_2": msg}
+
+
 def drive(torch, config, batch_size, num_points, smi):
     """Phases 3-5; returns (per-call kernel rows, main-path launch counts,
     (the host scenes, the model's weights on the card))."""
@@ -4167,8 +4599,229 @@ def drive(torch, config, batch_size, num_points, smi):
     return rows, launches, (scenes, pred.model.state_dict())
 
 
+def _dp_models(torch, config, shard, device):
+    """Phase 6's model twice from its seed and nudges, with their
+    optimizers: the one-process step's and the data-parallel step's."""
+    from vlp3d_torch.models import JointNet
+    from vlp3d_torch.parallel import LOCAL
+    from vlp3d_torch.train import make_optimizer, make_train_step
+    from vlp3d_torch.train.schedules import cosine_lr
+
+    out = {}
+    for name, sh in (("one", LOCAL), ("dp", shard)):
+        model = JointNet(config, device=device)
+        with torch.no_grad():
+            model.vgen.conv3.weight.mul_(0.05)
+            model.vgen.conv3.bias.mul_(0.05)
+            model.proposal.proposal.box_predictor.bias.fill_(-1.0)
+        opt = make_optimizer(
+            model, lr_schedule=lambda e, lr0: cosine_lr(e, lr0, 200),
+            steps_per_epoch=100)
+        out[name] = (model, make_train_step(model, config, opt, shard=sh))
+    return out
+
+
+def rank_worker(tiny: bool) -> int:
+    """One rank of ``--ranks N`` (started by torch.distributed.run): the
+    data-parallel step over the N ranks against the one-process step on
+    the whole global batch, which every rank also runs on its own card
+    from the same seeded state; then the steps timed in turns. Rank 0
+    prints. ``tiny``: the tiny configuration over gloo on the CPU (a
+    rehearsal of this path without cards)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from vlp3d_torch import ops
+    from vlp3d_torch.config import Config, ModelConfig
+    from vlp3d_torch.data.synthetic import make_batch, tiny_config
+    from vlp3d_torch.parallel import BatchShard
+    from vlp3d_torch.parallel import distributed as du
+    from vlp3d_torch.train import batch_to_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = du.dist_init(device="cpu" if tiny else None)
+    shard = BatchShard.of_group()
+    main_rank = shard.rank == 0
+    device = (torch.device("cpu") if tiny
+              else torch.device("cuda", torch.cuda.current_device()))
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    config = (tiny_config(use_con=True, no_caption=True) if tiny else
+              Config(model=ModelConfig(use_con=True, no_caption=True)))
+    points = 256 if tiny else N
+    paths = _dp_models(torch, config, shard, device)
+
+    def host_batch(rows):
+        return make_batch(config, batch_size=rows, num_points=points, seed=7,
+                          epoch=0, istrain=1)
+
+    def own(batch):
+        return du.shard_host_batch(batch, device)
+
+    # parity: the one-process step on the global batch (run.sh's 8 rows)
+    # recording every ReLU input and max-pool choice, then the
+    # data-parallel step on this rank's rows following its rows of those
+    # records: the ranks sum the BatchNorm statistics in another order,
+    # which moves a unit within rounding of 0, or of a tie, to the other
+    # side
+    host = host_batch(B)
+    full = batch_to_device(host, device)
+    (m1, s1), (m2, s2) = paths["one"], paths["dp"]
+    with kinks(m1) as (pre, _), pool_ties(m1) as (pools, _):
+        r1 = s1(full, torch.Generator(device=device).manual_seed(0))
+    follow = {k: [shard.own(t) for t in v] for k, v in pre.items()}
+    follow_pools = {k: [shard.own(t) for t in v] for k, v in pools.items()}
+    del pre, pools
+    ops.reset_launches()
+    with kinks(m2, follow=follow) as (_, moved), \
+            pool_ties(m2, follow=follow_pools) as (_, pooled):
+        r2 = s2(own(host), torch.Generator(device=device).manual_seed(0))
+    sync()
+    launches = dict(ops.launches)
+    del follow, follow_pools
+    near = max([v[1] for v in moved.values()]
+               + [v[1] for v in pooled.values()], default=0.0)
+    loss_rel = abs(r2["loss"].item() - r1["loss"].item()) / abs(
+        r1["loss"].item())
+    metric_err = max(abs(r2[k].item() - r1[k].item()) for k in r1)
+    grads = {n: ((m2.get_parameter(n).grad - m1.get_parameter(n).grad).abs()
+                 .max() / m1.get_parameter(n).grad.abs().max().clamp(
+                     min=1e-30)).item() for n in DP_PROBE}
+    b2 = dict(m2.named_buffers())
+    bn = max(((b2[n] - v).abs().max() / v.abs().max().clamp(min=1e-30))
+             .item() for n, v in m1.named_buffers()
+             if n.endswith(("running_mean", "running_var")))
+    differ = du.check_replicated(m2)
+    ok = (loss_rel <= STEP_LOSS_RTOL and max(grads.values()) <= STEP_GRAD_TOL
+          and bn <= STEP_GRAD_TOL and near <= FLIP_TOL and not differ
+          and (launches == PER_STEP or not cuda))
+    ok = du.all_processes_agree(ok)
+    if main_rank:
+        print(f"[dp] {shard.world} ranks over {du.backend()} ({ctx}): the "
+              f"data-parallel step on {B // shard.world} rows a rank against "
+              f"the one-process step on the global batch of {B}: loss "
+              f"{r2['loss'].item()} vs {r1['loss'].item()} (relative "
+              f"{loss_rel}), largest metric difference {metric_err}; "
+              f"gradient difference of each probe, of its largest entry: "
+              f"{grads}; BatchNorm running statistics within {bn}; ReLU "
+              f"inputs that followed (module: units, largest |input|) "
+              f"{moved}; max-pool choices that followed (module: channels, "
+              f"largest gap) {pooled}; parameters differing between ranks "
+              f"{differ}; "
+              f"launches of a step {launches}", flush=True)
+    if not ok:
+        fail("the data-parallel step over several ranks differs from the "
+             "one-process step (on some rank)")
+
+    # timing in turns: the one-process step at the global batch of 8,
+    # the data-parallel step at the same global batch (8 / N rows a card)
+    # and at B rows a card (a global batch of N x B)
+    gen = {k: torch.Generator(device=device).manual_seed(1)
+           for k in ("one", "dp", "dp_wide")}
+    batches = {"one": full, "dp": own(host),
+               "dp_wide": own(host_batch(B * shard.world))}
+    steps = {"one": s1, "dp": s2, "dp_wide": s2}
+    times = {k: [] for k in steps}
+    for i in range(DP_STEPS + 1):
+        order = list(steps) if i % 2 == 0 else list(reversed(steps))
+        for name in order:
+            du.barrier()
+            sync()
+            t0 = time.perf_counter()
+            m = steps[name](batches[name], gen[name])
+            sync()
+            if i:
+                times[name].append((time.perf_counter() - t0) * 1e3)
+            if not np.isfinite(m["loss"].item()):
+                fail(f"{name} step {i}: loss {m['loss'].item()}")
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    # the slowest rank's median decides the data-parallel step
+    worst = [None] * shard.world
+    dist.all_gather_object(worst, med)
+    med_max = {k: max(w[k] for w in worst) for k in med}
+    if main_rank:
+        rows = B // shard.world
+        print(f"[dp] train step medians of {DP_STEPS} in turns, slowest "
+              f"rank: one process at B={B} {med_max['one']:.3f} ms "
+              f"({B / med_max['one'] * 1e3:.3f} scenes/s); data parallel "
+              f"at B={B} ({rows} a card) {med_max['dp']:.3f} ms "
+              f"(x{med_max['one'] / med_max['dp']:.4f} of one process); at "
+              f"B={B * shard.world} ({B} a card) {med_max['dp_wide']:.3f} ms "
+              f"({B * shard.world / med_max['dp_wide'] * 1e3:.3f} scenes/s, "
+              f"x{B * shard.world / med_max['dp_wide'] * med_max['one'] / B:.4f}"
+              f" the one-process throughput); each rank's medians {worst}",
+              flush=True)
+        print(json.dumps({"data_parallel_ranks": {
+            "world": shard.world, "backend": du.backend(),
+            "loss_rel": loss_rel, "grad_err": max(grads.values()),
+            "bn_err": bn, "relu_followed": {k: v[0] for k, v in
+                                            moved.items()},
+            "pool_followed": {k: v[0] for k, v in pooled.items()},
+            "launches_per_step": launches, "step_ms": med_max}}),
+            flush=True)
+    du.dist_close()
+    return 0
+
+
+def ranks_main(n: int) -> int:
+    """``python3 chip_smoke.py --ranks N``: data parallel over N cards of
+    this host. Builds the kernels, then runs ``N`` ranks of
+    :func:`rank_worker` under torch.distributed.run over NCCL (each
+    ``chip_smoke.py --rank-worker``); exits 0 when every rank did. Run
+    with no arguments the script needs one card; this mode needs N."""
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        print(f"chip_smoke: --ranks {n} needs {n} CUDA devices",
+              file=sys.stderr)
+        return 1
+    from vlp3d_torch.ops import _kernels
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip())
+    _kernels.build(force=True)
+    stamp("dp", "build")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+         str(n), "--master_addr", "127.0.0.1", "--master_port",
+         str(free_port()), os.path.abspath(__file__), "--rank-worker"],
+        cwd=REPO, env=child_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            import signal
+
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    print(out)
+    stamp("dp", f"{n} ranks")
+    if proc.returncode != 0:
+        print(f"chip_smoke: the {n} ranks exited {proc.returncode}",
+              file=sys.stderr)
+        return 1
+    print(smi_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     sys.pycache_prefix, sys.dont_write_bytecode = PYCACHE, False
+    if "--rank-worker" in sys.argv[1:]:
+        return rank_worker(tiny="--tiny" in sys.argv[1:])
+    if "--ranks" in sys.argv[1:]:
+        try:
+            return ranks_main(int(sys.argv[sys.argv.index("--ranks") + 1]))
+        except ImportError as e:
+            print(f"chip_smoke: {e}", file=sys.stderr)
+            return 1
     try:
         import torch
     except ImportError:
@@ -4247,6 +4900,8 @@ def main() -> int:
         caption = CaptionPhase(torch, smi, scenes, ground_state, train_host)
         vqa = VqaPhase(torch, smi, scenes, ground_state, train_host)
         flags = FlagsPhase(torch, smi, scenes, ground_state, train_host)
+        data_parallel = DataParallelPhase(torch, smi, scenes, ground_state,
+                                          train_host)
         del ground_state
         t0 = time.perf_counter()
         cli.thread.join(timeout=900)
@@ -4261,6 +4916,8 @@ def main() -> int:
         check_train_qa(cli.result, os.path.join(cli.tmp.name, "qa"))
         check_no_reference_cli(cli.result, os.path.join(cli.tmp.name,
                                                         "no_reference"))
+        check_torchrun_cli(cli.result, os.path.join(cli.tmp.name,
+                                                    "torchrun"))
         caption_clis.check()
         stamp("10", "caption CLIs")
     finally:
@@ -4276,14 +4933,17 @@ def main() -> int:
     answers, vqa_numbers = vqa.drive(torch)
     # 12. the grounding model's options with the card to itself
     options, flag_numbers = flags.drive(torch)
-    paths = {**captions, **answers, **options}
+    # 13. data parallel with the card to itself
+    dp_step, dp_numbers = data_parallel.drive(torch, http_phase)
+    paths = {**captions, **answers, **options, "dp_step": dp_step}
     for name in rows:
         if train[name] == 0 or solver[name] == 0 \
                 or paths["caption_step"][name] == 0 \
                 or paths["answer_step"][name] == 0 \
                 or any(paths[p][name] == 0 for p in (
                     "flags_step", "bfloat16_step", "float32_step",
-                    "flags_solver_reference", "flags_solver_detection")) \
+                    "flags_solver_reference", "flags_solver_detection",
+                    "dp_step")) \
                 or (PER_FORWARD[name] > 0 and (
                     serving[name] == 0 or predict[name] == 0
                     or http[name] == 0 or any(
@@ -4293,7 +4953,7 @@ def main() -> int:
                             "bfloat16_forward", "float32_forward")))):
             fail(f"kernel {name} was not launched on a main path")
 
-    # 13. results
+    # 14. results
     line = kernel_line(rows, serving, train, predict, solver, http,
                        per_step, per_remat_step, paths)
     line["remat_step"] = remat
@@ -4301,6 +4961,7 @@ def main() -> int:
     line["caption"] = caption_numbers
     line["vqa"] = vqa_numbers
     line["options"] = flag_numbers
+    line["data_parallel"] = dp_numbers
     print(json.dumps(line))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

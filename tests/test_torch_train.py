@@ -431,18 +431,27 @@ def test_train_step_matches_jax(jax_side, epoch, gate, scenes):
     step = make_train_step(model, config, opt)
     metrics = step(batch_to_device(batch, "cpu"),
                    torch.Generator().manual_seed(0))
+    assert_step_matches(model, before, metrics, jmetrics,
+                        jax_to_torch_state_dict(jgrads, jstats),
+                        jax_to_torch_state_dict(jparams, jstats), epoch)
 
-    assert set(metrics) == set(jmetrics)
-    for k, want in jmetrics.items():
-        np.testing.assert_allclose(metrics[k].numpy(), np.asarray(want),
+
+def assert_step_matches(model, before, metrics, want_metrics, want_grads,
+                        want_after, epoch):
+    """The step's metrics, the gradients in ``.grad``, the parameters and
+    BatchNorm statistics ``model`` holds after it against another run of
+    the step (reference-layout names), at this file's stated tolerances;
+    ``before`` is the state dict before the step.
+    tests/test_torch_ddp.py holds the data-parallel step to it."""
+    assert set(metrics) == set(want_metrics)
+    for k, want in want_metrics.items():
+        np.testing.assert_allclose(np.asarray(metrics[k]), np.asarray(want),
                                    rtol=1e-4, atol=1e-4, err_msg=k)
     assert np.isfinite(float(metrics["loss"])) and float(metrics["loss"]) > 0
     for k in ("pos_ratio", "ref_loss", "diou_loss", "box_loss", "lang_loss"):
         assert float(metrics[k]) > 0, k  # every loss is live
     assert (float(metrics["con_loss"]) > 0) == (epoch >= 50)
 
-    want_grads = jax_to_torch_state_dict(jgrads, jstats)
-    want_after = jax_to_torch_state_dict(jparams, jstats)
     lr = {"base": OPT["base_lr"], "module": OPT["module_lr"]}
     labels = label_params(model)
     trained = firm_n = total_n = 0

@@ -547,9 +547,18 @@ def test_parallel_flags_still_raise(tmp_path, argv, item):
 
 
 def test_world_size_above_one_raises(tmp_path, monkeypatch):
+    """A WORLD_SIZE above 1 is a data-parallel launch (ROADMAP.md A18,
+    tests/test_torch_ddp.py runs it over gloo with --device cpu). On the
+    card's default device and a host without CUDA it raises before any
+    rendezvous, rather than run the ranks on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("the host has CUDA: the rendezvous would wait for a "
+                    "second rank")
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="A18"):
-        main(ARGS + ["--workdir", str(tmp_path)])
+    monkeypatch.setenv("RANK", "0")
+    argv = [a for a in ARGS if a not in ("--device", "cpu")]
+    with pytest.raises(RuntimeError, match="needs CUDA"):
+        main(argv + ["--workdir", str(tmp_path)])
 
 
 def test_solver_trains_and_scores_captions(tmp_path):
@@ -595,8 +604,9 @@ def test_solver_trains_and_scores_captions(tmp_path):
     assert os.path.exists(tmp_path / "caption_model.pth")
 
 
-@pytest.mark.parametrize("kw,item", [({"mesh": object()}, "A18"),
-                                     ({"tp": 2}, "A19"),
+# mesh= raised here too until the data-parallel slice
+# (tests/test_torch_ddp.py::test_solver_mesh_of_one_device_runs_and_of_two_raises)
+@pytest.mark.parametrize("kw,item", [({"tp": 2}, "A19"),
                                      ({"zero1": True}, "A19")])
 def test_solver_options_still_to_port_raise(tmp_path, kw, item):
     from vlp3d_torch.data.synthetic import make_synthetic_dataset

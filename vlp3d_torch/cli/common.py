@@ -15,6 +15,7 @@ run trains the model they describe.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -229,18 +230,48 @@ def add_common_args(p: argparse.ArgumentParser):
     return p
 
 
+@contextlib.contextmanager
+def process_group(args):
+    """A training CLI's process group: the multi-process rendezvous
+    (env:// under torchrun, SLURM under srun; a no-op in one process)
+    before any device use, the group printed, the ranks' hash seed held
+    equal under the hash tokenizer (no ``--bert_vocab``, ROADMAP.md C12),
+    and the group destroyed at the end."""
+    from vlp3d_torch.parallel.distributed import (
+        backend,
+        check_same_hash_seed,
+        dist_close,
+        dist_init,
+        initialized,
+    )
+
+    ctx = dist_init(device=args.device)
+    if initialized():  # a group of one under torchrun too
+        print(f"| distributed init (rank {ctx.rank}/{ctx.world_size}): "
+              f"{ctx.coordinator} over {backend()}", flush=True)
+    try:
+        if not args.bert_vocab:
+            check_same_hash_seed()
+        yield ctx
+    finally:
+        dist_close()
+
+
 def resolve_workdir(args) -> str:
     """--workdir verbatim, else the reference's timestamped
-    output_dir/STAMP[_TAG] layout (train_3dvlp.py:162-177)."""
+    output_dir/STAMP[_TAG] layout (train_3dvlp.py:162-177), rank 0's
+    stamp under data parallel."""
     if getattr(args, "workdir", ""):
         workdir = args.workdir
     else:
         from datetime import datetime
 
+        from vlp3d_torch.parallel.distributed import broadcast_object
+
         stamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
         if args.tag:
             stamp += "_" + args.tag.upper()
-        workdir = os.path.join(args.output_dir, stamp)
+        workdir = os.path.join(args.output_dir, broadcast_object(stamp))
     os.makedirs(workdir, exist_ok=True)
     return workdir
 
@@ -255,7 +286,12 @@ def resume_solver(solver, args, workdir: str) -> int:
     train_3dvlp.py:160-171). --auto_resume on the run's own checkpoint
     continues the epoch/curriculum clock at the epoch after the last
     completed one; --use_checkpoint restarts it at 0, as the reference
-    does."""
+    does. Under data parallel every rank loads the same files, after a
+    barrier: no rank reads the run directory while another still
+    writes to it."""
+    from vlp3d_torch.parallel.distributed import barrier
+
+    barrier()
     resume_from = getattr(args, "use_checkpoint", "")
     continue_clock = False
     if (

@@ -1,7 +1,7 @@
 """Online grounding, captioning and question-answering server.
 
 The port's counterpart of ``vlp3d/cli/serve.py`` for the ground, caption
-and answer tasks on one device: a JSON-over-HTTP endpoint
+and answer tasks: a JSON-over-HTTP endpoint
 (:mod:`vlp3d_torch.serve`) with micro-batching in front of the
 predictors.
 
@@ -22,8 +22,11 @@ writes one as answer_vocab.json) names the answers. ``--model_dir``
 loads the ``model`` snapshot a training run saved (``save_params``); the
 answer head's width is read from it. Without it the weights are the seeded
 random ones (``--smoke``: the tiny synthetic configuration,
-``--device cpu`` for the plain PyTorch ops). ``--data_devices`` other
-than 1 raises (ROADMAP.md queue A item A18).
+``--device cpu`` for the plain PyTorch ops). ``--data_devices N`` serves
+data-parallel over the first N local devices (one replica a device,
+each device batch's rows split between them; 0 = every local device:
+each CUDA card, or the one CPU under ``--device cpu``), as the JAX CLI
+serves over an N-device mesh; ``--serve_batch_size`` must divide by N.
 """
 
 from __future__ import annotations
@@ -31,7 +34,6 @@ from __future__ import annotations
 import argparse
 
 TASKS = ("ground", "caption", "answer")
-DATA_PARALLEL_ITEM = "ROADMAP.md queue A item A18 (data parallel)"
 
 
 def parse_args(argv=None):
@@ -52,8 +54,8 @@ def parse_args(argv=None):
     p.add_argument("--serve_batch_size", type=int, default=16)
     p.add_argument("--max_wait_ms", type=float, default=5.0)
     p.add_argument("--data_devices", type=int, default=1,
-                   help="serve data-parallel over N devices; the port "
-                        "serves on one")
+                   help="serve data-parallel over N local devices (0 = "
+                        "all); the serve batch must divide by N")
     p.add_argument("--vocab_path", type=str, default="",
                    help="WordPiece vocab.txt (hash tokenizer when empty)")
     p.add_argument("--answer_vocab", type=str, default="",
@@ -95,10 +97,17 @@ def build_server(args, tasks):
     from vlp3d_torch.serve import InferenceService, make_server
     from vlp3d_torch.train.checkpoint import load_params
 
+    devices = None
     if args.data_devices != 1:
-        raise NotImplementedError(
-            f"vlp3d_torch serves on one device (--data_devices "
-            f"{args.data_devices}); see {DATA_PARALLEL_ITEM}")
+        from vlp3d_torch.parallel.mesh import local_devices, make_mesh
+
+        kind = args.device or "cuda"
+        n, have = args.data_devices, len(local_devices(kind))
+        if n and (n < 1 or n > have):
+            raise SystemExit(
+                f"--data_devices {n} invalid: this host exposes {have} "
+                f"device(s)")
+        devices = make_mesh(n or None, kind)
 
     # the served tasks decide the heads: the caption head only where the
     # caption task is served (its weights would go unused otherwise), the
@@ -126,7 +135,8 @@ def build_server(args, tasks):
             tokenizer=tokenizer,
             batch_size=args.serve_batch_size,
             max_wait_ms=args.max_wait_ms,
-            device=args.device,
+            device=None if devices else args.device,
+            devices=devices,
             num_beams=args.num_beams,
             length_penalty=args.length_penalty,
             answer_vocab=answer_vocab,
@@ -139,7 +149,8 @@ def build_server(args, tasks):
                   flush=True)
             service.warmup()
     server = make_server(services, host=args.host, port=args.port)
-    device = next(iter(services.values()))._pred.device
+    pred = next(iter(services.values()))._pred
+    device = ", ".join(str(d) for d in pred.devices)
     print(
         f"| vlp3d_torch serve: {', '.join(f'/v1/{t}' for t in tasks)} on "
         f"http://{args.host}:{server.server_address[1]} "

@@ -10,9 +10,16 @@ module's name trains on the card,
       --use_diou_loss [--synthetic]
 
 and ``--synthetic --smoke --device cpu`` runs the tiny configuration on
-the CPU with the plain PyTorch ops. One process, one device: a
-``WORLD_SIZE`` above 1 raises (data parallel is ROADMAP.md queue A item
-A18), as do ``--tp`` and ``--zero1`` (A19).
+the CPU with the plain PyTorch ops. Data parallel, one process a card,
+``--batch_size`` the global batch:
+
+  python -m torch.distributed.run --nproc_per_node 8 \\
+      -m vlp3d_torch.cli.train_3dvlp <the flags above>
+  srun --ntasks-per-node 8 python -m vlp3d_torch.cli.train_3dvlp ...
+
+(env:// or SLURM rendezvous, :func:`vlp3d_torch.parallel.distributed.dist_init`;
+with ``--device cpu`` the ranks meet over gloo). ``--tp`` and
+``--zero1`` raise (ROADMAP.md queue A item A19).
 """
 
 from __future__ import annotations
@@ -21,35 +28,31 @@ import argparse
 import json
 import os
 
-DIST_ITEM = "ROADMAP.md queue A item A18 (data parallel)"
-
-
 def main(argv=None):
     from vlp3d_torch.cli.common import (
         add_common_args,
         build_datasets,
+        process_group,
         resolve_config,
         resolve_workdir,
         run_training,
     )
+    from vlp3d_torch.parallel.distributed import is_main_process
 
     p = argparse.ArgumentParser()
     add_common_args(p)
     args = p.parse_args(argv)
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            f"vlp3d_torch trains in one process (WORLD_SIZE="
-            f"{os.environ['WORLD_SIZE']}); see {DIST_ITEM}")
+    with process_group(args):
+        config = resolve_config(args)
+        train_ds, val_ds = build_datasets(args, config)
+        workdir = resolve_workdir(args)
+        if is_main_process():
+            with open(os.path.join(workdir, "info.json"), "w") as f:
+                json.dump({"args": vars(args)}, f, indent=2)
 
-    config = resolve_config(args)
-    train_ds, val_ds = build_datasets(args, config)
-    workdir = resolve_workdir(args)
-    with open(os.path.join(workdir, "info.json"), "w") as f:
-        json.dump({"args": vars(args)}, f, indent=2)
-
-    return run_training(args, config, train_ds, val_ds, workdir,
-                        caption=not config.model.no_caption,
-                        use_bn_schedule=config.model.no_caption)
+        return run_training(args, config, train_ds, val_ds, workdir,
+                            caption=not config.model.no_caption,
+                            use_bn_schedule=config.model.no_caption)
 
 
 if __name__ == "__main__":

@@ -18,6 +18,10 @@ from a grounding or captioning run (train_qa.py:129-134).
     python -m vlp3d_torch.cli.train_qa --use_multiview --use_normal \\
         --scanqa_dir data/scanqa --pretrain RUN/model.pth
     python -m vlp3d_torch.cli.train_qa --synthetic --smoke --device cpu
+
+Data parallel as :mod:`vlp3d_torch.cli.train_3dvlp`: ``python -m
+torch.distributed.run --nproc_per_node N -m vlp3d_torch.cli.train_qa
+...`` or ``srun``.
 """
 
 from __future__ import annotations
@@ -26,9 +30,6 @@ import argparse
 import dataclasses
 import json
 import os
-
-DIST_ITEM = "ROADMAP.md queue A item A18 (data parallel)"
-
 
 def build_qa_datasets(args, config):
     """(train_ds, val_ds) of ScanQADataset: joint-format batches plus
@@ -111,20 +112,25 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
+    """Parse the flags, join the process group (data parallel under
+    ``torchrun`` / ``srun``, as train_3dvlp) and train."""
     import sys
 
+    from vlp3d_torch.cli.common import process_group
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = parse_args(argv)
+    with process_group(args):
+        return _train(args)
+
+
+def _train(args):
     from vlp3d_torch.cli.common import (
         resolve_config,
         resolve_workdir,
         run_training,
     )
-
-    argv = list(sys.argv[1:] if argv is None else argv)
-    args = parse_args(argv)
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError(
-            f"vlp3d_torch trains in one process (WORLD_SIZE="
-            f"{os.environ['WORLD_SIZE']}); see {DIST_ITEM}")
+    from vlp3d_torch.parallel.distributed import is_main_process
 
     config = resolve_config(args)
     train_ds, val_ds = build_qa_datasets(args, config)
@@ -142,12 +148,13 @@ def main(argv=None):
             single_lr_group=True, clip_grad_value=args.max_grad_norm),
     )
     workdir = resolve_workdir(args)
-    with open(os.path.join(workdir, "info.json"), "w") as f:
-        json.dump({"args": vars(args), "num_answers": train_ds.num_answers},
-                  f, indent=2)
-    with open(os.path.join(workdir, "answer_vocab.json"), "w") as f:
-        json.dump(sorted(train_ds.answer_vocab,
-                         key=train_ds.answer_vocab.get), f)
+    if is_main_process():
+        with open(os.path.join(workdir, "info.json"), "w") as f:
+            json.dump({"args": vars(args),
+                       "num_answers": train_ds.num_answers}, f, indent=2)
+        with open(os.path.join(workdir, "answer_vocab.json"), "w") as f:
+            json.dump(sorted(train_ds.answer_vocab,
+                             key=train_ds.answer_vocab.get), f)
 
     return run_training(args, config, train_ds, val_ds, workdir,
                         caption=False, use_bn_schedule=True)

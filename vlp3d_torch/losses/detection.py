@@ -6,6 +6,9 @@ objectness CE weights [0.2, 0.8], GT_VOTE_FACTOR = 3, distance huber
 delta 0.15). All reductions are masked sums over the reference's +1e-6
 denominators. Like the reference, GT boxes are zero-padded to MAX_NUM_OBJ
 and the padding rows take part in the proposal <-> GT center matching.
+Under data parallel (``shard``, a
+:class:`~vlp3d_torch.parallel.reduce.BatchShard`) each sum and
+denominator is the global batch's.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch.nn.functional as F
 
 from vlp3d_torch.geometry.boxes import rotate_rotz_rows
 from vlp3d_torch.geometry.nn_distance import huber_loss, nn_distance
+from vlp3d_torch.parallel.reduce import LOCAL
 
 NEAR_THRESHOLD = 0.3
 FAR_THRESHOLD = 0.3
@@ -24,8 +28,8 @@ GT_VOTE_FACTOR = 3
 OBJECTNESS_CLS_WEIGHTS = (0.2, 0.8)
 
 
-def _masked_mean(x, mask, eps=1e-6):
-    return (x * mask).sum() / (mask.sum() + eps)
+def _masked_mean(x, mask, eps=1e-6, shard=LOCAL):
+    return shard.ratio((x * mask).sum(), mask.sum(), eps)
 
 
 def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -42,7 +46,7 @@ def _pick(logp: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
 
 
 def compute_vote_loss(seed_xyz, vote_xyz, seed_inds, vote_label,
-                      vote_label_mask):
+                      vote_label_mask, shard=LOCAL):
     """Min-of-min L1 Chamfer between the predicted votes (B, S*vf, 3) and
     the 3 GT votes of each seed (loss_detection.py:24-71)."""
     b, s, _ = seed_xyz.shape
@@ -54,11 +58,11 @@ def compute_vote_loss(seed_xyz, vote_xyz, seed_inds, vote_label,
     gt = seed_gt_votes.reshape(b * s, GT_VOTE_FACTOR, 3)
     _, _, dist2, _ = nn_distance(votes, gt, l1=True)
     votes_dist = dist2.amin(dim=1).reshape(b, s)
-    return _masked_mean(votes_dist, seed_gt_mask.float())
+    return _masked_mean(votes_dist, seed_gt_mask.float(), shard=shard)
 
 
 def compute_objectness_loss(aggregated_vote_xyz, objectness_scores,
-                            center_label):
+                            center_label, shard=LOCAL):
     """Proposal <-> GT center matching + weighted CE
     (loss_detection.py:73-113). Returns (loss, objectness_label (B, K)
     int64, objectness_mask (B, K) f32, object_assignment (B, K) int32)."""
@@ -70,7 +74,7 @@ def compute_objectness_loss(aggregated_vote_xyz, objectness_scores,
     logp = F.log_softmax(objectness_scores, dim=-1)
     w = logp.new_tensor(OBJECTNESS_CLS_WEIGHTS)[label]
     ce = -w * _pick(logp, label)
-    return _masked_mean(ce, mask), label, mask, ind1
+    return _masked_mean(ce, mask, shard=shard), label, mask, ind1
 
 
 def recover_assigned_gt_bboxes(aggregated_vote_xyz, object_assignment,
@@ -105,7 +109,7 @@ def recover_assigned_gt_bboxes(aggregated_vote_xyz, object_assignment,
 
 def compute_box_and_sem_cls_loss(preds: dict, targets: dict,
                                  objectness_label, num_heading_bin: int,
-                                 mean_size_arr):
+                                 mean_size_arr, shard=LOCAL):
     """Heading cls/reg + 6-distance huber + semantic CE
     (loss_detection.py:116-150, 215-258). Returns (heading_cls_loss,
     heading_reg_loss, size_distance_loss, sem_cls_loss)."""
@@ -118,19 +122,20 @@ def compute_box_and_sem_cls_loss(preds: dict, targets: dict,
     obj = objectness_label.float()
 
     logp = F.log_softmax(preds["heading_scores"], dim=-1)
-    heading_cls_loss = _masked_mean(-_pick(logp, gt["gt_heading_class"]), obj)
+    heading_cls_loss = _masked_mean(-_pick(logp, gt["gt_heading_class"]),
+                                    obj, shard=shard)
 
     hres_norm_label = gt["gt_heading_residual"] / (math.pi / num_heading_bin)
     onehot = F.one_hot(gt["gt_heading_class"].long(), num_heading_bin).float()
     pred_res = (preds["heading_residuals_normalized"] * onehot).sum(dim=-1)
     heading_reg_loss = _masked_mean(
-        huber_loss(pred_res - hres_norm_label, delta=1.0), obj)
+        huber_loss(pred_res - hres_norm_label, delta=1.0), obj, shard=shard)
 
     dist_loss = huber_loss(preds["rois"] - gt["gt_distance"],
                            delta=0.15).mean(dim=-1)
-    size_distance_loss = _masked_mean(dist_loss, obj)
+    size_distance_loss = _masked_mean(dist_loss, obj, shard=shard)
 
     sem_label = take_rows(targets["sem_cls_label"], preds["object_assignment"])
     logp = F.log_softmax(preds["sem_cls_scores"], dim=-1)
-    sem_cls_loss = _masked_mean(-_pick(logp, sem_label), obj)
+    sem_cls_loss = _masked_mean(-_pick(logp, sem_label), obj, shard=shard)
     return heading_cls_loss, heading_reg_loss, size_distance_loss, sem_cls_loss

@@ -17,6 +17,12 @@ of the reference that are kept:
 ``argmax`` ties go to the lowest index, as in the JAX package. The
 heteroscedastic KL branch (``alpha``, ``use_kl_loss``) keeps the
 reference's quirks, listed at :func:`compute_diou_loss`.
+
+Under data parallel (``shard``, a
+:class:`~vlp3d_torch.parallel.reduce.BatchShard`) every mean over the
+batch, masked sum, count and ``/ b`` of the losses and diagnostics is
+the global batch's. The focal and sigmoid ranking losses, which no loss
+of the joint model calls, stay rank-local.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import torch.nn.functional as F
 from vlp3d_torch.config import SCANNET_TYPES
 from vlp3d_torch.geometry.boxes import box3d_diou
 from vlp3d_torch.losses.detection import take_rows
+from vlp3d_torch.parallel.reduce import LOCAL
 
 
 def _lang_mask(lang_num: torch.Tensor, l: int) -> torch.Tensor:
@@ -85,7 +92,7 @@ def sigmoid_ranking_focal_loss(inputs, targets, mask=None, gamma=2.0,
 def compute_diou_loss(*, pred_center, pred_size, cluster_ref,
                       objectness_masks, gt_center, gt_size, lang_num, epoch,
                       istrain, random_gate, pred_center_reg=None,
-                      pred_size_reg=None, alpha=None) -> dict:
+                      pred_size_reg=None, alpha=None, shard=LOCAL) -> dict:
     """OID loss (loss_grounding.py:129-365).
 
     pred_center/size (B, K, 3); cluster_ref (B*L, K); objectness_masks
@@ -144,18 +151,21 @@ def compute_diou_loss(*, pred_center, pred_size, cluster_ref,
             masked_onehot) * has_pos[..., None]
 
     preds = cluster_ref.reshape(b, l, k)
-    ref_loss = softmax_ranking_loss(preds, smooth_labels, lang_mask).mean()
-    diou_loss = ((1.0 - dious) * smooth_labels * lang_mask[..., None]).sum() / b
-    total_lang = torch.clamp(lang_num.sum(), min=1)
+    ref_loss = shard.mean(softmax_ranking_loss(preds, smooth_labels,
+                                               lang_mask))
+    diou_loss = shard.sum(
+        ((1.0 - dious) * smooth_labels * lang_mask[..., None]).sum()) / (
+            b * shard.world)
+    total_lang = torch.clamp(shard.sum(lang_num.sum()), min=1)
     out = {
         "ref_loss": ref_loss,
         "diou_loss": diou_loss,
         "cluster_labels": labels,
         "smooth_labels": smooth_labels,
         "ious": ious,
-        "max_iou_rate_0.25": has_pos.sum() / total_lang,
-        "max_iou_rate_0.5": ((max_ious >= 0.5).float() * lang_mask).sum()
-        / total_lang,
+        "max_iou_rate_0.25": shard.sum(has_pos.sum()) / total_lang,
+        "max_iou_rate_0.5": shard.sum(
+            ((max_ious >= 0.5).float() * lang_mask).sum()) / total_lang,
     }
     if alpha is not None:
         alpha_center, alpha_size = alpha[..., 0:3], alpha[..., 4:6]
@@ -170,11 +180,13 @@ def compute_diou_loss(*, pred_center, pred_size, cluster_ref,
         center_term = (sl1_mean * torch.exp(-alpha_center).sum(dim=(1, 2))
                        + 0.5 * alpha_center.sum(dim=(1, 2)))
         size_term = 0.5 * alpha_size.sum(dim=(1, 2))
-        out["kl_loss"] = (center_term + size_term).sum() / b
+        out["kl_loss"] = shard.sum((center_term + size_term).sum()) / (
+            b * shard.world)
     return out
 
 
-def compute_lang_classification_loss(lang_scores, object_cat, lang_num):
+def compute_lang_classification_loss(lang_scores, object_cat, lang_num,
+                                     shard=LOCAL):
     """Per-sentence object-category CE (loss_grounding.py:476-487):
     lang_scores (B*L, num_class), object_cat (B, L), lang_num (B,)."""
     b, l = object_cat.shape
@@ -183,7 +195,7 @@ def compute_lang_classification_loss(lang_scores, object_cat, lang_num):
     mask = _lang_mask(lang_num, l)
     per_batch = (ce * mask).sum(dim=-1) / torch.clamp(mask.sum(dim=-1),
                                                       min=1.0)
-    return per_batch.mean()
+    return shard.mean(per_batch)
 
 
 def _segment_sum(values: torch.Tensor, segments: torch.Tensor,
@@ -194,7 +206,8 @@ def _segment_sum(values: torch.Tensor, segments: torch.Tensor,
 
 
 def compute_debug_diagnostics(*, ious, cluster_ref, object_cat, gt_size,
-                              lang_num, num_class: int = 18) -> dict:
+                              lang_num, num_class: int = 18,
+                              shard=LOCAL) -> dict:
     """The reference's ``--debug`` diagnostics of the OID loop
     (loss_grounding.py:262-306, 327-345): top_iou_rate_1..5 (mean k-th
     largest raw IoU per sentence), pred_iou_rate_0.25 / 0.5 (mean share of
@@ -203,26 +216,27 @@ def compute_debug_diagnostics(*, ious, cluster_ref, object_cat, gt_size,
     top_ind (mean ascending rank of the prediction, + 1)."""
     b, l, k = ious.shape
     lang_mask = _lang_mask(lang_num, l)
-    total = torch.clamp(lang_num.sum().float(), min=1.0)
+    total = torch.clamp(shard.sum(lang_num.sum().float()), min=1.0)
     out = {}
     top5 = torch.topk(ious, 5, dim=-1).values  # descending
-    top_sums = (top5 * lang_mask[..., None]).sum(dim=(0, 1))
+    top_sums = shard.sum((top5 * lang_mask[..., None]).sum(dim=(0, 1)))
     for i in range(1, 6):
         out[f"top_iou_rate_{i}"] = top_sums[i - 1] / total
     for thr, key in ((0.25, "pred_iou_rate_0.25"), (0.5, "pred_iou_rate_0.5")):
         frac = (ious >= thr).float().mean(dim=-1)
-        out[key] = (frac * lang_mask).sum() / total
+        out[key] = shard.sum((frac * lang_mask).sum()) / total
 
     pred_ind = torch.argmax(cluster_ref.reshape(b, l, k), dim=-1)
     chosen_iou = torch.gather(ious, -1, pred_ind[..., None])[..., 0]
     flat_cat = object_cat.reshape(-1)
-    cnt = torch.clamp(
-        _segment_sum(lang_mask.reshape(-1), flat_cat, num_class), min=1.0)
-    class_iou = _segment_sum((chosen_iou * lang_mask).reshape(-1), flat_cat,
-                             num_class) / cnt
     vol = gt_size.prod(dim=-1)
-    class_size = _segment_sum((vol * lang_mask).reshape(-1), flat_cat,
-                              num_class) / cnt
+    # (count, IoU sum, volume sum) of each class, over the global batch
+    cnt, iou_sum, vol_sum = shard.sum(torch.stack([
+        _segment_sum(v.reshape(-1), flat_cat, num_class)
+        for v in (lang_mask, chosen_iou * lang_mask, vol * lang_mask)]))
+    cnt = torch.clamp(cnt, min=1.0)
+    class_iou = iou_sum / cnt
+    class_size = vol_sum / cnt
     names = (SCANNET_TYPES if num_class == len(SCANNET_TYPES)
              else [str(i) for i in range(num_class)])
     for i, name in enumerate(names):
@@ -232,12 +246,12 @@ def compute_debug_diagnostics(*, ious, cluster_ref, object_cat, gt_size,
     rank = (ious < chosen_iou[..., None]).float().sum(dim=-1)
     per_scene = (rank * lang_mask).sum(dim=1) / torch.clamp(lang_num.float(),
                                                             min=1.0)
-    out["top_ind"] = per_scene.mean() + 1.0
+    out["top_ind"] = shard.mean(per_scene) + 1.0
     return out
 
 
 def compute_attr_loss(vote_xyz, seed_inds, instance_labels, vote_label_mask,
-                      num_instances: int = 256):
+                      num_instances: int = 256, shard=LOCAL):
     """Vote compactness per instance (loss_grounding.py:71-126): L1
     distance of each vote (B, S, 3) to its instance's mean vote, masked by
     the GT vote mask; the scatter-mean is a fixed-size segment mean."""
@@ -252,14 +266,15 @@ def compute_attr_loss(vote_xyz, seed_inds, instance_labels, vote_label_mask,
     seg_cnt = _segment_sum(flat.new_ones(b * s), seg, b * num_instances)
     seg_mean = seg_sum / torch.clamp(seg_cnt, min=1.0)[:, None]
     attr_dist = (flat - seg_mean[seg]).abs().sum(dim=-1).reshape(b, s)
-    return (attr_dist * seed_mask).sum() / (seed_mask.sum() + 1e-6)
+    return shard.ratio((attr_dist * seed_mask).sum(), seed_mask.sum(), 1e-6)
 
 
-def compute_vote_weight_loss(vote_weights, seed_inds, vote_label_mask):
+def compute_vote_weight_loss(vote_weights, seed_inds, vote_label_mask,
+                             shard=LOCAL):
     """BCE of the predicted vote weights (B, S, 1) against the GT vote
     mask at the seeds (loss_grounding.py:60-69): p clipped to [1e-7,
     1 - 1e-7], the mean over B x S."""
     target = take_rows(vote_label_mask, seed_inds).float()
     p = torch.clamp(vote_weights[..., 0], 1e-7, 1.0 - 1e-7)
-    return -(target * torch.log(p)
-             + (1.0 - target) * torch.log(1.0 - p)).mean()
+    return -shard.mean(target * torch.log(p)
+                       + (1.0 - target) * torch.log(1.0 - p))

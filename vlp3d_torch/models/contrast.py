@@ -8,7 +8,9 @@ predicted boxes picks the positives (IoU > 0.25); positive-objectness
 selection is a mask on the similarity logits (masked log-softmax, means
 normalised by the object count); for OCC only the object-side
 SoftCrossEntropy term survives (/2); both losses are divided by the
-batch size and are zero before epoch 50. The learnable temperature
+batch size and are zero before epoch 50 (under data parallel, ``shard``,
+the sums and the batch size are the global batch's). The learnable
+temperature
 ``nce_loss.tau`` exists in the reference and is unused there; it is kept
 so that the state dict carries it.
 """
@@ -23,6 +25,7 @@ from torch import nn
 
 from vlp3d_torch.device import resolve_device
 from vlp3d_torch.geometry.boxes import box3d_iou_aabb
+from vlp3d_torch.parallel.reduce import LOCAL
 
 _NEG = -1e9
 
@@ -40,6 +43,8 @@ class _Tau(nn.Module):
 
 
 class ContrastModule(nn.Module):
+    shard = LOCAL
+
     def __init__(self, hidden: int = 128, iou_threshold: float = 0.25, *,
                  device=None):
         super().__init__()
@@ -82,7 +87,8 @@ class ContrastModule(nn.Module):
             torch.where(col_mask, sim_lang, sim_lang.new_tensor(_NEG)), dim=-1)
         occ_per = -(logp * target * obj_mask[:, None, :]).sum(dim=-1)
         occ_per = occ_per / obj_cnt[:, None] / 2.0
-        lang_con_loss = (occ_per * lang_mask).sum() / b
+        sh = self.shard
+        lang_con_loss = sh.sum((occ_per * lang_mask).sum()) / (b * sh.world)
 
         # OSC: proposal against proposal
         box_iou_n = _l2norm(self.pc_proj_iou(bbox_feature))
@@ -98,7 +104,7 @@ class ContrastModule(nn.Module):
                             (logp_iou + logp_iou_t) * pair_mask,
                             target, target)
         osc_per = osc / 2.0 / (obj_cnt ** 2)[:, None]
-        iou_con_loss = (osc_per * lang_mask).sum() / b
+        iou_con_loss = sh.sum((osc_per * lang_mask).sum()) / (b * sh.world)
 
         gate = (torch.as_tensor(epoch, device=lang_con_loss.device)
                 >= 50).float()

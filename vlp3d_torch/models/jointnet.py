@@ -54,6 +54,7 @@ from vlp3d_torch.models.match import MatchModule
 from vlp3d_torch.models.proposal import ProposalModule
 from vlp3d_torch.models.relation import RelationModule
 from vlp3d_torch.models.voting import VotingModule, l2_normalize
+from vlp3d_torch.parallel.reduce import LOCAL
 
 
 class JointNet(nn.Module):
@@ -63,8 +64,13 @@ class JointNet(nn.Module):
     evaluation mode; ``forward(batch, train=True)`` switches it (and back).
     ``mask_generator`` (a ``torch.Generator`` on the model's device, set by
     the train step; the global generator when None) draws the box masks
-    and the caption and MLM token masks.
+    and the caption and MLM token masks. Under data parallel
+    (:func:`~vlp3d_torch.models.layers.set_batch_shard`) each draw is the
+    global batch's and this rank keeps its rows: the token masks are
+    drawn over the gathered ids of every rank.
     """
+
+    shard = LOCAL
 
     def __init__(self, config: Config, *, device=None):
         super().__init__()
@@ -200,8 +206,7 @@ class JointNet(nn.Module):
         t_cap = min(t, self.config.model.max_des_len + 2)
         seq = ids.reshape(b * l, t)[:, :t_cap][:, :-1]
         if train:
-            seq, _ = mask_caption_tokens(seq, self.config.model.vocab_size,
-                                         generator=self.mask_generator)
+            seq, _ = self._mask_tokens(seq)
         logp = self.caption.model(obj_token, seq, causal_caption_mask(seq))
         return {
             "lang_cap": logp[:, 1:],  # the object token's row dropped
@@ -216,11 +221,20 @@ class JointNet(nn.Module):
         b, l, t = ids.shape
         obj_token, _, _ = self._object_tokens(batch, out)
         seq = ids.reshape(b * l, t)[:, :-1]
-        mask_seq, mask_index = mask_caption_tokens(
-            seq, self.config.model.vocab_size, generator=self.mask_generator)
+        mask_seq, mask_index = self._mask_tokens(seq)
         logp = self.mlm.model(obj_token, mask_seq,
                               padding_caption_mask(mask_seq))
         return {"lang_mlm": logp[:, 1:], "mlm_mask_index": mask_index}
+
+
+    def _mask_tokens(self, seq: torch.Tensor):
+        """:func:`mask_caption_tokens` of the token ids ``seq`` (rows of
+        the global batch's ids under data parallel, this rank's rows
+        kept)."""
+        masked, index = mask_caption_tokens(
+            self.shard.cat(seq), self.config.model.vocab_size,
+            generator=self.mask_generator)
+        return self.shard.own(masked), self.shard.own(index)
 
 
 def _drop_dead_caption_keys(state_dict, prefix, *args):

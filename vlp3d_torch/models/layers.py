@@ -31,6 +31,7 @@ from vlp3d_torch.ops import (
     group_points,
 )
 from vlp3d_torch.ops.interpolate import interpolate_features
+from vlp3d_torch.parallel.reduce import LOCAL
 
 
 class PointwiseConv(nn.Module):
@@ -62,9 +63,17 @@ class BatchNorm(nn.Module):
     torch's convention: 0.1 is flax's 0.9. With ``track`` False (see
     :func:`frozen_statistics`) a training forward normalises with the
     batch's statistics and leaves the running ones alone.
+
+    Under data parallel (``shard``, set by :func:`set_batch_shard`) the
+    batch statistics are the global batch's: the sums of x and x^2 over
+    this rank's rows go through one differentiable all-reduce, so every
+    rank normalises with, and moves its running statistics by, the
+    statistics of the whole batch (``torch.nn.SyncBatchNorm`` would
+    store the unbiased variance, and takes no CPU tensors).
     """
 
     eps = 1e-5
+    shard = LOCAL
 
     def __init__(self, c: int, *, device=None):
         super().__init__()
@@ -81,8 +90,14 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             dims = tuple(range(x.dim() - 1))
-            mean = x.mean(dims)
-            var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+            if self.shard.distributed:
+                sums = self.shard.sum(torch.stack([x.sum(dims),
+                                                   (x * x).sum(dims)]))
+                count = x.numel() // x.shape[-1] * self.shard.world
+                mean, mean_sq = sums[0] / count, sums[1] / count
+            else:
+                mean, mean_sq = x.mean(dims), (x * x).mean(dims)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             if self.track:
                 with torch.no_grad():
                     self.running_mean.lerp_(mean, self.momentum)
@@ -117,7 +132,11 @@ class Dropout(nn.Module):
     p = 0. The mask comes from ``generator`` (an explicit
     ``torch.Generator`` on the input's device, set by
     :func:`set_dropout_generator`), or from the global generator when it
-    is None."""
+    is None. Under data parallel (``shard``) the mask is drawn at the
+    global batch's shape and each rank keeps its rows (the input's
+    leading axis is batch-major)."""
+
+    shard = LOCAL
 
     def __init__(self, p: float):
         super().__init__()
@@ -128,8 +147,10 @@ class Dropout(nn.Module):
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        mask = torch.rand(x.shape, device=x.device, dtype=x.dtype,
-                          generator=self.generator) < keep
+        mask = self.shard.rows(
+            lambda shape: torch.rand(shape, device=x.device, dtype=x.dtype,
+                                     generator=self.generator),
+            x.shape) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -140,6 +161,17 @@ def set_dropout_generator(module: nn.Module,
     for m in module.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+
+
+def set_batch_shard(module: nn.Module, shard) -> None:
+    """Hand every submodule of ``module`` that reduces or draws over the
+    batch (those with a ``shard`` attribute: BatchNorm, Dropout, the
+    proposal, match and contrast modules, JointNet) the
+    :class:`~vlp3d_torch.parallel.reduce.BatchShard` of this rank;
+    :data:`~vlp3d_torch.parallel.reduce.LOCAL` for one process."""
+    for m in module.modules():
+        if hasattr(m, "shard"):
+            m.shard = shard
 
 
 class PReLU(nn.Module):

@@ -11,7 +11,10 @@ In training, with a ``random_gate`` below 0.5, each scene's non-object
 proposal features are first replaced by object features pooled from the
 whole batch (:func:`copy_paste_features`). The gate is the caller's one
 uniform draw of the step, shared with the DIoU loss; the module never
-draws its own.
+draws its own. Under data parallel (``shard``) the pool is the global
+batch in global scan order: every rank gathers the features and
+objectness masks of all ranks (differentiably), pastes over the whole
+batch and keeps its rows, so a scene may paste another rank's objects.
 
 Options (match_module.py:148-168):
 
@@ -40,6 +43,7 @@ from vlp3d_torch.models.attention import (
     MultiHeadAttention,
 )
 from vlp3d_torch.models.layers import BatchNorm, Dropout, PointwiseConv, PReLU
+from vlp3d_torch.parallel.reduce import LOCAL
 
 
 def copy_paste_features(features: torch.Tensor,
@@ -71,6 +75,8 @@ def copy_paste_features(features: torch.Tensor,
 
 
 class MatchModule(nn.Module):
+    shard = LOCAL
+
     def __init__(self, hidden_size: int = 128, depth: int = 2, heads: int = 4,
                  *, num_proposals: int = 256, use_lang_emb: bool = False,
                  use_reg_head: bool = False, device=None):
@@ -120,7 +126,9 @@ class MatchModule(nn.Module):
         l = lang_num_max
         features = bbox_feature
         if self.training and random_gate is not None:
-            pasted = copy_paste_features(features, objectness_masks > 0)
+            pasted = self.shard.own(copy_paste_features(
+                self.shard.cat(features),
+                self.shard.cat(objectness_masks) > 0))
             gate = torch.as_tensor(random_gate, device=features.device)
             features = torch.where(gate < 0.5, pasted, features)
         feature1 = features[:, None].expand(b, l, k, h).reshape(b * l, k, h)

@@ -32,6 +32,7 @@ from vlp3d_torch.models.layers import (
     PReLU,
     SAModule,
 )
+from vlp3d_torch.parallel.reduce import LOCAL
 
 # share of the boxes mask_boxes replaces (proposal_module_fcos.py:161-178)
 MASK_RATE = 0.3
@@ -102,18 +103,22 @@ def box_mask_draws(b: int, k: int, generator: torch.Generator | None,
 
 
 def mask_boxes(center: torch.Tensor, size: torch.Tensor,
-               generator: torch.Generator | None = None):
+               generator: torch.Generator | None = None, shard=LOCAL):
     """Train-time box masking (proposal_module_fcos.py:161-178): a masked
     box gets a random centre and size (:func:`box_mask_draws`). The JAX
     package draws from its ``aug`` key; the bits differ, the distribution
-    is the same."""
-    mask, rand_center, rand_size = box_mask_draws(
-        center.shape[0], center.shape[1], generator, center.device)
+    is the same. Under data parallel (``shard``) the draws are the global
+    batch's and this rank keeps its rows."""
+    mask, rand_center, rand_size = (shard.own(d) for d in box_mask_draws(
+        center.shape[0] * shard.world, center.shape[1], generator,
+        center.device))
     return (torch.where(mask, rand_center, center),
             torch.where(mask, rand_size, size))
 
 
 class ProposalModule(nn.Module):
+    shard = LOCAL
+
     def __init__(self, num_class: int = 18, num_heading_bin: int = 1,
                  num_proposal: int = 256, seed_feat_dim: int = 256, *,
                  use_vote_weight: bool = False, use_kl_loss: bool = False,
@@ -156,7 +161,7 @@ class ProposalModule(nn.Module):
             out["heading_residuals"], self.num_heading_bin,
         )
         if self.mask_box and self.training:
-            center, size = mask_boxes(center, size, generator)
+            center, size = mask_boxes(center, size, generator, self.shard)
         out["pred_center"] = center
         out["pred_size"] = size
         out["pred_heading"] = heading

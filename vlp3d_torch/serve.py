@@ -2,7 +2,8 @@
 captioning and question-answering predictors.
 
 The port's counterpart of ``vlp3d/serve.py`` for the ground, caption
-and answer tasks on one device: a stdlib ThreadingHTTPServer front end
+and answer tasks on one device, or data-parallel over a mesh of devices
+(``devices``, the predictors' own): a stdlib ThreadingHTTPServer front end
 and, for each task, a micro-batching queue that coalesces concurrent
 requests into device batches of at most ``batch_size`` rows, in front
 of the predictor's ``run_padded`` (which copies only the occupied rows
@@ -24,8 +25,7 @@ Endpoints (all JSON):
   window of the last 1024), the device's memory.
 
 A server routes each task it serves at ``/v1/<task>``; any other route
-answers 404, naming the routes it serves. Serving over a device mesh
-waits for ROADMAP.md queue A item A18.
+answers 404, naming the routes it serves.
 
 ``point_cloud`` is either a nested list ``(N, C)`` or
 ``{"b64": <base64 of little-endian float32>, "shape": [N, C]}``. ``C``
@@ -240,7 +240,10 @@ class InferenceService:
     answers of each question; ``answer_vocab``, an id -> text list,
     names them). ``state_dict``: reference-layout weights (a
     ``save_params`` snapshot), loaded strictly; None keeps the seeded
-    random initialisation.
+    random initialisation. ``devices``: a mesh
+    (:func:`vlp3d_torch.parallel.mesh.make_mesh`) to serve data-parallel
+    over, in place of ``device`` (``vlp3d/serve.py``'s ``mesh``);
+    ``batch_size`` must divide by its device count.
     """
 
     def __init__(
@@ -253,6 +256,7 @@ class InferenceService:
         batch_size: int = 8,
         max_wait_ms: float = 5.0,
         device=None,
+        devices=None,
         num_beams: int = 1,
         length_penalty: float = 1.0,
         answer_vocab: list[str] | None = None,
@@ -267,16 +271,15 @@ class InferenceService:
         self.in_dim = config.model.input_feature_dim
         self.lang_num_max = config.model.lang_num_max
         self.seq_len = config.model.bert_seq_len
+        place = dict(batch_size=batch_size, device=device, devices=devices)
         if task == "ground":
-            self._pred = GroundingPredictor(
-                config, state_dict, batch_size=batch_size, device=device)
+            self._pred = GroundingPredictor(config, state_dict, **place)
         elif task == "caption":
             self._pred = CaptionPredictor(
-                config, state_dict, batch_size=batch_size, device=device,
-                num_beams=num_beams, length_penalty=length_penalty)
+                config, state_dict, num_beams=num_beams,
+                length_penalty=length_penalty, **place)
         else:
-            self._pred = AnswerPredictor(
-                config, state_dict, batch_size=batch_size, device=device)
+            self._pred = AnswerPredictor(config, state_dict, **place)
         self._batcher = MicroBatcher(
             self._run_batch, batch_size, max_wait_ms
         )

@@ -2,7 +2,7 @@
 
 Counterpart of ``vlp3d/train/solver.py`` (the reference's
 ``lib/joint/solver_3dvlp.py`` Solver.__call__/_feed, :273-1245), on one
-device:
+device a process:
 
   * per epoch: dataset.shuffle_data() re-chunks sentences, train feed,
     val feed with grounding metrics, best-model selection keyed on
@@ -37,6 +37,39 @@ device:
   * phase timers (fetch / iter, see :mod:`vlp3d_torch.utils.timers` for
     which steps synchronise), the JSONL log, TensorBoard and wandb.
 
+Data parallel: when the default process group is initialised
+(:func:`vlp3d_torch.parallel.distributed.dist_init`, one process a card
+under ``torchrun`` or ``srun``), ``config.train.batch_size`` is the
+global batch and each of the W ranks trains on its contiguous rows, as
+the JAX solver's processes do over its global mesh:
+
+  * the train loader builds only this rank's rows (``item_slice``), and
+    the step is :func:`~vlp3d_torch.train.state.make_train_step` over this
+    rank's :class:`~vlp3d_torch.parallel.reduce.BatchShard`: loss,
+    metrics, gradients, BatchNorm statistics and update are the
+    one-process step's on the global batch. Every rank starts from rank
+    0's state, and Python's ``random`` (``shuffle_data``) takes rank 0's
+    state before each epoch's shuffle;
+  * the eval feed: every rank builds the same global val batch, keeps its
+    rows, and the outputs that the host metrics read are gathered, so
+    ``get_eval`` sees the whole batch on every rank; the loss scalars are
+    the global batch's. The trailing partial val batch runs whole on every
+    rank (no collective): JAX pads it, and its loss scalars then count the
+    padded rows (C5), where the port's must equal the one-process run's;
+  * only rank 0 writes ``log.jsonl``, ``log.txt``, the snapshots, the
+    resume checkpoint, wandb and the profile; the other ranks' TensorBoard
+    goes to ``tensorboard/rank<r>``; every rank waits at a barrier after
+    each checkpoint write;
+  * an interrupt stops every rank at the same step boundary: whether to
+    stop is decided by all ranks after each step and eval batch
+    (:func:`~vlp3d_torch.parallel.distributed.all_processes_agree`), and
+    so is the save.
+
+``mesh``: this process's devices. One device runs there. The JAX solver
+runs a mesh of several local devices as one program; PyTorch runs one
+process a card, so a mesh of more than one device raises, naming the
+``torchrun`` command that runs it (ROADMAP.md C11).
+
 Where the port differs from the JAX solver, and why:
 
   * an interrupt lands only at a step boundary. SIGTERM and SIGINT set a
@@ -63,8 +96,7 @@ Where the port differs from the JAX solver, and why:
     ``ground_model*`` snapshots are not written).
 
 Still to port, each raising NotImplementedError naming its ROADMAP.md
-item: ``mesh`` and multi-process runs (A18), ``tp`` and ``zero1``
-(A19).
+item: ``tp`` and ``zero1`` (A19).
 """
 
 from __future__ import annotations
@@ -87,6 +119,8 @@ from vlp3d_torch.eval.scan2cap import collect_batch
 from vlp3d_torch.eval.vqa import answer_hits
 from vlp3d_torch.models.jointnet import JointNet
 from vlp3d_torch.models.layers import BatchNorm
+from vlp3d_torch.parallel import distributed as dist_utils
+from vlp3d_torch.parallel.reduce import LOCAL, BatchShard
 from vlp3d_torch.train import checkpoint as ckpt
 from vlp3d_torch.train.optimizer import make_optimizer
 from vlp3d_torch.train.schedules import bn_momentum_torch, cosine_lr, step_lr
@@ -103,13 +137,16 @@ from vlp3d_torch.utils.wandb_writer import WandbWriter
 # outputs eval_epoch reads on the host (get_eval's inputs)
 EVAL_KEYS = ("objectness_scores", "cluster_ref", "pred_center", "pred_size",
              "pred_heading", "sem_cls_scores", "lang_scores")
+# outputs the host reads of an eval batch: get_eval's, the answer EM's
+# and the caption evaluation's
+HOST_OUT_KEYS = EVAL_KEYS + ("answer_scores", "aggregated_vote_features",
+                             "aggregated_vote_xyz")
 # steps in the --profile_dir trace (the JAX solver's default window)
 PROFILE_STEPS = 3
 # the metrics whose sum picks the caption_model snapshot
 # (solver_3dvlp.py:1166-1181)
 CAPTION_METRICS = ("bleu-4", "cider", "rouge", "meteor")
 _UNPORTED = {
-    "mesh": "ROADMAP.md queue A item A18 (data parallel)",
     "tp": "ROADMAP.md queue A item A19 (the other parallel modes)",
     "zero1": "ROADMAP.md queue A item A19 (the other parallel modes)",
 }
@@ -147,9 +184,19 @@ class Solver:
     ):
         """caption_eval_ctx (optional): {"corpus", "organized",
         "tokenizer"}, the Scan2Cap scoring of each eval epoch (the
-        reference's Solver._eval -> eval_cap, solver_3dvlp.py:720-765)."""
+        reference's Solver._eval -> eval_cap, solver_3dvlp.py:720-765).
+        ``mesh``: a list of this process's devices (one), which takes the
+        place of ``device``."""
         if mesh is not None:
-            raise _unported("a device mesh", "mesh")
+            mesh = list(mesh)
+            if len(mesh) != 1:
+                raise ValueError(
+                    f"vlp3d_torch's Solver runs one device a process; "
+                    f"train over {len(mesh)} cards as {len(mesh)} "
+                    f"processes: python -m torch.distributed.run "
+                    f"--nproc_per_node {len(mesh)} -m "
+                    f"vlp3d_torch.cli.train_3dvlp ... (ROADMAP.md C11)")
+            device = mesh[0]
         if tp != 1:
             raise _unported(f"tp={tp}", "tp")
         if zero1:
@@ -170,7 +217,16 @@ class Solver:
         # metric; anything else leaves cur_best at 0 (:1129-1135)
         self.criterion = criterion
         self.device = resolve_device(device)
-        self.profile_dir = profile_dir
+        # data parallel over the default process group (a group of one
+        # rank included: torchrun --nproc_per_node 1 takes this path)
+        self.shard = (BatchShard.of_group() if dist_utils.initialized()
+                      else LOCAL)
+        self.is_main = self.shard.rank == 0
+        if config.train.batch_size % self.shard.world:
+            raise ValueError(
+                f"global batch {config.train.batch_size} not divisible by "
+                f"{self.shard.world} processes")
+        self.profile_dir = profile_dir if self.is_main else None
         self._profiled = False
         self.seed = seed
         self.np_rng = np.random.default_rng(seed)
@@ -207,14 +263,19 @@ class Solver:
             "epoch": 0, "sum": -1e10, "ground_sum": -1e10,
             "ground_25": -1e10, "ground_5": -1e10, "caption_sum": -1e10,
         }
-        self._logf = open(os.path.join(workdir, "log.jsonl"), "a")
+        # rank 0 writes the files; the other ranks compute the same
+        # numbers and must not race on them
+        self._logf = open(os.path.join(workdir, "log.jsonl")
+                          if self.is_main else os.devnull, "a")
         # tensorboard dual writers (solver_3dvlp.py:214-221)
         tb_dir = os.path.join(workdir, "tensorboard")
+        if not self.is_main:
+            tb_dir = os.path.join(tb_dir, f"rank{self.shard.rank}")
         self._tb_train = SummaryWriter(os.path.join(tb_dir, "train"))
         self._tb_val = SummaryWriter(os.path.join(tb_dir, "val"))
         # wandb mirror with phase-prefixed keys (solver_3dvlp.py:531-565);
         # offline JSONL fallback when the package is absent
-        self._wandb = WandbWriter(workdir, enabled=use_wandb)
+        self._wandb = WandbWriter(workdir, enabled=use_wandb and self.is_main)
         self._global_step = 0
         self._signal = None
 
@@ -251,6 +312,7 @@ class Solver:
                     f"the loader's point clouds have {width} channels; the "
                     f"model takes {want}")
         self.model = JointNet(cfg, device=self.device)
+        dist_utils.broadcast_module(self.model)
         self.optimizer = make_optimizer(
             self.model,
             base_lr=cfg.train.lr,
@@ -266,10 +328,12 @@ class Solver:
         )
         self.train_step = make_train_step(
             self.model, cfg, self.optimizer, caption=self.caption,
-            reference=self.reference, detection=self.detection)
+            reference=self.reference, detection=self.detection,
+            shard=self.shard)
         self.eval_step = make_eval_step(self.model, cfg,
                                         reference=self.reference,
-                                        detection=self.detection)
+                                        detection=self.detection,
+                                        shard=self.shard)
 
     # ------------------------------------------------------------ feeds
     def _log(self, record: dict):
@@ -282,8 +346,12 @@ class Solver:
 
     def _check_interrupt(self):
         """Raise KeyboardInterrupt at a step boundary once SIGTERM or
-        SIGINT has arrived."""
-        if self._signal is not None:
+        SIGINT has arrived (on any rank: every rank stops at the same
+        boundary)."""
+        stop = self._signal is not None
+        if self.shard.distributed:
+            stop = not dist_utils.all_processes_agree(not stop)
+        if stop:
             raise KeyboardInterrupt
 
     def _sync(self):
@@ -312,6 +380,13 @@ class Solver:
 
     def train_epoch(self, epoch: int) -> dict:
         cfg = self.config
+        item_slice = None
+        if self.shard.distributed:
+            # one global order of sentences on every rank, each rank
+            # building only its rows of every batch
+            dist_utils.sync_python_random()
+            local_bs = cfg.train.batch_size // self.shard.world
+            item_slice = (self.shard.rank * local_bs, local_bs)
         self.train_dataset.shuffle_data()
         loader = BatchIterator(
             self.train_dataset,
@@ -319,6 +394,7 @@ class Solver:
             epoch=epoch,
             num_workers=cfg.train.num_workers,
             rng=self.np_rng,
+            item_slice=item_slice,
         )
         self._set_epoch(epoch)
         n_iters = len(loader)
@@ -399,14 +475,13 @@ class Solver:
             arrays = {
                 k: v for k, v in host.items() if not isinstance(v, list)
             }
-            batch = batch_to_device(arrays, self.device)
-            out, metrics = self.eval_step(batch)
+            out, metrics = self._eval_batch(arrays)
             scalars.append({k: float(v) for k, v in metrics.items()})
             self._check_interrupt()
             if not self.reference:  # no cluster_ref to evaluate (C8)
                 continue
-            if "answer_scores" in out and "answer_cats" in batch:
-                hit1, hit10, n = self._answer_hits(out, batch)
+            if "answer_scores" in out and "answer_cats" in arrays:
+                hit1, hit10, n = self._answer_hits(out, arrays)
                 ans_hit1 += hit1
                 ans_hit10 += hit10
                 ans_n += n
@@ -459,17 +534,34 @@ class Solver:
         self._log({"phase": "val", "epoch": epoch, **val_scalars})
         return result
 
+    def _eval_batch(self, arrays: dict):
+        """(outputs, scalar metrics) of one eval batch (host arrays): under
+        data parallel this rank's rows of a full batch go through the eval
+        step and the outputs the host reads are gathered over the ranks;
+        a trailing partial batch, and every batch in one process, runs
+        whole here, with no collective."""
+        if not self.shard.distributed:
+            return self.eval_step(batch_to_device(arrays, self.device))
+        if np.shape(arrays["point_clouds"])[0] < self.config.train.batch_size:
+            return self.eval_step(batch_to_device(arrays, self.device), LOCAL)
+        out, metrics = self.eval_step(
+            dist_utils.shard_host_batch(arrays, self.device))
+        return {k: self.shard.cat(v) for k, v in out.items()
+                if k in HOST_OUT_KEYS}, metrics
+
     @staticmethod
-    def _answer_hits(out: dict, batch: dict):
-        """(EM@1 hits, EM@10 hits, questions) of one eval batch, over the
-        question slots its items fill (``lang_num``; the padded slots
-        repeat a question and count in the loss only)."""
-        cats = batch["answer_cats"]
+    def _answer_hits(out: dict, arrays: dict):
+        """(EM@1 hits, EM@10 hits, questions) of one eval batch (host
+        arrays), over the question slots its items fill (``lang_num``; the
+        padded slots repeat a question and count in the loss only)."""
+        dev = out["answer_scores"].device
+        cats = torch.as_tensor(np.asarray(arrays["answer_cats"]), device=dev)
+        lang_num = torch.as_tensor(np.asarray(arrays["lang_num"]), device=dev)
         b, l = cats.shape[:2]
         hit1, hit10 = answer_hits(out["answer_scores"],
                                   cats.reshape(b * l, -1))
-        valid = (torch.arange(l, device=cats.device)[None, :]
-                 < batch["lang_num"][:, None]).reshape(-1)
+        valid = (torch.arange(l, device=dev)[None, :]
+                 < lang_num[:, None]).reshape(-1)
         return (float(hit1[valid].sum()), float(hit10[valid].sum()),
                 int(valid.sum()))
 
@@ -486,7 +578,8 @@ class Solver:
         for host in loader:
             arrays = {k: v for k, v in host.items()
                       if not isinstance(v, list)}
-            out, _ = self.eval_step(batch_to_device(arrays, self.device))
+            # every rank decodes the whole batch
+            out, _ = self._eval_batch(arrays)
             collect_batch(self.model, out, arrays, host["scene_id"],
                           ctx["tokenizer"], ctx["organized"], candidates)
             self._check_interrupt()
@@ -494,7 +587,9 @@ class Solver:
 
     # ------------------------------------------------------------ loop
     def _snapshot(self, name: str) -> None:
-        ckpt.save_params(self.workdir, name, self.model.state_dict())
+        if self.is_main:
+            ckpt.save_params(self.workdir, name, self.model.state_dict())
+        dist_utils.barrier()
 
     def __call__(self, epochs: int, *, start_epoch: int = 0) -> dict:
         """Run epochs [start_epoch, epochs), each followed by its val
@@ -541,10 +636,12 @@ class Solver:
         except KeyboardInterrupt:
             # save-and-exit on interrupt/preemption (solver_3dvlp.py:356-359).
             # The state is that of a whole step: the flag is read only
-            # between steps. Never REGRESS the on-disk resume record: an
-            # interrupt before any epoch of THIS call completed must not
-            # overwrite whatever checkpoint already exists.
-            if done_epoch >= start_epoch:
+            # between steps, and every rank stopped at the same one. Never
+            # REGRESS the on-disk resume record: an interrupt before any
+            # epoch of THIS call completed must not overwrite whatever
+            # checkpoint already exists. The ranks decide together, since
+            # the save waits at a barrier.
+            if dist_utils.all_processes_agree(done_epoch >= start_epoch):
                 self._save_full_checkpoint(done_epoch)
                 print(f"interrupted during epoch {epoch} — checkpoint "
                       f"(through epoch {done_epoch}) saved to "
@@ -602,8 +699,10 @@ class Solver:
                 self._snapshot("caption_model")
 
     def _save_full_checkpoint(self, epoch: int) -> None:
-        ckpt.save_checkpoint(self.workdir, self.model, self.optimizer,
-                             self.best, epoch)
+        if self.is_main:
+            ckpt.save_checkpoint(self.workdir, self.model, self.optimizer,
+                                 self.best, epoch)
+        dist_utils.barrier()
 
     def _finish(self) -> None:
         """Best-metric report + all_scalars.json export (the reference's
@@ -614,8 +713,9 @@ class Solver:
             f"  {k}: {v:.6f}" if isinstance(v, float) else f"  {k}: {v}"
             for k, v in sorted(self.best.items())
         ]
-        with open(os.path.join(self.workdir, "log.txt"), "a") as f:
-            f.write("\n".join(lines) + "\n")
+        if self.is_main:
+            with open(os.path.join(self.workdir, "log.txt"), "a") as f:
+                f.write("\n".join(lines) + "\n")
         self._log({"phase": "best", **self.best})
         self._tb_train.export_scalars_to_json()
         self._tb_val.export_scalars_to_json()
