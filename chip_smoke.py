@@ -2,22 +2,31 @@
 """Smoke run of vlp3d_torch on one CUDA card: grounding inference, the
 joint train step, the predict path, the trainer behind run.sh, the HTTP
 grounding server, Scan2Cap captioning, ScanQA question answering, the
-grounding model's options and data parallel.
+grounding model's options, data parallel, and ZeRO-1, tensor, pipeline
+and point-axis parallel.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ranks 4
 
 Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX and
-nothing of the vlp3d package. ``--ranks N`` runs instead only data
-parallel over N cards of the host: N ranks over NCCL under
+nothing of the vlp3d package. ``--ranks N`` runs instead only the
+parallel modes over N cards of the host: N ranks over NCCL under
 torch.distributed.run, each building phase 6's model twice from its
 seed; the data-parallel step on the global batch of 8 (8 / N rows a
 card) against the one-process step on the whole batch, which every rank
 runs too (following its ReLU inputs and its max pools' choices, within
-FLIP_TOL; loss, DP_PROBE gradients and BatchNorm statistics at phase
-6's tolerances, parameters equal on every rank, PER_STEP launches), then 9 timed steps each of the one-process
-step, the data-parallel step at 8 and at 8 x N (8 rows a card), in
-turns, the slowest rank's medians. Phases of the run without arguments,
+FLIP_TOL, and its SA modules' sampled indices: exact on the backbone's,
+within INDEX_TIE_TOL of a tie on the vote aggregation's; loss, DP_PROBE
+gradients and BatchNorm statistics at phase 6's tolerances, parameters
+equal on every rank, PER_STEP launches; SA1 replayed alone with either
+run's output gradient, printed: sa1_upstream_witness), then 9 timed
+steps each of the one-process step, the data-parallel step at 8 and at
+8 x N (8 rows a card), in turns, the slowest rank's medians; then ZeRO-1 over the N ranks, tp 2
+x dp N / 2 and tp N, each step against the one-process step recorded
+once (as above) with PARALLEL_STEPS timed steps, pp 2 x dp N / 2
+against the sequential text layers, and the point-sharded SA1 front
+over the N ranks (40960 points of each scene a rank) against the dense
+ops on the whole clouds. Phases of the run without arguments,
 each fatal on failure:
 
 1. card, power limit, torch / CUDA / nvcc versions;
@@ -286,7 +295,32 @@ each fatal on failure:
    models, every count at 0 before each step); the serve CLI with
    --data_devices 0 answering phase 9's first request with phase 9's
    proposals, and --data_devices 2 exiting with the host's one device;
-14. print {"kernels": [...]} with every kernel of the main paths (the
+14. ZeRO-1, tensor, pipeline and point-axis parallel at world size 1
+   over NCCL (a group of its own), on phase 6's model and batch, with
+   the card to itself: the ZeRO-1 step against phase 13's data-parallel
+   step (parameters, gradients and whole moments bit-equal;
+   optimizer_state_bytes beside the unsharded optimizer's); the TP step
+   at tp 1 (every TP layer split over a model group of one, so every
+   collective runs; its state dict in the one-process layout) against
+   the one-process step, following its ReLU inputs and max pools, at
+   phase 13's tolerances; PARALLEL_STEPS timed steps of the three in
+   turns; sa1_order_witness (SA1 alone replayed on the one-process
+   step's input and output gradient: its first-layer gradient with its
+   own sums in four parts, in float64, and under a 1e-5 change of the
+   output gradient; printed, not held); pipeline_text_encoder at S 1, M PIPE_MICROBATCHES against the
+   6 sequential BERT-base layers (within PIPE_TOL); with every count at
+   0, large_scene_front at B=8 x 40960 points against the dense SA1
+   (indices and grouped rows equal; an FPS step a centre, the ball
+   query and the merge once, three owned gathers) and
+   apply_backbone_large_scene against the dense backbone (sa1_inds
+   equal, outputs within BACKBONE_TOL); then each point-axis kernel
+   against its plain version at SA1's shapes (the FPS step from the
+   seed and from mid-run, bit for bit; the merge at W = 1 and 4 slabs
+   and against the dense ball query; the owned gather at the front's
+   three calls and on a second slab) and on the edge cases (ties across
+   shards, an all-invalid row, a ball in one shard, across shards,
+   empty), timed by cuda_ms, with bounds and host us;
+15. print {"kernels": [...]} with every kernel of the main paths (the
    CUDA functions behind each in kernel_functions, host_us beside the
    times, the launches of each path, and per_step and per_remat_step
    as counted in phase 8), the
@@ -325,7 +359,8 @@ STEP_GRAD_TOL = 1e-4  # of the gradient tensor's largest entry
 TRAIN_STEPS_EPOCH0 = 8
 # kernel launches of one forward, and of one train step's backward
 PER_FORWARD = {"fps": 5, "ball_query": 5, "three_nn": 2, "group_points": 11,
-               "group_points_grad": 0, "three_interpolate_grad": 0}
+               "group_points_grad": 0, "three_interpolate_grad": 0,
+               "fps_shard_step": 0, "ball_query_merge": 0, "gather_owned": 0}
 PER_STEP = dict(PER_FORWARD, group_points_grad=5, three_interpolate_grad=2)
 WEIGHT_TOL = 1e-6  # interpolation weights, kernel against plain
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -373,6 +408,12 @@ TIE_MARGIN = 1e-4
 # a ReLU input that lands on the other side of 0 in the kernel and the
 # plain-op runs must lie within this of 0
 FLIP_TOL = 1e-3
+# a sampled index that differs between two runs of the same forward on
+# inputs that differ within rounding (index_ties) must be this near a
+# tie: an FPS pick's running distance within this fraction of the
+# step's largest, a ball membership that flipped within this fraction of
+# r^2 of the radius
+INDEX_TIE_TOL = 1e-3
 # the question-answering phase: run.sh's widths and the config's answer
 # vocabulary (input channels, proposals, answers, questions a scene)
 VQA_WIDTHS = (132, 256, 8192, 8)
@@ -420,6 +461,22 @@ DP_PROBE = ["backbone_net.sa1.mlp_module.layer0.conv.weight",
             "relation.features_concat.0.weight", "match.match.0.weight",
             "lang.lang_cls.0.weight"]
 DP_STEPS = 9  # timed train steps of each path in phase 13
+# phase 14 and --ranks N: timed steps of each parallel mode, the
+# pipeline's microbatches, the pipelined text layers against the
+# sequential ones and the point-sharded backbone against the dense one
+# (of the output's largest entry: the same layers on other row blocks,
+# cuBLAS may pick other kernels; SA1's split first layer against the
+# folded one)
+PARALLEL_STEPS = 5
+PIPE_MICROBATCHES = 4
+PIPE_TOL = 1e-5
+BACKBONE_TOL = 1e-4
+# the point-axis kernels, launched on phase 14's front end only
+SP_KERNELS = ("fps_shard_step", "ball_query_merge", "gather_owned")
+# launches of the point-sharded SA1 front end beside its FPS iterations
+# (one a centre): the slab's ball query and the merge, three owned
+# gathers (the centres, the xyz rows, the feature rows)
+SP_FRONT = {"ball_query": 1, "ball_query_merge": 1, "gather_owned": 3}
 BF16_PROBE = ["backbone_net.sa1.mlp_module.layer1.conv.weight",
               "backbone_net.sa2.mlp_module.layer0.conv.weight",
               "backbone_net.fp2.mlp.layer1.conv.weight", "vgen.conv3.weight",
@@ -1232,6 +1289,12 @@ def kernel_line(rows, serving, train, predict, solver, http, per_step,
                               "vlp3d/ops/grouping.py:135"),
         "three_interpolate_grad": ("vlp3d_torch/csrc/grouping.cu",
                                    "vlp3d/ops/interpolate.py:49"),
+        "fps_shard_step": ("vlp3d_torch/csrc/point_parallel.cu",
+                           "vlp3d/parallel/point_parallel.py:74"),
+        "ball_query_merge": ("vlp3d_torch/csrc/point_parallel.cu",
+                             "vlp3d/parallel/point_parallel.py:133"),
+        "gather_owned": ("vlp3d_torch/csrc/point_parallel.cu",
+                         "vlp3d/parallel/point_parallel.py:208"),
     }
     functions = {
         "fps": ["fps_regs_kernel<P, false>", "fps_regs_kernel<P, true>",
@@ -1244,6 +1307,9 @@ def kernel_line(rows, serving, train, predict, solver, http, per_step,
         "group_points_grad": ["group_points_grad_sorted_kernel<V, false>",
                               "group_points_grad_kernel"],
         "three_interpolate_grad": ["group_points_grad_sorted_kernel<V, true>"],
+        "fps_shard_step": ["fps_shard_step_kernel"],
+        "ball_query_merge": ["ball_query_merge_kernel"],
+        "gather_owned": ["gather_owned_kernel"],
     }
     kernels = []
     for name, rs in rows.items():
@@ -1269,8 +1335,8 @@ def kernel_line(rows, serving, train, predict, solver, http, per_step,
             "launches_solver": solver[name],
             "launches_http": http[name],
             **{f"launches_{path}": c[name] for path, c in paths.items()},
-            "per_step": per_step[name],
-            "per_remat_step": per_remat_step[name],
+            "per_step": per_step.get(name, 0),
+            "per_remat_step": per_remat_step.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": sum(r["ms"] for r in rs),
             "plain_ms": sum(r["plain_ms"] for r in rs),
@@ -1304,6 +1370,9 @@ def kernel_line(rows, serving, train, predict, solver, http, per_step,
             kernels[-1].update(
                 route_ms=sum(r["route_ms"] for r in rs),
                 plans={r["site"]: r["plan"] for r in rs})
+        if name in SP_KERNELS:
+            kernels[-1]["sites"] = {r["site"]: {k: v for k, v in r.items()
+                                                if k != "site"} for r in rs}
         if name == "fps":
             steps = sum(r["shape"][2] - 1 for r in rs)
             kernels[-1].update(
@@ -2897,15 +2966,19 @@ def kinks(model, follow=None, take_all=False):
 
 @contextlib.contextmanager
 def pool_ties(model, follow=None):
-    """While open, record the argmax over the neighbourhood (dim 2) of
+    """While open, record which neighbours (dim 2) hold the maximum of
     each SA module's shared-MLP output, the input of its max pool, call
-    by call. With ``follow``, such a record of another run of the same
-    forward (in this run's rows), where this run's maximum lies on
-    another neighbour, that neighbour's value and any tied with it go down
-    to the followed neighbour's and the followed one's up to the maximum:
-    the pool's value stays this run's and its gradient goes where the
-    other run's went, as ``kinks`` does at a ReLU. Yields (the record,
-    {module: (channels moved, largest gap between the two values)})."""
+    by call (a mask). With ``follow``, such a record of another run of
+    the same forward (in this run's rows), a channel whose set of
+    neighbours at the maximum differs from the followed one's takes the
+    followed set: those neighbours go up to this run's maximum and any
+    other at it goes one float below, so the pool's value stays this
+    run's and its gradient is split over the followed neighbours, as
+    ``kinks`` does at a ReLU. The set, not only its first neighbour: an
+    exact tie between two neighbours, which rounding makes or breaks,
+    splits the gradient between two rows. Yields (the record, {module:
+    (channels moved, largest gap between this run's maximum and a
+    followed neighbour's value)})."""
     import torch
 
     from vlp3d_torch.models.layers import SAModule
@@ -2915,24 +2988,22 @@ def pool_ties(model, follow=None):
     def hook(mod, args, out, name):
         calls = seen.setdefault(name, [])
         val = out.detach()
-        idx = val.argmax(dim=2, keepdim=True)
+        top = val.amax(dim=2, keepdim=True)
+        at_top = val == top
         if follow is None:
-            calls.append(idx)
+            calls.append(at_top)
             return None
         ref = follow[name][len(calls)]
         calls.append(None)
-        diff = idx != ref
+        diff = (at_top != ref).any(dim=2, keepdim=True)
         if not bool(diff.any()):
             return None
-        cur, want = val.gather(2, idx), val.gather(2, ref)
+        below = torch.nextafter(top, torch.full_like(top, -float("inf")))
+        new = torch.where(ref, top, torch.where(at_top, below, val))
         units, near = moved.get(name, (0, 0.0))
-        moved[name] = (units + int(diff.sum()),
-                       max(near, float((cur - want)[diff].max())))
-        delta = torch.where((val == cur) & diff, want - val,
-                            torch.zeros_like(val))
-        delta.scatter_(2, ref, torch.where(diff, cur - want,
-                                           torch.zeros_like(cur)))
-        return out + delta
+        moved[name] = (units + int(diff.sum()), max(near, float(
+            (top - val).masked_fill(~(ref & diff), 0.0).max())))
+        return out + torch.where(diff, new - val, torch.zeros_like(val))
 
     for name, mod in model.named_modules():
         if isinstance(mod, SAModule):
@@ -2943,6 +3014,137 @@ def pool_ties(model, follow=None):
     finally:
         for h in hooks:
             h.remove()
+
+
+def fps_tie_gap(torch, xyz, inds):
+    """How far FPS picks ``inds`` (B, npoint), made on other coordinates,
+    are from ties on ``xyz`` (B, N, 3): the FPS replayed on ``xyz`` (in
+    float64) along ``inds``' own history, each pick's running distance
+    short of the step's largest over the valid points (|p|^2 > 1e-3), as
+    a fraction of the largest; the largest such fraction (0: every pick
+    is one the FPS on ``xyz`` would make or tie; inf if a row does not
+    start at index 0)."""
+    if bool((inds[:, 0] != 0).any()):
+        return float("inf")
+    b, n, _ = xyz.shape
+    x, y, z = xyz.double().unbind(-1)
+    valid = (x * x + y * y) + z * z > 1e-3
+    temp = torch.full((b, n), 1e10, dtype=torch.float64, device=xyz.device)
+    rows = torch.arange(b, device=xyz.device)
+    gap = 0.0
+    prev = torch.zeros(b, dtype=torch.long, device=xyz.device)
+    for t in range(1, inds.shape[1]):
+        dx, dy, dz = (x - x[rows, prev, None], y - y[rows, prev, None],
+                      z - z[rows, prev, None])
+        torch.minimum(temp, (dx * dx + dy * dy) + dz * dz, out=temp)
+        prev = inds[:, t].long()
+        top = torch.where(valid, temp, -1.0).max(1).values
+        got = torch.where(valid[rows, prev], temp[rows, prev], -1.0)
+        short = ((top - got) / top.clamp(min=1e-30)).where(
+            valid.any(1), torch.zeros_like(top))
+        gap = max(gap, float(short.max()))
+    return gap
+
+
+def ball_tie_gap(torch, xyz, centers, ref_xyz, ref_centers, radius):
+    """How far each ball membership that differs between two runs is
+    from the radius: d^2 in either run within this fraction of r^2
+    (each run's points ``xyz`` / ``ref_xyz`` (B, N, 3) around its centres
+    (B, M, 3)); 0 where no membership differs."""
+    r2 = radius * radius
+
+    def d2(p, c):
+        d = p.double()[:, None] - c.double()[:, :, None]
+        return (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + (
+            d[..., 2] * d[..., 2])
+
+    mine, ref = d2(xyz, centers), d2(ref_xyz, ref_centers)
+    flipped = (mine < r2) != (ref < r2)
+    if not bool(flipped.any()):
+        return 0.0
+    return float(torch.maximum((mine - r2).abs(), (ref - r2).abs())
+                 [flipped].max()) / r2
+
+
+# SA modules that read the raw cloud (SA1) or rows gathered from it
+# (SA2-SA4): two runs of the same batch give them the same coordinates,
+# so their sampled indices must agree exactly
+RAW_CLOUD_SA = "backbone_net."
+
+
+@contextlib.contextmanager
+def index_ties(model, follow=None):
+    """While open, record each SA module's sampled indices (its FPS
+    centres and ball-query neighbours) and its input coordinates, call by
+    call. With ``follow``, such a record of another run of the same
+    forward (in this run's rows), each module takes those indices, its
+    centres gathered from this run's points, as ``kinks`` does at a ReLU:
+    the vote aggregation samples predicted votes, whose coordinates move
+    within rounding between two runs that sum over the batch in another
+    order, and an FPS pick or a ball membership within rounding of a tie
+    moves a whole neighbourhood. A module whose coordinates equal the
+    followed run's bit for bit (and every RAW_CLOUD_SA module, whose
+    coordinates must) follows nothing: any index that differs there is a
+    fault, gap inf. Elsewhere each followed index is measured against a
+    tie on this run's coordinates (fps_tie_gap, ball_tie_gap). Yields
+    (the record, {module: (indices that differed from this run's own,
+    largest gap)})."""
+    import torch
+
+    from vlp3d_torch.models.layers import SAModule
+    from vlp3d_torch.ops import (
+        ball_query,
+        furthest_point_sample,
+        gather_points,
+    )
+
+    seen, moved, hooked = {}, {}, []
+
+    def sample(mod, name, xyz):
+        calls = seen.setdefault(name, [])
+        if follow is None:
+            inds, new_xyz, idx = type(mod).sample(mod, xyz)
+            calls.append((inds, idx, xyz.detach().clone()))
+            return inds, new_xyz, idx
+        ref_inds, ref_idx, ref_xyz = follow[name][len(calls)]
+        calls.append(None)
+        # SAModule.sample's launches, once each whichever picks are taken:
+        # this run's own ball query around centres gathered outside the
+        # counts, then the kernel gather (and its backward) at the picks
+        # taken
+        inds = furthest_point_sample(xyz, mod.npoint)
+        with torch.no_grad():
+            own = torch.gather(xyz, 1, inds.long()[..., None].expand(
+                -1, -1, xyz.shape[-1]))
+        idx = ball_query(mod.radius, mod.nsample, xyz, own)
+        n = int((inds != ref_inds).sum()) + int((idx != ref_idx).sum())
+        same = xyz.shape == ref_xyz.shape and bool(torch.equal(xyz, ref_xyz))
+        if not n and (same or not name.startswith(RAW_CLOUD_SA)):
+            return inds, gather_points(xyz, inds), idx
+        centers = gather_points(xyz, ref_inds)
+        if same or name.startswith(RAW_CLOUD_SA):
+            gap = float("inf")
+        else:
+            gap = max(fps_tie_gap(torch, xyz.detach(), ref_inds),
+                      ball_tie_gap(torch, xyz.detach(), centers.detach(),
+                                   ref_xyz, torch.gather(
+                                       ref_xyz, 1, ref_inds.long()[..., None]
+                                       .expand(-1, -1, xyz.shape[-1])),
+                                   mod.radius))
+        units, near = moved.get(name, (0, 0.0))
+        moved[name] = (units + n, max(near, gap))
+        return ref_inds, centers, ref_idx
+
+    for name, mod in model.named_modules():
+        if isinstance(mod, SAModule):
+            mod.sample = (lambda xyz, mod=mod, name=name:
+                          sample(mod, name, xyz))
+            hooked.append(mod)
+    try:
+        yield seen, moved
+    finally:
+        for mod in hooked:
+            del mod.sample
 
 
 def check_kernel_step(torch, tag, model, config, batch, probe, what,
@@ -4508,6 +4710,832 @@ class DataParallelPhase:
                 "data_devices_2": msg}
 
 
+# ---------------------------------------------------------------- phase 14
+
+
+def _path_model(torch, config, device, data, *, zero1=False, model=None):
+    """Phase 6's model from its seed and nudges with its train step:
+    data parallel over ``data`` (a BatchShard), ZeRO-1's optimizer with
+    ``zero1``, split over the model group ``model`` (tensor parallel)."""
+    from vlp3d_torch.models import JointNet
+    from vlp3d_torch.parallel import LOCAL
+    from vlp3d_torch.parallel.tensor_parallel import shard_model
+    from vlp3d_torch.parallel.zero import ShardedAdam
+    from vlp3d_torch.train import make_optimizer, make_train_step
+    from vlp3d_torch.train.schedules import cosine_lr
+
+    net = JointNet(config, device=device)
+    with torch.no_grad():
+        net.vgen.conv3.weight.mul_(0.05)
+        net.vgen.conv3.bias.mul_(0.05)
+        net.proposal.proposal.box_predictor.bias.fill_(-1.0)
+    if model is not None:
+        shard_model(net, model)
+    opt = make_optimizer(
+        net, lr_schedule=lambda e, lr0: cosine_lr(e, lr0, 200),
+        steps_per_epoch=100)
+    if zero1 or model is not None:
+        opt = ShardedAdam(opt, net, data if zero1 else LOCAL)
+    return net, opt, make_train_step(net, config, opt, shard=data)
+
+
+class OneProcessRecord:
+    """The one-process step on the global batch, recorded once for every
+    mode of a parity check: the loss and metrics, the DP_PROBE gradients,
+    the BatchNorm statistics after it, every ReLU input, every max pool's
+    choice and every SA module's sampled indices (each mode's step follows
+    them in its own rows)."""
+
+    def __init__(self, torch, config, device, full):
+        from vlp3d_torch.parallel import LOCAL
+
+        model, _, step = _path_model(torch, config, device, LOCAL)
+        with kinks(model) as (pre, _), pool_ties(model) as (pools, _), \
+                index_ties(model) as (inds, _):
+            self.metrics = step(full, torch.Generator(device=device)
+                                .manual_seed(0))
+        self.kinks, self.pools, self.indices = pre, pools, inds
+        self.grads = {n: model.get_parameter(n).grad.clone() for n in DP_PROBE}
+        self.stats = {n: v.clone() for n, v in model.named_buffers()
+                      if n.endswith(("running_mean", "running_var"))}
+        del model
+
+
+def follow_step(torch, ref, step, model, batch, shard, device):
+    """One step of a parallel mode from phase 6's seeded state on this
+    rank's rows (``shard``'s), following ``ref``'s ReLU inputs and max
+    pools in those rows (and in its columns of a column-split layer);
+    returns its parity numbers against ``ref`` and the launches of the
+    step."""
+    from vlp3d_torch import ops
+    from vlp3d_torch.parallel.tensor_parallel import (
+        ColumnParallelLinear,
+        full_tensor,
+    )
+
+    def own(name, t):
+        """This rank's rows, and its columns of a column-split layer's
+        output."""
+        t = shard.own(t)
+        mod = model.get_submodule(name)
+        if isinstance(mod, ColumnParallelLinear):
+            n = t.shape[-1] // mod.split.world
+            t = t.narrow(-1, mod.split.rank * n, n)
+        return t
+
+    follow = {k: [own(k, t) for t in v] for k, v in ref.kinks.items()}
+    follow_pools = {k: [shard.own(t) for t in v] for k, v in ref.pools.items()}
+    follow_inds = {k: [tuple(shard.own(t) for t in rec) for rec in v]
+                   for k, v in ref.indices.items()}
+    ops.reset_launches()
+    with kinks(model, follow=follow) as (_, moved), \
+            pool_ties(model, follow=follow_pools) as (_, pooled), \
+            index_ties(model, follow=follow_inds) as (_, resampled):
+        got = step(batch, torch.Generator(device=device).manual_seed(0))
+    launches = dict(ops.launches)
+    del follow, follow_pools, follow_inds
+    near = max([v[1] for v in moved.values()]
+               + [v[1] for v in pooled.values()], default=0.0)
+    r1 = ref.metrics
+    grads = {}
+    for n in DP_PROBE:
+        p = model.get_parameter(n)
+        g = full_tensor(p.grad, p)
+        grads[n] = ((g - ref.grads[n]).abs().max()
+                    / ref.grads[n].abs().max().clamp(min=1e-30)).item()
+    bufs = dict(model.named_buffers())
+    bn = max(((bufs[n] - v).abs().max() / v.abs().max().clamp(min=1e-30))
+             .item() for n, v in ref.stats.items())
+    return {
+        "loss_rel": abs(got["loss"].item() - r1["loss"].item())
+        / abs(r1["loss"].item()),
+        "metric_err": max(abs(got[k].item() - r1[k].item()) for k in r1),
+        "grad_err": max(grads.values()), "bn_err": bn, "near": near,
+        "relu_followed": {k: v[0] for k, v in moved.items()},
+        "pool_followed": {k: v[0] for k, v in pooled.items()},
+        "indices_followed": {k: v[0] for k, v in resampled.items()},
+        "index_gap": max([v[1] for v in resampled.values()], default=0.0),
+        "launches": launches}
+
+
+@contextlib.contextmanager
+def sa1_capture(model):
+    """While open, keep SA1's first call of a training step: its grouped
+    input, the weights it ran with (the step then moves them) and the
+    gradient that reaches its output. Yields that dict."""
+    sa1 = model.backbone_net.sa1
+    kept = {}
+
+    def capture(grouped):
+        first = "grouped" not in kept
+        if first:
+            kept["weights"] = {k: v.detach().clone()
+                               for k, v in sa1.state_dict().items()}
+            kept["grouped"] = grouped.detach()
+        out = type(sa1).group_precomputed(sa1, grouped)
+        if first:
+            out.register_hook(
+                lambda g: kept.setdefault("dout", g.detach().clone()))
+        return out
+
+    sa1.group_precomputed = capture
+    try:
+        yield kept
+    finally:
+        del sa1.group_precomputed
+
+
+def sa1_replay(torch, kept, dout, chunks, dtype, follow=None):
+    """SA1's shared MLP and max pool (``SAModule.group_precomputed``'s
+    arithmetic) on ``sa1_capture``'s grouped input and weights, backward
+    from ``dout``, in ``dtype``, with the rows in ``chunks`` parts as
+    ranks hold them: each part's BatchNorm sums and weight-gradient sums
+    taken apart and added in part order (``chunks`` 1: the one-process
+    BatchNorm's means). With ``follow`` (another replay's record) every
+    ReLU and the max pool take that replay's decisions, so only the
+    arithmetic differs. Returns (the first layer's weight gradient (out,
+    in) in float64, the parts' shares added in part order; the record,
+    whose "parts" holds each part's share)."""
+    import torch.nn.functional as F
+
+    from vlp3d_torch.models.layers import BatchNorm
+
+    wts = kept["weights"]
+    parts = list(kept["grouped"].to(dtype).chunk(chunks))
+    record = {"relu": [], "pool": None}
+    first = []
+    for j in range(sum(k.endswith(".conv.weight") for k in wts)):
+        pre = f"mlp_module.layer{j}."
+        w = wts[pre + "conv.weight"].flatten(1).to(dtype).requires_grad_()
+        if j == 0:
+            # a leaf a part: each part's share of the gradient, as a
+            # rank's before the average
+            first = [w.detach().clone().requires_grad_() for _ in parts]
+            y = [F.linear(t[..., 3:], v[:, 3:]) + F.linear(t[..., :3],
+                                                            v[:, :3])
+                 for t, v in zip(parts, first)]
+        else:
+            y = [F.linear(t, w) for t in parts]
+        dims = tuple(range(y[0].dim() - 1))
+        if chunks == 1:
+            mean, mean_sq = y[0].mean(dims), (y[0] * y[0]).mean(dims)
+        else:
+            count = sum(t.numel() // t.shape[-1] for t in y)
+            sums = torch.stack([y[0].sum(dims), (y[0] * y[0]).sum(dims)])
+            for t in y[1:]:
+                sums = sums + torch.stack([t.sum(dims), (t * t).sum(dims)])
+            mean, mean_sq = sums[0] / count, sums[1] / count
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + BatchNorm.eps) * wts[
+            pre + "bn.bn.weight"].to(dtype)
+        z = [(t - mean) * mul + wts[pre + "bn.bn.bias"].to(dtype)
+             for t in y]
+        keep = (torch.cat([t.detach() for t in z]) > 0 if follow is None
+                else follow["relu"][j])
+        record["relu"].append(keep)
+        parts = [torch.where(k, t, 0.0)
+                 for t, k in zip(z, keep.chunk(chunks))]
+    x = torch.cat(parts)
+    if follow is None:
+        top = x.detach().amax(dim=2, keepdim=True)
+        hit = (x.detach() == top).to(dtype)
+        record["pool"] = hit / hit.sum(dim=2, keepdim=True)
+    pool = record["pool"] if follow is None else follow["pool"]
+    (x * pool.to(dtype)).sum(dim=2).backward(dout.to(dtype))
+    record["parts"] = [v.grad.double() for v in first]
+    total = first[0].grad
+    for v in first[1:]:
+        total = total + v.grad
+    return total.double(), record
+
+
+def sa1_order_witness(torch, config, device, batch) -> dict:
+    """SA1's first-layer weight gradient under other arithmetics of its
+    own sums and under a rounding-sized change of the gradient reaching
+    it, on one card: the one-process step on ``batch`` is run once under
+    ``sa1_capture``, and SA1 alone is replayed on what it kept (every
+    ReLU and max-pool decision the first replay's): in float32 with the
+    rows in one part, in four parts of two rows (four ranks' order of
+    the BatchNorm and weight-gradient sums), in float64, and with every
+    entry of the output gradient moved by a seeded relative 1e-5. Each
+    difference is of the float64 gradient's largest entry."""
+    from vlp3d_torch.parallel import LOCAL
+
+    model, _, step = _path_model(torch, config, device, LOCAL)
+    with sa1_capture(model) as kept:
+        step(batch, torch.Generator(device=device).manual_seed(0))
+    g_step = model.get_parameter(
+        "backbone_net.sa1.mlp_module.layer0.conv.weight").grad.flatten(1)
+    dout = kept["dout"]
+    g1, rec = sa1_replay(torch, kept, dout, 1, torch.float32)
+    g4, _ = sa1_replay(torch, kept, dout, 4, torch.float32, rec)
+    g64, _ = sa1_replay(torch, kept, dout, 1, torch.float64, rec)
+    noise = torch.randn(dout.shape, generator=torch.Generator(
+        device=device).manual_seed(5), device=device)
+    g_moved, _ = sa1_replay(torch, kept, dout * (1 + 1e-5 * noise), 1,
+                            torch.float32, rec)
+    scale = g64.abs().max().clamp(min=1e-300)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / scale)
+
+    out = {"rows": kept["grouped"].shape[0], "parts": 4,
+           "replay_vs_step": rel(g1, g_step.double()),
+           "four_parts_vs_one": rel(g4, g1),
+           "one_part_vs_float64": rel(g1, g64),
+           "four_parts_vs_float64": rel(g4, g64),
+           "median_four_parts_vs_one": float(
+               (g4 - g1).abs().median() / scale),
+           "output_gradient_moved_1e-5": rel(g_moved, g1)}
+    del model, step, kept, rec
+    return out
+
+
+def sa1_upstream_witness(torch, shard, kept1, kept2, m1, m2) -> dict:
+    """Where the data-parallel step's SA1 first-layer gradient parts from
+    the one-process step's: SA1 alone replayed (``sa1_replay``) on the
+    one-process run's input and weights with that run's output gradient
+    and with the data-parallel run's (every rank's rows in rank order,
+    divided by W: each rank's rows carry W times their share, reduce.py's
+    convention), in one part, in W parts (the ranks' order) and in
+    float64; the entries that differ most; and this rank's gradient
+    before the average (``kept2["local"]``, divided by W) against its
+    part's share in the W-part replay. Gradient differences are of the
+    one-process gradient's largest entry, the output gradients' of the
+    one-process one's largest entry. A collective: every rank calls it;
+    the per-rank numbers come back in rank order."""
+    import torch.distributed as dist
+
+    w = shard.world
+    douts = [torch.empty_like(kept2["dout"]) for _ in range(w)]
+    dist.all_gather(douts, kept2["dout"].contiguous(), group=shard.group)
+    dout_dp = torch.cat(douts) / w
+    dout_one = kept1["dout"]
+    f32, f64 = torch.float32, torch.float64
+    g_one, rec = sa1_replay(torch, kept1, dout_one, 1, f32)
+    g_up, _ = sa1_replay(torch, kept1, dout_dp, 1, f32, rec)
+    g_up_w, rec_w = sa1_replay(torch, kept1, dout_dp, w, f32, rec)
+    g_up64, _ = sa1_replay(torch, kept1, dout_dp, 1, f64, rec)
+    g_one64, _ = sa1_replay(torch, kept1, dout_one, 1, f64, rec)
+    name = "backbone_net.sa1.mlp_module.layer0.conv.weight"
+    g1 = m1.get_parameter(name).grad.flatten(1).double()
+    g2 = m2.get_parameter(name).grad.flatten(1).double()
+    scale = g1.abs().max().clamp(min=1e-300)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / scale)
+
+    top = (g2 - g1).abs().flatten().topk(3).indices.tolist()
+    cols = g1.shape[1]
+    mine = rel(kept2["local"] / w, rec_w["parts"][shard.rank])
+    ranks = [None] * w
+    dist.all_gather_object(ranks, mine, group=shard.group)
+    return {"output_gradient_diff": float(
+                (dout_dp - dout_one).abs().max()
+                / dout_one.abs().max().clamp(min=1e-30)),
+            "step_dp_vs_one": rel(g2, g1),
+            "replay_vs_one": rel(g_one, g1),
+            "replay_dp_output_gradient_vs_one": rel(g_up, g1),
+            "replay_dp_output_gradient_vs_dp": rel(g_up, g2),
+            "replay_dp_output_gradient_parts_vs_dp": rel(g_up_w, g2),
+            "replay_float64_dp_vs_one_output_gradient": rel(g_up64, g_one64),
+            "step_one_vs_float64": rel(g1, g_one64),
+            "step_dp_vs_float64": rel(g2, g_up64),
+            "rank_local_vs_replay_part": ranks,
+            "largest_differences": [
+                {"out": i // cols, "in": i % cols,
+                 "one": float(g1.flatten()[i]), "dp": float(g2.flatten()[i]),
+                 "float64": float(g_up64.flatten()[i])} for i in top]}
+
+
+def parity_ok(p: dict, cuda: bool) -> bool:
+    return (p["loss_rel"] <= STEP_LOSS_RTOL and p["grad_err"] <= STEP_GRAD_TOL
+            and p["bn_err"] <= STEP_GRAD_TOL and p["near"] <= FLIP_TOL
+            and p["index_gap"] <= INDEX_TIE_TOL
+            and (p["launches"] == PER_STEP or not cuda))
+
+
+def dense_front(torch, xyz, feats, npoint, radius, nsample):
+    """SA1's sampling and grouping on the whole cloud (the dense ops)."""
+    from vlp3d_torch import ops
+
+    inds = ops.furthest_point_sample(xyz, npoint)
+    new_xyz = ops.gather_points(xyz, inds)
+    grouped, _ = ops.query_and_group(radius, nsample, xyz, new_xyz, feats,
+                                     normalize_xyz=True)
+    return new_xyz, grouped, inds
+
+
+def front_equal(torch, got, want) -> bool:
+    return all(g.shape == w.shape and bool(torch.equal(g, w))
+               for g, w in zip(got, want))
+
+
+def point_edge_clouds(torch, device):
+    """tests/torch_point_cases.py's clouds on ``device``: the merge's
+    (xyz, centres) and the FPS step's ties and all-invalid row."""
+    cases = load_test_module("torch_point_cases")
+    xyz, centers = cases.merge_cases()
+    return (torch.from_numpy(xyz).to(device),
+            torch.from_numpy(centers).to(device),
+            torch.from_numpy(cases.fps_cases()).to(device))
+
+
+def check_point_kernels(torch, xyz, feats, sa1):
+    """Phase 14's kernel rows: each point-axis kernel against its plain
+    version at SA1's shapes (B x N points, W=1, and emulated slabs of 2
+    and 4), the edge cases, CUDA-event times behind the device sleep,
+    bounds and host us."""
+    from vlp3d_torch import ops
+    from vlp3d_torch.ops.host_time import host_us
+    from vlp3d_torch.parallel import point_parallel as pp
+
+    b, n, _ = xyz.shape
+    npoint, radius, nsample = sa1.npoint, sa1.radius, sa1.nsample
+    groups = pp.fps_groups(b, n)
+    rows = {}
+
+    # FPS step: the seed step and a step from a mid-run state
+    def state_after(steps):
+        temp = torch.full((b, n), 1e10, device=xyz.device)
+        out = torch.zeros((b, npoint), dtype=torch.int32, device=xyz.device)
+        cand = pp._seed(xyz, 0)
+        for t in range(steps):
+            cand = pp.fps_shard_step(xyz, temp, cand, 0, groups, t, npoint,
+                                     False, out)
+        return temp, out, cand
+
+    err = 0.0
+    for steps in (0, npoint // 2):
+        temp, out, cand = state_after(steps)
+        tk, ok_ = temp.clone(), out.clone()
+        ck = pp.fps_shard_step(xyz, tk, cand, 0, groups, steps, npoint,
+                               False, ok_)
+        tp_, op_ = temp.clone(), out.clone()
+        cp_ = pp.fps_shard_step_plain(xyz, tp_, cand, 0, groups, steps,
+                                      False, op_)
+        err = max(err, float((tk - tp_).abs().max()),
+                  index_err(torch, ok_, op_), index_err(torch, ck, cp_))
+    temp, out, cand = state_after(npoint // 2)
+    t = npoint // 2
+    step_ms = cuda_ms(torch, lambda: pp.fps_shard_step(
+        xyz, temp, cand, 0, groups, t, npoint, False, out), reps=200)
+    plain_step_ms = cuda_ms(torch, lambda: pp.fps_shard_step_plain(
+        xyz, temp, cand, 0, groups, t, False, out), reps=20)
+    whole = pp.fps_sharded(xyz, npoint)
+    dense = ops.furthest_point_sample(xyz, npoint)
+    err = max(err, index_err(torch, whole, dense))
+    edge_err = 0.0
+    _, _, ties = point_edge_clouds(torch, xyz.device)
+    for w in (2, 4):
+        want = ops.furthest_point_sample(ties, 24)
+        for got in pp.fps_emulated(ties, w, 24):
+            edge_err = max(edge_err, index_err(torch, got, want))
+        for got in pp.fps_emulated(xyz[:1], w, 256):
+            edge_err = max(edge_err, index_err(
+                torch, got, ops.furthest_point_sample(xyz[:1], 256)))
+    if err != 0 or edge_err != 0:
+        fail(f"fps_shard_step differs from its plain version or the dense "
+             f"FPS: {err}, edge cases {edge_err}")
+    step_bound, step_by = bound_ms(b * n * 20, 0)
+    rows["fps_shard_step"] = [{
+        "site": "SA1", "shape": [b, n, npoint], "max_abs_err": err,
+        "edge_err": edge_err, "groups": groups,
+        "ms": step_ms * npoint, "plain_ms": plain_step_ms * npoint,
+        "bound_ms": step_bound * npoint, "bound_by": step_by,
+        "library_ms": None, "step_ms": step_ms, "plain_step_ms": plain_step_ms,
+        "step_bound_ms": step_bound,
+        "host_us": host_us(lambda: pp.fps_shard_step(
+            xyz, temp, cand, 0, groups, t, npoint, False, out))}]
+    print(f"[14] fps_shard_step at SA1 ({b} x {n}, {groups} blocks a row): "
+          f"{step_ms * 1e3:.3f} us a step (bound {step_bound * 1e3:.3f} us, "
+          f"{step_by}), plain {plain_step_ms * 1e3:.3f} us; x{npoint} = "
+          f"{step_ms * npoint:.3f} ms a call; error {err}; emulated 2 / 4 "
+          f"shards (ties across shards, an all-invalid row, SA1's first "
+          f"row) {edge_err}")
+
+    # merge: W=1 at SA1, W=4 emulated, the edge cases
+    new_xyz = ops.gather_points(xyz, whole)
+    idx, cnt = ops.ball_query_with_count(radius, nsample, xyz, new_xyz)
+    all_idx, all_cnt = idx[None].contiguous(), cnt[None].contiguous()
+    got = pp.ball_query_merge(all_idx, all_cnt, n, nsample)
+    want = pp.ball_query_merge_plain(all_idx, all_cnt, n, nsample)
+    dense_idx = ops.ball_query(radius, nsample, xyz, new_xyz)
+    err = max(index_err(torch, got, want), index_err(torch, got, dense_idx))
+    merge_ms = cuda_ms(torch, lambda: pp.ball_query_merge(
+        all_idx, all_cnt, n, nsample), reps=100)
+    merge_plain_ms = cuda_ms(torch, lambda: pp.ball_query_merge_plain(
+        all_idx, all_cnt, n, nsample), reps=10)
+    w4 = pp.ball_query_emulated(radius, nsample, xyz, new_xyz, 4)
+    w4_plain = pp.ball_query_emulated(radius, nsample, xyz, new_xyz, 4,
+                                      merge=pp.ball_query_merge_plain)
+    err = max(err, index_err(torch, w4, dense_idx),
+              index_err(torch, w4_plain, dense_idx))
+    nl4 = n // 4
+    parts = [ops.ball_query_with_count(
+        radius, nsample, xyz[:, i * nl4:(i + 1) * nl4].contiguous(), new_xyz)
+        for i in range(4)]
+    a4 = torch.stack([p[0] for p in parts])
+    c4 = torch.stack([p[1] for p in parts])
+    merge4_ms = cuda_ms(torch, lambda: pp.ball_query_merge(
+        a4, c4, nl4, nsample), reps=100)
+    exyz, ectr, _ = point_edge_clouds(torch, xyz.device)
+    edge_err = 0.0
+    for w in (2, 4):
+        for ns in (2, 8):
+            edge_err = max(edge_err, index_err(
+                torch, pp.ball_query_emulated(0.5, ns, exyz, ectr, w),
+                ops.ball_query(0.5, ns, exyz, ectr)))
+    if err != 0 or edge_err != 0:
+        fail(f"ball_query_merge differs from its plain version or the dense "
+             f"ball query: {err}, edge cases {edge_err}")
+    m = new_xyz.shape[1]
+    mb, mby = bound_ms(4 * (b * m * nsample * 2 + b * m), 0)
+    rows["ball_query_merge"] = [{
+        "site": "SA1", "shape": [1, b, m, nsample], "max_abs_err": err,
+        "edge_err": edge_err, "ms": merge_ms, "plain_ms": merge_plain_ms,
+        "bound_ms": mb, "bound_by": mby, "library_ms": None,
+        "w4_ms": merge4_ms,
+        "host_us": host_us(lambda: pp.ball_query_merge(
+            all_idx[:, :1, :16], all_cnt[:, :1, :16], n, nsample))}]
+    print(f"[14] ball_query_merge at SA1 ({b} x {m} x {nsample}): W=1 "
+          f"{merge_ms * 1e3:.3f} us (bound {mb * 1e3:.3f} us, {mby}), plain "
+          f"{merge_plain_ms * 1e3:.3f} us, W=4 {merge4_ms * 1e3:.3f} us; "
+          f"error {err} (against the dense ball query too); edge cases "
+          f"{edge_err}")
+
+    # owned gather: the front's three calls (centres, xyz rows, feature
+    # rows); an emulated second slab of two gives zeros off its rows
+    sites = [("centres", xyz, whole), ("xyz rows", xyz, dense_idx),
+             ("feature rows", feats, dense_idx)]
+    gr = []
+    for label, table, gidx in sites:
+        flat = gidx.reshape(b, -1).contiguous()
+        got = pp.gather_owned(table, flat, 0)
+        want = pp.gather_owned_plain(table, flat, 0)
+        half = table[:, n // 2:].contiguous()
+        got2 = pp.gather_owned(half, flat, n // 2)
+        want2 = pp.gather_owned_plain(half, flat, n // 2)
+        e = max(float((got - want).abs().max()),
+                float((got2 - want2).abs().max()),
+                float((got - ops.gather_points(table, flat)).abs().max()))
+        c = table.shape[-1]
+        r = flat.shape[1]
+        gb, gby = bound_ms(4 * b * r + 2 * 4 * b * r * c, 0)
+        gr.append({
+            "site": label, "shape": [b, n, r, c], "max_abs_err": e,
+            "ms": cuda_ms(torch, lambda: pp.gather_owned(table, flat, 0),
+                          reps=20),
+            "plain_ms": cuda_ms(torch, lambda: pp.gather_owned_plain(
+                table, flat, 0), reps=5),
+            "bound_ms": gb, "bound_by": gby, "library_ms": None})
+    us = host_us(lambda: pp.gather_owned(xyz, whole[:, :8].contiguous(), 0))
+    for r in gr:
+        r["host_us"] = us
+        if r["max_abs_err"] != 0:
+            fail(f"gather_owned differs from its plain version at "
+                 f"{r['site']}: {r['max_abs_err']}")
+        print(f"[14] gather_owned {r['site']} {r['shape']}: "
+              f"{r['ms'] * 1e3:.3f} us (bound {r['bound_ms'] * 1e3:.3f} us, "
+              f"{r['bound_by']}), plain {r['plain_ms'] * 1e3:.3f} us; error "
+              f"{r['max_abs_err']} (an emulated second slab included)")
+    rows["gather_owned"] = gr
+    return rows
+
+
+class ParallelModesPhase:
+    """Phase 14: ZeRO-1, tensor parallel, the pipeline and the point-axis
+    front end at world size 1 over NCCL, on phase 6's model and batch,
+    with the card to itself (after phase 13, whose group is closed)."""
+
+    def __init__(self, torch, smi, train_host, config=None, device=None):
+        from vlp3d_torch.config import Config, ModelConfig
+
+        self.smi, self.train_host = smi, train_host
+        self.config = config or Config(model=ModelConfig(use_con=True,
+                                                         no_caption=True))
+        self.device = device or torch.device("cuda",
+                                             torch.cuda.current_device())
+
+    def drive(self, torch):
+        import numpy as np
+
+        from vlp3d_torch import ops
+        from vlp3d_torch.parallel import BatchShard
+        from vlp3d_torch.parallel import distributed as du
+        from vlp3d_torch.parallel import point_parallel as pp
+        from vlp3d_torch.parallel import tensor_parallel as tpm
+        from vlp3d_torch.parallel.pipeline import pipeline_text_encoder
+        from vlp3d_torch.parallel.zero import optimizer_state_bytes
+        from vlp3d_torch.train import batch_to_device
+
+        device, config = self.device, self.config
+        du.dist_init(f"127.0.0.1:{free_port()}", 1, 0, device=device)
+        want_backend = "nccl" if device.type == "cuda" else "gloo"
+        if du.backend() != want_backend:
+            fail(f"phase 14's group runs over {du.backend()}, not "
+                 f"{want_backend}")
+        numbers = {}
+        batch = batch_to_device(self.train_host, device)
+        data = BatchShard.of_group()
+        grid = tpm.make_grid(1)
+
+        # ZeRO-1 against phase 13's data-parallel step: bit for bit
+        paths = {"dp": _path_model(torch, config, device, data),
+                 "zero1": _path_model(torch, config, device, data,
+                                      zero1=True)}
+        steps = {}
+        for name, (model, opt, step) in paths.items():
+            ops.reset_launches()
+            steps[name] = step(batch, torch.Generator(device=device)
+                               .manual_seed(0))
+            if dict(ops.launches) != PER_STEP:
+                fail(f"{name} step launches {dict(ops.launches)}")
+        (m_dp, o_dp, _), (m_z, o_z, _) = paths["dp"], paths["zero1"]
+        diff = [n for (n, a), (_, c) in zip(m_dp.named_parameters(),
+                                           m_z.named_parameters())
+                if not torch.equal(a, c)
+                or (a.grad is None) != (c.grad is None)
+                or (a.grad is not None and not torch.equal(a.grad, c.grad))]
+        sd_dp, sd_z = o_dp.state_dict(), o_z.state_dict()
+        moments = 0
+        for i, st in sd_dp["state"].items():
+            for k, v in st.items():
+                if torch.is_tensor(v) and v.dim() > 0:
+                    moments += 1
+                    if not torch.equal(v, sd_z["state"][i][k]):
+                        diff.append(f"moment {i}.{k}")
+        zbytes = optimizer_state_bytes(o_z, device)
+        dbytes = optimizer_state_bytes(o_dp, device)
+        print(f"[14] ZeRO-1 step (world size 1, NCCL) against the "
+              f"data-parallel step of phase 13 on phase 6's batch: "
+              f"parameters, gradients and {moments} whole moments "
+              f"{'bit-equal' if not diff else 'differ: ' + str(diff[:5])}; "
+              f"optimizer_state_bytes {zbytes} against {dbytes} unsharded; "
+              f"loss {steps['zero1']['loss'].item()}")
+        if diff:
+            fail("the ZeRO-1 step differs from the data-parallel step")
+        numbers["zero1"] = {"bit_equal": True, "state_bytes": zbytes,
+                            "unsharded_state_bytes": dbytes,
+                            "moments": moments}
+        del sd_dp, sd_z
+
+        # tensor parallel at tp 1: every collective runs
+        ref = OneProcessRecord(torch, config, device, batch)
+        before = dict(tpm.calls)
+        model_tp, opt_tp, step_tp = _path_model(torch, config, device,
+                                                grid.data, model=grid.model)
+        tp = follow_step(torch, ref, step_tp, model_tp, batch, grid.data,
+                         device)
+        sd = model_tp.state_dict()
+        calls = {k: tpm.calls[k] - before[k] for k in before}
+        keys_ok = set(sd) == set(m_dp.state_dict()) and all(
+            sd[k].shape == v.shape for k, v in m_dp.state_dict().items())
+        n_split = sum(isinstance(mod, tpm._SplitLinear)
+                      for mod in model_tp.modules())
+        print(f"[14] TP step at tp 1 ({n_split} split layers) against the "
+              f"one-process step: "
+              f"{ {k: v for k, v in tp.items() if k != 'launches'} }; "
+              f"launches {tp['launches']}; collective calls {calls}; its "
+              f"state dict in the one-process layout: {keys_ok}")
+        if not parity_ok(tp, True) or min(calls.values()) == 0 or not keys_ok:
+            fail("the TP step at tp 1 differs from the one-process step, or "
+                 "a collective did not run")
+        numbers["tp1"] = {k: v for k, v in tp.items() if k != "launches"}
+        numbers["tp1"]["collective_calls"] = calls
+        del sd
+        paths["tp1"] = (model_tp, opt_tp, step_tp)
+
+        # steps in turns
+        gens = {k: torch.Generator(device=device).manual_seed(1)
+                for k in paths}
+        times = {k: [] for k in paths}
+        order = list(paths)
+        for i in range(PARALLEL_STEPS + 1):
+            for name in (order if i % 2 == 0 else order[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = paths[name][2](batch, gens[name])
+                torch.cuda.synchronize()
+                if i:
+                    times[name].append((time.perf_counter() - t0) * 1e3)
+                if not np.isfinite(m["loss"].item()):
+                    fail(f"{name} step {i}: loss {m['loss'].item()}")
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        print(f"[14] train step medians of {PARALLEL_STEPS} in turns on "
+              f"phase 6's batch: {med} ms; ZeRO-1 "
+              f"x{med['zero1'] / med['dp']:.4f}"
+              f" and TP x{med['tp1'] / med['dp']:.4f} of the data-parallel "
+              f"step ({self.smi})")
+        numbers["step_ms"] = med
+        for name in list(paths):
+            paths[name][0].zero_grad(set_to_none=True)
+        del paths, ref, model_tp, opt_tp, step_tp
+        torch.cuda.empty_cache()
+
+        # a witness for the four-card runs' SA1 gradient: how far SA1's
+        # own sums, taken in four ranks' order or in float64, move it
+        wit = sa1_order_witness(torch, config, device, batch)
+        print(f"[14] SA1's first-layer gradient on phase 6's batch, SA1 "
+              f"alone on the one-process step's input and output gradient "
+              f"(differences of the float64 gradient's largest entry): "
+              f"{wit} ({self.smi})")
+        numbers["sa1_order_witness"] = wit
+        torch.cuda.empty_cache()
+
+        # the pipeline at S 1, M 4 against the sequential text layers
+        enc = m_dp.lang.text_encoder.eval()
+        b, l, t = batch["input_ids"].shape
+        ids = batch["input_ids"].reshape(b * l, t).long()
+        mask = batch["bert_attention_mask"].reshape(b * l, t)
+        with torch.no_grad():
+            seq = enc(ids, mask)
+            piped = pipeline_text_encoder(grid.model, enc, ids, mask,
+                                          num_microbatches=PIPE_MICROBATCHES)
+            perr = float((piped - seq).abs().max() / seq.abs().max())
+            seq_ms = median_ms(torch, lambda: enc(ids, mask))[0]
+            pipe_ms = median_ms(torch, lambda: pipeline_text_encoder(
+                grid.model, enc, ids, mask,
+                num_microbatches=PIPE_MICROBATCHES))[0]
+        print(f"[14] pipeline_text_encoder at S 1, M {PIPE_MICROBATCHES} over "
+              f"{len(enc.bert.encoder.layer)} BERT-base layers, {b * l} "
+              f"sentences of {t} tokens: within {perr} of the sequential "
+              f"layers' largest entry (PIPE_TOL {PIPE_TOL}); {pipe_ms:.3f} ms "
+              f"against {seq_ms:.3f} ms")
+        if perr > PIPE_TOL:
+            fail("the pipelined text layers differ from the sequential ones")
+        numbers["pipeline"] = {"err": perr, "ms": pipe_ms, "seq_ms": seq_ms}
+        backbone = m_dp.backbone_net.eval()
+        del m_dp, o_dp, m_z, o_z, enc
+        torch.cuda.empty_cache()
+
+        # the point-sharded front end and backbone against the dense SA1
+        sa1 = backbone.sa1
+        pc = batch["point_clouds"]
+        xyz, feats = pc[..., :3].contiguous(), pc[..., 3:].contiguous()
+        front = pp.large_scene_front(grid.model, sa1.npoint, sa1.radius,
+                                     sa1.nsample)
+        with torch.no_grad():
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = front(xyz, feats)
+            torch.cuda.synchronize()
+            front_ms = (time.perf_counter() - t0) * 1e3
+            front_launches = dict(ops.launches)
+            t0 = time.perf_counter()
+            want = dense_front(torch, xyz, feats, sa1.npoint, sa1.radius,
+                               sa1.nsample)
+            torch.cuda.synchronize()
+            dense_ms = (time.perf_counter() - t0) * 1e3
+            same = front_equal(torch, got, want)
+            sharded = pp.apply_backbone_large_scene(backbone, pc, grid.model)
+            dense = backbone(pc)
+            bb_err = max(float((sharded[k] - dense[k]).abs().max()
+                               / dense[k].abs().max().clamp(min=1e-30))
+                         for k in dense if dense[k].is_floating_point())
+            inds_equal = bool(torch.equal(sharded["sa1_inds"],
+                                          dense["sa1_inds"]))
+        want_launches = dict({k: 0 for k in PER_STEP}, **SP_FRONT,
+                             fps_shard_step=sa1.npoint)
+        print(f"[14] large_scene_front at B={pc.shape[0]} x {pc.shape[1]} "
+              f"points (SA1: "
+              f"{sa1.npoint} centres, r {sa1.radius}, {sa1.nsample} "
+              f"neighbours, {feats.shape[-1]} feature channels), world size "
+              f"1: indices and grouped rows equal to the dense SA1's: {same}; "
+              f"{front_ms:.3f} ms ({front_ms * 1e3 / sa1.npoint:.3f} us an "
+              f"FPS iteration with its all-gather) against the dense ops' "
+              f"{dense_ms:.3f} ms; launches {front_launches}; "
+              f"apply_backbone_large_scene against the dense backbone: "
+              f"sa1_inds equal {inds_equal}, outputs within {bb_err} of "
+              f"their largest entry ({self.smi})")
+        kernels_ok = (front_launches == want_launches
+                      or device.type == "cpu")  # a CPU rehearsal: no kernels
+        if not same or not kernels_ok or not inds_equal \
+                or bb_err > BACKBONE_TOL:
+            fail("the point-sharded front end or backbone differs from the "
+                 "dense one, or launched otherwise")
+        numbers["front"] = {"ms": front_ms, "dense_ms": dense_ms,
+                            "us_per_iteration": front_ms * 1e3 / sa1.npoint,
+                            "backbone_err": bb_err}
+        rows = check_point_kernels(torch, xyz, feats, sa1)
+        du.dist_close()
+        del backbone, batch, pc, xyz, feats, got, want, sharded, dense
+        torch.cuda.empty_cache()
+        stamp("14", "ZeRO-1, tensor, pipeline and point-axis parallel")
+        return rows, front_launches, numbers
+
+
+def rank_modes(torch, config, device, host, full, points, main_rank):
+    """``--ranks N`` beyond data parallel, on every rank: ZeRO-1 over the
+    N ranks, tp 2 x dp N / 2 and tp N, each step against the one-process
+    step on the global batch (recorded once, every rank running it) with
+    PARALLEL_STEPS timed steps; pp 2 x dp N / 2 against the sequential
+    text layers; the point-sharded front over N ranks, each holding
+    ``points`` of every scene, against the dense ops on the whole
+    clouds. Returns (every rank's numbers, whether every check passed on
+    every rank)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from vlp3d_torch.data.synthetic import make_batch
+    from vlp3d_torch.parallel import LOCAL, BatchShard
+    from vlp3d_torch.parallel import distributed as du
+    from vlp3d_torch.parallel import point_parallel as pp
+    from vlp3d_torch.parallel.pipeline import pipeline_text_encoder
+    from vlp3d_torch.parallel.tensor_parallel import make_grid
+    from vlp3d_torch.parallel.zero import optimizer_state_bytes
+    from vlp3d_torch.train import batch_to_device
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    world = dist.get_world_size()
+    ref = OneProcessRecord(torch, config, device, full)
+    out, ok = {}, True
+    for name, tp, zero1 in (("zero1", 1, True), ("tp2", 2, False),
+                            (f"tp{world}", world, False)):
+        grid = make_grid(tp) if tp > 1 else None
+        data = grid.data if grid else BatchShard.of_group()
+        model, opt, step = _path_model(torch, config, device, data,
+                                       zero1=zero1,
+                                       model=grid.model if grid else None)
+        batch = du.shard_host_batch(host, device, shard=data)
+        p = follow_step(torch, ref, step, model, batch, data, device)
+        p["passed"] = parity_ok(p, cuda)
+        ok &= p["passed"]
+        state_bytes = optimizer_state_bytes(opt, device)
+        gen = torch.Generator(device=device).manual_seed(1)
+        times = []
+        for i in range(PARALLEL_STEPS + 1):
+            du.barrier()
+            sync()
+            t0 = time.perf_counter()
+            step(batch, gen)
+            sync()
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = dict({k: v for k, v in p.items() if k != "launches"},
+                         step_ms=float(np.median(times)),
+                         state_bytes=state_bytes, launches=p["launches"])
+        del model, opt, step
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # the pipeline: pp 2 x dp N / 2 against the sequential text layers
+    grid = make_grid(2)
+    owner = _path_model(torch, config, device, LOCAL)[0]
+    enc = owner.lang.text_encoder.eval()
+    b, l, t = full["input_ids"].shape
+    ids = full["input_ids"].reshape(b * l, t).long()
+    mask = full["bert_attention_mask"].reshape(b * l, t)
+    with torch.no_grad():
+        seq = enc(ids, mask)
+        piped = pipeline_text_encoder(grid.model, enc, ids, mask,
+                                      num_microbatches=PIPE_MICROBATCHES,
+                                      data=grid.data)
+    perr = float((piped - seq).abs().max() / seq.abs().max())
+    ok &= perr <= PIPE_TOL
+    out["pp2"] = {"err": perr, "stages": 2, "data": grid.data.world}
+    del owner, enc
+
+    # the point-sharded front end over the N ranks
+    point = make_grid(world).model
+    sa1 = config.model
+    npoint, radius, nsample = (sa1.sa_npoints[0], sa1.sa_radii[0],
+                               sa1.sa_nsamples[0])
+    scene = batch_to_device(make_batch(config, batch_size=B if cuda else 2,
+                                       num_points=points * world, seed=9,
+                                       istrain=0), device)["point_clouds"]
+    xyz, feats = scene[..., :3].contiguous(), scene[..., 3:].contiguous()
+    lo = point.rank * points
+    with torch.no_grad():
+        front = pp.large_scene_front(point, npoint, radius, nsample)
+        du.barrier()
+        sync()
+        t0 = time.perf_counter()
+        got = front(xyz[:, lo:lo + points].contiguous(),
+                    feats[:, lo:lo + points].contiguous())
+        sync()
+        front_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want = dense_front(torch, xyz, feats, npoint, radius, nsample)
+        sync()
+        dense_ms = (time.perf_counter() - t0) * 1e3
+    same = front_equal(torch, got, want)
+    ok &= same
+    out[f"sp{world}"] = {"equal": same, "points_a_rank": points,
+                         "front_ms": front_ms, "dense_ms": dense_ms}
+    del got, want, scene, xyz, feats
+    ok = du.all_processes_agree(ok)
+    results = [None] * world
+    dist.all_gather_object(results, out)
+    if main_rank:
+        print(f"[modes] {world} ranks over {du.backend()}: each mode against "
+              f"the one-process reference, every rank's numbers: {results}",
+              flush=True)
+    return results, ok
+
+
 def drive(torch, config, batch_size, num_points, smi):
     """Phases 3-5; returns (per-call kernel rows, main-path launch counts,
     (the host scenes, the model's weights on the card))."""
@@ -4669,18 +5697,36 @@ def rank_worker(tiny: bool) -> int:
     host = host_batch(B)
     full = batch_to_device(host, device)
     (m1, s1), (m2, s2) = paths["one"], paths["dp"]
-    with kinks(m1) as (pre, _), pool_ties(m1) as (pools, _):
+    with kinks(m1) as (pre, _), pool_ties(m1) as (pools, _), \
+            index_ties(m1) as (inds, _), sa1_capture(m1) as kept1:
         r1 = s1(full, torch.Generator(device=device).manual_seed(0))
     follow = {k: [shard.own(t) for t in v] for k, v in pre.items()}
     follow_pools = {k: [shard.own(t) for t in v] for k, v in pools.items()}
-    del pre, pools
+    follow_inds = {k: [tuple(shard.own(t) for t in rec) for rec in v]
+                   for k, v in inds.items()}
+    del pre, pools, inds
     ops.reset_launches()
     with kinks(m2, follow=follow) as (_, moved), \
-            pool_ties(m2, follow=follow_pools) as (_, pooled):
-        r2 = s2(own(host), torch.Generator(device=device).manual_seed(0))
+            pool_ties(m2, follow=follow_pools) as (_, pooled), \
+            index_ties(m2, follow=follow_inds) as (_, resampled), \
+            sa1_capture(m2) as kept2:
+        # this rank's SA1 gradient before the average over the ranks
+        average = shard.average_gradients
+        sa1_w = m2.get_parameter(
+            "backbone_net.sa1.mlp_module.layer0.conv.weight")
+
+        def keep_local(params):
+            kept2["local"] = sa1_w.grad.detach().flatten(1).double()
+            average(params)
+
+        shard.average_gradients = keep_local
+        try:
+            r2 = s2(own(host), torch.Generator(device=device).manual_seed(0))
+        finally:
+            del shard.average_gradients
     sync()
     launches = dict(ops.launches)
-    del follow, follow_pools
+    del follow, follow_pools, follow_inds
     near = max([v[1] for v in moved.values()]
                + [v[1] for v in pooled.values()], default=0.0)
     loss_rel = abs(r2["loss"].item() - r1["loss"].item()) / abs(
@@ -4689,13 +5735,21 @@ def rank_worker(tiny: bool) -> int:
     grads = {n: ((m2.get_parameter(n).grad - m1.get_parameter(n).grad).abs()
                  .max() / m1.get_parameter(n).grad.abs().max().clamp(
                      min=1e-30)).item() for n in DP_PROBE}
+    # the typical entry's difference beside the largest one's
+    medians = {n: ((m2.get_parameter(n).grad - m1.get_parameter(n).grad)
+                   .abs().median() / m1.get_parameter(n).grad.abs().max()
+                   .clamp(min=1e-30)).item() for n in DP_PROBE}
     b2 = dict(m2.named_buffers())
     bn = max(((b2[n] - v).abs().max() / v.abs().max().clamp(min=1e-30))
              .item() for n, v in m1.named_buffers()
              if n.endswith(("running_mean", "running_var")))
+    index_gap = max([v[1] for v in resampled.values()], default=0.0)
+    sa1_witness = sa1_upstream_witness(torch, shard, kept1, kept2, m1, m2)
+    del kept1, kept2
     differ = du.check_replicated(m2)
     ok = (loss_rel <= STEP_LOSS_RTOL and max(grads.values()) <= STEP_GRAD_TOL
-          and bn <= STEP_GRAD_TOL and near <= FLIP_TOL and not differ
+          and bn <= STEP_GRAD_TOL and near <= FLIP_TOL
+          and index_gap <= INDEX_TIE_TOL and not differ
           and (launches == PER_STEP or not cuda))
     ok = du.all_processes_agree(ok)
     if main_rank:
@@ -4705,15 +5759,20 @@ def rank_worker(tiny: bool) -> int:
               f"{r2['loss'].item()} vs {r1['loss'].item()} (relative "
               f"{loss_rel}), largest metric difference {metric_err}; "
               f"gradient difference of each probe, of its largest entry: "
-              f"{grads}; BatchNorm running statistics within {bn}; ReLU "
+              f"{grads} (median entry: {medians}); BatchNorm running "
+              f"statistics within {bn}; ReLU "
               f"inputs that followed (module: units, largest |input|) "
               f"{moved}; max-pool choices that followed (module: channels, "
-              f"largest gap) {pooled}; parameters differing between ranks "
+              f"largest gap) {pooled}; sampled indices that followed "
+              f"(module: indices, largest gap from a tie) {resampled}; "
+              f"SA1 replayed alone (of its first-layer gradient's largest "
+              f"entry) {sa1_witness}; parameters differing between "
+              f"ranks "
               f"{differ}; "
               f"launches of a step {launches}", flush=True)
-    if not ok:
-        fail("the data-parallel step over several ranks differs from the "
-             "one-process step (on some rank)")
+    # the other modes run whatever this check gave; the run fails at the
+    # end, naming every check that failed
+    dp_ok = ok
 
     # timing in turns: the one-process step at the global batch of 8,
     # the data-parallel step at the same global batch (8 / N rows a card)
@@ -4759,9 +5818,25 @@ def rank_worker(tiny: bool) -> int:
             "bn_err": bn, "relu_followed": {k: v[0] for k, v in
                                             moved.items()},
             "pool_followed": {k: v[0] for k, v in pooled.items()},
+            "indices_followed": {k: v[0] for k, v in resampled.items()},
+            "index_gap": index_gap, "sa1_witness": sa1_witness,
             "launches_per_step": launches, "step_ms": med_max}}),
             flush=True)
+    del paths, batches, steps, m1, m2, s1, s2
+    if cuda:
+        torch.cuda.empty_cache()
+    modes, modes_ok = rank_modes(torch, config, device, host, full, points,
+                                 main_rank)
+    if main_rank:
+        print(json.dumps({"parallel_modes_ranks": modes}), flush=True)
     du.dist_close()
+    if not (dp_ok and modes_ok):
+        fail("over several ranks, "
+             + ("the data-parallel step differs from the one-process step"
+                if not dp_ok else "")
+             + ("; " if not (dp_ok or modes_ok) else "")
+             + ("a parallel mode differs from the one-process reference"
+                if not modes_ok else "") + " (on some rank)")
     return 0
 
 
@@ -4935,8 +6010,17 @@ def main() -> int:
     options, flag_numbers = flags.drive(torch)
     # 13. data parallel with the card to itself
     dp_step, dp_numbers = data_parallel.drive(torch, http_phase)
-    paths = {**captions, **answers, **options, "dp_step": dp_step}
+    # 14. ZeRO-1, tensor, pipeline and point-axis parallel
+    sp_rows, sp_front, mode_numbers = ParallelModesPhase(
+        torch, smi, train_host).drive(torch)
+    rows.update(sp_rows)
+    paths = {**captions, **answers, **options, "dp_step": dp_step,
+             "sp_front": sp_front}
     for name in rows:
+        if name in SP_KERNELS:
+            if sp_front[name] == 0:
+                fail(f"kernel {name} was not launched on phase 14's path")
+            continue
         if train[name] == 0 or solver[name] == 0 \
                 or paths["caption_step"][name] == 0 \
                 or paths["answer_step"][name] == 0 \
@@ -4962,6 +6046,7 @@ def main() -> int:
     line["vqa"] = vqa_numbers
     line["options"] = flag_numbers
     line["data_parallel"] = dp_numbers
+    line["parallel_modes"] = mode_numbers
     print(json.dumps(line))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,7 @@ ones (float32 sums in another order); indices, draws and masks equal.
 """
 
 import dataclasses
+import functools
 import json
 import os
 import random
@@ -107,8 +108,9 @@ def launch(cmds, envs, timeout: int, cwd=None) -> list:
 
 def run_ranks(job: str, spec: dict, tmp_path, world: int = WORLD,
               timeout: int = RANK_TIMEOUT, mode: str = "env") -> list:
-    """Run ``job`` of this file on ``world`` gloo ranks; returns each
-    rank's results (a dict of arrays)."""
+    """Run ``job`` of this file (or of tests/torch_parallel_jobs.py) on
+    ``world`` gloo ranks; returns each rank's results (a dict of
+    arrays)."""
     out_dir = tmp_path / f"{job}_out"
     out_dir.mkdir(parents=True)
     spec_path = tmp_path / f"{job}.json"
@@ -303,39 +305,85 @@ def _steps(spec: dict, shard) -> dict:
     for run in spec["runs"]:
         res.update({f"{run['name']}/{k}": v
                     for k, v in _step(run, shard).items()})
+    if "bad_batch" in spec:
+        res["bad_batch"] = np.asarray(_bad_batch(**spec["bad_batch"]))
     return res
+
+
+def _bad_batch(tp: int, batch_size: int) -> str:
+    """The error of a Solver whose global batch the data size does not
+    divide ("" when none is raised)."""
+    import tempfile
+
+    from vlp3d_torch.data.synthetic import make_synthetic_dataset, tiny_config
+    from vlp3d_torch.train.solver import Solver
+
+    config = tiny_config()
+    config = dataclasses.replace(config, train=dataclasses.replace(
+        config.train, batch_size=batch_size))
+    ds = make_synthetic_dataset(config, n_scenes=1, anns_per_scene=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            Solver(config, ds, ds, tmp, device="cpu", tp=tp).close()
+        except ValueError as e:
+            return str(e)
+    return ""
 
 
 def _step(spec: dict, shard) -> dict:
     """Train steps of the tiny JointNet from a saved state on this rank's
     rows of each global batch (one a micro-batch): the metrics, then the
     gradients the update used (averaged over the ranks), the parameters
-    and buffers after it."""
+    and buffers after it, all in the whole (one-process) layout.
+
+    ``spec["tp"]`` (default 1) runs tensor parallel on a (data, model)
+    grid of the ranks, ``spec["zero1"]`` the ZeRO-1 optimizer; with
+    either, the whole moments after the step are reported too.
+    ``spec["dp"]`` runs data groups of that size inside the launch."""
     from vlp3d_torch.data.synthetic import tiny_config
     from vlp3d_torch.models import JointNet
     from vlp3d_torch.models.layers import Dropout
+    from vlp3d_torch.parallel import LOCAL
     from vlp3d_torch.parallel.distributed import shard_host_batch
+    from vlp3d_torch.parallel.tensor_parallel import (
+        full_tensor,
+        make_grid,
+        shard_model,
+    )
+    from vlp3d_torch.parallel.zero import ShardedAdam, optimizer_state_bytes
     from vlp3d_torch.train import make_optimizer, make_train_step
     from vlp3d_torch.train.schedules import cosine_lr
 
     config = tiny_config(**spec["flags"])
     model = JointNet(config, device="cpu")
-    start = torch.load(spec["state"], weights_only=True)
+    start = _load_state(spec["state"])
     model.load_state_dict(start, strict=True)
     if not spec["dropout"]:
         for m in model.modules():
             if isinstance(m, Dropout):
                 m.p = 0.0
+    # dp: a data group of dp ranks inside the launch (each of world / dp
+    # such groups runs the step alone) where tp is 1
+    tp, zero1, dp = spec.get("tp", 1), spec.get("zero1", False), spec.get("dp")
+    grid = None
+    if tp > 1 or dp:
+        grid = make_grid(tp if tp > 1 else shard.world // dp)
+        shard = grid.data
+        if tp > 1:
+            shard_model(model, grid.model)
     opt = make_optimizer(
         model, lr_schedule=lambda e, lr0: cosine_lr(e, lr0, 200),
         **spec["opt"])
+    if zero1 or tp > 1:
+        opt = ShardedAdam(opt, model, shard if zero1 else LOCAL)
     step = make_train_step(model, config, opt, shard=shard)
     assert opt.grad_accum == len(spec["batches"])
     gen = torch.Generator().manual_seed(spec["seed"])
     res = {}
     for i, path in enumerate(spec["batches"]):
         host = dict(np.load(path))
-        for k, v in step(shard_host_batch(host, "cpu"), gen).items():
+        batch = shard_host_batch(host, "cpu", shard=shard)
+        for k, v in step(batch, gen).items():
             res[f"metric{i}.{k}"] = v.numpy()
     # the trained parameters and the buffers; the frozen text encoder only
     # as whether it kept its values
@@ -343,16 +391,31 @@ def _step(spec: dict, shard) -> dict:
     frozen_same = True
     for n, p in params.items():
         if p.grad is not None:
-            res[f"grad.{n}"] = p.grad.numpy()
+            res[f"grad.{n}"] = full_tensor(p.grad, p).numpy()
         if p.requires_grad:
-            res[f"param.{n}"] = p.detach().numpy()
+            res[f"param.{n}"] = full_tensor(p.detach(), p).numpy()
         else:
-            frozen_same &= torch.equal(p.detach(), start[n])
+            frozen_same &= torch.equal(full_tensor(p.detach(), p), start[n])
     for n, v in model.state_dict().items():
         if n not in params:
             res[f"buf.{n}"] = v.numpy()
     res["frozen_same"] = np.asarray(frozen_same)
+    if isinstance(opt, ShardedAdam) or spec.get("moments"):
+        names = {id(p): n for n, p in params.items()}
+        order = [names[id(p)] for g in opt.param_groups for p in g["params"]]
+        for i, st in opt.state_dict()["state"].items():
+            for k, v in st.items():
+                if torch.is_tensor(v) and v.dim() > 0:
+                    res[f"moment.{order[i]}.{k}"] = v.numpy()
+        res["state_bytes"] = np.asarray(optimizer_state_bytes(opt))
     return res
+
+
+@functools.lru_cache(maxsize=2)
+def _load_state(path: str) -> dict:
+    """A saved state dict, read once a rank process (every run of a launch
+    starts from one or two of them)."""
+    return torch.load(path, weights_only=True)
 
 
 def solver_datasets(config):
@@ -446,7 +509,12 @@ def _rank_main(job: str, spec_path: str, out_dir: str) -> None:
     ctx = dist_init(device="cpu")
     try:
         shard = BatchShard.of_group() if initialized() else LOCAL
-        res = JOBS[job](spec, shard)
+        if job in JOBS:
+            res = JOBS[job](spec, shard)
+        else:  # the later parallel modes' jobs
+            import torch_parallel_jobs
+
+            res = torch_parallel_jobs.JOBS[job](spec, shard)
         np.savez(os.path.join(out_dir, f"rank{ctx.rank}.npz"), **res)
     finally:
         dist_close()

@@ -163,14 +163,22 @@ def test_three_nn_needs_three_known_points():
 
 
 def test_cpu_path_launches_no_kernel_and_other_devices_raise():
+    from vlp3d_torch.parallel import point_parallel as pp
+
     ops.reset_launches()
     xyz = torch.rand(1, 64, 3)
     ops.furthest_point_sample(xyz, 8)
     ops.ball_query(0.3, 4, xyz, xyz[:, :8])
     ops.three_nn(xyz, xyz[:, :8])
+    # the point-axis wrappers (no process group: one rank's slab)
+    inds = pp.fps_sharded(xyz, 8)
+    pp.ball_query_sharded(0.3, 4, xyz, xyz[:, :8])
+    pp.gather_points_sharded(xyz, inds)
     assert ops.launches == {"fps": 0, "ball_query": 0, "three_nn": 0,
                             "group_points": 0, "group_points_grad": 0,
-                            "three_interpolate_grad": 0}
+                            "three_interpolate_grad": 0,
+                            "fps_shard_step": 0, "ball_query_merge": 0,
+                            "gather_owned": 0}
     meta = torch.empty(1, 64, 3, device="meta")
     for call in (
         lambda: ops.furthest_point_sample(meta, 8),

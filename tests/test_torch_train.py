@@ -326,6 +326,15 @@ def _cosine(e, lr0):
 def jax_side():
     """Initial (params, batch_stats, port state dict) and a jitted
     function running the JAX train step plus the gradients it used."""
+    return jax_reference()
+
+
+def jax_reference(batches=(), warm=(BATCH, 1), evaluate_too=True) -> dict:
+    """:func:`jax_side`'s dict, tracing ``run`` at the batch sizes of
+    ``warm`` (and ``evaluate`` with ``evaluate_too``), plus under
+    ``"results"`` the JAX step on each of ``batches``, run while flax's
+    Dropout is the identity (a file that needs one batch's step compiles
+    one program)."""
     mp = pytest.MonkeyPatch()
     mp.setattr(fnn.Dropout, "__call__",
                lambda self, inputs, deterministic=None, rng=None: inputs)
@@ -380,16 +389,19 @@ def jax_side():
 
         # trace every shape the tests use while flax's Dropout is the
         # identity: a later trace would draw dropout again
-        for scenes in (BATCH, 1):
-            warm = make_batch(tiny_config(**FLAGS), batch_size=scenes,
-                              num_points=256, seed=6)
-            jax.block_until_ready(run(warm))
-        jax.block_until_ready(evaluate(make_batch(
-            tiny_config(**FLAGS), batch_size=BATCH, num_points=256, seed=6)))
+        for scenes in warm:
+            jax.block_until_ready(run(make_batch(
+                tiny_config(**FLAGS), batch_size=scenes, num_points=256,
+                seed=6)))
+        if evaluate_too:
+            jax.block_until_ready(evaluate(make_batch(
+                tiny_config(**FLAGS), batch_size=BATCH, num_points=256,
+                seed=6)))
+        results = [jax.device_get(run(b)) for b in batches]
     finally:
         mp.undo()
     return dict(params=params, stats=stats, run=run, evaluate=evaluate,
-                sd=jax_to_torch_state_dict(params, stats))
+                sd=jax_to_torch_state_dict(params, stats), results=results)
 
 
 def _port(sd):

@@ -20,6 +20,7 @@ and ``Solver(reference=False)``; and the flags that still raise.
 
 import dataclasses
 import json
+import math
 import os
 import shutil
 import signal
@@ -539,11 +540,22 @@ def test_profile_dir_writes_a_trace(finished):
 # ------------------------------------------------ what is still to port
 
 
-@pytest.mark.parametrize("argv,item", [(["--tp", "2"], "A19"),
-                                       (["--zero1"], "A19")])
+# --tp and --zero1 raised NotImplementedError here until the slice that
+# ported them (the test keeps its name). In one process --zero1 trains on
+# a data group of one, and --tp 2 needs a world of 2 x dp ranks, so it
+# names the sizes (tests/test_torch_tensor_parallel.py trains it on
+# gloo ranks).
+@pytest.mark.parametrize("argv,item", [(["--tp", "2"], "world size is 1"),
+                                       (["--zero1"], None)])
 def test_parallel_flags_still_raise(tmp_path, argv, item):
-    with pytest.raises(NotImplementedError, match=f"queue A item {item}"):
-        main(ARGS + ["--workdir", str(tmp_path)] + argv)
+    if item is not None:
+        with pytest.raises(ValueError, match=item):
+            main(ARGS + ["--workdir", str(tmp_path)] + argv)
+        return
+    main(ARGS + ["--workdir", str(tmp_path)] + argv)
+    train = [r for r in _records(str(tmp_path)) if r["phase"] == "train"]
+    assert train and all(math.isfinite(r["loss"]) for r in train)
+    assert os.path.exists(tmp_path / "checkpoint_meta.json")
 
 
 def test_world_size_above_one_raises(tmp_path, monkeypatch):
@@ -605,16 +617,33 @@ def test_solver_trains_and_scores_captions(tmp_path):
 
 
 # mesh= raised here too until the data-parallel slice
-# (tests/test_torch_ddp.py::test_solver_mesh_of_one_device_runs_and_of_two_raises)
-@pytest.mark.parametrize("kw,item", [({"tp": 2}, "A19"),
-                                     ({"zero1": True}, "A19")])
+# (tests/test_torch_ddp.py::test_solver_mesh_of_one_device_runs_and_of_two_raises),
+# and tp / zero1 until the slice that ported them (the test keeps its
+# name): zero1 trains in one process (a data group of one), tp 2 names
+# the world size it needs.
+@pytest.mark.parametrize("kw,item", [({"tp": 2}, "world size is 1"),
+                                     ({"zero1": True}, None)])
 def test_solver_options_still_to_port_raise(tmp_path, kw, item):
     from vlp3d_torch.data.synthetic import make_synthetic_dataset
 
     config = tiny_config(no_caption=True, use_con=True)
+    config = dataclasses.replace(config, train=dataclasses.replace(
+        config.train, batch_size=2, epochs=1))
     ds = make_synthetic_dataset(config, n_scenes=1, anns_per_scene=2)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        solver_mod.Solver(config, ds, ds, str(tmp_path), device="cpu", **kw)
+    if item is not None:
+        with pytest.raises(ValueError, match=item):
+            solver_mod.Solver(config, ds, ds, str(tmp_path), device="cpu",
+                              **kw)
+        return
+    solver = solver_mod.Solver(config, ds, ds, str(tmp_path), device="cpu",
+                               **kw)
+    try:
+        solver.init_state()
+        assert type(solver.optimizer).__name__ == "ShardedAdam"
+        solver(1)
+    finally:
+        solver.close()
+    assert os.path.exists(tmp_path / "checkpoint_meta.json")
 
 
 # detection=False and reference=False raised NotImplementedError

@@ -5,9 +5,10 @@ The port's own copy of ``vlp3d/cli/common.py``: the same flags (plus
 ``--device``), the same config arithmetic, the same datasets and the
 same resume rules. ``--use_mlcv_net``, the one model option the port
 lacks, raises NotImplementedError in :func:`config_from_args`
-(:func:`vlp3d_torch.config.check_supported` names its ROADMAP item), and
-the run-time flags it lacks (:data:`UNPORTED_RUN_FLAGS`) in
-:func:`resolve_config`. Unlike the JAX CLIs, ``--smoke`` keeps the model
+(:func:`vlp3d_torch.config.check_supported` names its ROADMAP item).
+``--tp`` and ``--zero1`` act in the training CLIs (:func:`run_training`)
+and, as in the JAX package, are accepted and ignored by the others, as
+``--no_donate`` is. Unlike the JAX CLIs, ``--smoke`` keeps the model
 options (:func:`model_flags`) in its tiny configuration, so that a smoke
 run trains the model they describe.
 """
@@ -38,12 +39,6 @@ from vlp3d_torch.data.synthetic import make_synthetic_dataset, tiny_config
 from vlp3d_torch.data.tokenizer import load_tokenizer
 
 
-# run-time flag -> (its default, the ROADMAP.md item that ports it); any
-# other value raises in resolve_config
-UNPORTED_RUN_FLAGS = {
-    "tp": (1, "queue A item A19 (the other parallel modes)"),
-    "zero1": (False, "queue A item A19 (the other parallel modes)"),
-}
 
 
 def model_flags(args) -> dict:
@@ -129,11 +124,16 @@ def add_common_args(p: argparse.ArgumentParser):
                         "num_workers=4, train_3dvlp.py:48-77); the batch "
                         "stream is identical for any value")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel degree; not ported yet, raises "
-                        "unless 1")
+                   help="tensor-parallel degree of the training CLIs: a "
+                        "(data, model) grid of the torchrun ranks, world "
+                        "size dp x tp, Megatron-style splits of the BERT, "
+                        "caption and match feed-forward layers; the other "
+                        "CLIs accept it and do nothing")
     p.add_argument("--zero1", action="store_true",
-                   help="shard the optimizer state; not ported yet, "
-                        "raises")
+                   help="ZeRO-1 in the training CLIs: the optimizer's "
+                        "moments sharded over the data ranks (composes "
+                        "with --tp); the other CLIs accept it and do "
+                        "nothing")
     p.add_argument("--remat", action="store_true",
                    help="recompute the backbone SA/FP blocks in the "
                         "backward pass (torch.utils.checkpoint; the point "
@@ -436,11 +436,6 @@ def config_from_args(args) -> Config:
 
 def resolve_config(args) -> Config:
     """config_from_args, or the tiny synthetic config when --smoke."""
-    for flag, (default, item) in UNPORTED_RUN_FLAGS.items():
-        if getattr(args, flag, default) != default:
-            raise NotImplementedError(
-                f"vlp3d_torch does not implement --{flag} yet; see "
-                f"ROADMAP.md {item}")
     if getattr(args, "smoke", False):
         tiny = tiny_config(**model_flags(args))
         args.synthetic = True

@@ -18,8 +18,11 @@ the CPU with the plain PyTorch ops. Data parallel, one process a card,
   srun --ntasks-per-node 8 python -m vlp3d_torch.cli.train_3dvlp ...
 
 (env:// or SLURM rendezvous, :func:`vlp3d_torch.parallel.distributed.dist_init`;
-with ``--device cpu`` the ranks meet over gloo). ``--tp`` and
-``--zero1`` raise (ROADMAP.md queue A item A19).
+with ``--device cpu`` the ranks meet over gloo). Tensor parallel and
+ZeRO-1 on a (data, model) grid of dp x tp ranks, here dp 2 x tp 2:
+
+  python -m torch.distributed.run --nproc_per_node 4 \\
+      -m vlp3d_torch.cli.train_3dvlp <the flags above> --tp 2 --zero1
 """
 
 from __future__ import annotations

@@ -21,7 +21,8 @@ from a grounding or captioning run (train_qa.py:129-134).
 
 Data parallel as :mod:`vlp3d_torch.cli.train_3dvlp`: ``python -m
 torch.distributed.run --nproc_per_node N -m vlp3d_torch.cli.train_qa
-...`` or ``srun``.
+...`` or ``srun``; ``--tp k`` (N = dp x k ranks) and ``--zero1`` as
+there.
 """
 
 from __future__ import annotations

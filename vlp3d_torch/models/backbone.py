@@ -1,8 +1,8 @@
 """PointNet++ backbone: 4 set-abstraction + 2 feature-propagation layers.
 
-Counterpart of ``vlp3d/models/backbone.py`` (no point-sharded SA1 front
-end). SA1 reads the raw cloud, so it is the one SA module with
-``leaf_inputs``: in training its gather has no backward. Emits the seeds
+Counterpart of ``vlp3d/models/backbone.py``. SA1 reads the raw cloud,
+so it is the one SA module with ``leaf_inputs``: in training its gather
+has no backward. Emits the seeds
 fp2_xyz (= sa2_xyz), fp2_features and fp2_inds (= sa1_inds[:, :num_seed],
 indices into the raw input cloud).
 
@@ -15,6 +15,13 @@ step launches FPS and ball query 5 times each, as without remat; the
 neighbourhood gather and MLP of SA1-4 and the interpolation and MLP of
 FP1-2 run again, so a remat step launches the row gather 15 times (11
 forward + 4) and three-NN 4 times (2 + 2); the backwards are unchanged.
+
+``sa1_precomputed`` (new_xyz, grouped, inds) takes the place of SA1's
+sampling and grouping: the point-sharded front end
+(:func:`vlp3d_torch.parallel.point_parallel.apply_backbone_large_scene`)
+computes them over ranks that each hold a slab of the cloud, and SA1 then
+runs only its MLP on ``grouped`` (recentred, radius-normalised xyz and
+the raw features), with the parameters of the dense forward.
 
 ``dtype`` (``torch.bfloat16`` for ``compute_dtype="bfloat16"``) is the
 SA1-4 and FP1-2 point MLPs' compute dtype (:class:`PointMLP`); every
@@ -81,10 +88,17 @@ class PointNet2Backbone(nn.Module):
                             idx),
                 inds)
 
-    def forward(self, point_clouds: torch.Tensor) -> dict:
-        """point_clouds (B, N, 3 + input_feature_dim) -> sa*/fp2 outputs."""
-        xyz, features = point_clouds[..., :3], point_clouds[..., 3:]
-        sa1_xyz, sa1_f, sa1_inds = self._sa(self.sa1, xyz, features)
+    def forward(self, point_clouds: torch.Tensor,
+                sa1_precomputed: tuple | None = None) -> dict:
+        """point_clouds (B, N, 3 + input_feature_dim) -> sa*/fp2 outputs;
+        with ``sa1_precomputed`` the cloud is not read."""
+        if sa1_precomputed is not None:
+            sa1_xyz, grouped, sa1_inds = sa1_precomputed
+            sa1_f = self._block(self.sa1, self.sa1.group_precomputed,
+                                grouped)
+        else:
+            xyz, features = point_clouds[..., :3], point_clouds[..., 3:]
+            sa1_xyz, sa1_f, sa1_inds = self._sa(self.sa1, xyz, features)
         sa2_xyz, sa2_f, sa2_inds = self._sa(self.sa2, sa1_xyz, sa1_f)
         sa3_xyz, sa3_f, _ = self._sa(self.sa3, sa2_xyz, sa2_f)
         sa4_xyz, sa4_f, _ = self._sa(self.sa4, sa3_xyz, sa3_f)

@@ -104,6 +104,7 @@ class BertLayer(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.heads = c.num_attention_heads
+        self.head_dim = c.hidden_size // c.num_attention_heads
         self.attention = nn.Module()
         self.attention.self = _SelfAttention(c, device)
         self.attention.dropout = Dropout(c.attention_dropout)
@@ -116,16 +117,20 @@ class BertLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, attention_mask: torch.Tensor):
         """x (B, S, H); attention_mask (B, S) float, 1 = attend."""
-        b, s, d = x.shape
-        h, dk = self.heads, d // self.heads
+        b, s, _ = x.shape
         sa = self.attention.self
-        q = sa.query(x).reshape(b, s, h, dk).transpose(1, 2)
-        k = sa.key(x).reshape(b, s, h, dk).transpose(1, 2)
-        v = sa.value(x).reshape(b, s, h, dk).transpose(1, 2)
+        q, k, v = sa.query(x), sa.key(x), sa.value(x)
+        # the heads this rank holds: all of them, or its whole heads under
+        # tensor parallel (vlp3d_torch.parallel.tensor_parallel)
+        dk = self.head_dim
+        h = q.shape[-1] // dk
+        q = q.reshape(b, s, h, dk).transpose(1, 2)
+        k = k.reshape(b, s, h, dk).transpose(1, 2)
+        v = v.reshape(b, s, h, dk).transpose(1, 2)
         att = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dk)
         att = att + (1.0 - attention_mask[:, None, None, :]) * -10000.0
         att = self.attention.dropout(torch.softmax(att, dim=-1))
-        ctx = torch.matmul(att, v).transpose(1, 2).reshape(b, s, d)
+        ctx = torch.matmul(att, v).transpose(1, 2).reshape(b, s, h * dk)
         x = self.attention.output(ctx, x)
         y = F.gelu(self.intermediate.dense(x))  # exact erf GELU
         return self.output(y, x)

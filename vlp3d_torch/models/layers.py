@@ -333,19 +333,33 @@ class SAModule(nn.Module):
               new_xyz: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         """The neighbourhoods of :meth:`sample`'s indices through the
         shared MLP and the max pool -> (B, npoint, mlp[-1])."""
-        layers = list(self.mlp_module.children())
-        w = layers[0].conv.weight.flatten(1)
-        w_xyz, w_feat = w[:, :3], w[:, 3:]
         scale = 1.0 / self.radius
         if self.leaf_inputs and self.training:
             src = torch.cat([xyz, features], dim=-1).detach()
             grouped = group_points(src, idx)  # (B, M, K, 3 + C)
-            gxyz = (grouped[..., :3] - new_xyz[:, :, None, :]) * scale
-            x = F.linear(grouped[..., 3:], w_feat) + F.linear(gxyz, w_xyz)
-        else:
-            pre_all = F.linear(features, w_feat) + F.linear(xyz, w_xyz) * scale
-            # the gather subtracts the centre term on its way out
-            x = group_points(pre_all, idx, F.linear(new_xyz, w_xyz) * scale)
+            grouped[..., :3] = (grouped[..., :3]
+                                - new_xyz[:, :, None, :]) * scale
+            return self.group_precomputed(grouped)
+        layers = list(self.mlp_module.children())
+        w = layers[0].conv.weight.flatten(1)
+        w_xyz, w_feat = w[:, :3], w[:, 3:]
+        pre_all = F.linear(features, w_feat) + F.linear(xyz, w_xyz) * scale
+        # the gather subtracts the centre term on its way out
+        x = group_points(pre_all, idx, F.linear(new_xyz, w_xyz) * scale)
+        x = F.relu(layers[0].bn.bn(x))
+        return self.mlp_module(x, start=1).amax(dim=2)
+
+    def group_precomputed(self, grouped: torch.Tensor) -> torch.Tensor:
+        """The shared MLP and max pool of neighbourhoods grouped elsewhere
+        (:meth:`group`'s training path on leaf inputs, the point-sharded
+        front end): grouped (B, npoint, nsample, 3 + C) with the xyz
+        channels recentred and divided by the radius -> (B, npoint,
+        mlp[-1]). The first linear is split into its feature and xyz
+        columns."""
+        layers = list(self.mlp_module.children())
+        w = layers[0].conv.weight.flatten(1)
+        x = (F.linear(grouped[..., 3:], w[:, 3:])
+             + F.linear(grouped[..., :3], w[:, :3]))
         x = F.relu(layers[0].bn.bn(x))
         return self.mlp_module(x, start=1).amax(dim=2)
 

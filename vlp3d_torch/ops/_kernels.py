@@ -13,7 +13,8 @@ entry point returns ``cudaGetLastError()`` after its launch, which
 
 ``launches`` counts the launches of each kernel (a source may hold more
 than one: ``grouping.cu`` has the gather, its scatter-add backward and the
-three-NN interpolation's backward),
+three-NN interpolation's backward; ``point_parallel.cu`` the point-axis
+FPS step, the ball-query merge and the owned-rows gather),
 so a run can show that its main path went through the kernels.
 
 A wrapper's host time is part of every call (a train step makes
@@ -41,10 +42,11 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(os.environ.get(
     "VLP3D_TORCH_BUILD_DIR",
     Path(__file__).resolve().parents[2] / "build" / "vlp3d_torch"))
-SOURCES = ("fps", "ball_query", "three_nn", "grouping")
+SOURCES = ("fps", "ball_query", "three_nn", "grouping", "point_parallel")
 # kernels with a launch counter; each wrapper adds one where it launches
 KERNELS = ("fps", "ball_query", "three_nn", "group_points",
-           "group_points_grad", "three_interpolate_grad")
+           "group_points_grad", "three_interpolate_grad", "fps_shard_step",
+           "ball_query_merge", "gather_owned")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # index parity: no FMA contraction of d2 (the sources also spell
@@ -79,6 +81,12 @@ SIGNATURES = {
                                            _I, _I, _I, _P, _P],
         "vlp3d_three_interpolate_grad": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
                                          _I, _I, _I, _P, _P],
+    },
+    "point_parallel": {
+        "vlp3d_fps_shard_step": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                 _I, _I, _P, _P, _P],
+        "vlp3d_ball_query_merge": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
+        "vlp3d_gather_owned": [_P, _P, _I, _I, _L, _I, _I, _P, _P],
     },
 }
 

@@ -21,17 +21,18 @@ one process returns ``distributed=False``, as JAX's does, but still
 initialises its group of one, so that a one-process launch through
 ``torchrun`` takes the same data-parallel path as a larger one.
 
-JAX's placement helpers have no sharded state to place here until ZeRO
-(ROADMAP.md A19): each rank holds whole replicas. What the port needs of
-them:
+What the port needs of JAX's placement helpers:
 
   * ``global_mesh`` -> the default process group itself (a rank is a
-    device of the data axis);
+    device of the data axis), or the (data, model) subgroups of
+    :func:`vlp3d_torch.parallel.tensor_parallel.make_grid`;
   * ``replicate_global`` / ``place_global`` -> :func:`broadcast_module`,
-    rank 0's parameters and buffers copied to every rank;
-  * ``host_global`` -> nothing to gather: every rank's module is the
-    whole state, and :func:`check_replicated` confirms that the ranks
-    agree;
+    rank 0's parameters and buffers copied to every rank, then split by
+    ``shard_model`` (tensor parallel) and ``ShardedAdam`` (ZeRO-1,
+    :mod:`vlp3d_torch.parallel.zero`);
+  * ``host_global`` -> the state dicts of the split layers and of
+    ``ShardedAdam``, which gather the whole tensors; :func:`check_replicated`
+    confirms that the ranks' whole modules agree;
   * ``shard_host_batch`` -> :func:`shard_host_batch`, a rank's rows of a
     host batch on its device.
 """
@@ -224,7 +225,8 @@ def all_processes_agree(flag: bool) -> bool:
     return bool(bit.item())
 
 
-def shard_host_batch(batch: dict, device, *, local: bool = False) -> dict:
+def shard_host_batch(batch: dict, device, *, local: bool = False,
+                     shard=None) -> dict:
     """A host batch -> this rank's rows as tensors on ``device``.
 
     ``local``: the batch is already this rank's rows (the train feed's
@@ -232,16 +234,19 @@ def shard_host_batch(batch: dict, device, *, local: bool = False) -> dict:
     batch, the same on every rank (the eval feed), and each array whose
     leading dimension is the batch's keeps rows [r * B / W, (r + 1) * B /
     W); scalars go as they are. Lists (scene ids, object names) stay on
-    the host."""
+    the host. ``shard`` (a :class:`~vlp3d_torch.parallel.reduce.BatchShard`)
+    gives the rank and W in place of the default group's: the data group
+    of a tensor-parallel grid."""
     arrays = {k: v for k, v in batch.items() if not isinstance(v, list)}
     if not local:
         bs = np.shape(arrays["point_clouds"])[0]
-        world = get_world_size()
+        rank, world = ((get_rank(), get_world_size()) if shard is None
+                       else (shard.rank, shard.world))
         if bs % world:
             raise ValueError(
                 f"global batch {bs} not divisible by {world} processes")
         n = bs // world
-        lo = get_rank() * n
+        lo = rank * n
         arrays = {
             k: (v[lo:lo + n] if np.ndim(v) >= 1 and np.shape(v)[0] == bs
                 else v)

@@ -106,9 +106,7 @@ class BatchShard:
         all-gather)."""
         if not self.distributed:
             return x
-        from torch.distributed.nn.functional import all_gather
-
-        return torch.cat(all_gather(x, group=self.group))
+        return _AllGather.apply(x, self)
 
     def own(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a global batch-major tensor."""
@@ -147,6 +145,34 @@ class BatchShard:
             # one multi-tensor copy, not a launch a parameter
             torch._foreach_copy_(grads, [m.view_as(g)
                                          for m, g in zip(means, grads)])
+
+
+class _AllGather(torch.autograd.Function):
+    """The ranks' ``x`` concatenated in rank order; the backward sums the
+    incoming gradient over the ranks and keeps this rank's rows (the
+    reduce-scatter of the convention). ``torch.distributed.nn``'s
+    all-gather has no gloo backward over a subgroup (its all-to-all
+    scatters from group ranks as if they were global ones), which the data
+    group of a tensor-parallel grid is."""
+
+    @staticmethod
+    def forward(ctx, x, shard):
+        import torch.distributed as dist
+
+        ctx.shard = shard
+        pieces = [torch.empty_like(x) for _ in range(shard.world)]
+        dist.all_gather(pieces, x.contiguous(), group=shard.group)
+        return torch.cat(pieces)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        shard = ctx.shard
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=shard.group)
+        n = grad.shape[0] // shard.world
+        return grad.narrow(0, shard.rank * n, n), None
 
 
 LOCAL = BatchShard()

@@ -117,11 +117,17 @@ def _write_meta(root: str, meta: dict) -> None:
 def save_checkpoint(root: str, model, optimizer, best: dict,
                     epoch: int) -> str:
     """Resume checkpoint into the slot the meta file does not name, then
-    the meta file naming it; returns the slot."""
+    the meta file naming it; returns the slot. ``model`` and ``optimizer``
+    are the objects or their state dicts (a tensor-parallel or ZeRO-1
+    state dict is a collective, so the trainer takes it on every rank and
+    rank 0 passes it here)."""
     target = ("checkpoint_b" if _live_slot(root) == "checkpoint_a"
               else "checkpoint_a")
-    payload = {"model": _cpu(model.state_dict()),
-               "optimizer": optimizer.state_dict() if optimizer else None}
+    if not isinstance(model, dict):
+        model = model.state_dict()
+    if optimizer is not None and not isinstance(optimizer, dict):
+        optimizer = optimizer.state_dict()
+    payload = {"model": _cpu(model), "optimizer": optimizer}
     _write_slot(root, target, payload)
     _write_meta(root, {"epoch": epoch, "best": _floats(best),
                        "dir": target})

@@ -136,9 +136,6 @@ class Adam(torch.optim.Optimizer):
     @torch.no_grad()
     def step(self, closure=None):
         count = self.step_count + 1
-        b1, b2 = self.b1, self.b2
-        bc1 = 1.0 - b1 ** count
-        bc2 = 1.0 - b2 ** count
         for group in self.param_groups:
             lr = group["lr"] = self.group_lr(group)
             params = group["params"]
@@ -146,41 +143,55 @@ class Adam(torch.optim.Optimizer):
                 continue
             grads = [torch.zeros_like(p) if p.grad is None else p.grad
                      for p in params]
-            if self.clip_grad_value > 0:
-                grads = torch._foreach_clamp_min(grads, -self.clip_grad_value)
-                torch._foreach_clamp_max_(grads, self.clip_grad_value)
-            if not self.decoupled:  # coupled L2: into the moments
-                grads = torch._foreach_add(grads, params,
-                                           alpha=group["weight_decay"])
-            for p in params:
-                st = self.state[p]
-                if not st:
-                    st["mu"] = torch.zeros_like(p)
-                    st["nu"] = torch.zeros_like(p)
-                    if self.amsgrad:
-                        st["nu_max"] = torch.zeros_like(p)
-            mus = [self.state[p]["mu"] for p in params]
-            nus = [self.state[p]["nu"] for p in params]
-            torch._foreach_mul_(mus, b1)
-            torch._foreach_add_(mus, grads, alpha=1.0 - b1)
-            torch._foreach_mul_(nus, b2)
-            torch._foreach_addcmul_(nus, grads, grads, value=1.0 - b2)
-            if self.amsgrad:
-                nu_maxs = [self.state[p]["nu_max"] for p in params]
-                torch._foreach_maximum_(nu_maxs, nus)
-                denom = torch._foreach_sqrt(nu_maxs)
-                torch._foreach_div_(denom, bc2 ** 0.5)
-            else:
-                denom = torch._foreach_div(nus, bc2)
-                torch._foreach_sqrt_(denom)
-            torch._foreach_add_(denom, self.eps)
-            update = torch._foreach_div(mus, bc1)
-            torch._foreach_div_(update, denom)
-            if self.decoupled:
-                torch._foreach_add_(update, params,
-                                    alpha=group["weight_decay"])
-            torch._foreach_add_(params, update, alpha=-lr)
+            self.update(params, grads, [self.moments(p, p) for p in params],
+                        lr, group["weight_decay"], count)
         self.step_count = count
+
+    def moments(self, p, like: torch.Tensor) -> dict:
+        """``p``'s state: mu, nu (and nu_max with amsgrad), zeros shaped
+        like ``like`` at the first step (the parameter, or the slice of it
+        that this rank updates)."""
+        st = self.state[p]
+        if not st:
+            st["mu"] = torch.zeros_like(like)
+            st["nu"] = torch.zeros_like(like)
+            if self.amsgrad:
+                st["nu_max"] = torch.zeros_like(like)
+        return st
+
+    def update(self, params, grads, states, lr: float, weight_decay: float,
+               count: int) -> None:
+        """The elementwise update of update number ``count`` on tensors
+        ``params`` (parameters or slices of them, updated in place) with
+        ``grads`` and the moments ``states`` of the same shapes."""
+        b1, b2 = self.b1, self.b2
+        bc1 = 1.0 - b1 ** count
+        bc2 = 1.0 - b2 ** count
+        if self.clip_grad_value > 0:
+            grads = torch._foreach_clamp_min(grads, -self.clip_grad_value)
+            torch._foreach_clamp_max_(grads, self.clip_grad_value)
+        if not self.decoupled:  # coupled L2: into the moments
+            grads = torch._foreach_add(grads, params, alpha=weight_decay)
+        mus = [st["mu"] for st in states]
+        nus = [st["nu"] for st in states]
+        torch._foreach_mul_(mus, b1)
+        torch._foreach_add_(mus, grads, alpha=1.0 - b1)
+        torch._foreach_mul_(nus, b2)
+        torch._foreach_addcmul_(nus, grads, grads, value=1.0 - b2)
+        if self.amsgrad:
+            nu_maxs = [st["nu_max"] for st in states]
+            torch._foreach_maximum_(nu_maxs, nus)
+            denom = torch._foreach_sqrt(nu_maxs)
+            torch._foreach_div_(denom, bc2 ** 0.5)
+        else:
+            denom = torch._foreach_div(nus, bc2)
+            torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        upd = torch._foreach_div(mus, bc1)
+        torch._foreach_div_(upd, denom)
+        if self.decoupled:
+            torch._foreach_add_(upd, params, alpha=weight_decay)
+        torch._foreach_add_(params, upd, alpha=-lr)
 
 
 def make_optimizer(model: nn.Module, *, base_lr: float = 2e-3,

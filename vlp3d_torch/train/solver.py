@@ -95,8 +95,16 @@ Where the port differs from the JAX solver, and why:
     is the last epoch's (``model`` is saved every epoch; the
     ``ground_model*`` snapshots are not written).
 
-Still to port, each raising NotImplementedError naming its ROADMAP.md
-item: ``tp`` and ``zero1`` (A19).
+``tp`` = k > 1 runs tensor parallel (:mod:`vlp3d_torch.parallel.
+tensor_parallel`) on a (data, model) grid of the W ranks: W must be dp x k
+and the global batch must divide by dp, else a ValueError names the
+sizes (JAX instead shrinks its data axis until the batch divides and
+leaves devices idle, ROADMAP.md C16). The batch, BatchNorm, the losses and
+the gradient average then run over the data group; the split layers'
+snapshots gather them whole. ``zero1`` shards the optimizer's moments
+over the data group (:mod:`vlp3d_torch.parallel.zero`; with no process
+group, a shard of one); its checkpoints hold the whole moments. Both
+mirror the JAX solver's ``_place_state``.
 """
 
 from __future__ import annotations
@@ -121,6 +129,8 @@ from vlp3d_torch.models.jointnet import JointNet
 from vlp3d_torch.models.layers import BatchNorm
 from vlp3d_torch.parallel import distributed as dist_utils
 from vlp3d_torch.parallel.reduce import LOCAL, BatchShard
+from vlp3d_torch.parallel.tensor_parallel import make_grid, shard_model
+from vlp3d_torch.parallel.zero import ShardedAdam
 from vlp3d_torch.train import checkpoint as ckpt
 from vlp3d_torch.train.optimizer import make_optimizer
 from vlp3d_torch.train.schedules import bn_momentum_torch, cosine_lr, step_lr
@@ -146,16 +156,6 @@ PROFILE_STEPS = 3
 # the metrics whose sum picks the caption_model snapshot
 # (solver_3dvlp.py:1166-1181)
 CAPTION_METRICS = ("bleu-4", "cider", "rouge", "meteor")
-_UNPORTED = {
-    "tp": "ROADMAP.md queue A item A19 (the other parallel modes)",
-    "zero1": "ROADMAP.md queue A item A19 (the other parallel modes)",
-}
-
-
-def _unported(what: str, item: str):
-    return NotImplementedError(
-        f"vlp3d_torch's Solver does not implement {what} yet; see "
-        f"{_UNPORTED[item]}")
 
 
 class Solver:
@@ -197,10 +197,6 @@ class Solver:
                     f"--nproc_per_node {len(mesh)} -m "
                     f"vlp3d_torch.cli.train_3dvlp ... (ROADMAP.md C11)")
             device = mesh[0]
-        if tp != 1:
-            raise _unported(f"tp={tp}", "tp")
-        if zero1:
-            raise _unported("zero1=True", "zero1")
         self.config = config
         self.train_dataset = train_dataset
         self.val_dataset = val_dataset
@@ -218,14 +214,23 @@ class Solver:
         self.criterion = criterion
         self.device = resolve_device(device)
         # data parallel over the default process group (a group of one
-        # rank included: torchrun --nproc_per_node 1 takes this path)
-        self.shard = (BatchShard.of_group() if dist_utils.initialized()
-                      else LOCAL)
-        self.is_main = self.shard.rank == 0
+        # rank included: torchrun --nproc_per_node 1 takes this path), or
+        # over the data group of a (data, model) grid under tp
+        self.tp, self.zero1 = tp, zero1
+        self.grid = make_grid(tp) if tp != 1 else None
+        if self.grid is not None:
+            self.shard = self.grid.data
+        else:
+            self.shard = (BatchShard.of_group() if dist_utils.initialized()
+                          else LOCAL)
+        self.rank = dist_utils.get_rank()
+        self.is_main = self.rank == 0
         if config.train.batch_size % self.shard.world:
             raise ValueError(
                 f"global batch {config.train.batch_size} not divisible by "
-                f"{self.shard.world} processes")
+                f"{self.shard.world} processes"
+                + (f" (the data size: world {dist_utils.get_world_size()} "
+                   f"/ tp {tp})" if tp != 1 else ""))
         self.profile_dir = profile_dir if self.is_main else None
         self._profiled = False
         self.seed = seed
@@ -270,7 +275,7 @@ class Solver:
         # tensorboard dual writers (solver_3dvlp.py:214-221)
         tb_dir = os.path.join(workdir, "tensorboard")
         if not self.is_main:
-            tb_dir = os.path.join(tb_dir, f"rank{self.shard.rank}")
+            tb_dir = os.path.join(tb_dir, f"rank{self.rank}")
         self._tb_train = SummaryWriter(os.path.join(tb_dir, "train"))
         self._tb_val = SummaryWriter(os.path.join(tb_dir, "val"))
         # wandb mirror with phase-prefixed keys (solver_3dvlp.py:531-565);
@@ -313,6 +318,8 @@ class Solver:
                     f"model takes {want}")
         self.model = JointNet(cfg, device=self.device)
         dist_utils.broadcast_module(self.model)
+        if self.grid is not None:
+            shard_model(self.model, self.grid.model)
         self.optimizer = make_optimizer(
             self.model,
             base_lr=cfg.train.lr,
@@ -326,6 +333,10 @@ class Solver:
             clip_grad_value=cfg.train.clip_grad_value,
             grad_accum=self.grad_accum,
         )
+        if self.zero1 or self.grid is not None:
+            self.optimizer = ShardedAdam(
+                self.optimizer, self.model,
+                self.shard if self.zero1 else LOCAL)
         self.train_step = make_train_step(
             self.model, cfg, self.optimizer, caption=self.caption,
             reference=self.reference, detection=self.detection,
@@ -545,7 +556,8 @@ class Solver:
         if np.shape(arrays["point_clouds"])[0] < self.config.train.batch_size:
             return self.eval_step(batch_to_device(arrays, self.device), LOCAL)
         out, metrics = self.eval_step(
-            dist_utils.shard_host_batch(arrays, self.device))
+            dist_utils.shard_host_batch(arrays, self.device,
+                                        shard=self.shard))
         return {k: self.shard.cat(v) for k, v in out.items()
                 if k in HOST_OUT_KEYS}, metrics
 
@@ -587,8 +599,11 @@ class Solver:
 
     # ------------------------------------------------------------ loop
     def _snapshot(self, name: str) -> None:
+        # every rank asks for the state dict: under tp it gathers the split
+        # layers whole
+        sd = self.model.state_dict()
         if self.is_main:
-            ckpt.save_params(self.workdir, name, self.model.state_dict())
+            ckpt.save_params(self.workdir, name, sd)
         dist_utils.barrier()
 
     def __call__(self, epochs: int, *, start_epoch: int = 0) -> dict:
@@ -699,9 +714,12 @@ class Solver:
                 self._snapshot("caption_model")
 
     def _save_full_checkpoint(self, epoch: int) -> None:
+        # state dicts on every rank: tp and zero1 gather them whole
+        model_sd = self.model.state_dict()
+        opt_sd = self.optimizer.state_dict()
         if self.is_main:
-            ckpt.save_checkpoint(self.workdir, self.model, self.optimizer,
-                                 self.best, epoch)
+            ckpt.save_checkpoint(self.workdir, model_sd, opt_sd, self.best,
+                                 epoch)
         dist_utils.barrier()
 
     def _finish(self) -> None:
