@@ -2,8 +2,9 @@
 """Smoke run of vlp3d_torch on one CUDA card: grounding inference, the
 joint train step, the predict path, the trainer behind run.sh, the HTTP
 grounding server, Scan2Cap captioning, ScanQA question answering, the
-grounding model's options, data parallel, and ZeRO-1, tensor, pipeline
-and point-axis parallel.
+grounding model's options, data parallel, ZeRO-1, tensor, pipeline and
+point-axis parallel, and the GloVe/LSTM task pipelines (ScanQA with
+MCAN, RefNet, CapNet).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ranks 4
@@ -320,7 +321,32 @@ each fatal on failure:
    three calls and on a second slab) and on the edge cases (ties across
    shards, an all-invalid row, a ball in one shard, across shards,
    empty), timed by cuda_ms, with bounds and host us;
-15. print {"kernels": [...]} with every kernel of the main paths (the
+15. the GloVe/LSTM task pipelines at their trainers' full widths
+   (TaskPipelinesPhase; B 8 x N_TASK 40000 points, 132 channels, 256
+   proposals): ScanQA with MCAN (train_scanqa's Config, 8864 answers,
+   30-token GloVe questions; scene 0 a cloud of one repeated point whose
+   proposals are all made non-objects, so that MCAN masks every key of
+   the scene), RefNet (8 sentences a scene, LSTM 256) and CapNet
+   (vocabulary 3433, 64 captions of 32 sos/eos-wrapped tokens, with
+   num_locals -1 and CAPNET_LOCALS). Built while the CLI processes run:
+   each evaluation forward against the plain-op forward (sampled indices
+   equal; answer_scores / cluster_ref / lang_cap within CLUSTER_REF_TOL
+   of max(1, the largest entry); the top-10 answers, the chosen
+   proposals and each caption's greedy words equal or excused by the tie
+   rule) and each step (the trainer's loss) against the plain-op step by
+   check_kernel_step, following the plain run's ReLU inputs, max-pool
+   choices and sampled indices. CLI processes, started with phase 8's:
+   train_scanqa, train_3djcg_g and train_3djcg_c with --synthetic
+   --epoch 1 (TASK_CLIS; the ScanRefer ones at batch 2, so that the 2
+   synthetic scenes make one step): exit 0, the val metric printed,
+   finite losses logged, best.json and the best and last snapshots. With
+   the card to itself, after phase 14, counts at 0 before each: one
+   forward's and one step's launches of each model (TASK_FORWARD /
+   TASK_STEP: FPS 5, ball query 5, three-NN 2, gather 11, ScanQA's 10,
+   its backward 5, the interpolation's 2), then the median ms of
+   TASK_STEPS forwards and steps (the trainers' optimizers) and their
+   peak memory;
+16. print {"kernels": [...]} with every kernel of the main paths (the
    CUDA functions behind each in kernel_functions, host_us beside the
    times, the launches of each path, and per_step and per_remat_step
    as counted in phase 8), the
@@ -482,6 +508,67 @@ BF16_PROBE = ["backbone_net.sa1.mlp_module.layer1.conv.weight",
               "backbone_net.fp2.mlp.layer1.conv.weight", "vgen.conv3.weight",
               "proposal.vote_aggregation.mlp_module.layer0.conv.weight",
               "relation.features_concat.0.weight", "match.match.0.weight"]
+
+# phase 15: the GloVe/LSTM task pipelines at their trainers' full widths
+# (train_scanqa: Config(DatasetConfig(num_points=40000), ModelConfig());
+# train_3djcg_g / _c: 8 sentences a scene), B=8 scenes of N_TASK points,
+# GLOVE_T-token questions and descriptions, CAPTION_T-token sos/eos-wrapped
+# captions (max_des_len 30 + 2)
+N_TASK = 40000
+GLOVE_T, CAPTION_T = 30, 32
+SCANQA_ANSWERS = 8864  # the ScanQA model's default answer vocabulary
+CAPNET_VOCAB, CAPNET_LOCALS = 3433, 10
+TASK_STEPS = 5  # timed forwards and steps of each task model
+# gradients held in each task model's kernel step, SA1 to its heads
+TASK_PROBES = {
+    "scanqa": ["detection_backbone.sa1.mlp_module.layer0.conv.weight",
+               "detection_backbone.fp2.mlp.layer0.conv.weight",
+               "voting_net.conv3.weight",
+               "proposal_net.vote_aggregation.mlp_module.layer0.conv.weight",
+               "proposal_net.conv3.weight", "lang_net.lstm.weight_ih_l0",
+               "lang_net.lstm.weight_hh_l0",
+               "fusion_backbone.enc_list.0.mhatt.linear_q.weight",
+               "fusion_backbone.dec_list.1.mhatt2.linear_q.weight",
+               "attflat_visual.mlp.fc.linear.weight",
+               "object_cls.3.weight", "lang_cls.3.weight",
+               "answer_cls.3.weight"],
+    "refnet": ["backbone_net.sa1.mlp_module.layer0.conv.weight",
+               "backbone_net.fp2.mlp.layer0.conv.weight",
+               "proposal.vote_aggregation.mlp_module.layer0.conv.weight",
+               "relation.features_concat.0.weight", "match.match.0.weight",
+               "lang.lstm.weight_ih_l0", "lang.lstm.weight_hh_l0",
+               "lang.lang_cls.1.weight", "lang_proj.weight",
+               "lang_emb_proj.weight"],
+    "capnet": ["backbone_net.sa1.mlp_module.layer0.conv.weight",
+               "backbone_net.fp2.mlp.layer0.conv.weight",
+               "proposal.vote_aggregation.mlp_module.layer0.conv.weight",
+               "relation.features_concat.0.weight",
+               "caption.word_proj.weight", "caption.map_previous.weight",
+               "caption.obj_fc.weight",
+               "caption.dec_att2.attention.fc_q.weight",
+               "caption.map_lang.weight", "caption.classifier.weight"],
+}
+TASK_PROBES["capnet_locals"] = TASK_PROBES["capnet"]
+# the output each evaluation forward is held on
+TASK_OUTPUT = {"scanqa": "answer_scores", "refnet": "cluster_ref",
+               "capnet": "lang_cap"}
+# launches of one forward and one step: the ScanQA detector has no
+# relation module, so no reference-read gather
+TASK_FORWARD = {"scanqa": dict(PER_FORWARD, group_points=10),
+                "refnet": PER_FORWARD, "capnet": PER_FORWARD}
+TASK_STEP = {"scanqa": dict(PER_STEP, group_points=10),
+             "refnet": PER_STEP, "capnet": PER_STEP}
+# the trainers as processes: module -> (flags beside --synthetic --epoch 1,
+# a train-log loss key, the val metric, the best snapshot). The synthetic
+# ScanRefer sets hold 2 scenes (one chunk of 5 sentences each): batch 2
+# gives one step; the ScanQA set's 8 questions make one batch of 8
+TASK_CLIS = {
+    "train_scanqa": ([], "answer_loss", "answer_acc_1", "model"),
+    "train_3djcg_g": (["--batch_size", "2"], "ref_loss", "iou_rate_0.5",
+                      "ground_model"),
+    "train_3djcg_c": (["--batch_size", "2"], "cap_loss", "cap_acc",
+                      "caption_model"),
+}
 
 
 _T0 = time.perf_counter()
@@ -1274,7 +1361,9 @@ def kernel_line(rows, serving, train, predict, solver, http, per_step,
     ``answer_eval``, ``answer_serve``, ``answer_step``, ``answer_http``,
     ``flags_forward``, ``flags_step``, ``float32_forward``,
     ``float32_step``, ``bfloat16_forward``, ``bfloat16_step``,
-    ``flags_solver_reference``, ``flags_solver_detection``, ``dp_step``);
+    ``flags_solver_reference``, ``flags_solver_detection``, ``dp_step``,
+    and phase 15's ``scanqa_forward`` / ``_step``, ``refnet_*``,
+    ``capnet_*`` and ``capnet_locals_*``);
     ``per_step`` and ``per_remat_step`` those of one Solver step and one
     remat step."""
     sources = {
@@ -1793,10 +1882,12 @@ def check_gather_grad_bounds(torch, site):
           "gradient")
 
 
-def loss_and_grads(torch, model, config, batch, names, seed, caption=False):
+def loss_and_grads(torch, model, config, batch, names, seed, caption=False,
+                   loss_fn=None):
     """One train forward + backward with dropout (and the caption / MLM
     token masks) drawn from ``seed``; returns (loss, {name: gradient}) and
-    leaves no gradient behind."""
+    leaves no gradient behind. ``loss_fn(outputs, batch) -> (loss,
+    metrics)`` replaces the joint loss (the single-task models)."""
     from vlp3d_torch.losses.joint import compute_joint_loss
     from vlp3d_torch.models.layers import set_dropout_generator
 
@@ -1805,7 +1896,10 @@ def loss_and_grads(torch, model, config, batch, names, seed, caption=False):
     set_dropout_generator(model, gen)
     model.mask_generator = gen
     out = model(batch, train=True)
-    loss, _ = compute_joint_loss(config, out, batch, caption=caption)
+    if loss_fn is not None:
+        loss, _ = loss_fn(out, batch)
+    else:
+        loss, _ = compute_joint_loss(config, out, batch, caption=caption)
     loss.backward()
     grads = {n: model.get_parameter(n).grad.detach().clone() for n in names}
     model.zero_grad(set_to_none=True)
@@ -2907,14 +3001,16 @@ def cut_at_sep(ys):
 
 def relu_input(name: str, mod) -> bool:
     """Whether a ReLU or PReLU reads this module's output: every
-    BatchNorm, the relation distance-MLP's two hidden linears, and the
-    first linear of every feed-forward block (the attention blocks' and
-    the caption / MLM decoders')."""
+    BatchNorm, the relation distance-MLP's two hidden linears, the first
+    linear of every feed-forward block (the attention blocks' and the
+    caption / MLM decoders') and CapNet's captioner's ``map_previous`` and
+    ``obj_fc``."""
     from vlp3d_torch.models.layers import BatchNorm
 
     parts = name.split(".")
     return isinstance(mod, BatchNorm) or name.endswith(
-        (".linear1", ".feed_forward.w_1")) or (
+        (".linear1", ".feed_forward.w_1", "caption.map_previous",
+         "caption.obj_fc")) or (
             parts[:2] == ["relation", "self_attn_fc"] and len(parts) == 4
             and parts[3] in ("0", "3"))
 
@@ -3069,7 +3165,7 @@ def ball_tie_gap(torch, xyz, centers, ref_xyz, ref_centers, radius):
 # SA modules that read the raw cloud (SA1) or rows gathered from it
 # (SA2-SA4): two runs of the same batch give them the same coordinates,
 # so their sampled indices must agree exactly
-RAW_CLOUD_SA = "backbone_net."
+RAW_CLOUD_SA = ("backbone_net.", "detection_backbone.")
 
 
 @contextlib.contextmanager
@@ -3149,7 +3245,8 @@ def index_ties(model, follow=None):
 
 def check_kernel_step(torch, tag, model, config, batch, probe, what,
                       caption=False, take_all=False,
-                      grad_tol=STEP_GRAD_TOL):
+                      grad_tol=STEP_GRAD_TOL, loss_fn=None,
+                      follow_ties=False):
     """The kernel train step against the plain-op step on one batch, with
     one dropout (and token- and box-mask) draw: the plain-op run first,
     recording every ReLU input, then the kernel run following its side of
@@ -3161,19 +3258,48 @@ def check_kernel_step(torch, tag, model, config, batch, probe, what,
     largest entry. With ``take_all`` (bfloat16 point MLPs, where that
     order moves whole bfloat16 units through the batch statistics) the
     kernel run takes the plain run's value at every unit of those
-    modules, and the backward alone is compared. Returns (loss_rel,
-    worst, {module: units moved})."""
-    with plain_ops(), kinks(model) as (pre_p, _):
+    modules, and the backward alone is compared. ``loss_fn`` replaces the
+    joint loss (see loss_and_grads). With ``follow_ties`` the kernel run
+    also follows the plain run's max-pool choices (pool_ties: a moved
+    channel within FLIP_TOL of its maximum) and sampled indices
+    (index_ties: exact on the raw cloud's SA modules, within
+    INDEX_TIE_TOL of a tie on the votes'). Returns (loss_rel, worst,
+    {module: units moved})."""
+    ties = contextlib.ExitStack()
+    with ties, plain_ops(), kinks(model) as (pre_p, _):
+        if follow_ties:
+            pools_p, _ = ties.enter_context(pool_ties(model))
+            inds_p, _ = ties.enter_context(index_ties(model))
         loss_p, grads_p = loss_and_grads(torch, model, config, batch,
-                                         probe, 11, caption=caption)
-    with kinks(model, follow=pre_p, take_all=take_all) as (_, moved):
+                                         probe, 11, caption=caption,
+                                         loss_fn=loss_fn)
+    ties = contextlib.ExitStack()
+    with ties, kinks(model, follow=pre_p, take_all=take_all) as (_, moved):
+        if follow_ties:
+            _, pooled = ties.enter_context(pool_ties(model, follow=pools_p))
+            _, resampled = ties.enter_context(
+                index_ties(model, follow=inds_p))
         loss_k, grads_k = loss_and_grads(torch, model, config, batch,
-                                         probe, 11, caption=caption)
+                                         probe, 11, caption=caption,
+                                         loss_fn=loss_fn)
     del pre_p
     for name, (units, near) in moved.items():
         if near > FLIP_TOL and not take_all:
             fail(f"{what}: {units} ReLU inputs of {name}, up to {near} from "
                  "0, decided differently in the two runs")
+    if follow_ties:
+        del pools_p, inds_p
+        for name, (units, gap) in pooled.items():
+            if gap > FLIP_TOL:
+                fail(f"{what}: {units} max-pool channels of {name}, up to "
+                     f"{gap} below the maximum, chose differently")
+        for name, (units, gap) in resampled.items():
+            if gap > INDEX_TIE_TOL:
+                fail(f"{what}: {units} sampled indices of {name}, {gap} "
+                     "from a tie, differ between the two runs")
+        print(f"[{tag}] {what}: max-pool channels that followed the plain "
+              f"run {({k: v[0] for k, v in pooled.items()})}, sampled "
+              f"indices {({k: v for k, v in resampled.items()})}")
     errs = {}
     for n in probe:
         scale = grads_p[n].abs().max().item()
@@ -3192,16 +3318,62 @@ def check_kernel_step(torch, tag, model, config, batch, probe, what,
     return loss_rel, worst, {k: v[0] for k, v in moved.items()}
 
 
-class CaptionClis:
-    """Phase 10's caption_predict and caption_eval processes over
-    stand-in assets (seeded weights), started beside phase 8."""
+class CliProcesses:
+    """``python -m vlp3d_torch.cli.<module>`` children started together in
+    a temporary directory, each timed to its own exit by a thread;
+    :meth:`stop` kills any still running."""
 
     def __init__(self):
         import tempfile
 
+        self.tmp = tempfile.TemporaryDirectory()
+        self.procs, self.results, self.threads = {}, {}, []
+
+    def launch(self, module, args):
+        import threading
+
+        proc = subprocess.Popen(
+            [sys.executable, "-m", f"vlp3d_torch.cli.{module}", *args],
+            cwd=REPO, env=child_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        self.procs[module] = proc
+        self.threads.append(threading.Thread(
+            target=self._wait, args=(module, time.perf_counter(), proc),
+            daemon=True))
+        self.threads[-1].start()
+
+    def _wait(self, module, t0, proc):
+        text, _ = proc.communicate(timeout=600)
+        self.results[module] = (text, time.perf_counter() - t0)
+
+    def ended(self):
+        """{module: (output, s)} once each has exited 0; fails else."""
+        for t in self.threads:
+            t.join(timeout=600)
+        for module, proc in self.procs.items():
+            if module not in self.results:
+                fail(f"python -m vlp3d_torch.cli.{module} did not end")
+            if proc.returncode != 0:
+                fail(f"python -m vlp3d_torch.cli.{module} exited "
+                     f"{proc.returncode}:\n{self.results[module][0][-3000:]}")
+        return {m: self.results[m] for m in self.procs}
+
+    def stop(self):
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        self.tmp.cleanup()
+
+
+class CaptionClis(CliProcesses):
+    """Phase 10's caption_predict and caption_eval processes over
+    stand-in assets (seeded weights), started beside phase 8."""
+
+    def __init__(self):
         from vlp3d_torch.data.standins import write_standin_assets
 
-        self.tmp = tempfile.TemporaryDirectory()
+        super().__init__()
         self.paths = write_standin_assets(self.tmp.name)
         self.assets = [
             "--scanrefer_dir", self.paths["scanrefer_dir"],
@@ -3209,26 +3381,17 @@ class CaptionClis:
             os.path.join(self.paths["bert_dir"], "vocab.txt")]
         self.out = {m: os.path.join(self.tmp.name, f"{m}.json")
                     for m in ("caption_predict", "caption_eval")}
-        self.procs = {}
 
     def start(self):
         for module, out in self.out.items():
-            self.procs[module] = (time.perf_counter(), subprocess.Popen(
-                [sys.executable, "-m", f"vlp3d_torch.cli.{module}",
-                 *CAPTION_CLI_FLAGS, *self.assets, "--out", out], cwd=REPO,
-                env=child_env(), stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True))
+            self.launch(module, [*CAPTION_CLI_FLAGS, *self.assets, "--out",
+                                 out])
         stamp("10", "caption_predict and caption_eval CLIs started")
 
     def check(self):
         import numpy as np
 
-        for module, (t0, proc) in self.procs.items():
-            out, _ = proc.communicate(timeout=600)
-            sec = time.perf_counter() - t0
-            if proc.returncode != 0:
-                fail(f"python -m vlp3d_torch.cli.{module} exited "
-                     f"{proc.returncode}:\n{out[-3000:]}")
+        for module, (out, sec) in self.ended().items():
             print(f"[10] {module} CLI: exit 0 in {sec:.1f} s; last line "
                   f"{out.strip().splitlines()[-1][:160]!r}")
         with open(self.out["caption_predict"]) as f:
@@ -3250,13 +3413,6 @@ class CaptionClis:
               f"kept proposals, boxes 8 x 3, captions such as "
               f"{recs[0]['caption'][:80]!r}; caption_eval "
               f"{json.dumps(metrics)}")
-
-    def stop(self):
-        for _, proc in self.procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        self.tmp.cleanup()
 
 
 def check_train_caption(result, workdir):
@@ -4421,6 +4577,338 @@ class FlagsPhase:
         self.preds = None
         torch.cuda.empty_cache()
         stamp("12", "option and compute-dtype paths")
+        return launches, numbers
+
+
+class TaskClis(CliProcesses):
+    """Phase 15's three single-task trainers as processes on the card,
+    started beside phase 8's: train_scanqa, train_3djcg_g and
+    train_3djcg_c at full width with --synthetic --epoch 1 (TASK_CLIS)."""
+
+    def start(self):
+        for module, (flags, _, _, _) in TASK_CLIS.items():
+            self.launch(module, [
+                "--synthetic", "--epoch", "1", "--num_workers", "2",
+                "--output_dir", os.path.join(self.tmp.name, module), *flags])
+        stamp("15", "train_scanqa, train_3djcg_g and train_3djcg_c CLIs "
+              "started")
+
+    def check(self):
+        """Each exits 0, prints its val metric, logs finite losses and
+        writes best.json and its best and last snapshots."""
+        import glob
+
+        import numpy as np
+
+        numbers = {}
+        for module, (text, sec) in self.ended().items():
+            flags, loss_key, val_key, snapshot = TASK_CLIS[module]
+            runs = glob.glob(os.path.join(self.tmp.name, module, "*"))
+            if len(runs) != 1:
+                fail(f"{module} left run directories {runs}")
+            with open(os.path.join(runs[0], "log.jsonl")) as f:
+                records = [json.loads(r) for r in f]
+            train = [r for r in records if r["phase"] == "train"]
+            val = [r for r in records if r["phase"] == "val"]
+            printed = [ln for ln in text.splitlines()
+                       if ln.startswith("epoch 0:")]
+            if not train or loss_key not in train[0] or not val \
+                    or val_key not in val[0] or not printed or not all(
+                        np.isfinite(v) for r in records for v in r.values()
+                        if isinstance(v, float)):
+                fail(f"{module}: train {train}, val {val}, printed "
+                     f"{printed}")
+            for name in ("best.json", f"{snapshot}.pth", "model_last.pth"):
+                if not os.path.exists(os.path.join(runs[0], name)):
+                    fail(f"{module} left no {name}")
+            print(f"[15] python -m vlp3d_torch.cli.{module} --synthetic "
+                  f"--epoch 1 {' '.join(flags)}: exit 0 in {sec:.1f} s; "
+                  f"{printed[0]!r}; loss {train[0]['loss']}, {loss_key} "
+                  f"{train[0][loss_key]}")
+            numbers[module] = {"s": sec, "loss": train[0]["loss"],
+                               val_key: val[0][val_key]}
+        return numbers
+
+
+class TaskPipelinesPhase:
+    """Phase 15 in this process: ScanQA with MCAN, RefNet and CapNet (with
+    num_locals -1 and 10) at their trainers' full widths. The models, the
+    evaluation forwards against the plain ops and the kernel steps against
+    the plain-op steps (untimed) run while the CLI processes run;
+    :meth:`drive` then counts the launches of a forward and a step and
+    times them with the card to itself."""
+
+    def __init__(self, torch, smi):
+        self.smi = smi
+        t0 = time.perf_counter()
+        self.cases = {}
+        for name in TASK_PROBES:
+            self.cases[name] = getattr(self, f"_{name.split('_')[0]}")(
+                torch, name)
+        stamp("15", f"task models built in {time.perf_counter() - t0:.1f} s")
+        self.checks = {}
+        for name, case in self.cases.items():
+            fwd = self.check_forward(torch, name, case)
+            step = check_kernel_step(
+                torch, "15", case["model"], case["config"], case["batch"],
+                TASK_PROBES[name], f"{name} step", loss_fn=case["loss_fn"],
+                follow_ties=True)
+            self.checks[name] = {"forward": fwd, "step": {
+                "loss_rel": step[0], "grad_err": step[1], "flips": step[2]}}
+        stamp("15", "task models' untimed checks")
+
+    # -- the models and batches -------------------------------------------
+
+    def _task_batch(self, torch, config, seed, extra):
+        import numpy as np
+
+        from vlp3d_torch.data.synthetic import make_batch
+        from vlp3d_torch.train import batch_to_device
+
+        host = make_batch(config, batch_size=B, num_points=N_TASK, seed=seed)
+        host.update(extra(np.random.default_rng(seed), host))
+        return batch_to_device(host, torch.device("cuda"))
+
+    def _scanqa(self, torch, name):
+        import numpy as np
+
+        from vlp3d_torch.cli.train_scanqa import (
+            RENAMES,
+            build_parser,
+            vqa_optimizer,
+        )
+        from vlp3d_torch.config import Config, DatasetConfig, ModelConfig
+        from vlp3d_torch.losses.vqa import compute_vqa_loss
+        from vlp3d_torch.models.scanqa import ScanQA
+
+        # train_scanqa's own configuration
+        config = Config(dataset=DatasetConfig(num_points=N_TASK),
+                        model=ModelConfig())
+        answers = SCANQA_ANSWERS
+        model = ScanQA(config, answers)
+        with torch.no_grad():  # votes near their seeds, small box offsets
+            model.voting_net.conv3.weight.mul_(0.05)
+            model.voting_net.conv3.bias.mul_(0.05)
+            model.proposal_net.conv3.weight[2:5].mul_(0.05)
+        b = B
+
+        def extra(rng, host):
+            host["point_clouds"][0] = 0.0  # scene 0: every proposal alike
+            lens = rng.integers(1, GLOVE_T + 1, b).astype(np.int32)
+            lens[:2] = (1, GLOVE_T)
+            out = {"lang_feat": rng.normal(size=(b, GLOVE_T, 300)).astype(
+                np.float32), "lang_len": lens}
+            out.update({dst: host[src][:, 0] for src, dst in RENAMES.items()
+                        if src in host})
+            cats = np.zeros((b, answers), np.float32)
+            for i in range(b):
+                cats[i, rng.choice(answers, 1 + i % 3, replace=False)] = 1.0
+            out.update(answer_cats=cats, answer_cat_scores=cats * rng.choice(
+                [0.3, 0.6, 0.9, 1.0], size=cats.shape).astype(np.float32),
+                answer_cat=np.argmax(cats, -1).astype(np.int32))
+            return out
+
+        batch = self._task_batch(torch, config, 15, extra)
+        # scene 0's proposals (one point repeated) are alike: make them
+        # all non-objects and about half of the others' objects, so that
+        # MCAN masks every key of scene 0 and some of the others'
+        scores = model(batch)["objectness_scores"]
+        diff = scores[..., 0] - scores[..., 1]  # > 0: not an object
+        if not bool((diff[0] == diff[0, 0]).all()):
+            fail(f"scanqa: scene 0's proposals differ: {diff[0]}")
+        head = model.proposal_net.conv3
+        with torch.no_grad():
+            if bool(diff[0, 0] <= diff[1:].median()):
+                for t in (head.weight, head.bias):  # swap the two logits
+                    t[0:2] = t[0:2].flip(0).clone()
+                diff = -diff
+            d0 = float(diff[0, 0])
+            head.bias[1] += d0 - max(1e-2, 0.05 * abs(d0))
+        masks = model(batch)["objectness_masks"]
+        if bool(masks[0].any()) or not bool(masks[1:].any()):
+            fail(f"scanqa: objectness masks {masks.sum(1).tolist()}")
+        mean = torch.as_tensor(config.dataset.mean_size_arr(),
+                               device=batch["point_clouds"].device)
+        return {"config": config, "model": model, "batch": batch,
+                "loss_fn": lambda o, bt: compute_vqa_loss(o, bt, mean),
+                "optimizer": lambda: vqa_optimizer(
+                    model, build_parser().parse_args([]), 1),
+                "objects": masks.sum(1).tolist()}
+
+    def _refnet(self, torch, name):
+        import numpy as np
+
+        from vlp3d_torch.cli.train_3djcg_g import adamw_one_group
+        from vlp3d_torch.config import Config, DatasetConfig, ModelConfig
+        from vlp3d_torch.losses.joint import compute_joint_loss
+        from vlp3d_torch.models.refnet import RefNet
+
+        # train_3djcg_g's configuration
+        config = Config(dataset=DatasetConfig(num_points=N_TASK),
+                        model=ModelConfig(lang_num_max=8, no_caption=True,
+                                          use_con=False, use_mlm=False))
+        model = RefNet(config)
+        nudge(torch, model)
+        b, l = B, config.model.lang_num_max
+
+        def extra(rng, host):
+            lens = rng.integers(1, GLOVE_T + 1, (b, l)).astype(np.int32)
+            lens[0, :2] = (1, GLOVE_T)
+            return {"lang_feat": rng.normal(size=(b, l, GLOVE_T, 300))
+                    .astype(np.float32), "lang_len": lens}
+
+        batch = self._task_batch(torch, config, 16, extra)
+        return {"config": config, "model": model, "batch": batch,
+                "loss_fn": lambda o, bt: compute_joint_loss(config, o, bt),
+                "optimizer": lambda: adamw_one_group(model, 2e-3, 1e-3)}
+
+    def _capnet(self, torch, name):
+        import numpy as np
+
+        from vlp3d_torch.cli.train_3djcg_c import caption_losses
+        from vlp3d_torch.cli.train_3djcg_g import adamw_one_group
+        from vlp3d_torch.config import Config, DatasetConfig, ModelConfig
+        from vlp3d_torch.models.capnet import CapNet
+
+        # train_3djcg_c's configuration
+        config = Config(dataset=DatasetConfig(num_points=N_TASK),
+                        model=ModelConfig(lang_num_max=8, no_caption=True,
+                                          use_con=False, use_mlm=False,
+                                          no_reference=True))
+        vocab = CAPNET_VOCAB
+        locals_ = CAPNET_LOCALS if name.endswith("locals") else -1
+        model = CapNet(config, vocab, num_locals=locals_)
+        nudge(torch, model)
+        b, l, t = B, config.model.lang_num_max, CAPTION_T
+
+        def extra(rng, host):
+            ids = rng.integers(4, vocab, (b, l, t))
+            lens = rng.integers(3, t + 1, (b, l))
+            ids[..., 0] = 2  # sos
+            for i in range(b):
+                for j in range(l):
+                    ids[i, j, lens[i, j] - 1] = 3  # eos
+                    ids[i, j, lens[i, j]:] = 0
+            return {"lang_feat": rng.normal(size=(b, l, t, 300)).astype(
+                np.float32), "lang_ids": ids.astype(np.int64)}
+
+        batch = self._task_batch(torch, config, 17, extra)
+        return {"config": config, "model": model, "batch": batch,
+                "loss_fn": lambda o, bt: caption_losses(config, o, bt),
+                "optimizer": lambda: adamw_one_group(model, 1e-3, 1e-5),
+                "num_locals": locals_}
+
+    # -- untimed: the evaluation forward against the plain ops ------------
+
+    def check_forward(self, torch, name, case):
+        """The evaluation forward against the plain-op forward: sampled
+        indices equal; the task's output within CLUSTER_REF_TOL (of
+        max(1, its largest entry)); its ids (top-10 answers, the chosen
+        proposal, each caption word) equal or excused by the tie rule."""
+        from vlp3d_torch.models.caption import top_k_first
+
+        model, batch = case["model"], case["batch"]
+        got = model(batch)
+        with plain_ops():
+            want = model(batch)
+        idx = {k: index_err(torch, got[k], want[k]) for k in (
+            "sa1_inds", "sa2_inds", "fp2_inds", "aggregated_vote_inds")}
+        key = TASK_OUTPUT[name.split("_")[0]]
+        scale = max(1.0, float(want[key].abs().max()))
+        err = float((got[key] - want[key]).abs().max()) / scale
+        if key == "answer_scores":
+            k = min(VQA_TOPK, want[key].shape[1])
+            ids_p = top_k_first(want[key], k)[1]
+            ids_k = top_k_first(got[key], k)[1]
+            margin = ids_margin(ids_p, ids_k, want[key])
+        elif key == "cluster_ref":
+            pick_p = (want[key].reshape(batch["lang_feat"].shape[:2] + (-1,))
+                      * want["objectness_masks"][:, None])
+            pick_k = (got[key].reshape(pick_p.shape)
+                      * got["objectness_masks"][:, None])
+            pick_p, pick_k = (p.reshape(-1, p.shape[-1])
+                              for p in (pick_p, pick_k))
+            ids_p = torch.argmax(pick_p, -1)[:, None]
+            ids_k = torch.argmax(pick_k, -1)[:, None]
+            margin = ids_margin(ids_p, ids_k, pick_p)
+        else:  # lang_cap (N, T - 1, vocab): each caption's greedy words
+            ids_p = torch.argmax(want[key], -1)
+            ids_k = torch.argmax(got[key], -1)
+            margin = (lambda r, j, lg=want[key]:
+                      top2_margin(torch, lg[r, j]))
+        excused = tie_rule(ids_p, ids_k, margin, f"{name} {key} ids, "
+                           "kernels against plain ops", "15")
+        print(f"[15] {name} evaluation forward, kernels against plain ops "
+              f"on the card: index differences {idx}, {key} "
+              f"{tuple(want[key].shape)} within {err} of max(1, its largest"
+              f" entry {scale})" + (f"; proposals that are objects a scene "
+                                    f"{case['objects']}" if "objects" in
+                                    case else ""))
+        if any(idx.values()) or err > CLUSTER_REF_TOL:
+            fail(f"the {name} forward differs from the plain-op one")
+        return {"index_err": max(idx.values()), "err": err,
+                "excused": excused}
+
+    # -- the timed paths, with the card to itself -------------------------
+
+    def drive(self, torch):
+        """Each model's evaluation forward and train step (its trainer's
+        optimizer), every count at 0 before each: one forward's and one
+        step's launches held to TASK_FORWARD / TASK_STEP, then the median
+        ms of TASK_STEPS and the peak memory above the resident models.
+        Returns ({path: launch counts}, numbers)."""
+        import numpy as np
+
+        from vlp3d_torch import ops
+        from vlp3d_torch.models.layers import set_dropout_generator
+        from vlp3d_torch.train.state import backward_and_step
+
+        launches, numbers = {}, {}
+        for name, case in self.cases.items():
+            model, batch = case["model"], case["batch"]
+            kind = name.split("_")[0]
+            opt = case["optimizer"]()
+            gen = torch.Generator(device=batch["point_clouds"].device)
+            gen.manual_seed(0)
+            set_dropout_generator(model, gen)
+            history = []
+
+            def step():
+                loss, m = case["loss_fn"](model(batch, train=True), batch)
+                backward_and_step(loss, opt)
+                history.append(m["loss"].detach())
+
+            res = {}
+            for path, fn, per in (
+                    ("forward", lambda: model(batch), TASK_FORWARD[kind]),
+                    ("step", step, TASK_STEP[kind])):
+                ops.reset_launches()
+                fn()
+                torch.cuda.synchronize()
+                one = dict(ops.launches)
+                if one != per:
+                    fail(f"{name} {path}: launches {one} != {per}")
+                ms, peak = median_ms(torch, fn, TASK_STEPS)
+                launches[f"{name}_{path}"] = one
+                res[f"{path}_ms"], res[f"{path}_peak_gib"] = ms, peak
+            losses = [float(v) for v in history]
+            if not np.isfinite(losses).all():
+                fail(f"{name} step losses {losses}")
+            res["loss"] = losses
+            res.update(self.checks[name])
+            print(f"[15] {name} at B={B}, N={N_TASK}: evaluation forward "
+                  f"median {res['forward_ms']:.3f} ms of {TASK_STEPS} (peak "
+                  f"{res['forward_peak_gib']:.3f} GiB above the resident "
+                  f"models), train step median {res['step_ms']:.3f} ms "
+                  f"(peak {res['step_peak_gib']:.3f} GiB); launches a "
+                  f"forward {launches[name + '_forward']}, a step "
+                  f"{launches[name + '_step']}; loss "
+                  f"{[round(v, 5) for v in losses]} ({self.smi})")
+            numbers[name] = res
+            self.cases[name] = None
+            del model, batch, case, opt
+            torch.cuda.empty_cache()
+        stamp("15", "task paths")
         return launches, numbers
 
 
@@ -5953,11 +6441,12 @@ def main() -> int:
     # 7. the predict / evaluate path through the data loader and the CLIs;
     # phase 8's training-CLI processes and phase 10's caption_predict and
     # caption_eval processes start once phase 7's timing is done
-    cli, caption_clis = TrainCli(), CaptionClis()
+    cli, caption_clis, task_clis = TrainCli(), CaptionClis(), TaskClis()
 
     def start_clis():
         cli.start()
         caption_clis.start()
+        task_clis.start()
 
     try:
         predict = drive_predict(torch, smi, after_timing=start_clis)
@@ -5977,6 +6466,7 @@ def main() -> int:
         flags = FlagsPhase(torch, smi, scenes, ground_state, train_host)
         data_parallel = DataParallelPhase(torch, smi, scenes, ground_state,
                                           train_host)
+        tasks = TaskPipelinesPhase(torch, smi)
         del ground_state
         t0 = time.perf_counter()
         cli.thread.join(timeout=900)
@@ -5995,9 +6485,12 @@ def main() -> int:
                                                     "torchrun"))
         caption_clis.check()
         stamp("10", "caption CLIs")
+        task_cli_numbers = task_clis.check()
+        stamp("15", "task CLIs")
     finally:
         cli.stop()
         caption_clis.stop()
+        task_clis.stop()
     remat, per_remat_step = check_remat(torch, smi, remat, batch)
     del batch
     http, latency = drive_http(torch, smi, http_phase)
@@ -6014,8 +6507,12 @@ def main() -> int:
     sp_rows, sp_front, mode_numbers = ParallelModesPhase(
         torch, smi, train_host).drive(torch)
     rows.update(sp_rows)
+    # 15. the GloVe/LSTM task pipelines with the card to itself
+    task_paths, task_numbers = tasks.drive(torch)
     paths = {**captions, **answers, **options, "dp_step": dp_step,
-             "sp_front": sp_front}
+             "sp_front": sp_front, **task_paths}
+    task_steps = [p for p in task_paths if p.endswith("_step")]
+    task_forwards = [p for p in task_paths if p.endswith("_forward")]
     for name in rows:
         if name in SP_KERNELS:
             if sp_front[name] == 0:
@@ -6027,17 +6524,18 @@ def main() -> int:
                 or any(paths[p][name] == 0 for p in (
                     "flags_step", "bfloat16_step", "float32_step",
                     "flags_solver_reference", "flags_solver_detection",
-                    "dp_step")) \
+                    "dp_step", *task_steps)) \
                 or (PER_FORWARD[name] > 0 and (
                     serving[name] == 0 or predict[name] == 0
                     or http[name] == 0 or any(
                         paths[p][name] == 0 for p in (
                             "caption_serve", "caption_http", "answer_eval",
                             "answer_serve", "answer_http", "flags_forward",
-                            "bfloat16_forward", "float32_forward")))):
+                            "bfloat16_forward", "float32_forward",
+                            *task_forwards)))):
             fail(f"kernel {name} was not launched on a main path")
 
-    # 14. results
+    # 16. results
     line = kernel_line(rows, serving, train, predict, solver, http,
                        per_step, per_remat_step, paths)
     line["remat_step"] = remat
@@ -6047,6 +6545,7 @@ def main() -> int:
     line["options"] = flag_numbers
     line["data_parallel"] = dp_numbers
     line["parallel_modes"] = mode_numbers
+    line["task_pipelines"] = dict(task_numbers, clis=task_cli_numbers)
     print(json.dumps(line))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -3,12 +3,16 @@
 The port's own copy of the numpy export code in
 ``vlp3d/models/torch_export.py``, restricted to the submodules the port
 has (backbone, voting, proposal, relation, BERT text mode, match,
-contrast, the caption and MLM decoders, the answer head). Takes the flax
-``params`` and ``batch_stats`` as nested dicts of numpy arrays and
-returns a dict of CPU tensors that
-``vlp3d_torch.models.JointNet.load_state_dict(sd, strict=True)`` accepts.
-The key names are the reference 3DVLP checkpoint's, so the port loads
-those checkpoints too.
+contrast, the caption and MLM decoders, the answer head), and the
+converters of the single-task models: ScanQA with MCAN (the LSTM
+language encoder, the MCAN encoder-decoder, the masked AttFlat pools,
+the VoteNet head), RefNet and CapNet (the top-down captioner). Takes the
+flax ``params`` and ``batch_stats`` as nested dicts of numpy arrays and
+returns a dict of CPU tensors that the port's model accepts with
+``load_state_dict(sd, strict=True)``: ``jax_to_torch_state_dict`` for
+JointNet, ``scanqa_to_torch_state_dict``, ``refnet_to_torch_state_dict``
+and ``capnet_to_torch_state_dict``. JointNet's key names are the
+reference 3DVLP checkpoint's, so the port loads those checkpoints too.
 
 Layouts: a flax Dense kernel (in, out) becomes a Linear weight (out, in)
 or a k=1 conv weight (out, in, 1[, 1]); flax BatchNorm params + stats
@@ -30,7 +34,8 @@ import torch
 
 from vlp3d_torch.models.caption import PE_ROWS, sinusoidal_positions
 
-__all__ = ["jax_to_torch_state_dict"]
+__all__ = ["jax_to_torch_state_dict", "scanqa_to_torch_state_dict",
+           "refnet_to_torch_state_dict", "capnet_to_torch_state_dict"]
 
 
 def _f32(v) -> np.ndarray:
@@ -297,6 +302,123 @@ def convert_answer(params, prefix: str, out: dict):
     convert_attflat(params["attflat_visual"], f"{prefix}attflat_visual.", out)
     lin(params["Dense_0"], f"{prefix}answer_cls.0", out)
     lin(params["Dense_1"], f"{prefix}answer_cls.3", out)
+
+
+def convert_lstm_lang(params, prefix: str, out: dict):
+    """LSTMLangModule -> ``lstm.{weight_ih,weight_hh,bias_hh}_l0[_reverse]``
+    and ``lang_cls.1``. flax writes the cells at ``OptimizedLSTMCell_0``
+    (forward) and ``OptimizedLSTMCell_1`` (backward), input kernels
+    ``ii/if/ig/io`` (no bias) and hidden ``hi/hf/hg/ho`` (with bias);
+    torch's layout stacks the gates i, f, g, o along the rows."""
+    for cell, sfx in (("OptimizedLSTMCell_0", ""),
+                      ("OptimizedLSTMCell_1", "_reverse")):
+        if cell not in params:
+            continue
+        c = params[cell]
+        out[f"{prefix}lstm.weight_ih_l0{sfx}"] = np.ascontiguousarray(
+            np.concatenate([_f32(c[g]["kernel"]) for g in
+                            ("ii", "if", "ig", "io")], axis=1).T)
+        out[f"{prefix}lstm.weight_hh_l0{sfx}"] = np.ascontiguousarray(
+            np.concatenate([_f32(c[g]["kernel"]) for g in
+                            ("hi", "hf", "hg", "ho")], axis=1).T)
+        out[f"{prefix}lstm.bias_hh_l0{sfx}"] = np.concatenate(
+            [_f32(c[g]["bias"]) for g in ("hi", "hf", "hg", "ho")])
+    if "Dense_0" in params:
+        lin(params["Dense_0"], f"{prefix}lang_cls.1", out)
+
+
+def convert_mcan(params, prefix: str, out: dict):
+    """MCAN_ED -> ``enc_list.{i}`` (SA: mhatt, norm1, ffn, norm2) and
+    ``dec_list.{i}`` (SGA: mhatt1, mhatt2, norm1-3, ffn)."""
+    def mhatt(p, q):
+        for name in ("linear_v", "linear_k", "linear_q", "linear_merge"):
+            lin(p[name], f"{q}{name}", out)
+
+    def ffn(p, q):
+        lin(p["Dense_0"], f"{q}mlp.fc.linear", out)
+        lin(p["Dense_1"], f"{q}mlp.linear", out)
+
+    for kind, n_att in (("enc", 1), ("dec", 2)):
+        i = 0
+        while f"{kind}_{i}" in params:
+            lp, q = params[f"{kind}_{i}"], f"{prefix}{kind}_list.{i}."
+            for j in range(n_att):
+                mhatt(lp[f"MHAtt_{j}"],
+                      f"{q}mhatt{'' if n_att == 1 else j + 1}.")
+            for j in range(n_att + 1):
+                ref_norm(lp[f"RefLayerNorm_{j}"], f"{q}norm{j + 1}", out)
+            ffn(lp["FFN_0"], f"{q}ffn.")
+            i += 1
+
+
+def convert_votenet_head(params, stats, prefix: str, out: dict):
+    """VoteNetProposalModule -> ``vote_aggregation``, ``conv1-3``,
+    ``bn1-2``."""
+    convert_sa(params["vote_aggregation"], stats["vote_aggregation"],
+               f"{prefix}vote_aggregation.", out)
+    for i in range(3):
+        dense(params[f"Dense_{i}"], f"{prefix}conv{i + 1}", out)
+    for i in range(2):
+        bn(params[f"BatchNorm_{i}"], stats[f"BatchNorm_{i}"],
+           f"{prefix}bn{i + 1}", out)
+
+
+def scanqa_to_torch_state_dict(params, batch_stats) -> dict:
+    """JAX ScanQA (params, batch_stats) -> the port's ScanQA state dict
+    (a gradient tree converts the same way)."""
+    p, st = dict(params), dict(batch_stats)
+    sd: dict = {}
+    convert_lstm_lang(p["lang_net"], "lang_net.", sd)
+    convert_backbone(p["detection_backbone"], st["detection_backbone"],
+                     "detection_backbone.", sd)
+    convert_voting(p["voting_net"], st["voting_net"], "voting_net.", sd)
+    convert_votenet_head(p["proposal_net"], st["proposal_net"],
+                         "proposal_net.", sd)
+    lin(p["lang_feat_linear"], "lang_feat_linear.0", sd)
+    lin(p["object_feat_linear"], "object_feat_linear.0", sd)
+    convert_mcan(p["fusion_backbone"], "fusion_backbone.", sd)
+    for head in ("object_cls", "lang_cls", "answer_cls"):
+        if f"{head}_0" in p:
+            lin(p[f"{head}_0"], f"{head}.0", sd)
+            lin(p[f"{head}_1"], f"{head}.3", sd)
+    convert_attflat(p["attflat_lang"], "attflat_lang.", sd)
+    convert_attflat(p["attflat_visual"], "attflat_visual.", sd)
+    ref_norm(p["fusion_norm"], "fusion_norm", sd)
+    return to_tensors(sd)
+
+
+def _detection_stack(p, st, sd):
+    convert_backbone(p["backbone_net"], st["backbone_net"], "backbone_net.",
+                     sd)
+    convert_voting(p["vgen"], st["vgen"], "vgen.", sd)
+    convert_proposal(p["proposal"], st["proposal"], "proposal.", sd)
+    convert_relation(p["relation"], st["relation"], "relation.", sd)
+
+
+def refnet_to_torch_state_dict(params, batch_stats) -> dict:
+    """JAX RefNet (params, batch_stats) -> the port's RefNet state dict."""
+    p, st = dict(params), dict(batch_stats)
+    sd: dict = {}
+    _detection_stack(p, st, sd)
+    convert_lstm_lang(p["lang"], "lang.", sd)
+    lin(p["lang_proj"], "lang_proj", sd)
+    lin(p["lang_emb_proj"], "lang_emb_proj", sd)
+    convert_match(p["match"], "match.", sd, stats=st.get("match", {}))
+    return to_tensors(sd)
+
+
+def capnet_to_torch_state_dict(params, batch_stats) -> dict:
+    """JAX CapNet (params, batch_stats) -> the port's CapNet state dict."""
+    p, st = dict(params), dict(batch_stats)
+    sd: dict = {}
+    _detection_stack(p, st, sd)
+    c, q = p["caption"], "caption."
+    for name in ("word_proj", "hidden_proj", "map_previous", "obj_fc",
+                 "query_proj", "map_lang", "classifier"):
+        lin(c[name], q + name, sd)
+    ln(c["obj_ln"], q + "obj_ln", sd)
+    convert_mha(c["dec_att2"], q + "dec_att2.", sd)
+    return to_tensors(sd)
 
 
 def to_tensors(sd: dict) -> dict:

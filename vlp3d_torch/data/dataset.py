@@ -3,9 +3,9 @@
 The port's own copy of ``vlp3d/data/dataset.py``: for the same
 annotations, scenes, tokenizer and seed it builds the same batches, key
 for key and bit for bit, on the fused native path and on the numpy path.
-The GloVe and caption-vocabulary fields of the legacy task pipelines
-(``glove=``, ``caption_vocab=``) are not carried; they come with
-captioning and the variant models (ROADMAP.md queue A items A16, A20).
+With ``glove=`` (and ``caption_vocab=``) items also carry the GloVe and
+caption-vocabulary fields of the legacy task pipelines (ScanQA with
+MCAN, RefNet, CapNet), built by :mod:`vlp3d_torch.data.glove`.
 Batches stay numpy on the host: the consumer copies them to the card,
 and only the consuming thread touches CUDA.
 
@@ -37,6 +37,12 @@ import numpy as np
 
 from vlp3d_torch import native
 from vlp3d_torch.data.augment import augment_scene, draw_augment
+from vlp3d_torch.data.glove import (
+    caption_batch_fields,
+    glove_batch_fields,
+    transform_description_caption,
+    transform_descriptions,
+)
 from vlp3d_torch.data.prompt import Prompt
 from vlp3d_torch.geometry.boxes import get_3d_box_batch
 
@@ -204,9 +210,24 @@ class ScanReferJointDataset:
         bert_max_len: int = 50,
         seed: int = 42,
         minor_aug: bool = False,
+        glove: dict | None = None,
+        max_des_len: int = 30,
+        caption_vocab: dict | None = None,
         object_rotations: dict | None = None,
     ):
-        """object_rotations (optional): the Scan2CAD-derived
+        """glove (optional): token -> 300-d vector dict. When given, every
+        item also carries the GloVe-era LSTM language fields
+        (lang_feat/lang_len/main_lang_feat/main_lang_len/first_obj) the
+        legacy task pipelines consume (lib/visual_grounding/dataset.py's
+        lang path), alongside the BERT input_ids. Incompatible with
+        lang_num_aug (prompt-augmented sentences have no GloVe entry).
+
+        caption_vocab (optional, requires glove): {"word2idx", ...} from
+        build_caption_vocabulary; items then also carry the
+        captioning-era sos/eos-wrapped fields cap_lang_feat / lang_ids /
+        cap_len (lib/visual_captioning/dataset.py:157-176).
+
+        object_rotations (optional): the Scan2CAD-derived
         {scene_id: {instance_id: 3x3}} json (vlp3d/data/scan2cad.py) — items
         then carry scene_object_rotations / scene_object_rotation_masks
         (dataset.py:797-809; emitted-only in the reference as well)."""
@@ -234,6 +255,25 @@ class ScanReferJointDataset:
             if mean_size_arr is not None
             else np.ones((18, 3), np.float32)
         )
+        self.max_des_len = max_des_len
+        self._glove_lang = None
+        self._cap_lang = None
+        if glove is not None:
+            assert self.lang_num_aug == 0, (
+                "glove fields are incompatible with lang_num_aug"
+            )
+            self._glove_lang = transform_descriptions(
+                scanrefer, glove, raw2label or {}, max_des_len
+            )
+            if caption_vocab is not None:
+                cap: dict = {}
+                for data in scanrefer:
+                    cap.setdefault(data["scene_id"], {}).setdefault(
+                        str(data["object_id"]), {}
+                    )[str(data["ann_id"])] = transform_description_caption(
+                        data["token"], glove, caption_vocab, max_des_len
+                    )
+                self._cap_lang = cap
         self.raw2label = raw2label or {}
         self.nyu40id2class = nyu40id2class or {}
         self.scanrefer_dict: dict = {}
@@ -679,6 +719,12 @@ class ScanReferJointDataset:
             "input_ids": bert["input_ids"],
             "bert_attention_mask": bert["attention_mask"],
         }
+        if self._glove_lang is not None:
+            item.update(glove_batch_fields(
+                chunk, self._glove_lang, self.lang_num_max, self.max_des_len))
+        if self._cap_lang is not None:
+            item.update(caption_batch_fields(
+                chunk, self._cap_lang, self.lang_num_max, self.max_des_len))
         return item
 
 

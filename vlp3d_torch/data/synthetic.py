@@ -1,10 +1,12 @@
 """Synthetic scene generator (numpy) for tests and the chip smoke run.
 
 The port's own copy of ``make_batch``, ``make_synthetic_dataset`` and
-``tiny_config`` from ``vlp3d/data/synthetic.py``, and of the synthetic
+``tiny_config`` from ``vlp3d/data/synthetic.py``, of the synthetic
 ScanQA maker the JAX trainers share (``_synthetic_qa`` in
-``vlp3d/cli/train_scanqa.py``): the same seed gives the same arrays, so
-the two packages can be fed identical scenes.
+``vlp3d/cli/train_scanqa.py``) with its GloVe dictionary, and of the
+synthetic GloVe dictionaries of the RefNet and CapNet trainers: the same
+seed gives the same arrays, so the two packages can be fed identical
+scenes.
 """
 
 from __future__ import annotations
@@ -183,12 +185,28 @@ def make_synthetic_dataset(config: Config, *, n_scenes: int = 2,
         mean_size_arr=config.dataset.mean_size_arr(), **dataset_kwargs)
 
 
+# the words of the synthetic questions (train_scanqa.py:58-59) and of the
+# synthetic ScanRefer sentences (train_3djcg_g.py / train_3djcg_c.py)
+QA_WORDS = ["what", "color", "is", "the", "chair", "table", "bed", "sofa",
+            "where", "near", "many", "how"]
+REF_WORDS = ["the", "chair", "table", "bed", "sofa", "near", "wall"]
+
+
+def synthetic_glove_for(words, extra=("unk", "pad")) -> dict:
+    """The synthetic trainers' GloVe dictionary over ``words`` + ``extra``
+    in that order (seed 0, 300-d; the CapNet trainer's ``extra`` adds
+    "sos" and "eos")."""
+    from vlp3d_torch.data.glove import synthetic_glove
+
+    return synthetic_glove(list(words) + list(extra))
+
+
 def synthetic_qa(config: Config, n_scenes: int = 2,
                  questions_per_scene: int = 4):
     """Synthetic scenes and ScanQA-style questions about them (no assets):
-    (qa annotations, scene source). The JAX maker also returns a GloVe
-    dictionary for its LSTM model; JointNet reads BERT ids and needs
-    none."""
+    (qa annotations, scene source). The standalone ScanQA trainer's LSTM
+    reads GloVe vectors: ``synthetic_glove_for(QA_WORDS)`` is the JAX
+    maker's dictionary; JointNet reads BERT ids and needs none."""
     from vlp3d_torch.data.dataset import InMemorySceneSource
 
     base = make_synthetic_dataset(config, n_scenes=n_scenes,

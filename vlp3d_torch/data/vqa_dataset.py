@@ -56,7 +56,11 @@ class ScanQADataset(ScanReferJointDataset):
                  answer_vocab: dict | None = None, num_answers: int | None = None,
                  use_unanswerable: bool = False,
                  **kwargs):
-        """use_unanswerable: keep questions with no answer in the vocabulary
+        """Pass glove=<dict> (see ScanReferJointDataset) to also carry the
+        GloVe-era LSTM language fields the standalone ScanQA model
+        consumes (lib/vqa/dataset.py's lang path).
+
+        use_unanswerable: keep questions with no answer in the vocabulary
         (lib/vqa/dataset.py:102-124 drops them from train AND val by
         default, which sets the EM metric denominators)."""
         anns = []

@@ -2,9 +2,11 @@
 the axis-aligned IoU / DIoU of the grounding and contrast losses.
 
 Counterparts of ``corner_offsets_flat``, ``rotate_rotz_rows``,
-``box3d_diou`` and ``box3d_iou_aabb`` in ``vlp3d/geometry/boxes.py``, and
-of its host (numpy) form of ``get_3d_box_batch``, which the data path
-uses.
+``box3d_diou``, ``box3d_iou_aabb``, ``corners_to_aabb``,
+``box3d_iou_corners`` and ``get_3d_box_batch`` in
+``vlp3d/geometry/boxes.py``. ``get_3d_box_batch`` keeps the JAX
+function's two forms: numpy in, numpy out (the data path), and tensors in,
+a tensor out (CapNet's local-context masks).
 """
 
 from __future__ import annotations
@@ -19,12 +21,17 @@ CORNER_SIGNS = (
 )
 
 
-def get_3d_box_batch(box_size, heading_angle, center) -> np.ndarray:
-    """Box parameters -> (..., 8, 3) corners, in numpy: box_size (..., 3)
-    as (l, w, h), heading_angle (...,), center (..., 3). signs * size/2
-    rotated by roty(heading) (the reference's convention) plus center,
-    computed in float32 whatever the inputs' dtype, as the JAX package's
-    host branch casts them."""
+def get_3d_box_batch(box_size, heading_angle, center):
+    """Box parameters -> (..., 8, 3) corners: box_size (..., 3) as (l, w,
+    h), heading_angle (...,), center (..., 3). signs * size/2 rotated by
+    roty(heading) (the reference's convention) plus center. Where any
+    input is a tensor the corners are a tensor (differentiable, on the
+    inputs' device); otherwise numpy, computed in float32 whatever the
+    inputs' dtype, as the JAX package's host branch casts them."""
+    if any(torch.is_tensor(a) for a in (box_size, heading_angle, center)):
+        return _box_corners_tensor(torch.as_tensor(box_size),
+                                   torch.as_tensor(heading_angle),
+                                   torch.as_tensor(center))
     box_size = np.asarray(box_size).astype(np.float32, copy=False)
     heading_angle = np.asarray(heading_angle).astype(np.float32, copy=False)
     center = np.asarray(center).astype(np.float32, copy=False)
@@ -35,6 +42,17 @@ def get_3d_box_batch(box_size, heading_angle, center) -> np.ndarray:
     hx, hy, hz = half[..., 0], half[..., 1], half[..., 2]
     # half @ roty(t)^T with roty rows [(c,0,s), (0,1,0), (-s,0,c)]
     out = np.stack([hx * c + hz * s, hy, -hx * s + hz * c], axis=-1)
+    return out + center[..., None, :]
+
+
+def _box_corners_tensor(box_size, heading_angle, center):
+    signs = torch.tensor(CORNER_SIGNS, dtype=box_size.dtype,
+                         device=box_size.device)
+    half = box_size[..., None, :] * signs / 2.0  # (..., 8, 3)
+    c = torch.cos(heading_angle)[..., None]
+    s = torch.sin(heading_angle)[..., None]
+    hx, hy, hz = half[..., 0], half[..., 1], half[..., 2]
+    out = torch.stack([hx * c + hz * s, hy, -hx * s + hz * c], dim=-1)
     return out + center[..., None, :]
 
 
@@ -92,3 +110,19 @@ def box3d_diou(center1, size1, center2, size2):
     outer_diag = (outer ** 2).sum(dim=-1)
     diou = torch.clamp(iou - 1.5 * inter_diag / outer_diag, -1.0, 1.0)
     return iou, diou
+
+
+def corners_to_aabb(corners: torch.Tensor):
+    """(..., 8, 3) corners -> (center, size) of the axis-aligned hull."""
+    cmin = corners.amin(dim=-2)
+    cmax = corners.amax(dim=-2)
+    return (cmin + cmax) / 2.0, cmax - cmin
+
+
+def box3d_iou_corners(corners1: torch.Tensor,
+                      corners2: torch.Tensor) -> torch.Tensor:
+    """AABB IoU of boxes given by their corners (broadcasting over leading
+    dims); exact on ScanNet, where every heading is 0."""
+    c1, s1 = corners_to_aabb(corners1)
+    c2, s2 = corners_to_aabb(corners2)
+    return box3d_iou_aabb(c1, s1, c2, s2)

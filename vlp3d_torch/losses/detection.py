@@ -62,15 +62,19 @@ def compute_vote_loss(seed_xyz, vote_xyz, seed_inds, vote_label,
 
 
 def compute_objectness_loss(aggregated_vote_xyz, objectness_scores,
-                            center_label, shard=LOCAL):
+                            center_label, shard=LOCAL, *,
+                            far_threshold: float = FAR_THRESHOLD):
     """Proposal <-> GT center matching + weighted CE
     (loss_detection.py:73-113). Returns (loss, objectness_label (B, K)
-    int64, objectness_mask (B, K) f32, object_assignment (B, K) int32)."""
+    int64, objectness_mask (B, K) f32, object_assignment (B, K) int32).
+    ``far_threshold``: the joint path has no gray zone (NEAR = FAR = 0.3);
+    the ScanQA path keeps VoteNet's FAR = 0.6 (lib/vqa/loss_helper.py:18-19).
+    """
     dist1, ind1, _, _ = nn_distance(aggregated_vote_xyz, center_label)
     euclid = torch.sqrt(dist1.detach() + 1e-6)
     near = euclid < NEAR_THRESHOLD
     label = near.long()
-    mask = (near | (euclid > FAR_THRESHOLD)).float()
+    mask = (near | (euclid > far_threshold)).float()
     logp = F.log_softmax(objectness_scores, dim=-1)
     w = logp.new_tensor(OBJECTNESS_CLS_WEIGHTS)[label]
     ce = -w * _pick(logp, label)

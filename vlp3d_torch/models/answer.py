@@ -29,9 +29,9 @@ PDROP = 0.1
 class _FC(nn.Module):
     """MCAN's FC: linear, activation, dropout (``mlp.fc``)."""
 
-    def __init__(self, device):
+    def __init__(self, cin: int, cout: int, device):
         super().__init__()
-        self.linear = nn.Linear(HIDDEN, FLAT_MLP, device=device)
+        self.linear = nn.Linear(cin, cout, device=device)
         self.act = nn.GELU(approximate="tanh")
         self.dropout = Dropout(PDROP)
 
@@ -39,30 +39,44 @@ class _FC(nn.Module):
         return self.dropout(self.act(self.linear(x)))
 
 
-class _MLP(nn.Module):
-    """MCAN's MLP: FC then a linear to one glimpse (``attflat_visual.mlp``)."""
+class MLP(nn.Module):
+    """MCAN's MLP: FC (linear, GELU, dropout) then a linear
+    (``mlp.fc.linear``, ``mlp.linear``): AttFlat's glimpse scorer and the
+    MCAN blocks' feed-forward."""
 
-    def __init__(self, device):
+    def __init__(self, cin: int, mid: int, cout: int, *, device):
         super().__init__()
-        self.fc = _FC(device)
-        self.linear = nn.Linear(FLAT_MLP, 1, device=device)
+        self.fc = _FC(cin, mid, device)
+        self.linear = nn.Linear(mid, cout, device=device)
 
     def forward(self, x):
         return self.linear(self.fc(x))
 
 
 class AttFlat(nn.Module):
-    def __init__(self, *, device=None):
+    """One softmax glimpse over the K rows of x, then ``linear_merge``
+    (``models/vqa/mcan_module.py:74-109``)."""
+
+    def __init__(self, flat_out_size: int = FLAT_OUT, *, device=None):
+        """Over HIDDEN-wide rows, a FLAT_MLP-wide glimpse scorer; the
+        answer head pools to 512, standalone ScanQA to 1024."""
         super().__init__()
         device = resolve_device(device)
-        self.mlp = _MLP(device)
-        self.linear_merge = nn.Linear(HIDDEN, FLAT_OUT, device=device)
+        self.mlp = MLP(HIDDEN, FLAT_MLP, 1, device=device)
+        self.linear_merge = nn.Linear(HIDDEN, flat_out_size, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (N, K, HIDDEN) -> (N, FLAT_OUT): one softmax glimpse over
-        all K proposals (the reference's forward passes no mask)."""
-        att = torch.softmax(self.mlp(x), dim=1)  # (N, K, 1)
-        return self.linear_merge(torch.einsum("nk,nkh->nh", att[..., 0], x))
+    def forward(self, x: torch.Tensor,
+                x_mask: torch.Tensor | None = None) -> torch.Tensor:
+        """x (N, K, hidden) -> (N, flat_out). ``x_mask`` (N, K) bool, True
+        where a row is left out: its logit becomes -1e9, as the JAX
+        module's ``where`` writes it (a row with every entry masked then
+        takes the uniform softmax, not NaN). The answer head passes no
+        mask (the reference's forward passes none)."""
+        att = self.mlp(x)[..., 0]  # (N, K)
+        if x_mask is not None:
+            att = att.masked_fill(x_mask, -1e9)
+        att = torch.softmax(att, dim=1)
+        return self.linear_merge(torch.einsum("nk,nkh->nh", att, x))
 
 
 class AnswerModule(nn.Module):

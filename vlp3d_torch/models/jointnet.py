@@ -278,7 +278,7 @@ def init_weights_(module: nn.Module, seed: int) -> None:
                 v = rng.uniform(0.5, 1.5, shape)
             elif isinstance(mod, nn.Embedding):
                 v = rng.normal(0.0, 0.02, shape)
-            elif leaf in ("bias", "b_2"):
+            elif leaf in ("bias", "b_2") or leaf.startswith("bias_"):
                 v = rng.normal(0.0, 0.01, shape)
             elif t.dim() == 1:  # LayerNorm / BN scales, PReLU slopes
                 base = 0.25 if isinstance(mod, PReLU) else 1.0
