@@ -3,8 +3,10 @@
 joint train step, the predict path, the trainer behind run.sh, the HTTP
 grounding server, Scan2Cap captioning, ScanQA question answering, the
 grounding model's options, data parallel, ZeRO-1, tensor, pipeline and
-point-axis parallel, and the GloVe/LSTM task pipelines (ScanQA with
-MCAN, RefNet, CapNet).
+point-axis parallel, the GloVe/LSTM task pipelines (ScanQA with MCAN,
+RefNet, CapNet), and the remaining variant models (MLCVNet, the DETR
+head, the xbert captioner, the cross-modal MLM, positive match, the
+legacy InfoNCE with its negatives, ENet's compute_multiview).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ranks 4
@@ -25,9 +27,12 @@ steps each of the one-process step, the data-parallel step at 8 and at
 8 x N (8 rows a card), in turns, the slowest rank's medians; then ZeRO-1 over the N ranks, tp 2
 x dp N / 2 and tp N, each step against the one-process step recorded
 once (as above) with PARALLEL_STEPS timed steps, pp 2 x dp N / 2
-against the sequential text layers, and the point-sharded SA1 front
+against the sequential text layers, the point-sharded SA1 front
 over the N ranks (40960 points of each scene a rank) against the dense
-ops on the whole clouds. Phases of the run without arguments,
+ops on the whole clouds, and phase 16's legacy InfoNCE over
+gather_negatives (each rank's B / N scenes' sentences against every
+scene's proposals) against the mean of the same ranks' losses computed
+on one card. Phases of the run without arguments,
 each fatal on failure:
 
 1. card, power limit, torch / CUDA / nvcc versions;
@@ -346,10 +351,46 @@ each fatal on failure:
    its backward 5, the interpolation's 2), then the median ms of
    TASK_STEPS forwards and steps (the trainers' optimizers) and their
    peak memory;
-16. print {"kernels": [...]} with every kernel of the main paths (the
+16. the remaining variant models at run.sh's widths (VariantsPhase and
+   VariantClis). Built while the CLI processes run: (a) JointNet with
+   use_mlcv_net (MLCVNet's CGNL voting; 132 channels, SA
+   2048/1024/512/256, 256 proposals, 6 BERT layers): its
+   GroundingPredictor on phase 5's first batch against the plain ops
+   (pred_ref equal, cluster_ref within CLUSTER_REF_TOL) and, with phase
+   6's nudges, its train step on phase 6's batch against the plain-op
+   step by check_kernel_step (MLCV_PROBE; following the plain run's
+   ReLU inputs, max-pool choices and sampled indices); (b) the MLCVNet
+   detector at B=8 x N=40960 (its own grounding batch): the evaluation
+   forward (indices equal, outputs within CLUSTER_REF_TOL) and a step of
+   the VoteNet detection loss by check_kernel_step (DETECTOR_PROBE);
+   phase 5's grounding model on phase 6's batch gives the votes, the
+   nudged MLCV model the proposal features and boxes of the rest:
+   positive_match against the batch's reference boxes (finite); (c) the
+   DETR head
+   (DETR_WIDTHS: 256 proposals, 4 layers, d_model 288) over those votes:
+   the evaluation forward and a training forward + backward of
+   detr_loss against the plain ops (gradients within STEP_GRAD_TOL);
+   (d) the xbert captioner (XBERT_WIDTHS: hidden 128, depth 4,
+   vocabulary 30522): train logits of phase 6's sentences against the
+   same run on the CPU (CLUSTER_REF_TOL of the largest logit; ids by the
+   tie rule), the greedy decode of 8 x 256 captions against
+   xbert_literal_decode by the tie rule; (e) LangCrossMLM on BERT-base
+   text mode, finite logits and loss. CLI processes, started with phase
+   8's: train_3dvlp --synthetic --smoke --use_mlcv_net (exit 0, finite
+   losses, a snapshot with the CGNL block) and compute_multiview over
+   MULTIVIEW's frames (2 scenes x 20 frames of 256 x 328 pixels, ENet
+   on 16 and then 4 of them a launch, 50000 points a scene; exit 0, the hdf5 read back: one (50000, 128) float32
+   dataset a scene, finite, the points behind the camera zero). With
+   the card to itself, counts at 0 before each: one call's launches of
+   each path held exactly (mlcv_serve and mlcv_step as PER_FORWARD /
+   PER_STEP, the detector's as TASK's ScanQA counts, DETR_FORWARD /
+   DETR_STEP, none on the xbert and MLM paths) and the median ms of
+   VARIANT_STEPS with the peak memory; then the legacy InfoNCE over
+   gather_negatives at world size 1 over NCCL (negatives_check);
+17. print {"kernels": [...]} with every kernel of the main paths (the
    CUDA functions behind each in kernel_functions, host_us beside the
    times, the launches of each path, and per_step and per_remat_step
-   as counted in phase 8), the
+   as counted in phase 8), the whole command's wall time, the
    card's name and power limit, and last {"ok": true, "device": {...}}.
 """
 
@@ -569,6 +610,49 @@ TASK_CLIS = {
     "train_3djcg_c": (["--batch_size", "2"], "cap_loss", "cap_acc",
                       "caption_model"),
 }
+
+# phase 16: the remaining variant models at run.sh's widths. MLCVNet's CGNL
+# voting in JointNet (its serving forward and train step) and the
+# standalone detector launch what their plain twins do (the detector has
+# no relation module: no reference-read gather); the DETR head's vote
+# aggregation is one SA module (FPS, ball query, the centre and the
+# neighbourhood gathers; the gather's backward in a step)
+# (not the CGNL's p and g: the GroupNorm after the block normalises each
+# group's att * t over the group, so att's scale cancels and p and g get
+# only an eps / att^2 share of a gradient, rounding noise in either run)
+MLCV_PROBE = ["backbone_net.sa1.mlp_module.layer0.conv.weight",
+              "backbone_net.fp2.mlp.layer0.conv.weight", "vgen.sa1.t.weight",
+              "vgen.sa1.z.weight", "vgen.sa1.gn.weight",
+              "vgen.conv3.weight",
+              "proposal.vote_aggregation.mlp_module.layer0.conv.weight",
+              "proposal.proposal.box_predictor.weight",
+              "relation.features_concat.0.weight", "match.match.0.weight",
+              "lang.lang_cls.0.weight"]
+DETECTOR_PROBE = ["backbone_net.sa1.mlp_module.layer0.conv.weight",
+                  "backbone_net.fp2.mlp.layer0.conv.weight",
+                  "vgen.sa1.t.weight", "vgen.conv3.weight",
+                  "pnet.vote_aggregation.mlp_module.layer0.conv.weight",
+                  "pnet.cgnl1.t.weight", "pnet.cgnl2.z.weight",
+                  "pnet.conv1.weight", "pnet.conv3.weight"]
+DETECTOR_FORWARD = dict(PER_FORWARD, group_points=10)
+DETECTOR_STEP = dict(PER_STEP, group_points=10)
+ZERO_LAUNCHES = {k: 0 for k in PER_FORWARD}
+DETR_FORWARD = dict(ZERO_LAUNCHES, fps=1, ball_query=1, group_points=2)
+DETR_STEP = dict(DETR_FORWARD, group_points_grad=1)
+# the DETR head's reference configuration (proposal_module_detr.py:87-88)
+DETR_WIDTHS = dict(num_proposal=256, n_layers=4, d_model=288, heads=8,
+                   d_ff=2048)
+# the xbert captioner: hidden, depth, vocabulary, decode steps; 32-token
+# train captions
+XBERT_WIDTHS = dict(hidden_size=128, depth=4, vocab_size=30522, max_len=32)
+XBERT_T = 32
+VARIANT_STEPS = 3  # timed forwards and steps of each phase-16 path
+# compute_multiview's process: scenes x frames of H x W pixels (ENet's
+# 328 x 256 input, 41 x 32 feature maps), points a scene, frames a launch
+MULTIVIEW = dict(scenes=2, frames=20, h=256, w=328, points=50000)
+# the contrastive negatives: B scenes x L sentences against K proposals
+# a scene, 128-d embeddings (run.sh's widths)
+NEG_WIDTHS = (8, 8, 256, 128)
 
 
 _T0 = time.perf_counter()
@@ -1362,8 +1446,10 @@ def kernel_line(rows, serving, train, predict, solver, http, per_step,
     ``flags_forward``, ``flags_step``, ``float32_forward``,
     ``float32_step``, ``bfloat16_forward``, ``bfloat16_step``,
     ``flags_solver_reference``, ``flags_solver_detection``, ``dp_step``,
-    and phase 15's ``scanqa_forward`` / ``_step``, ``refnet_*``,
-    ``capnet_*`` and ``capnet_locals_*``);
+    phase 15's ``scanqa_forward`` / ``_step``, ``refnet_*``,
+    ``capnet_*`` and ``capnet_locals_*``, and phase 16's ``mlcv_serve``,
+    ``mlcv_step``, ``detector_*``, ``detr_*``, ``xbert_*`` and
+    ``cross_mlm``);
     ``per_step`` and ``per_remat_step`` those of one Solver step and one
     remat step."""
     sources = {
@@ -4912,6 +4998,600 @@ class TaskPipelinesPhase:
         return launches, numbers
 
 
+# ---------------------------------------------------------------- phase 16
+
+
+def write_multiview_frames(root: str):
+    """compute_multiview's inputs (MULTIVIEW) under ``root``: a frames
+    folder a scene (uint8 RGB, depth 2 m, camera-to-world poses near the
+    identity) and ``<scene>_aligned_vert.npy`` with points on the z = 2
+    plane in front of the camera, a tenth of them behind it. Returns
+    (frames_dir, scannet_dir, the camera flags: ScanNet's depth-camera
+    field of view at 328 x 256)."""
+    import numpy as np
+
+    mv = MULTIVIEW
+    h, w, n = mv["h"], mv["w"], mv["points"]
+    rng = np.random.default_rng(16)
+    frames = os.path.join(root, "frames")
+    data = os.path.join(root, "scannet")
+    os.makedirs(data)
+    for s in range(mv["scenes"]):
+        scene = f"scene{s:04d}_00"
+        sdir = os.path.join(frames, scene)
+        for sub in ("color", "depth", "pose"):
+            os.makedirs(os.path.join(sdir, sub))
+        for f in range(mv["frames"]):
+            np.save(os.path.join(sdir, "color", f"{f:04d}.npy"),
+                    rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+            np.save(os.path.join(sdir, "depth", f"{f:04d}.npy"),
+                    np.full((h, w), 2.0, np.float32))
+            pose = np.eye(4)
+            pose[:2, 3] = rng.normal(0.0, 0.05, 2)
+            np.savetxt(os.path.join(sdir, "pose", f"{f:04d}.txt"), pose)
+        pts = np.concatenate([rng.uniform(-1.2, 1.2, (n, 1)),
+                              rng.uniform(-0.9, 0.9, (n, 1)),
+                              np.full((n, 1), 2.0)], axis=1)
+        pts[: n // 10, 2] = -2.0  # behind the camera: never seen
+        np.save(os.path.join(data, f"{scene}_aligned_vert.npy"),
+                np.concatenate([pts, rng.uniform(0, 1, (n, 3))],
+                               axis=1).astype(np.float32))
+    camera = ["--fx", "296", "--fy", "296", "--cx", "163.5", "--cy", "127.5"]
+    return frames, data, camera
+
+
+class VariantClis(CliProcesses):
+    """Phase 16's processes, started beside phase 8's: ``train_3dvlp
+    --synthetic --smoke --use_mlcv_net`` and ``compute_multiview`` over
+    MULTIVIEW's synthetic frames (ENet on the card)."""
+
+    def start(self):
+        t0 = time.perf_counter()
+        frames, data, camera = write_multiview_frames(self.tmp.name)
+        self.frames_s = time.perf_counter() - t0
+        self.workdir = os.path.join(self.tmp.name, "mlcv")
+        self.out = os.path.join(self.tmp.name, "enet_feats_maxpool.hdf5")
+        self.launch("train_3dvlp", [
+            "--synthetic", "--smoke", "--use_mlcv_net", "--use_con",
+            "--no_caption", "--num_workers", "2", "--workdir", self.workdir])
+        self.launch("compute_multiview", [
+            "--frames_dir", frames, "--scannet_data", data, "--out",
+            self.out, *camera])
+        stamp("16", f"multiview frames written in {self.frames_s:.1f} s; "
+              "train_3dvlp --use_mlcv_net and compute_multiview CLIs started")
+
+    def check(self):
+        """train_3dvlp: exit 0, finite losses logged, a snapshot with the
+        CGNL block; compute_multiview: exit 0, one (N, 128) float32
+        dataset a scene, finite, the points behind the camera zero and
+        most of the others seen."""
+        import numpy as np
+
+        from vlp3d_torch.data.hdf5 import read_datasets
+        from vlp3d_torch.train import checkpoint
+
+        ended = self.ended()
+        with open(os.path.join(self.workdir, "log.jsonl")) as f:
+            records = [json.loads(r) for r in f]
+        train = [r for r in records if r["phase"] == "train"]
+        sd = checkpoint.load_params(self.workdir, "model")
+        if not train or not all(np.isfinite(v) for r in records
+                                for v in r.values()
+                                if isinstance(v, float)) \
+                or "vgen.sa1.z.weight" not in sd:
+            fail(f"train_3dvlp --use_mlcv_net: train records {train}, "
+                 f"snapshot keys with vgen.sa1: "
+                 f"{[k for k in sd if k.startswith('vgen.sa1')]}")
+        mv = MULTIVIEW
+        seen = {}
+        written = read_datasets(self.out)
+        if len(written) != mv["scenes"]:
+            fail(f"compute_multiview wrote {sorted(written)}")
+        for scene, arr in sorted(written.items()):
+            if arr.shape != (mv["points"], 128) or arr.dtype != np.float32 \
+                    or not np.isfinite(arr).all():
+                fail(f"compute_multiview {scene}: {arr.shape} {arr.dtype}")
+            rows = np.abs(arr).sum(1) > 0
+            behind = mv["points"] // 10
+            if rows[:behind].any() or rows[behind:].mean() < 0.5:
+                fail(f"compute_multiview {scene}: {rows[:behind].sum()} "
+                     f"points behind the camera seen, "
+                     f"{rows[behind:].mean()} of the others")
+            seen[scene] = float(rows.mean())
+        numbers = {"train_3dvlp_s": ended["train_3dvlp"][1],
+                   "compute_multiview_s": ended["compute_multiview"][1],
+                   "frames_written_s": self.frames_s, "seen": seen}
+        text = ended["compute_multiview"][0].strip().splitlines()
+        print(f"[16] python -m vlp3d_torch.cli.train_3dvlp --synthetic "
+              f"--smoke --use_mlcv_net: exit 0 in "
+              f"{numbers['train_3dvlp_s']:.1f} s, loss "
+              f"{[round(r['loss'], 5) for r in train]}; python -m "
+              f"vlp3d_torch.cli.compute_multiview ({mv['scenes']} scenes x "
+              f"{mv['frames']} frames of {mv['h']} x {mv['w']}, "
+              f"{mv['points']} points a scene): exit 0 in "
+              f"{numbers['compute_multiview_s']:.1f} s, {text}; the hdf5 "
+              f"read back (vlp3d_torch.data.hdf5): (N, 128) float32 a scene, "
+              f"share of points seen {seen}")
+        return numbers
+
+
+def detr_loss(out):
+    """A scalar that reads every head of the DETR module's outputs (the
+    CPU test's, tests/test_torch_detr_xbert.py)."""
+    return ((out["detr_features"] ** 2).mean()
+            + (out["pred_center"] ** 2).mean()
+            + (out["transformer_weighted_xyz_all"] ** 2).mean()
+            + (out["objectness_scores"]
+               * out["sem_cls_scores"][..., :2]).mean()
+            + (out["size_residuals"] ** 2).mean()
+            + (out["heading_scores"] ** 2).mean())
+
+
+def xbert_literal_decode(torch, model, feats):
+    """The JAX package's greedy decode on the port's modules: at each step
+    the whole max_len + 2 sequence through the decoder (padding mask
+    arange <= i + 1), the LM head at step i + 1. Returns (ids (B * K,
+    max_len + 1), the top-2 logit margin of each row at each step)."""
+    from vlp3d_torch.models.caption_xbert import CLS_ID
+
+    b, k, h = feats.shape
+    n, tmax = b * k, model.max_len + 1
+    ext = feats.repeat_interleave(k, dim=0)
+    target = feats.reshape(n, 1, h)
+    ids = torch.zeros(n, tmax, dtype=torch.long, device=feats.device)
+    ids[:, 0] = CLS_ID
+    margins = torch.zeros(n, model.max_len, device=feats.device)
+    steps = torch.arange(tmax + 1, device=feats.device)
+    with torch.no_grad():
+        for i in range(model.max_len):
+            inputs = torch.cat([target, model.embeddings(ids)], dim=1)
+            mask = (steps <= i + 1).float()[None].expand(n, -1)
+            x = model.decoder.hidden(inputs, mask, ext)
+            logits = model.decoder.cls(x[:, i + 1])
+            top2 = torch.topk(logits, 2, dim=-1).values
+            margins[:, i] = top2[:, 0] - top2[:, 1]
+            ids[:, i + 1] = torch.argmax(logits, dim=-1)
+    return ids, margins
+
+
+def negatives_check(torch, shard, device, reps: int = 0):
+    """The legacy InfoNCE over :func:`gather_negatives` on the ranks of
+    ``shard`` (NEG_WIDTHS: each rank's B / W scenes' sentences, their
+    positive proposals as global indices, against every scene's
+    proposals) through make_sharded_contrastive_step, against the mean
+    of the same ranks' losses computed in this process on the whole
+    arrays: the gathered rows bit-equal, the loss within STEP_LOSS_RTOL,
+    the gradients of this rank's rows within STEP_GRAD_TOL of the
+    largest entry. With ``reps``, the median host-clock ms of the
+    sharded step and its backward (synchronised on a card) is
+    ``step_ms``. Returns (numbers, ok)."""
+    import numpy as np
+
+    from vlp3d_torch.losses.pretrain import compute_contrastive_loss
+    from vlp3d_torch.parallel.collectives import (
+        gather_negatives,
+        make_sharded_contrastive_step,
+    )
+
+    b, l, k, c = NEG_WIDTHS
+    rng = np.random.default_rng(16)
+    lang = rng.normal(size=(b * l, c)).astype(np.float32)
+    props = rng.normal(size=(b * k, c)).astype(np.float32)
+    labels = (np.arange(b)[:, None] * k + rng.integers(0, k, (b, l)))
+    mask = (rng.uniform(size=(b, l)) > 0.2).astype(np.float32)
+    world, rank = shard.world, shard.rank
+    sc = b // world  # scenes a rank
+
+    def loss_fn(r):
+        lab = torch.from_numpy(labels[r * sc:(r + 1) * sc].reshape(-1)).to(
+            device)
+        msk = torch.from_numpy(mask[r * sc:(r + 1) * sc]).to(device)
+
+        def fn(a, b_all):
+            sim = a @ b_all.T
+            return compute_contrastive_loss(sim, sim.T, lab, msk)
+
+        return fn
+
+    rows_a = slice(rank * sc * l, (rank + 1) * sc * l)
+    rows_b = slice(rank * sc * k, (rank + 1) * sc * k)
+    a = torch.from_numpy(lang[rows_a]).to(device).requires_grad_()
+    p = torch.from_numpy(props[rows_b]).to(device).requires_grad_()
+    gathered = gather_negatives(p.detach(), shard)
+    step = make_sharded_contrastive_step(loss_fn(rank), shard)
+    loss = step(a, p)
+    loss.backward()
+    whole_a = torch.from_numpy(lang).to(device).requires_grad_()
+    whole_p = torch.from_numpy(props).to(device).requires_grad_()
+    ref = sum(loss_fn(r)(whole_a[r * sc * l:(r + 1) * sc * l], whole_p)
+              for r in range(world)) / world
+    ref.backward()
+    loss, ref = loss.detach(), ref.detach()
+    gather_err = float((gathered - whole_p.detach()).abs().max())
+    loss_rel = abs(float(loss) - float(ref)) / abs(float(ref))
+    grad_err = max(
+        float((a.grad - whole_a.grad[rows_a]).abs().max()
+              / whole_a.grad.abs().max()),
+        float((p.grad - whole_p.grad[rows_b]).abs().max()
+              / whole_p.grad.abs().max()))
+    ok = (gather_err == 0.0 and loss_rel <= STEP_LOSS_RTOL
+          and grad_err <= STEP_GRAD_TOL and bool(torch.isfinite(loss)))
+    numbers = {"world": world, "loss": float(loss), "gather_err": gather_err,
+               "loss_rel": loss_rel, "grad_err": grad_err}
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else (lambda: None))
+    times = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        step(a, p).backward()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    if times:
+        numbers["step_ms"] = float(np.median(times))
+    return numbers, ok
+
+
+class VariantsPhase:
+    """Phase 16 in this process: the remaining variant models at run.sh's
+    widths. The models and the untimed checks (kernels against the plain
+    ops, the card against the CPU or the literal decode) run while the
+    CLI processes run; :meth:`drive` counts the launches of each path and
+    times it with the card to itself, then runs the contrastive
+    negatives over NCCL."""
+
+    def __init__(self, torch, smi, scenes, ground_state, train_host):
+        from vlp3d_torch.config import Config, ModelConfig
+        from vlp3d_torch.data.synthetic import make_batch
+        from vlp3d_torch.losses.vqa import compute_vqa_loss
+        from vlp3d_torch.models import JointNet
+        from vlp3d_torch.models.jointnet import init_weights_, ref_gt_boxes
+        from vlp3d_torch.models.mlcvnet_detector import MLCVNetDetector
+        from vlp3d_torch.models.positive_match import positive_match
+        from vlp3d_torch.serving import GroundingPredictor
+        from vlp3d_torch.train import batch_to_device
+
+        self.smi, self.scenes = smi, scenes
+        self.checks = {}
+        t_phase = t0 = time.perf_counter()
+        # (a) JointNet with MLCVNet's CGNL voting: serving and training
+        self.pred = GroundingPredictor(Config(model=ModelConfig(
+            use_con=False, no_caption=True, use_mlcv_net=True)),
+            batch_size=B)
+        self.config = Config(model=ModelConfig(use_con=True, no_caption=True,
+                                               use_mlcv_net=True))
+        self.mlcv = JointNet(self.config)
+        nudge(torch, self.mlcv)
+        cfg = self.config.model
+        widths = (cfg.input_feature_dim, tuple(cfg.sa_npoints),
+                  cfg.num_proposal,
+                  len(self.mlcv.lang.text_encoder.bert.encoder.layer))
+        if widths != PREDICT_WIDTHS[:4]:
+            fail(f"the MLCV model is not at run.sh's widths: {widths}")
+        self.device = next(self.mlcv.parameters()).device
+        self.batch = batch_to_device(train_host, self.device)
+        self.mean = torch.as_tensor(self.config.dataset.mean_size_arr(),
+                                    device=self.device)
+        # (b) the standalone detector, on a grounding batch of its own
+        self.det_config = Config(model=ModelConfig(use_con=False,
+                                                   no_caption=True))
+        self.detector = MLCVNetDetector(self.det_config)
+        with torch.no_grad():  # votes near their seeds
+            self.detector.vgen.conv3.weight.mul_(0.05)
+            self.detector.vgen.conv3.bias.mul_(0.05)
+        self.det_batch = batch_to_device(make_batch(
+            self.det_config, batch_size=B, num_points=N, seed=16),
+            self.device)
+        self.det_loss = lambda o, bt: compute_vqa_loss(
+            o, bt, self.mean, use_reference=False, use_lang_classifier=False,
+            use_answer=False)
+        print(f"[16] MLCV serving and train models and the detector built "
+              f"in {time.perf_counter() - t0:.1f} s")
+        self.checks["mlcv_serve"] = self.check_serve(torch)
+        self.checks["mlcv_step"] = check_kernel_step(
+            torch, "16", self.mlcv, self.config, self.batch, MLCV_PROBE,
+            "use_mlcv_net step", follow_ties=True)[:3]
+        self.checks["detector_forward"] = self.check_detector(torch)
+        self.checks["detector_step"] = check_kernel_step(
+            torch, "16", self.detector, self.det_config, self.det_batch,
+            DETECTOR_PROBE, "MLCVNet detector step", loss_fn=self.det_loss,
+            follow_ties=True)[:3]
+        stamp("16", "MLCV models' untimed checks")
+        # phase 5's grounding model on phase 6's batch gives the DETR head
+        # its votes; the nudged MLCV model (~0.7 m boxes) the proposal
+        # features and boxes of the others
+        ground = JointNet(Config(model=ModelConfig(use_con=False,
+                                                   no_caption=True)))
+        ground.load_state_dict(ground_state, strict=True)
+        out = ground(self.batch, is_eval=True)
+        del ground
+        self.votes = (out["vote_xyz"], out["vote_features"])
+        out = self.mlcv(self.batch, is_eval=True)
+        self.bbox = out["bbox_feature"]
+        gt_center, gt_size = ref_gt_boxes(self.batch, self.mean)
+        self.match = positive_match(out["pred_center"], out["pred_size"],
+                                    gt_center, gt_size)
+        del out
+        if not all(bool(torch.isfinite(v.float()).all())
+                   for v in self.match.values()):
+            fail(f"positive_match: {self.match}")
+        print(f"[16] positive_match over phase 6's batch: "
+              f"{int(self.match['good_bbox_masks'].sum())} of "
+              f"{self.match['good_bbox_masks'].numel()} sentences with a "
+              f"proposal at IoU >= 0.25, pred_ious "
+              f"{float(self.match['pred_ious'])}")
+        # (c) the DETR head, (d) the xbert captioner, (e) the cross-modal
+        # MLM, seeded
+        from vlp3d_torch.models.bert import LangCrossMLM
+        from vlp3d_torch.models.caption_xbert import CaptionModuleX
+        from vlp3d_torch.models.proposal_detr import DETRProposalModule
+
+        t0 = time.perf_counter()
+        self.detr = DETRProposalModule(**DETR_WIDTHS)
+        self.xbert = CaptionModuleX(**XBERT_WIDTHS)
+        self.cross_mlm = LangCrossMLM()
+        for m in (self.detr, self.xbert, self.cross_mlm):
+            init_weights_(m, 16)
+        print(f"[16] DETR head, xbert captioner and LangCrossMLM (BERT-base "
+              f"text mode) built in {time.perf_counter() - t0:.1f} s")
+        b, l = self.batch["input_ids"].shape[:2]
+        self.labels = self.match["positive_labels"].reshape(b, l)
+        self.checks["detr"] = self.check_detr(torch)
+        self.checks["xbert"] = self.check_xbert(torch)
+        self.checks["cross_mlm"] = self.check_cross_mlm(torch)
+        self.untimed_s = time.perf_counter() - t_phase
+        stamp("16", f"variant models' untimed checks ({self.untimed_s:.1f} "
+              "s)")
+
+    # -- untimed checks ----------------------------------------------------
+
+    def check_serve(self, torch):
+        """The MLCV GroundingPredictor on phase 5's first batch against the
+        plain ops: pred_ref equal, cluster_ref within CLUSTER_REF_TOL."""
+        import numpy as np
+
+        got = self.pred([self.scenes[0]])[0]
+        with plain_ops():
+            want = self.pred([self.scenes[0]])[0]
+        err = float(np.abs(got["cluster_ref"] - want["cluster_ref"]).max())
+        same = bool(np.array_equal(got["pred_ref"], want["pred_ref"]))
+        print(f"[16] use_mlcv_net serving forward at B={B}, N={N}, kernels "
+              f"against plain ops on the card: pred_ref equal {same}, "
+              f"cluster_ref max abs err {err}")
+        if not same or err > CLUSTER_REF_TOL \
+                or not all(np.isfinite(v).all() for v in got.values()):
+            fail("the use_mlcv_net serving forward differs from the "
+                 "plain-op one")
+        return {"cluster_ref_err": err}
+
+    def check_detector(self, torch):
+        """The detector's evaluation forward against the plain ops:
+        sampled indices equal, boxes and scores within CLUSTER_REF_TOL of
+        max(1, the largest entry)."""
+        got = self.detector(self.det_batch)
+        with plain_ops():
+            want = self.detector(self.det_batch)
+        idx = {k: index_err(torch, got[k], want[k]) for k in (
+            "sa1_inds", "fp2_inds", "aggregated_vote_inds")}
+        errs = {k: float((got[k] - want[k]).abs().max())
+                / max(1.0, float(want[k].abs().max()))
+                for k in ("center", "pred_size", "objectness_scores",
+                          "sem_cls_scores", "aggregated_vote_features")}
+        print(f"[16] MLCVNet detector forward at B={B}, N={N}, kernels "
+              f"against plain ops: index differences {idx}, output "
+              f"differences (of max(1, the largest entry)) {errs}")
+        if any(idx.values()) or max(errs.values()) > CLUSTER_REF_TOL:
+            fail("the detector's forward differs from the plain-op one")
+        return {"index_err": max(idx.values()), "err": max(errs.values())}
+
+    def check_detr(self, torch):
+        """The DETR head over phase 6's votes, kernels against plain ops:
+        the evaluation forward (indices equal, every output within
+        CLUSTER_REF_TOL of max(1, its largest entry)) and a training
+        forward + backward of detr_loss with one dropout draw (every
+        parameter's gradient and the vote features' within STEP_GRAD_TOL
+        of its largest entry)."""
+        from vlp3d_torch.models.layers import set_dropout_generator
+
+        xyz, feats = self.votes
+        got = self.detr(xyz, feats, self.mean)
+        with plain_ops():
+            want = self.detr(xyz, feats, self.mean)
+        idx = index_err(torch, got["aggregated_vote_inds"],
+                        want["aggregated_vote_inds"])
+        err = max(float((got[k].float() - want[k].float()).abs().max())
+                  / max(1.0, float(want[k].float().abs().max()))
+                  for k in got)
+        grads = {}
+        for run in ("plain", "kernel"):
+            gen = torch.Generator(device=self.device).manual_seed(16)
+            set_dropout_generator(self.detr, gen)
+            f = feats.detach().clone().requires_grad_()
+            with (plain_ops() if run == "plain" else contextlib.nullcontext()):
+                detr_loss(self.detr(xyz, f, self.mean, train=True)).backward()
+            grads[run] = {n: p.grad.detach().clone()
+                          for n, p in self.detr.named_parameters()}
+            grads[run]["vote_features"] = f.grad
+            self.detr.zero_grad(set_to_none=True)
+        set_dropout_generator(self.detr, None)
+        self.detr.eval()
+        gerr = {n: float((grads["kernel"][n] - g).abs().max())
+                / max(float(g.abs().max()), 1e-30)
+                for n, g in grads["plain"].items()}
+        worst = max(gerr, key=gerr.get)
+        print(f"[16] DETR head over phase 6's votes ({tuple(xyz.shape)}, "
+              f"{DETR_WIDTHS}), kernels against plain ops: aggregation index "
+              f"difference {idx}, outputs within {err} of max(1, the largest "
+              f"entry); training forward + backward: the largest gradient "
+              f"difference, of its tensor's largest entry, {gerr[worst]} "
+              f"({worst}; vote features {gerr['vote_features']})")
+        if idx or err > CLUSTER_REF_TOL or gerr[worst] > STEP_GRAD_TOL:
+            fail("the DETR head differs from the plain-op run")
+        return {"index_err": idx, "err": err, "grad_err": gerr[worst]}
+
+    def check_xbert(self, torch):
+        """The xbert captioner's train logits on phase 6's sentences (the
+        first XBERT_T tokens, each sentence's positive proposal as its
+        object token) on the card against the same on the CPU (within
+        CLUSTER_REF_TOL of the largest logit; the argmax ids equal or
+        excused by the tie rule), and the greedy decode of B x K captions
+        against xbert_literal_decode by the tie rule."""
+        import copy
+
+        ids = self.batch["input_ids"][..., :XBERT_T]
+        amask = self.batch["bert_attention_mask"][..., :XBERT_T]
+        inputs = (self.bbox, ids, amask, self.labels)
+        with torch.no_grad():
+            got = self.xbert(*inputs).cpu()
+            cpu = copy.deepcopy(self.xbert).cpu()
+            t0 = time.perf_counter()
+            want = cpu(*(t.cpu() for t in inputs))
+            cpu_s = time.perf_counter() - t0
+        del cpu
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        ids_p = torch.argmax(want, -1)
+        excused = tie_rule(ids_p, torch.argmax(got, -1),
+                           lambda r, j: top2_margin(torch, want[r, j]),
+                           "xbert train logits' ids, the card against the "
+                           "CPU", "16")
+        del got, want
+        gen = self.xbert.generate(self.bbox)
+        n = gen.shape[0] * gen.shape[1]
+        lit, margins = xbert_literal_decode(torch, self.xbert, self.bbox)
+        excused_gen = tie_rule(lit, gen.reshape(n, -1),
+                               lambda r, s: float(margins[r, s - 1]),
+                               f"xbert greedy decode of {n} captions against "
+                               "the literal decode", "16")
+        print(f"[16] xbert captioner {XBERT_WIDTHS}: train logits "
+              f"{tuple(ids.shape)} within {err} of the largest (the CPU run "
+              f"{cpu_s:.1f} s), decode ids {tuple(gen.shape)}, "
+              f"{len(torch.unique(gen[..., 1:]))} distinct ids")
+        if err > CLUSTER_REF_TOL:
+            fail("the xbert train logits differ from the CPU run")
+        return {"logit_err": err, "excused": excused,
+                "decode_excused": excused_gen}
+
+    def check_cross_mlm(self, torch):
+        """LangCrossMLM on phase 6's sentences and proposals (BERT-base
+        text mode), draws from a seeded generator: finite logits, some
+        tokens masked, a finite cross_mlm_loss."""
+        from vlp3d_torch.models.bert import cross_mlm_loss
+
+        gen = torch.Generator(device=self.device).manual_seed(16)
+        with torch.no_grad():
+            logits, tokens, masked = self.cross_mlm(
+                self.batch["input_ids"], self.batch["bert_attention_mask"],
+                self.bbox, self.labels, generator=gen)
+            loss = cross_mlm_loss(logits, tokens, masked)
+        print(f"[16] LangCrossMLM: logits {tuple(logits.shape)}, "
+              f"{int(masked.sum())} tokens masked, cross_mlm_loss "
+              f"{float(loss)}")
+        if not bool(torch.isfinite(logits).all()) or not bool(masked.any()) \
+                or not bool(torch.isfinite(loss)):
+            fail("LangCrossMLM gave non-finite outputs or masked nothing")
+        return {"loss": float(loss), "masked": int(masked.sum())}
+
+    # -- the timed paths, with the card to itself -------------------------
+
+    def drive(self, torch):
+        """Counts at 0 before each path: one call's launches (held exactly)
+        and the median ms of VARIANT_STEPS with the peak memory above the
+        resident models; then the contrastive negatives at world size 1
+        over NCCL. Returns ({path: launch counts}, numbers)."""
+        import numpy as np
+
+        from vlp3d_torch import ops
+        from vlp3d_torch.cli.train_3djcg_g import adamw_one_group
+        from vlp3d_torch.models.bert import cross_mlm_loss
+        from vlp3d_torch.parallel import BatchShard
+        from vlp3d_torch.parallel import distributed as du
+        from vlp3d_torch.train import make_optimizer, make_train_step
+        from vlp3d_torch.train.schedules import cosine_lr
+        from vlp3d_torch.train.state import backward_and_step
+
+        t_phase = time.perf_counter()
+        mlcv_step = make_train_step(self.mlcv, self.config, make_optimizer(
+            self.mlcv, lr_schedule=lambda e, lr0: cosine_lr(e, lr0, 200),
+            steps_per_epoch=100))
+        det_opt = adamw_one_group(self.detector, 2e-3, 1e-5)
+        gen = torch.Generator(device=self.device).manual_seed(0)
+        xyz, feats = self.votes
+        losses = []
+
+        def det_step():
+            loss, m = self.det_loss(self.detector(self.det_batch, train=True),
+                                    self.det_batch)
+            backward_and_step(loss, det_opt)
+            losses.append(m["loss"].detach())
+
+        def detr_step():
+            f = feats.detach().clone().requires_grad_()
+            detr_loss(self.detr(xyz, f, self.mean, train=True)).backward()
+            self.detr.zero_grad(set_to_none=True)
+
+        def mlm():
+            with torch.no_grad():
+                out = self.cross_mlm(
+                    self.batch["input_ids"], self.batch["bert_attention_mask"],
+                    self.bbox, self.labels, generator=gen)
+                return cross_mlm_loss(*out)
+
+        paths = (
+            ("mlcv_serve", lambda: self.pred([self.scenes[1]]), PER_FORWARD),
+            ("mlcv_step", lambda: losses.append(mlcv_step(
+                self.batch, gen)["loss"]), PER_STEP),
+            ("detector_forward", lambda: self.detector(self.det_batch),
+             DETECTOR_FORWARD),
+            ("detector_step", det_step, DETECTOR_STEP),
+            ("detr_forward", lambda: self.detr(xyz, feats, self.mean),
+             DETR_FORWARD),
+            ("detr_step", detr_step, DETR_STEP),
+            ("xbert_train", lambda: self.xbert(
+                self.bbox, self.batch["input_ids"][..., :XBERT_T],
+                self.batch["bert_attention_mask"][..., :XBERT_T],
+                self.labels), ZERO_LAUNCHES),
+            ("xbert_generate", lambda: self.xbert.generate(self.bbox),
+             ZERO_LAUNCHES),
+            ("cross_mlm", mlm, ZERO_LAUNCHES),
+        )
+        launches, numbers = {}, {}
+        for name, fn, per in paths:
+            ops.reset_launches()
+            fn()
+            torch.cuda.synchronize()
+            one = dict(ops.launches)
+            if one != per:
+                fail(f"phase 16 {name}: launches {one} != {per}")
+            ms, peak = median_ms(torch, fn, VARIANT_STEPS)
+            launches[name] = one
+            numbers[name] = {"ms": ms, "peak_gib": peak, "launches": one}
+            print(f"[16] {name}: median {ms:.3f} ms of {VARIANT_STEPS}, peak "
+                  f"{peak:.3f} GiB above the resident models; launches "
+                  f"{ {k: v for k, v in one.items() if v} } ({self.smi})")
+        if not np.isfinite([float(v) for v in losses]).all():
+            fail(f"phase 16 step losses {losses}")
+        # the contrastive negatives at world size 1 over NCCL
+        du.dist_init(f"127.0.0.1:{free_port()}", 1, 0, device=self.device)
+        try:
+            if du.backend() != "nccl":
+                fail(f"phase 16's group runs over {du.backend()}, not NCCL")
+            neg, ok = negatives_check(torch, BatchShard.of_group(),
+                                      self.device, reps=VARIANT_STEPS)
+        finally:
+            du.dist_close()
+        print(f"[16] InfoNCE over gather_negatives at world size 1 over "
+              f"NCCL against the one-process loss: {neg}")
+        if not ok:
+            fail("the sharded contrastive step differs from the "
+                 "one-process loss")
+        numbers["negatives"] = neg
+        numbers["checks"] = self.checks
+        numbers["untimed_s"] = self.untimed_s
+        numbers["wall_s"] = time.perf_counter() - t_phase
+        stamp("16", "variant paths")
+        return launches, numbers
+
+
 def free_port() -> int:
     """A free port on 127.0.0.1 for a rendezvous."""
     import socket
@@ -6317,14 +6997,19 @@ def rank_worker(tiny: bool) -> int:
                                  main_rank)
     if main_rank:
         print(json.dumps({"parallel_modes_ranks": modes}), flush=True)
+    # phase 16's legacy InfoNCE over gather_negatives on the N ranks
+    neg, neg_ok = negatives_check(torch, shard, device, reps=VARIANT_STEPS)
+    neg_ok = du.all_processes_agree(neg_ok)
+    if main_rank:
+        print(json.dumps({"negatives_ranks": neg}), flush=True)
     du.dist_close()
-    if not (dp_ok and modes_ok):
-        fail("over several ranks, "
-             + ("the data-parallel step differs from the one-process step"
-                if not dp_ok else "")
-             + ("; " if not (dp_ok or modes_ok) else "")
-             + ("a parallel mode differs from the one-process reference"
-                if not modes_ok else "") + " (on some rank)")
+    failed = [what for what, good in (
+        ("the data-parallel step differs from the one-process step", dp_ok),
+        ("a parallel mode differs from the one-process reference", modes_ok),
+        ("the sharded InfoNCE differs from the one-process loss", neg_ok))
+        if not good]
+    if failed:
+        fail("over several ranks, " + "; ".join(failed) + " (on some rank)")
     return 0
 
 
@@ -6442,11 +7127,13 @@ def main() -> int:
     # phase 8's training-CLI processes and phase 10's caption_predict and
     # caption_eval processes start once phase 7's timing is done
     cli, caption_clis, task_clis = TrainCli(), CaptionClis(), TaskClis()
+    variant_clis = VariantClis()
 
     def start_clis():
         cli.start()
         caption_clis.start()
         task_clis.start()
+        variant_clis.start()
 
     try:
         predict = drive_predict(torch, smi, after_timing=start_clis)
@@ -6467,6 +7154,8 @@ def main() -> int:
         data_parallel = DataParallelPhase(torch, smi, scenes, ground_state,
                                           train_host)
         tasks = TaskPipelinesPhase(torch, smi)
+        variants = VariantsPhase(torch, smi, scenes, ground_state,
+                                 train_host)
         del ground_state
         t0 = time.perf_counter()
         cli.thread.join(timeout=900)
@@ -6487,10 +7176,13 @@ def main() -> int:
         stamp("10", "caption CLIs")
         task_cli_numbers = task_clis.check()
         stamp("15", "task CLIs")
+        variant_cli_numbers = variant_clis.check()
+        stamp("16", "variant CLIs")
     finally:
         cli.stop()
         caption_clis.stop()
         task_clis.stop()
+        variant_clis.stop()
     remat, per_remat_step = check_remat(torch, smi, remat, batch)
     del batch
     http, latency = drive_http(torch, smi, http_phase)
@@ -6509,8 +7201,10 @@ def main() -> int:
     rows.update(sp_rows)
     # 15. the GloVe/LSTM task pipelines with the card to itself
     task_paths, task_numbers = tasks.drive(torch)
+    # 16. the remaining variant models with the card to itself
+    variant_paths, variant_numbers = variants.drive(torch)
     paths = {**captions, **answers, **options, "dp_step": dp_step,
-             "sp_front": sp_front, **task_paths}
+             "sp_front": sp_front, **task_paths, **variant_paths}
     task_steps = [p for p in task_paths if p.endswith("_step")]
     task_forwards = [p for p in task_paths if p.endswith("_forward")]
     for name in rows:
@@ -6524,7 +7218,8 @@ def main() -> int:
                 or any(paths[p][name] == 0 for p in (
                     "flags_step", "bfloat16_step", "float32_step",
                     "flags_solver_reference", "flags_solver_detection",
-                    "dp_step", *task_steps)) \
+                    "dp_step", *task_steps, "mlcv_step",
+                    "detector_step")) \
                 or (PER_FORWARD[name] > 0 and (
                     serving[name] == 0 or predict[name] == 0
                     or http[name] == 0 or any(
@@ -6532,10 +7227,11 @@ def main() -> int:
                             "caption_serve", "caption_http", "answer_eval",
                             "answer_serve", "answer_http", "flags_forward",
                             "bfloat16_forward", "float32_forward",
-                            *task_forwards)))):
+                            *task_forwards, "mlcv_serve",
+                            "detector_forward")))):
             fail(f"kernel {name} was not launched on a main path")
 
-    # 16. results
+    # 17. results
     line = kernel_line(rows, serving, train, predict, solver, http,
                        per_step, per_remat_step, paths)
     line["remat_step"] = remat
@@ -6546,6 +7242,9 @@ def main() -> int:
     line["data_parallel"] = dp_numbers
     line["parallel_modes"] = mode_numbers
     line["task_pipelines"] = dict(task_numbers, clis=task_cli_numbers)
+    line["variants"] = dict(variant_numbers, clis=variant_cli_numbers)
+    line["wall_s"] = time.perf_counter() - _T0
+    print(f"[17] the whole command took {line['wall_s']:.1f} s")
     print(json.dumps(line))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

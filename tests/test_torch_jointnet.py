@@ -9,12 +9,12 @@ port's GroundingPredictor equals the JAX GroundingPredictor's through
 ``__call__`` and ``run_padded``. Each model option (``use_distil``,
 ``use_lang_emb``, ``use_reg_head``, ``use_vote_weight``, ``mask_box``,
 ``reference_obj_gather``, ``use_kl_loss``, ``use_lang_classifier=False``,
-``no_reference``) builds and its evaluation forward matches JAX's, from
+``no_reference``, ``use_mlcv_net``) builds and its evaluation forward matches JAX's, from
 seeded weights in the shapes of the flax init (tests/test_torch_flags.py
 holds the options in training and at the module level). Also checked:
 the port imports no JAX and nothing of vlp3d, a default-device
-construction raises without a card, ``use_mlcv_net`` raises, and the
-captioning and answer flags build their heads.
+construction raises without a card, and the captioning and answer flags
+build their heads.
 """
 
 import os
@@ -164,13 +164,6 @@ def test_default_device_raises_without_cuda(monkeypatch):
         GroundingPredictor(tiny_config(**FLAGS))
 
 
-@pytest.mark.parametrize("flag,value", [("use_mlcv_net", True)])
-def test_unported_flags_raise(flag, value):
-    overrides = {**FLAGS, flag: value}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        JointNet(tiny_config(**overrides), device="cpu")
-
-
 def _seeded_variables(model, batch, seed):
     """Seeded numpy weights in the shapes of the flax init (no compile):
     fan-in-scaled kernels, small biases, unit-ish scales, distinct PReLU
@@ -203,13 +196,14 @@ def _seeded_variables(model, batch, seed):
                 stat, shapes["batch_stats"])}
 
 
-# each raised NotImplementedError (test_unported_flags_raise) until the
-# slice that ported the model options
+# each raised NotImplementedError until the slice that ported it: the
+# model options, then MLCVNet's CGNL voting
 @pytest.mark.parametrize("flag,value", [
     ("use_distil", True), ("use_lang_emb", True), ("use_reg_head", True),
     ("use_vote_weight", True), ("mask_box", True),
     ("reference_obj_gather", True), ("use_kl_loss", True),
     ("use_lang_classifier", False), ("no_reference", True),
+    ("use_mlcv_net", True),
 ])
 def test_flag_builds_and_matches_jax(flag, value):
     """The option builds, and the evaluation forward from converted

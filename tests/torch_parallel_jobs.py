@@ -1,4 +1,5 @@
-"""Rank jobs of the pipeline and point-axis tests (no JAX here): each runs
+"""Rank jobs of the pipeline, point-axis and contrastive-negatives tests
+(no JAX here): each runs
 in a gloo rank process started by tests/test_torch_distributed.py's
 ``run_ranks`` (``python tests/test_torch_distributed.py <job> <spec>
 <out>``), reads its inputs from the spec's npz and returns arrays keyed
@@ -141,4 +142,36 @@ def _points(spec: dict, shard) -> dict:
     return res
 
 
-JOBS = {"pipeline": _pipeline, "points": _points}
+def info_nce(a, b_all, offset: int, tau: float = 0.5):
+    """Row i of ``a`` against every row of ``b_all``, its positive at
+    ``offset + i``: the mean cross entropy (the JAX side's loss in
+    tests/test_torch_pretrain.py, written there with jax.numpy)."""
+    logp = torch.log_softmax(a @ b_all.T / tau, dim=-1)
+    rows = torch.arange(a.shape[0])
+    return -logp[rows, offset + rows].mean()
+
+
+def _negatives(spec: dict, shard) -> dict:
+    """gather_negatives and make_sharded_contrastive_step over the ranks:
+    this rank's rows of the global a and b, the gathered b, the loss
+    averaged over the ranks and the gradients of this rank's rows."""
+    from vlp3d_torch.parallel.collectives import (
+        gather_negatives,
+        make_sharded_contrastive_step,
+    )
+
+    data = np.load(spec["npz"])
+    n = data["a"].shape[0] // shard.world
+    rows = slice(shard.rank * n, (shard.rank + 1) * n)
+    a = torch.from_numpy(data["a"][rows]).requires_grad_()
+    b = torch.from_numpy(data["b"][rows]).requires_grad_()
+    gathered = gather_negatives(b.detach(), shard)
+    step = make_sharded_contrastive_step(
+        lambda x, y: info_nce(x, y, shard.rank * n), shard)
+    loss = step(a, b)
+    loss.backward()
+    return {"gathered": gathered.numpy(), "loss": loss.detach().numpy(),
+            "grad_a": a.grad.numpy(), "grad_b": b.grad.numpy()}
+
+
+JOBS = {"pipeline": _pipeline, "points": _points, "negatives": _negatives}

@@ -3,10 +3,10 @@ the datasets, the run directory and the solver's resume.
 
 The port's own copy of ``vlp3d/cli/common.py``: the same flags (plus
 ``--device``), the same config arithmetic, the same datasets and the
-same resume rules. ``--use_mlcv_net``, the one model option the port
-lacks, raises NotImplementedError in :func:`config_from_args`
-(:func:`vlp3d_torch.config.check_supported` names its ROADMAP item).
-``--tp`` and ``--zero1`` act in the training CLIs (:func:`run_training`)
+same resume rules. Every model option acts, ``--use_mlcv_net`` (MLCVNet's
+CGNL voting) included; :func:`config_from_args` ends in
+:func:`vlp3d_torch.config.check_supported`, which refuses the
+combinations the model cannot build. ``--tp`` and ``--zero1`` act in the training CLIs (:func:`run_training`)
 and, as in the JAX package, are accepted and ignored by the others, as
 ``--no_donate`` is. Unlike the JAX CLIs, ``--smoke`` keeps the model
 options (:func:`model_flags`) in its tiny configuration, so that a smoke

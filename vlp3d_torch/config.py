@@ -7,8 +7,8 @@ package reads the same in the other. The port imports nothing from
 ``vlp3d``.
 
 Every grounding, captioning and question-answering flag is implemented
-(inference and the joint train step); :func:`check_supported` names the
-ROADMAP item of the one that is not (``use_mlcv_net``).
+(inference and the joint train step), ``use_mlcv_net`` included;
+:func:`check_supported` refuses the combinations the model cannot build.
 """
 
 from __future__ import annotations
@@ -151,26 +151,14 @@ class Config:
     train: TrainConfig = TrainConfig()
 
 
-# flag -> (value that is not ported yet, the ROADMAP item that ports it).
-# use_con builds the contrast head: it feeds the OCC/OSC training losses
-# and is skipped at inference (is_eval).
-_UNPORTED = {
-    "use_mlcv_net": (True, "ROADMAP.md queue A item 20 (variant models)"),
-}
 # the SA/FP point MLPs' compute dtypes (ModelConfig.compute_dtype)
 COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
 def check_supported(config: Config) -> None:
-    """Raise NotImplementedError for a model flag the port lacks, and
-    ValueError for a compute dtype it does not know or a head that reads
-    the grounding branch of a ``no_reference`` model."""
+    """Raise ValueError for a compute dtype the port does not know or a
+    head that reads the grounding branch of a ``no_reference`` model."""
     cfg = config.model
-    for flag, (bad, item) in _UNPORTED.items():
-        if getattr(cfg, flag) == bad:
-            raise NotImplementedError(
-                f"vlp3d_torch does not implement {flag}={bad} yet; see {item}"
-            )
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(
             f"compute_dtype={cfg.compute_dtype!r}: the point MLPs compute "

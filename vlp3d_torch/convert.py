@@ -6,12 +6,17 @@ has (backbone, voting, proposal, relation, BERT text mode, match,
 contrast, the caption and MLM decoders, the answer head), and the
 converters of the single-task models: ScanQA with MCAN (the LSTM
 language encoder, the MCAN encoder-decoder, the masked AttFlat pools,
-the VoteNet head), RefNet and CapNet (the top-down captioner). Takes the
-flax ``params`` and ``batch_stats`` as nested dicts of numpy arrays and
-returns a dict of CPU tensors that the port's model accepts with
-``load_state_dict(sd, strict=True)``: ``jax_to_torch_state_dict`` for
-JointNet, ``scanqa_to_torch_state_dict``, ``refnet_to_torch_state_dict``
-and ``capnet_to_torch_state_dict``. JointNet's key names are the
+the VoteNet head), RefNet and CapNet (the top-down captioner), and the
+variant and dormant modules: MLCVNet's CGNL voting (inside JointNet's
+``vgen``) and detector, the DETR proposal head, the xbert captioner, the
+cross-modal MLM and ENet. Takes the flax ``params`` and ``batch_stats``
+as nested dicts of numpy arrays and returns a dict of CPU tensors that
+the port's model accepts with ``load_state_dict(sd, strict=True)``:
+``jax_to_torch_state_dict`` for JointNet, ``scanqa_to_torch_state_dict``,
+``refnet_to_torch_state_dict``, ``capnet_to_torch_state_dict``,
+``mlcvnet_detector_to_torch_state_dict``, ``detr_to_torch_state_dict``,
+``caption_xbert_to_torch_state_dict``,
+``lang_cross_mlm_to_torch_state_dict`` and ``enet_to_torch_state_dict``. JointNet's key names are the
 reference 3DVLP checkpoint's, so the port loads those checkpoints too.
 
 Layouts: a flax Dense kernel (in, out) becomes a Linear weight (out, in)
@@ -35,7 +40,10 @@ import torch
 from vlp3d_torch.models.caption import PE_ROWS, sinusoidal_positions
 
 __all__ = ["jax_to_torch_state_dict", "scanqa_to_torch_state_dict",
-           "refnet_to_torch_state_dict", "capnet_to_torch_state_dict"]
+           "refnet_to_torch_state_dict", "capnet_to_torch_state_dict",
+           "mlcvnet_detector_to_torch_state_dict", "detr_to_torch_state_dict",
+           "caption_xbert_to_torch_state_dict",
+           "lang_cross_mlm_to_torch_state_dict", "enet_to_torch_state_dict"]
 
 
 def _f32(v) -> np.ndarray:
@@ -114,7 +122,26 @@ def convert_backbone(params, stats, prefix: str, out: dict):
         convert_fp(params[fp], stats[fp], f"{prefix}{fp}.", out)
 
 
+def convert_cgnl(params, prefix: str, out: dict):
+    """SpatialCGNL -> the reference's ``t``, ``p``, ``g`` (Conv2d 1x1,
+    no bias), ``z`` and ``gn``. JAX's ``z_kernel`` (groups, gc, out / groups)
+    becomes the grouped conv's (out, gc, 1, 1) weight, output channel
+    ``g * (out / groups) + o`` reading group ``g``."""
+    for name in ("t", "p", "g"):
+        out[f"{prefix}{name}.weight"] = conv_weight(params[name]["kernel"], 2)
+    zk = _f32(params["z_kernel"])
+    groups, gc, og = zk.shape
+    out[f"{prefix}z.weight"] = np.ascontiguousarray(
+        zk.transpose(0, 2, 1).reshape(groups * og, gc, 1, 1))
+    ln(params["GroupNorm_0"], f"{prefix}gn", out)
+
+
 def convert_voting(params, stats, prefix: str, out: dict):
+    """VotingModule, or MLCVVotingModule with its CGNL block (``cgnl``,
+    the reference's ``sa1``). JAX's ``export_jointnet_state_dict`` drops
+    that block (ROADMAP C20); this converter carries it."""
+    if "cgnl" in params:
+        convert_cgnl(params["cgnl"], f"{prefix}sa1.", out)
     for i, (conv, bnn) in enumerate((("conv1", "bn1"), ("conv2", "bn2"))):
         dense(params[f"Dense_{i}"], f"{prefix}{conv}", out)
         bn(params[f"BatchNorm_{i}"], stats[f"BatchNorm_{i}"],
@@ -180,29 +207,55 @@ def convert_relation(params, stats, prefix: str, out: dict):
         i += 1
 
 
-def convert_text_encoder(params, prefix: str, out: dict):
-    """BertTextEncoder text-mode tree -> xbert keys under ``prefix``bert."""
-    p = f"{prefix}bert."
-    e = params["embeddings"]
+def convert_embeddings(e, prefix: str, out: dict):
+    """BertEmbeddings -> ``prefix`` + word / position / token-type tables,
+    LayerNorm and the ``position_ids`` buffer."""
     for name in ("word_embeddings", "position_embeddings",
                  "token_type_embeddings"):
         if name in e:  # DistilBERT has no token-type table
-            out[f"{p}embeddings.{name}.weight"] = _f32(e[name]["embedding"])
-    ln(e["LayerNorm"], f"{p}embeddings.LayerNorm", out)
+            out[f"{prefix}{name}.weight"] = _f32(e[name]["embedding"])
+    ln(e["LayerNorm"], f"{prefix}LayerNorm", out)
     max_pos = np.asarray(e["position_embeddings"]["embedding"]).shape[0]
-    out[f"{p}embeddings.position_ids"] = np.arange(max_pos,
-                                                   dtype=np.int64)[None, :]
+    out[f"{prefix}position_ids"] = np.arange(max_pos, dtype=np.int64)[None, :]
+
+
+def convert_bert_layer(lp, prefix: str, out: dict):
+    """BertLayer (or a BertFusionLayer's ``self`` sublayer, without the
+    feed-forward) -> xbert keys under ``prefix``."""
+    lin(lp["query"], f"{prefix}attention.self.query", out)
+    lin(lp["key"], f"{prefix}attention.self.key", out)
+    lin(lp["value"], f"{prefix}attention.self.value", out)
+    lin(lp["attention_output"], f"{prefix}attention.output.dense", out)
+    ln(lp["attention_LayerNorm"], f"{prefix}attention.output.LayerNorm", out)
+    if "intermediate" in lp:
+        lin(lp["intermediate"], f"{prefix}intermediate.dense", out)
+        lin(lp["output"], f"{prefix}output.dense", out)
+        ln(lp["output_LayerNorm"], f"{prefix}output.LayerNorm", out)
+
+
+def convert_fusion_layer(lp, prefix: str, out: dict):
+    """BertFusionLayer -> its self-attention sublayer, ``crossattention``
+    (xq / xk / xv / xout / xln) and the feed-forward, in xbert's keys."""
+    convert_bert_layer(lp["self"], prefix, out)
+    q = f"{prefix}crossattention."
+    lin(lp["xq"], f"{q}self.query", out)
+    lin(lp["xk"], f"{q}self.key", out)
+    lin(lp["xv"], f"{q}self.value", out)
+    lin(lp["xout"], f"{q}output.dense", out)
+    ln(lp["xln"], f"{q}output.LayerNorm", out)
+    lin(lp["intermediate"], f"{prefix}intermediate.dense", out)
+    lin(lp["output"], f"{prefix}output.dense", out)
+    ln(lp["output_LayerNorm"], f"{prefix}output.LayerNorm", out)
+
+
+def convert_text_encoder(params, prefix: str, out: dict):
+    """BertTextEncoder text-mode tree -> xbert keys under ``prefix``bert."""
+    p = f"{prefix}bert."
+    convert_embeddings(params["embeddings"], f"{p}embeddings.", out)
     i = 0
     while f"layer_{i}" in params:
-        lp, q = params[f"layer_{i}"], f"{p}encoder.layer.{i}"
-        lin(lp["query"], f"{q}.attention.self.query", out)
-        lin(lp["key"], f"{q}.attention.self.key", out)
-        lin(lp["value"], f"{q}.attention.self.value", out)
-        lin(lp["attention_output"], f"{q}.attention.output.dense", out)
-        ln(lp["attention_LayerNorm"], f"{q}.attention.output.LayerNorm", out)
-        lin(lp["intermediate"], f"{q}.intermediate.dense", out)
-        lin(lp["output"], f"{q}.output.dense", out)
-        ln(lp["output_LayerNorm"], f"{q}.output.LayerNorm", out)
+        convert_bert_layer(params[f"layer_{i}"], f"{p}encoder.layer.{i}.",
+                           out)
         i += 1
 
 
@@ -418,6 +471,127 @@ def capnet_to_torch_state_dict(params, batch_stats) -> dict:
         lin(c[name], q + name, sd)
     ln(c["obj_ln"], q + "obj_ln", sd)
     convert_mha(c["dec_att2"], q + "dec_att2.", sd)
+    return to_tensors(sd)
+
+
+def mlcvnet_detector_to_torch_state_dict(params, batch_stats) -> dict:
+    """JAX MLCVNetDetector -> the port's: ``backbone_net``, ``vgen`` (with
+    its CGNL), and ``pnet`` (``vote_aggregation``, ``cgnl1-2``, the
+    head's bias-free ``conv0-1`` as ``conv1-2``, ``bn0-1`` as ``bn1-2``,
+    ``predictor`` as ``conv3``)."""
+    p, st = dict(params), dict(batch_stats)
+    sd: dict = {}
+    convert_backbone(p["backbone_net"], st["backbone_net"], "backbone_net.",
+                     sd)
+    convert_voting(p["vgen"], st["vgen"], "vgen.", sd)
+    convert_sa(p["vote_aggregation"], st["vote_aggregation"],
+               "pnet.vote_aggregation.", sd)
+    for name in ("cgnl1", "cgnl2"):
+        convert_cgnl(p[name], f"pnet.{name}.", sd)
+    for i in range(2):
+        dense(p[f"conv{i}"], f"pnet.conv{i + 1}", sd)
+        bn(p[f"bn{i}"], st[f"bn{i}"], f"pnet.bn{i + 1}", sd)
+    dense(p["predictor"], "pnet.conv3", sd)
+    return to_tensors(sd)
+
+
+def detr_to_torch_state_dict(params, batch_stats) -> dict:
+    """JAX DETRProposalModule -> the port's (the same names; ``layer_{i}``
+    as ``layers.{i}``, each attention's ``LayerNorm_0`` as ``norm``)."""
+    p, st = dict(params), dict(batch_stats)
+    sd: dict = {}
+    convert_sa(p["vote_aggregation"], st["vote_aggregation"],
+               "vote_aggregation.", sd)
+    for i in (1, 2):
+        dense(p[f"conv{i}"], f"conv{i}", sd)
+        bn(p[f"bn{i}"], st[f"bn{i}"], f"bn{i}", sd)
+    for name in ("input_proj", "hidden_ffn", "class_head", "bbox_mlp0",
+                 "bbox_mlp1"):
+        lin(p[name], name, sd)
+    for name in ("decoder_norm", "hidden_norm"):
+        ln(p[name], name, sd)
+    i = 0
+    while f"layer_{i}" in p:
+        lp, q = p[f"layer_{i}"], f"layers.{i}."
+        for att in ("self_attn", "multihead_attn"):
+            for fc in ("fc_q", "fc_k", "fc_v", "fc_o"):
+                lin(lp[att][fc], f"{q}{att}.{fc}", sd)
+            ln(lp[att]["LayerNorm_0"], f"{q}{att}.norm", sd)
+        for name in ("linear_offset", "linear1", "linear2"):
+            lin(lp[name], q + name, sd)
+        ln(lp["norm3"], q + "norm3", sd)
+        i += 1
+    return to_tensors(sd)
+
+
+def caption_xbert_to_torch_state_dict(params) -> dict:
+    """JAX CaptionModuleX -> the port's: ``embeddings``, the decoder's
+    ``layer.{i}`` in xbert's keys and its LM head ``cls`` (``transform``,
+    ``ln`` as ``transform.LayerNorm``, ``decoder``)."""
+    p = dict(params)
+    sd: dict = {}
+    convert_embeddings(p["embeddings"], "embeddings.", sd)
+    dec = p["decoder"]
+    i = 0
+    while f"layer_{i}" in dec:
+        convert_fusion_layer(dec[f"layer_{i}"], f"decoder.layer.{i}.", sd)
+        i += 1
+    lin(dec["cls"]["transform"], "decoder.cls.transform.dense", sd)
+    ln(dec["cls"]["ln"], "decoder.cls.transform.LayerNorm", sd)
+    lin(dec["cls"]["decoder"], "decoder.cls.decoder", sd)
+    return to_tensors(sd)
+
+
+def lang_cross_mlm_to_torch_state_dict(params) -> dict:
+    """JAX LangCrossMLM -> the port's: ``text_encoder`` (xbert keys),
+    ``proj``, ``pc_proj``, ``cross_attn.{i}`` and ``prediction``
+    (PredictionHead's Dense_0 / LayerNorm_0 / Dense_1 as ``dense``,
+    ``layer_norm``, ``decoder``)."""
+    p = dict(params)
+    sd: dict = {}
+    convert_text_encoder(p["text_encoder"], "text_encoder.", sd)
+    lin(p["proj"], "proj", sd)
+    lin(p["pc_proj"], "pc_proj", sd)
+    i = 0
+    while f"cross_attn_{i}" in p:
+        convert_mha(p[f"cross_attn_{i}"], f"cross_attn.{i}.", sd)
+        i += 1
+    head = p["prediction"]
+    lin(head["Dense_0"], "prediction.dense", sd)
+    ln(head["LayerNorm_0"], "prediction.layer_norm", sd)
+    lin(head["Dense_1"], "prediction.decoder", sd)
+    return to_tensors(sd)
+
+
+def enet_to_torch_state_dict(params, batch_stats) -> dict:
+    """JAX ENetEncoder -> the port's: ``initial``, ``blocks.{i}`` for
+    ``block{i}`` and ``classifier``; a flax conv kernel (kh, kw, in, out)
+    becomes a Conv2d weight (out, in, kh, kw)."""
+    sd: dict = {}
+
+    def walk(p, st, prefix):
+        for name, node in p.items():
+            q = f"{prefix}{name}"
+            if "kernel" in node:
+                sd[f"{q}.weight"] = np.ascontiguousarray(
+                    _f32(node["kernel"]).transpose(3, 2, 0, 1))
+                if "bias" in node:
+                    sd[f"{q}.bias"] = _f32(node["bias"])
+            elif "alpha" in node:
+                sd[f"{q}.weight"] = _f32(node["alpha"])
+            elif "scale" in node:
+                bn(node, st[name], q, sd)
+            else:
+                walk(node, st.get(name, {}), q + ".")
+
+    p, st = dict(params), dict(batch_stats)
+    walk({"initial": p["initial"]}, st, "")
+    i = 0
+    while f"block{i}" in p:
+        walk(p[f"block{i}"], st[f"block{i}"], f"blocks.{i}.")
+        i += 1
+    if "classifier" in p:
+        walk({"classifier": p["classifier"]}, st, "")
     return to_tensors(sd)
 
 

@@ -1,7 +1,8 @@
 """Transformer primitives for the relation and match heads.
 
-Counterparts of ``MultiHeadAttention``, ``PositionwiseFeedForward`` and
-``CrossAttentionDecoderLayer`` in ``vlp3d/models/attention.py``, with
+Counterparts of ``MultiHeadAttention``, ``PositionwiseFeedForward``,
+``CrossAttentionDecoderLayer`` and ``PredictionHead`` in
+``vlp3d/models/attention.py``, with
 the JAX module's dropout sites (after the output projection, inside the
 feed-forward, on the feed-forward's output; the identity at evaluation).
 Attention is written out as matmul + softmax, as the JAX module does. Parameter names follow the reference
@@ -106,3 +107,22 @@ class CrossAttentionDecoderLayer(nn.Module):
         x = self.self_attention(query, query, query, attention_mask=src_mask)
         x = self.enc_dec_attention(x, key, value, attention_mask=src_trg_mask)
         return self.norm(x + self.dropout(self.ffn(x)))
+
+
+class PredictionHead(nn.Module):
+    """The MLM prediction head (``PredictionHead`` in
+    ``vlp3d/models/attention.py``, attention.py:148-158): linear, GELU
+    (flax's default, the tanh form), LayerNorm eps 1e-12, then the
+    vocabulary linear."""
+
+    def __init__(self, vocab_size: int = 30522, hidden_size: int = 128, *,
+                 device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.dense = nn.Linear(hidden_size, hidden_size, device=device)
+        self.layer_norm = nn.LayerNorm(hidden_size, eps=1e-12, device=device)
+        self.decoder = nn.Linear(hidden_size, vocab_size, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.gelu(self.dense(x), approximate="tanh")
+        return self.decoder(self.layer_norm(x))

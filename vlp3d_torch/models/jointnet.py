@@ -18,8 +18,9 @@ module; boxes are masked in training only, drawn from
 ``use_distil`` and ``use_lang_classifier`` (the language module),
 ``use_lang_emb`` and ``use_reg_head`` (the match module), and
 ``no_reference``, the detection-only model: no ``lang``, ``match`` or
-``constrast`` and no ``cluster_ref``. ``use_mlcv_net`` raises
-NotImplementedError (:func:`vlp3d_torch.config.check_supported`).
+``constrast`` and no ``cluster_ref``. ``use_mlcv_net`` puts MLCVNet's
+CGNL voting (:class:`~vlp3d_torch.models.mlcvnet.MLCVVotingModule`) in
+the place of the Hough voting module.
 
 Submodule names are the reference's (``backbone_net``, ``vgen``,
 ``proposal``, ``relation``, ``lang``, ``match``, ``constrast``: the
@@ -51,6 +52,7 @@ from vlp3d_torch.models.caption import (
 from vlp3d_torch.models.contrast import ContrastModule
 from vlp3d_torch.models.layers import PReLU
 from vlp3d_torch.models.match import MatchModule
+from vlp3d_torch.models.mlcvnet import MLCVVotingModule
 from vlp3d_torch.models.proposal import ProposalModule
 from vlp3d_torch.models.relation import RelationModule
 from vlp3d_torch.models.voting import VotingModule, l2_normalize
@@ -85,7 +87,8 @@ class JointNet(nn.Module):
             dtype=(torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                    else None),
         )
-        self.vgen = VotingModule(cfg.vote_factor, 256, device=device)
+        self.vgen = (MLCVVotingModule if cfg.use_mlcv_net else VotingModule)(
+            cfg.vote_factor, 256, device=device)
         self.proposal = ProposalModule(
             ds.num_class, ds.num_heading_bin, cfg.num_proposal,
             use_vote_weight=cfg.use_vote_weight, use_kl_loss=cfg.use_kl_loss,

@@ -35,16 +35,37 @@ from vlp3d_torch.models.voting import VotingModule, l2_normalize
 LANG_HIDDEN = 256  # the LSTM's width (unidirectional, as the JAX trainer's)
 
 
+def vote_stack(model: nn.Module, config: Config, voting: nn.Module,
+               device) -> None:
+    """The PointNet++ backbone and ``voting`` (over its 256-channel
+    seeds), as ``model.backbone_net`` and ``model.vgen``."""
+    cfg = config.model
+    model.backbone_net = PointNet2Backbone(
+        cfg.input_feature_dim, npoints=tuple(cfg.sa_npoints),
+        radii=tuple(cfg.sa_radii), nsamples=tuple(cfg.sa_nsamples),
+        device=device)
+    model.vgen = voting
+
+
+def run_votes(model: nn.Module, point_clouds: torch.Tensor) -> dict:
+    """Backbone -> voting of ``vote_stack``: the backbone's outputs, the
+    seeds (its fp2 layer) and the votes, their features L2-normalised."""
+    out = dict(model.backbone_net(point_clouds))
+    out["seed_inds"] = out["fp2_inds"]
+    out["seed_xyz"] = out["fp2_xyz"]
+    out["seed_features"] = out["fp2_features"]
+    vote_xyz, vote_features = model.vgen(out["fp2_xyz"], out["fp2_features"])
+    out["vote_xyz"] = vote_xyz
+    out["vote_features"] = l2_normalize(vote_features)
+    return out
+
+
 def detection_stack(model: nn.Module, config: Config, device) -> None:
     """The backbone, voting, proposal and relation modules of RefNet and
     CapNet, as attributes of ``model`` (JointNet's with the default
     options)."""
     cfg, ds = config.model, config.dataset
-    model.backbone_net = PointNet2Backbone(
-        cfg.input_feature_dim, npoints=tuple(cfg.sa_npoints),
-        radii=tuple(cfg.sa_radii), nsamples=tuple(cfg.sa_nsamples),
-        device=device)
-    model.vgen = VotingModule(1, 256, device=device)
+    vote_stack(model, config, VotingModule(1, 256, device=device), device)
     model.proposal = ProposalModule(ds.num_class, ds.num_heading_bin,
                                     cfg.num_proposal, device=device)
     model.relation = RelationModule(
@@ -54,14 +75,8 @@ def detection_stack(model: nn.Module, config: Config, device) -> None:
 
 def run_detection(model: nn.Module, batch: dict) -> dict:
     """Backbone -> voting -> proposal -> relation of ``detection_stack``."""
-    out = dict(model.backbone_net(batch["point_clouds"]))
-    out["seed_inds"] = out["fp2_inds"]
-    out["seed_xyz"] = out["fp2_xyz"]
-    out["seed_features"] = out["fp2_features"]
-    vote_xyz, vote_features = model.vgen(out["fp2_xyz"], out["fp2_features"])
-    out["vote_xyz"] = vote_xyz
-    out["vote_features"] = l2_normalize(vote_features)
-    out.update(model.proposal(vote_xyz, out["vote_features"]))
+    out = run_votes(model, batch["point_clouds"])
+    out.update(model.proposal(out["vote_xyz"], out["vote_features"]))
     out.update(model.relation(
         out["aggregated_vote_features"], out["pred_center"],
         out["pred_size"], out["pred_heading"], batch["point_clouds"],

@@ -49,10 +49,16 @@ class VoteNetProposalModule(nn.Module):
             torch.as_tensor(np.asarray(mean_size_arr, np.float32),
                             device=device), persistent=False)
 
+    def refine(self, agg_f: torch.Tensor) -> torch.Tensor:
+        """The aggregated features as the head reads them (MLCVNet's
+        detector refines them first)."""
+        return agg_f
+
     def forward(self, xyz: torch.Tensor, features: torch.Tensor) -> dict:
         """xyz (B, V, 3) votes, features (B, V, C) -> the head's outputs
         and decoded boxes (B, K, ...)."""
         agg_xyz, agg_f, agg_inds = self.vote_aggregation(xyz, features)
+        agg_f = self.refine(agg_f)
         x = F.relu(self.bn1(self.conv1(agg_f)))
         x = F.relu(self.bn2(self.conv2(x)))
         head = self.conv3(x)

@@ -30,8 +30,14 @@ class VotingModule(nn.Module):
     def forward(self, seed_xyz: torch.Tensor, seed_features: torch.Tensor):
         """seed_xyz (B, S, 3), seed_features (B, S, C) ->
         vote_xyz (B, S*vf, 3), vote_features (B, S*vf, C)."""
+        return self.vote(seed_xyz, seed_features, seed_features)
+
+    def vote(self, seed_xyz: torch.Tensor, seed_features: torch.Tensor,
+             x: torch.Tensor):
+        """The vote layers on ``x`` (the seed features, or MLCVNet's CGNL
+        of them), their offsets and residuals added to the seeds'."""
         b, s, _ = seed_xyz.shape
-        x = F.relu(self.bn1(self.conv1(seed_features)))
+        x = F.relu(self.bn1(self.conv1(x)))
         x = F.relu(self.bn2(self.conv2(x)))
         x = self.conv3(x).reshape(b, s, self.vote_factor, 3 + self.c)
         vote_xyz = (seed_xyz[:, :, None, :] + x[..., :3]).reshape(
