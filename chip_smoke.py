@@ -28,8 +28,15 @@ steps each of the one-process step, the data-parallel step at 8 and at
 x dp N / 2 and tp N, each step against the one-process step recorded
 once (as above) with PARALLEL_STEPS timed steps, pp 2 x dp N / 2
 against the sequential text layers, the point-sharded SA1 front
-over the N ranks (40960 points of each scene a rank) against the dense
-ops on the whole clouds, and phase 16's legacy InfoNCE over
+over the N ranks (40960 points of each scene a rank; its FPS one launch
+of the loop kernel a rank, the candidates exchanged through peer
+memory) against the dense ops on the whole clouds, its first call (the
+exchange's set-up) and the median of three more timed, the FPS alone
+over the N ranks and on one rank, and the loop's step on a 2048-point
+slab a rank over the N ranks (2048 centres), beside the same kernel on
+that slab alone, whose exchange stays in the card's own memory (their
+difference: what the peers' memory adds to a step),
+and phase 16's legacy InfoNCE over
 gather_negatives (each rank's B / N scenes' sentences against every
 scene's proposals) against the mean of the same ranks' losses computed
 on one card. Phases of the run without arguments,
@@ -316,16 +323,24 @@ each fatal on failure:
    output gradient; printed, not held); pipeline_text_encoder at S 1, M PIPE_MICROBATCHES against the
    6 sequential BERT-base layers (within PIPE_TOL); with every count at
    0, large_scene_front at B=8 x 40960 points against the dense SA1
-   (indices and grouped rows equal; an FPS step a centre, the ball
+   (indices and grouped rows equal; the FPS loop kernel once, the ball
    query and the merge once, three owned gathers) and
    apply_backbone_large_scene against the dense backbone (sa1_inds
    equal, outputs within BACKBONE_TOL); then each point-axis kernel
-   against its plain version at SA1's shapes (the FPS step from the
-   seed and from mid-run, bit for bit; the merge at W = 1 and 4 slabs
-   and against the dense ball query; the owned gather at the front's
+   against its plain version at SA1's shapes (the FPS loop at W = 1
+   against the plain loop and the dense FPS, and its one-launch
+   emulation of W = 2 and 4 ranks against the dense FPS, bit for bit,
+   one launch a call; its streamed form on slabs of STREAM_NL points,
+   past registers, at W = 1 and 2 against the dense FPS; the merge at
+   W = 1 and 4 slabs against its plain
+   version and the dense ball query; the owned gather at the front's
    three calls and on a second slab) and on the edge cases (ties across
    shards, an all-invalid row, a ball in one shard, across shards,
-   empty), timed by cuda_ms, with bounds and host us;
+   empty), timed by cuda_ms, with bounds and host us; and, in a process
+   of its own, a W = 2 launch whose peer never writes
+   (tests/torch_stall_probe.py), which must trap and exit 3, at limits
+   of 0.5 and 4.5 s (their times' difference measures the limit's
+   clock);
 15. the GloVe/LSTM task pipelines at their trainers' full widths
    (TaskPipelinesPhase; B 8 x N_TASK 40000 points, 132 channels, 256
    proposals): ScanQA with MCAN (train_scanqa's Config, 8864 answers,
@@ -427,7 +442,7 @@ TRAIN_STEPS_EPOCH0 = 8
 # kernel launches of one forward, and of one train step's backward
 PER_FORWARD = {"fps": 5, "ball_query": 5, "three_nn": 2, "group_points": 11,
                "group_points_grad": 0, "three_interpolate_grad": 0,
-               "fps_shard_step": 0, "ball_query_merge": 0, "gather_owned": 0}
+               "fps_shard_loop": 0, "ball_query_merge": 0, "gather_owned": 0}
 PER_STEP = dict(PER_FORWARD, group_points_grad=5, three_interpolate_grad=2)
 WEIGHT_TOL = 1e-6  # interpolation weights, kernel against plain
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -539,11 +554,17 @@ PIPE_MICROBATCHES = 4
 PIPE_TOL = 1e-5
 BACKBONE_TOL = 1e-4
 # the point-axis kernels, launched on phase 14's front end only
-SP_KERNELS = ("fps_shard_step", "ball_query_merge", "gather_owned")
-# launches of the point-sharded SA1 front end beside its FPS iterations
-# (one a centre): the slab's ball query and the merge, three owned
-# gathers (the centres, the xyz rows, the feature rows)
-SP_FRONT = {"ball_query": 1, "ball_query_merge": 1, "gather_owned": 3}
+SP_KERNELS = ("fps_shard_loop", "ball_query_merge", "gather_owned")
+# launches of the point-sharded SA1 front end: the FPS loop (one launch a
+# call), the slab's ball query and the merge, three owned gathers (the
+# centres, the xyz rows, the feature rows)
+SP_FRONT = {"fps_shard_loop": 1, "ball_query": 1, "ball_query_merge": 1,
+            "gather_owned": 3}
+STALL_LIMIT_S = 0.5  # the stalled-peer probe's spin limit
+STALL_SPREAD_S = 4.0  # its second run's limit, this much longer
+# a slab past registers (a 16-block cluster's share over 8192 points):
+# the FPS loop's streamed form, checked on B 2 rows at 256 centres
+STREAM_NL = 140000
 BF16_PROBE = ["backbone_net.sa1.mlp_module.layer1.conv.weight",
               "backbone_net.sa2.mlp_module.layer0.conv.weight",
               "backbone_net.fp2.mlp.layer1.conv.weight", "vgen.conv3.weight",
@@ -1464,7 +1485,7 @@ def kernel_line(rows, serving, train, predict, solver, http, per_step,
                               "vlp3d/ops/grouping.py:135"),
         "three_interpolate_grad": ("vlp3d_torch/csrc/grouping.cu",
                                    "vlp3d/ops/interpolate.py:49"),
-        "fps_shard_step": ("vlp3d_torch/csrc/point_parallel.cu",
+        "fps_shard_loop": ("vlp3d_torch/csrc/point_parallel.cu",
                            "vlp3d/parallel/point_parallel.py:74"),
         "ball_query_merge": ("vlp3d_torch/csrc/point_parallel.cu",
                              "vlp3d/parallel/point_parallel.py:133"),
@@ -1482,7 +1503,7 @@ def kernel_line(rows, serving, train, predict, solver, http, per_step,
         "group_points_grad": ["group_points_grad_sorted_kernel<V, false>",
                               "group_points_grad_kernel"],
         "three_interpolate_grad": ["group_points_grad_sorted_kernel<V, true>"],
-        "fps_shard_step": ["fps_shard_step_kernel"],
+        "fps_shard_loop": ["fps_shard_loop_kernel<P>"],
         "ball_query_merge": ["ball_query_merge_kernel"],
         "gather_owned": ["gather_owned_kernel"],
     }
@@ -6201,7 +6222,7 @@ def front_equal(torch, got, want) -> bool:
 
 def point_edge_clouds(torch, device):
     """tests/torch_point_cases.py's clouds on ``device``: the merge's
-    (xyz, centres) and the FPS step's ties and all-invalid row."""
+    (xyz, centres) and the FPS loop's ties and all-invalid row."""
     cases = load_test_module("torch_point_cases")
     xyz, centers = cases.merge_cases()
     return (torch.from_numpy(xyz).to(device),
@@ -6209,78 +6230,146 @@ def point_edge_clouds(torch, device):
             torch.from_numpy(cases.fps_cases()).to(device))
 
 
+def stalled_peer_probe() -> dict:
+    """tests/torch_stall_probe.py in a process of its own: a W = 2 launch
+    of the FPS loop whose peer never writes must trap at its limit and
+    exit 3 (a trap leaves that process's CUDA context unusable, not this
+    one's). Run at STALL_LIMIT_S and STALL_SPREAD_S longer: the
+    difference of the two times over STALL_SPREAD_S is the rate of the
+    card's clock that counts the limit, the rest of the first time the
+    trap's way to the host (which varies by a tenth of a second or more
+    from run to run, hence the spread)."""
+    out = {}
+    limits = (STALL_LIMIT_S, STALL_LIMIT_S + STALL_SPREAD_S)
+    for limit in limits:
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, os.path.join(REPO, "tests",
+                                          "torch_stall_probe.py"),
+             str(limit)], cwd=REPO,
+            env=dict(child_env(), PYTHONPATH=REPO), capture_output=True,
+            text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        said = (run.stdout.strip().splitlines() or [""])[-1]
+        print(f"[14] a W=2 FPS loop whose peer never writes, limit {limit} "
+              f"s: exit {run.returncode} in {wall:.1f} s of process; {said}")
+        if run.returncode != 3 or "trapped after" not in said:
+            fail(f"the stalled FPS loop did not trap: {run.stdout[-2000:]} "
+                 f"{run.stderr[-2000:]}")
+        out[str(limit)] = {"rc": run.returncode, "process_s": wall,
+                           "said": said, "trapped_s": float(
+                               said.split("trapped after ")[1].split()[0])}
+    lo, hi = (out[str(x)]["trapped_s"] for x in limits)
+    rate = (hi - lo) / STALL_SPREAD_S
+    out["clock_rate"] = rate
+    out["delivery_s"] = lo - rate * STALL_LIMIT_S
+    print(f"[14] the stall limit's clock: {rate:.4f} s a second of limit "
+          f"(the two times {STALL_SPREAD_S} s of limit apart); the trap's "
+          f"way to the host {lo - rate * STALL_LIMIT_S:.3f} s")
+    return out
+
+
 def check_point_kernels(torch, xyz, feats, sa1):
     """Phase 14's kernel rows: each point-axis kernel against its plain
-    version at SA1's shapes (B x N points, W=1, and emulated slabs of 2
-    and 4), the edge cases, CUDA-event times behind the device sleep,
-    bounds and host us."""
+    version at SA1's shapes (B x N points, W=1, and 2 and 4 ranks
+    emulated in one launch or stacked slabs), the edge cases, CUDA-event
+    times behind the device sleep, bounds and host us; the stalled-peer
+    probe."""
     from vlp3d_torch import ops
+    from vlp3d_torch.ops import _kernels
     from vlp3d_torch.ops.host_time import host_us
     from vlp3d_torch.parallel import point_parallel as pp
 
     b, n, _ = xyz.shape
     npoint, radius, nsample = sa1.npoint, sa1.radius, sa1.nsample
-    groups = pp.fps_groups(b, n)
     rows = {}
 
-    # FPS step: the seed step and a step from a mid-run state
-    def state_after(steps):
-        temp = torch.full((b, n), 1e10, device=xyz.device)
-        out = torch.zeros((b, npoint), dtype=torch.int32, device=xyz.device)
-        cand = pp._seed(xyz, 0)
-        for t in range(steps):
-            cand = pp.fps_shard_step(xyz, temp, cand, 0, groups, t, npoint,
-                                     False, out)
-        return temp, out, cand
+    # the FPS loop: W=1 against the plain loop and the dense FPS, one
+    # launch a call; 2 and 4 ranks emulated in one launch against the
+    # dense FPS, at SA1's shapes and on the edge clouds
+    def one_launch(call):
+        before = _kernels.launches["fps_shard_loop"]
+        got = call()
+        torch.cuda.synchronize()
+        if _kernels.launches["fps_shard_loop"] - before != 1:
+            fail("an fps_sharded / fps_emulated call launched the loop "
+                 "kernel other than once")
+        return got
 
-    err = 0.0
-    for steps in (0, npoint // 2):
-        temp, out, cand = state_after(steps)
-        tk, ok_ = temp.clone(), out.clone()
-        ck = pp.fps_shard_step(xyz, tk, cand, 0, groups, steps, npoint,
-                               False, ok_)
-        tp_, op_ = temp.clone(), out.clone()
-        cp_ = pp.fps_shard_step_plain(xyz, tp_, cand, 0, groups, steps,
-                                      False, op_)
-        err = max(err, float((tk - tp_).abs().max()),
-                  index_err(torch, ok_, op_), index_err(torch, ck, cp_))
-    temp, out, cand = state_after(npoint // 2)
-    t = npoint // 2
-    step_ms = cuda_ms(torch, lambda: pp.fps_shard_step(
-        xyz, temp, cand, 0, groups, t, npoint, False, out), reps=200)
-    plain_step_ms = cuda_ms(torch, lambda: pp.fps_shard_step_plain(
-        xyz, temp, cand, 0, groups, t, False, out), reps=20)
-    whole = pp.fps_sharded(xyz, npoint)
+    whole = one_launch(lambda: pp.fps_sharded(xyz, npoint))
+    plain = pp.fps_sharded_plain(xyz, npoint)
     dense = ops.furthest_point_sample(xyz, npoint)
-    err = max(err, index_err(torch, whole, dense))
-    edge_err = 0.0
+    err = max(index_err(torch, whole, plain), index_err(torch, whole, dense))
+    loop_ms = cuda_ms(torch, lambda: pp.fps_sharded(xyz, npoint), reps=20)
+    plain_ms = cuda_ms(torch, lambda: pp.fps_sharded_plain(xyz, npoint),
+                       reps=1, warmup=0)
+    dense_ms = cuda_ms(torch, lambda: ops.furthest_point_sample(xyz, npoint),
+                       reps=20)
+    edge_err, emulated = 0.0, {}
     _, _, ties = point_edge_clouds(torch, xyz.device)
+    tie_want = ops.furthest_point_sample(ties, 24)
     for w in (2, 4):
-        want = ops.furthest_point_sample(ties, 24)
-        for got in pp.fps_emulated(ties, w, 24):
-            edge_err = max(edge_err, index_err(torch, got, want))
-        for got in pp.fps_emulated(xyz[:1], w, 256):
-            edge_err = max(edge_err, index_err(
-                torch, got, ops.furthest_point_sample(xyz[:1], 256)))
-    if err != 0 or edge_err != 0:
-        fail(f"fps_shard_step differs from its plain version or the dense "
-             f"FPS: {err}, edge cases {edge_err}")
-    step_bound, step_by = bound_ms(b * n * 20, 0)
-    rows["fps_shard_step"] = [{
-        "site": "SA1", "shape": [b, n, npoint], "max_abs_err": err,
-        "edge_err": edge_err, "groups": groups,
-        "ms": step_ms * npoint, "plain_ms": plain_step_ms * npoint,
-        "bound_ms": step_bound * npoint, "bound_by": step_by,
-        "library_ms": None, "step_ms": step_ms, "plain_step_ms": plain_step_ms,
-        "step_bound_ms": step_bound,
-        "host_us": host_us(lambda: pp.fps_shard_step(
-            xyz, temp, cand, 0, groups, t, npoint, False, out))}]
-    print(f"[14] fps_shard_step at SA1 ({b} x {n}, {groups} blocks a row): "
-          f"{step_ms * 1e3:.3f} us a step (bound {step_bound * 1e3:.3f} us, "
-          f"{step_by}), plain {plain_step_ms * 1e3:.3f} us; x{npoint} = "
-          f"{step_ms * npoint:.3f} ms a call; error {err}; emulated 2 / 4 "
-          f"shards (ties across shards, an all-invalid row, SA1's first "
-          f"row) {edge_err}")
+        for got in one_launch(lambda: pp.fps_emulated(ties, w, 24)):
+            edge_err = max(edge_err, index_err(torch, got, tie_want))
+        for got in one_launch(lambda: pp.fps_emulated(xyz, w, npoint)):
+            edge_err = max(edge_err, index_err(torch, got, dense))
+        emulated[f"w{w}_ms"] = cuda_ms(
+            torch, lambda: pp.fps_emulated(xyz, w, npoint), reps=5)
+    # the streamed form: slabs past registers at W = 1 and 2 (an
+    # all-invalid row and a zero tail in each), against the dense FPS
+    if pp.loop_plan(STREAM_NL) != (16, 0):
+        fail(f"a slab of {STREAM_NL} points does not take the streamed "
+             f"form: {pp.loop_plan(STREAM_NL)}")
+    gen = torch.Generator(device=xyz.device).manual_seed(14)
+    big = torch.rand((2, 2 * STREAM_NL, 3), generator=gen,
+                     device=xyz.device) * 6
+    big[0] = 0.0  # an all-invalid row
+    big[:, STREAM_NL - 2000:STREAM_NL] = 0.0  # a zero tail in slab 0
+    slab0 = big[:, :STREAM_NL].contiguous()
+    stream_err = index_err(
+        torch, one_launch(lambda: pp.fps_sharded(slab0, 256)),
+        ops.furthest_point_sample(slab0, 256))
+    big_want = ops.furthest_point_sample(big, 256)
+    for got in one_launch(lambda: pp.fps_emulated(big, 2, 256)):
+        stream_err = max(stream_err, index_err(torch, got, big_want))
+    stream_ms = cuda_ms(torch, lambda: pp.fps_sharded(slab0, 256), reps=3)
+    stream_dense_ms = cuda_ms(
+        torch, lambda: ops.furthest_point_sample(slab0, 256), reps=3)
+    if err != 0 or edge_err != 0 or stream_err != 0 or \
+            (tie_want[1] != 0).any():
+        fail(f"fps_shard_loop differs from its plain loop or the dense FPS: "
+             f"{err}, emulated ranks and edge clouds {edge_err}, slabs past "
+             f"registers {stream_err}")
+    del big, big_want, slab0
+    lb, lby = bound_ms(b * n * 12 + b * npoint * 4,
+                       (npoint - 1) * b * n * OPS_PER_TEST)
+    # npoint dependent steps, each at least the dense cluster FPS's step
+    # at the same row length (fps.cu, timed above in this run)
+    serial_ms = dense_ms * npoint / (npoint - 1)
+    plan = pp.loop_plan(n)
+    small = xyz[:1, :4096].contiguous()
+    rows["fps_shard_loop"] = [{
+        "site": "SA1", "shape": [b, n, npoint], "plan": list(plan),
+        "max_abs_err": err, "edge_err": edge_err, "ms": loop_ms,
+        "plain_ms": plain_ms, "bound_ms": lb, "bound_by": lby,
+        "library_ms": None, "serial_bound_ms": serial_ms,
+        "dense_fps_ms": dense_ms, "us_per_step": loop_ms * 1e3 / (npoint - 1),
+        **emulated, "stream": {
+            "shape": [2, STREAM_NL, 256], "err": stream_err, "ms": stream_ms,
+            "dense_fps_ms": stream_dense_ms},
+        "host_us": host_us(lambda: pp.fps_sharded(small, 16))}]
+    print(f"[14] fps_shard_loop at SA1 ({b} x {n}, W=1, {plan[0]} blocks a "
+          f"cluster, {plan[1]} points a thread): {loop_ms:.3f} ms a call in "
+          f"one launch ({loop_ms * 1e3 / (npoint - 1):.3f} us a step; bound "
+          f"{lb:.4f} ms, {lby}; serial bound {serial_ms:.3f} ms, the dense "
+          f"FPS {dense_ms:.3f} ms), plain loop {plain_ms:.1f} ms; emulated "
+          f"W=2 / 4 in one launch {emulated['w2_ms']:.3f} / "
+          f"{emulated['w4_ms']:.3f} ms; error {err} (plain loop and dense "
+          f"FPS); emulated ranks, ties across shards, an all-invalid row "
+          f"{edge_err}; streamed form (2 x {STREAM_NL} a slab, 256 "
+          f"centres) {stream_ms:.3f} ms at W=1 (the dense FPS "
+          f"{stream_dense_ms:.3f} ms), error {stream_err} at W=1 and 2")
+    rows["fps_shard_loop"][0]["stall"] = stalled_peer_probe()
 
     # merge: W=1 at SA1, W=4 emulated, the edge cases
     new_xyz = ops.gather_points(xyz, whole)
@@ -6305,6 +6394,9 @@ def check_point_kernels(torch, xyz, feats, sa1):
         for i in range(4)]
     a4 = torch.stack([p[0] for p in parts])
     c4 = torch.stack([p[1] for p in parts])
+    err = max(err, index_err(
+        torch, pp.ball_query_merge(a4, c4, nl4, nsample),
+        pp.ball_query_merge_plain(a4, c4, nl4, nsample)))
     merge4_ms = cuda_ms(torch, lambda: pp.ball_query_merge(
         a4, c4, nl4, nsample), reps=100)
     exyz, ectr, _ = point_edge_clouds(torch, xyz.device)
@@ -6549,8 +6641,9 @@ class ParallelModesPhase:
             t0 = time.perf_counter()
             got = front(xyz, feats)
             torch.cuda.synchronize()
-            front_ms = (time.perf_counter() - t0) * 1e3
+            first_ms = (time.perf_counter() - t0) * 1e3
             front_launches = dict(ops.launches)
+            front_ms = median_ms(torch, lambda: front(xyz, feats))[0]
             t0 = time.perf_counter()
             want = dense_front(torch, xyz, feats, sa1.npoint, sa1.radius,
                                sa1.nsample)
@@ -6564,15 +6657,15 @@ class ParallelModesPhase:
                          for k in dense if dense[k].is_floating_point())
             inds_equal = bool(torch.equal(sharded["sa1_inds"],
                                           dense["sa1_inds"]))
-        want_launches = dict({k: 0 for k in PER_STEP}, **SP_FRONT,
-                             fps_shard_step=sa1.npoint)
+        want_launches = dict({k: 0 for k in PER_STEP}, **SP_FRONT)
         print(f"[14] large_scene_front at B={pc.shape[0]} x {pc.shape[1]} "
               f"points (SA1: "
               f"{sa1.npoint} centres, r {sa1.radius}, {sa1.nsample} "
               f"neighbours, {feats.shape[-1]} feature channels), world size "
               f"1: indices and grouped rows equal to the dense SA1's: {same}; "
-              f"{front_ms:.3f} ms ({front_ms * 1e3 / sa1.npoint:.3f} us an "
-              f"FPS iteration with its all-gather) against the dense ops' "
+              f"{front_ms:.3f} ms, median of 5 "
+              f"({front_ms * 1e3 / sa1.npoint:.3f} us a centre; the first "
+              f"call {first_ms:.3f} ms) against the dense ops' "
               f"{dense_ms:.3f} ms; launches {front_launches}; "
               f"apply_backbone_large_scene against the dense backbone: "
               f"sa1_inds equal {inds_equal}, outputs within {bb_err} of "
@@ -6583,7 +6676,8 @@ class ParallelModesPhase:
                 or bb_err > BACKBONE_TOL:
             fail("the point-sharded front end or backbone differs from the "
                  "dense one, or launched otherwise")
-        numbers["front"] = {"ms": front_ms, "dense_ms": dense_ms,
+        numbers["front"] = {"ms": front_ms, "first_ms": first_ms,
+                            "dense_ms": dense_ms,
                             "us_per_iteration": front_ms * 1e3 / sa1.npoint,
                             "backbone_err": bb_err}
         rows = check_point_kernels(torch, xyz, feats, sa1)
@@ -6606,6 +6700,7 @@ def rank_modes(torch, config, device, host, full, points, main_rank):
     import numpy as np
     import torch.distributed as dist
 
+    from vlp3d_torch import ops
     from vlp3d_torch.data.synthetic import make_batch
     from vlp3d_torch.parallel import LOCAL, BatchShard
     from vlp3d_torch.parallel import distributed as du
@@ -6666,7 +6761,8 @@ def rank_modes(torch, config, device, host, full, points, main_rank):
     out["pp2"] = {"err": perr, "stages": 2, "data": grid.data.world}
     del owner, enc
 
-    # the point-sharded front end over the N ranks
+    # the point-sharded front end over the N ranks: its FPS one launch of
+    # the loop kernel a rank, the candidates exchanged through peer memory
     point = make_grid(world).model
     sa1 = config.model
     npoint, radius, nsample = (sa1.sa_npoints[0], sa1.sa_radii[0],
@@ -6676,24 +6772,62 @@ def rank_modes(torch, config, device, host, full, points, main_rank):
                                        istrain=0), device)["point_clouds"]
     xyz, feats = scene[..., :3].contiguous(), scene[..., 3:].contiguous()
     lo = point.rank * points
+    slab, slab_feats = (xyz[:, lo:lo + points].contiguous(),
+                        feats[:, lo:lo + points].contiguous())
+
+    def timed(fn, runs):
+        """(the outputs of the first run, each run's ms), every rank
+        starting each run together."""
+        ms, first = [], None
+        for _ in range(runs):
+            du.barrier()
+            sync()
+            t0 = time.perf_counter()
+            got = fn()
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            first = got if first is None else first
+        return first, ms
+
     with torch.no_grad():
         front = pp.large_scene_front(point, npoint, radius, nsample)
-        du.barrier()
-        sync()
-        t0 = time.perf_counter()
-        got = front(xyz[:, lo:lo + points].contiguous(),
-                    feats[:, lo:lo + points].contiguous())
-        sync()
-        front_ms = (time.perf_counter() - t0) * 1e3
+        # the first call sets up the group's exchange buffers
+        got, front_runs = timed(lambda: front(slab, slab_feats), 4)
         t0 = time.perf_counter()
         want = dense_front(torch, xyz, feats, npoint, radius, nsample)
         sync()
         dense_ms = (time.perf_counter() - t0) * 1e3
-    same = front_equal(torch, got, want)
+        same = front_equal(torch, got, front(slab, slab_feats)) and \
+            front_equal(torch, got, want)
+        # the FPS alone over the N ranks; the loop's step where the
+        # points are few: one row of a slab of `few` points a rank (no
+        # fewer than its centres) over the N ranks, and the same kernel on
+        # that slab alone, its exchange in the card's own memory
+        _, fps_runs = timed(lambda: pp.fps_sharded(slab, npoint, point), 5)
+        few = min(2048, points)
+        steps = min(npoint, few)
+        tiny = xyz[:1, point.rank * few:(point.rank + 1) * few].contiguous()
+        tiny_inds, tiny_runs = timed(
+            lambda: pp.fps_sharded(tiny, steps, point), 5)
+        _, alone_runs = timed(lambda: pp.fps_sharded(tiny, steps), 5)
+        # the one-element all-reduce each call of the group starts behind
+        token = torch.zeros(1, dtype=torch.int32, device=device)
+        _, reduce_runs = timed(lambda: dist.all_reduce(token), 5)
+        same &= bool(torch.equal(tiny_inds, ops.furthest_point_sample(
+            xyz[:1, :few * world].contiguous(), steps)))
     ok &= same
-    out[f"sp{world}"] = {"equal": same, "points_a_rank": points,
-                         "front_ms": front_ms, "dense_ms": dense_ms}
-    del got, want, scene, xyz, feats
+    med = {k: float(np.median(v)) for k, v in (
+        ("front_ms", front_runs[1:]), ("fps_ms", fps_runs[1:]),
+        ("tiny_ms", tiny_runs[1:]), ("alone_ms", alone_runs[1:]),
+        ("all_reduce_ms", reduce_runs[1:]))}
+    out[f"sp{world}"] = dict(
+        med, equal=same, points_a_rank=points, first_front_ms=front_runs[0],
+        dense_ms=dense_ms, few_points_a_rank=few, few_centres=steps,
+        step_us=med["tiny_ms"] * 1e3 / max(steps - 1, 1),
+        alone_step_us=med["alone_ms"] * 1e3 / max(steps - 1, 1),
+        peer_extra_us_per_step=(
+            med["tiny_ms"] - med["alone_ms"]) * 1e3 / max(steps - 1, 1))
+    del got, want, scene, xyz, feats, slab, slab_feats
     ok = du.all_processes_agree(ok)
     results = [None] * world
     dist.all_gather_object(results, out)

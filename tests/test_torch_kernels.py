@@ -10,6 +10,13 @@ port's dependencies are installed:
 run from small to the main path's (B=8, N=40960), and the FPS kernels
 also run where a row split over blocks is likely to go wrong (ties across
 blocks, blocks with no valid point, ragged lengths, any batch size).
+The point-axis FPS loop runs at one rank against its plain loop and the
+dense FPS, and at 2 and 4 ranks emulated in one launch against the dense
+FPS, ties across shards and an all-invalid row included, and on slabs too
+long for registers (its streamed form) at 1 and 2 ranks; a launch whose
+peer never writes must trap in a process of its own
+(``tests/torch_stall_probe.py``). The ball-query merge runs at 1 and 4
+shards against its plain version and the dense ball query.
 Ball query runs its tile kernel under every plan the smoke run sweeps,
 on inputs built against the plans' segment boundaries
 (``tests/torch_bq_cases.py``); three-NN runs its team kernel, alone and
@@ -68,9 +75,14 @@ from vlp3d_torch.ops.interpolate import (
     three_nn_plain,
 )
 from vlp3d_torch.ops.sampling import _fps_cuda, _fps_plan, fps_plain
+from vlp3d_torch.parallel import point_parallel as pp
 from vlp3d_torch.serving import STREAM_KEYS
+from torch_point_cases import fps_cases, merge_cases
 
 TOL = dict(rtol=1e-4, atol=1e-4)
+# the point-axis kernels, which no single-card path below launches
+NO_POINT_AXIS = {"fps_shard_loop": 0, "ball_query_merge": 0,
+                 "gather_owned": 0}
 FLAGS = dict(use_con=False, no_caption=True)
 
 
@@ -699,7 +711,7 @@ def test_kernels_count_launches(cuda):
     ops.gather_points(xyz, torch.zeros(2, 4, dtype=torch.int32, device=cuda))
     assert _kernels.launches == {"fps": 1, "ball_query": 2, "three_nn": 1,
                                  "group_points": 1, "group_points_grad": 0,
-                                 "three_interpolate_grad": 0}
+                                 "three_interpolate_grad": 0, **NO_POINT_AXIS}
 
 
 @pytest.mark.gpu
@@ -715,7 +727,7 @@ def test_kernel_forward_matches_plain_forward(cuda):
     torch.cuda.synchronize()
     assert ops.launches == {"fps": 5, "ball_query": 5, "three_nn": 2,
                             "group_points": 11, "group_points_grad": 0,
-                            "three_interpolate_grad": 0}
+                            "three_interpolate_grad": 0, **NO_POINT_AXIS}
     want = cpu({k: torch.from_numpy(batch[k]) for k in STREAM_KEYS})
     for k in ("sa1_inds", "sa2_inds", "aggregated_vote_inds"):
         assert torch.equal(got[k].cpu(), want[k]), k
@@ -757,7 +769,8 @@ def test_solver_epoch_on_the_card_counts_launches_a_step(cuda, tmp_path,
     best = solver(1)
     solver.close()
     forward = {"fps": 5, "ball_query": 5, "three_nn": 2, "group_points": 11,
-               "group_points_grad": 0, "three_interpolate_grad": 0}
+               "group_points_grad": 0, "three_interpolate_grad": 0,
+               **NO_POINT_AXIS}
     want = dict(forward, group_points_grad=5, three_interpolate_grad=2)
     if remat:
         want.update(three_nn=4, group_points=15)
@@ -768,7 +781,8 @@ def test_solver_epoch_on_the_card_counts_launches_a_step(cuda, tmp_path,
 
 
 FORWARD = {"fps": 5, "ball_query": 5, "three_nn": 2, "group_points": 11,
-           "group_points_grad": 0, "three_interpolate_grad": 0}
+           "group_points_grad": 0, "three_interpolate_grad": 0,
+           **NO_POINT_AXIS}
 
 
 @pytest.mark.gpu
@@ -829,3 +843,118 @@ def test_caption_train_step_on_the_card_counts_launches(cuda, mlm):
     keys = ("cap_loss", "cap_acc") + (("mlm_loss",) if mlm else ())
     for key in keys:
         assert np.isfinite(float(metrics[key])), key
+
+
+# ----------------------------------------------- point-axis parallel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,npoint", [(2, 300, 40), (8, 40960, 2048),
+                                        (3, 10240, 256), (9, 4096, 64)])
+def test_fps_shard_loop_one_rank_matches_plain_and_dense(cuda, b, n, npoint):
+    xyz = _scene(b, n, 1, cuda)
+    ops.reset_launches()
+    got = pp.fps_sharded(xyz, npoint)
+    torch.cuda.synchronize()
+    assert _kernels.launches["fps_shard_loop"] == 1
+    assert torch.equal(got, pp.fps_sharded_plain(xyz, npoint))
+    assert torch.equal(got, fps_plain(xyz, npoint))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [2, 4])
+def test_fps_shard_loop_emulated_ranks_equal_dense(cuda, w):
+    cases = t(fps_cases()).to(cuda)
+    ops.reset_launches()
+    for got in pp.fps_emulated(cases, w, 24):
+        assert torch.equal(got, fps_plain(cases, 24))
+    assert _kernels.launches["fps_shard_loop"] == 1
+    xyz = _scene(8, 40960, 2, cuda)
+    want = _fps_cuda(xyz, 512)
+    for got in pp.fps_emulated(xyz, w, 512):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [1, 2])
+def test_fps_shard_loop_streams_slabs_past_registers(cuda, w):
+    """A slab of more than 131072 points, whose share of a 16-block
+    cluster does not fit in registers, streams from global memory: at one
+    rank through fps_sharded and at two ranks emulated in one launch,
+    equal to the dense FPS (an all-invalid row and a zero tail
+    included)."""
+    nl = 140000
+    assert pp.loop_plan(nl) == (16, 0)
+    xyz = _scene(2, nl * w, 3, cuda)
+    want = _fps_cuda(xyz, 256)
+    ops.reset_launches()
+    got = ([pp.fps_sharded(xyz, 256)] if w == 1
+           else pp.fps_emulated(xyz, w, 256))
+    torch.cuda.synchronize()
+    assert _kernels.launches["fps_shard_loop"] == 1
+    for g in got:
+        assert torch.equal(g, want)
+
+
+@pytest.mark.gpu
+def test_fps_shard_loop_traps_when_a_peer_never_writes(cuda):
+    import os
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(here), os.environ.get("PYTHONPATH", "")]))
+    run = subprocess.run([sys.executable, os.path.join(
+        here, "torch_stall_probe.py"), "0.5"], capture_output=True,
+        text=True, timeout=300, env=env)
+    assert run.returncode == 3, run.stdout + run.stderr
+    assert "trapped after" in run.stdout
+
+
+def _merge_inputs(xyz, ctr, radius, nsample, w):
+    nl = xyz.shape[1] // w
+    parts = [ops.ball_query_with_count(
+        radius, nsample, xyz[:, i * nl:(i + 1) * nl].contiguous(), ctr)
+        for i in range(w)]
+    return (torch.stack([p[0] for p in parts]),
+            torch.stack([p[1] for p in parts]), nl)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [1, 4])
+@pytest.mark.parametrize("b,n,m,radius,nsample", [
+    (2, 300, 50, 0.3, 8), (8, 40960, 2048, 0.2, 64), (3, 400, 30, 0.8, 6),
+    (2, 400, 33, 2.0, 3)])
+def test_ball_query_merge_kernel_matches_plain(cuda, w, b, n, m, radius,
+                                               nsample):
+    xyz = _scene(b, n, 3, cuda)
+    ctr = xyz[:, :m].contiguous()
+    all_idx, all_cnt, nl = _merge_inputs(xyz, ctr, radius, nsample, w)
+    ops.reset_launches()
+    got = pp.ball_query_merge(all_idx, all_cnt, nl, nsample)
+    torch.cuda.synchronize()
+    assert _kernels.launches["ball_query_merge"] == 1
+    assert torch.equal(got, pp.ball_query_merge_plain(all_idx, all_cnt, nl,
+                                                      nsample))
+    assert torch.equal(got, ops.ball_query(radius, nsample, xyz, ctr))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [2, 4])
+@pytest.mark.parametrize("nsample", [2, 8])
+def test_ball_query_merge_kernel_where_trouble_is_likely(cuda, w, nsample):
+    xyz, ctr = (t(a).to(cuda) for a in merge_cases())
+    all_idx, all_cnt, nl = _merge_inputs(xyz, ctr, 0.5, nsample, w)
+    got = pp.ball_query_merge(all_idx, all_cnt, nl, nsample)
+    assert torch.equal(got, pp.ball_query_merge_plain(all_idx, all_cnt, nl,
+                                                      nsample))
+    assert torch.equal(got, ops.ball_query(0.5, nsample, xyz, ctr))
+
+
+@pytest.mark.gpu
+def test_ball_query_merge_refuses_more_than_32_shards(cuda):
+    idx = torch.zeros((33, 1, 2, 4), dtype=torch.int32, device=cuda)
+    cnt = torch.zeros((33, 1, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="at most 32"):
+        pp.ball_query_merge(idx, cnt, 8, 4)

@@ -177,7 +177,7 @@ def test_cpu_path_launches_no_kernel_and_other_devices_raise():
     assert ops.launches == {"fps": 0, "ball_query": 0, "three_nn": 0,
                             "group_points": 0, "group_points_grad": 0,
                             "three_interpolate_grad": 0,
-                            "fps_shard_step": 0, "ball_query_merge": 0,
+                            "fps_shard_loop": 0, "ball_query_merge": 0,
                             "gather_owned": 0}
     meta = torch.empty(1, 64, 3, device="meta")
     for call in (

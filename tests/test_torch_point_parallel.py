@@ -14,13 +14,19 @@ float outputs within JAX's own atol of 2e-5. The owned gather's
 gradient, each rank's slab, equals the slab of the dense
 ``group_points`` VJP.
 
-The FPS step and the ball-query merge are also held, in one process over
-stacked per-shard outputs (the ranks emulated in turn), against the
-dense ops on the whole cloud on the cases where a merge can go wrong:
+The FPS loop's plain steps (one candidate a rank a row, the loop
+kernel's layout) and the ball-query merge are also held, in one process
+over stacked per-shard outputs (the ranks emulated in turn), against the
+dense ops on the whole cloud and against JAX's ``fps_sharded`` on point
+meshes of 1, 2 and 4 devices, on the cases where a merge can go wrong:
 all hits in one shard, hits across shards, an empty ball, ties across
-shards, an all-invalid row.
+shards, an all-invalid row. The FPS exchange's set-up refuses a group
+whose ranks are on two hosts, see only their own cards or whose cards
+cannot reach each other as peers (ROADMAP C22), with the capability
+mocked.
 """
 
+import re
 import shutil
 
 import jax
@@ -49,10 +55,12 @@ from vlp3d.parallel.point_parallel import (
 )
 from vlp3d_torch.convert import convert_backbone, to_tensors
 from vlp3d_torch.ops import ball_query, furthest_point_sample
+from vlp3d_torch.parallel import point_parallel as pp
 from vlp3d_torch.parallel.point_parallel import (
     ball_query_emulated,
     fps_emulated,
 )
+from vlp3d_torch.parallel.tensor_parallel import ModelGroup
 
 B, N, C = 2, 1024, 6
 NPOINT, RADIUS, NSAMPLE = 64, 0.5, 16
@@ -225,3 +233,163 @@ def test_fps_and_ball_query_on_the_jax_cloud(inputs, w):
         assert torch.equal(
             ball_query_emulated(radius, nsample, xyz, centers, w),
             ball_query(radius, nsample, xyz, centers))
+
+
+@pytest.fixture(scope="module")
+def jax_fps_meshes(inputs):
+    """JAX's fps_sharded on point meshes of 1, 2 and 4 devices, on
+    tests/torch_point_cases.py's ties and all-invalid row (24 centres) and
+    on the JAX tests' cloud (NPOINT centres)."""
+    out = {}
+    for w in (1, 2, 4):
+        mesh = Mesh(np.asarray(jax.devices()[:w]), (POINT_AXIS,))
+        for name, cloud, npoint in (("cases", fps_cases(), 24),
+                                    ("cloud", inputs["xyz"], NPOINT)):
+            fn = jax.jit(shard_map(
+                lambda a, npoint=npoint: jax_fps_sharded(a, npoint),
+                mesh=mesh, in_specs=P(None, POINT_AXIS, None),
+                out_specs=P()))
+            out[w, name] = np.asarray(fn(jnp.asarray(cloud)))
+    return out
+
+
+@pytest.mark.parametrize("w", [1, 2, 4])
+@pytest.mark.parametrize("name", ["cases", "cloud"])
+def test_fps_plain_loop_equals_jax_fps_sharded(inputs, jax_fps_meshes, w,
+                                               name):
+    """The plain loop, one candidate a rank a row, on every emulated rank
+    against JAX's fps_sharded over w devices: ties across the shards and
+    an all-invalid row included."""
+    cloud, npoint = ((fps_cases(), 24) if name == "cases"
+                     else (inputs["xyz"], NPOINT))
+    want = jax_fps_meshes[w, name]
+    for got in fps_emulated(torch.from_numpy(cloud), w, npoint):
+        np.testing.assert_array_equal(got.numpy(), want)
+    if name == "cases":
+        assert (want[1] == 0).all()
+
+
+def test_fps_step_plain_offers_one_candidate_a_rank():
+    """A step's candidate is the slab's largest running distance at its
+    lowest local index, plus the slab's offset, with its coordinates; an
+    invalid point offers -1."""
+    xyz = torch.tensor([[[1.0, 0, 0], [0, 0, 0], [3.0, 0, 0], [3.0, 0, 0]]])
+    temp = torch.full((1, 4), 1e10)
+    out = torch.zeros((1, 2), dtype=torch.int32)
+    seed = pp._seed(torch.tensor([[[0.5, 0, 0]]]), 0)
+    cand = pp.fps_shard_step_plain(xyz, temp, seed, 8, 0, False, out)
+    assert cand.shape == (1, 1, 5) and out[0, 0] == 0
+    assert cand[0, 0, 1] == 8 + 2  # the first of the tied points
+    assert cand.view(torch.float32)[0, 0, 0] == 2.5 ** 2
+    assert torch.equal(cand.view(torch.float32)[0, 0, 2:5],
+                       torch.tensor([3.0, 0, 0]))
+    assert temp[0, 1] == 0.25  # the invalid point's distance is kept ...
+    empty = pp._seed(xyz, 1)  # ... but it offers -1, below a seed of rank 1
+    both = torch.cat([empty, cand])
+    assert pp.fps_shard_step_plain(xyz, temp, both, 8, 1, True, out) is None
+    assert out[0, 1] == 10
+
+
+BUS = ["0000:18:00.0", "0000:2a:00.0"]  # the two cards' PCI bus ids
+
+
+def _peers(monkeypatch, hosts, reach, visible=2):
+    """Mock a two-rank group: rank r on the card of bus id BUS[r] of host
+    hosts[r], card a reaching card b as a peer where reach[a][b]; with
+    ``visible`` 1 each rank sees its own card alone, as cuda:0."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: visible)
+    monkeypatch.setattr(torch.cuda, "can_device_access_peer",
+                        lambda a, b: reach[a][b])
+    monkeypatch.setattr(pp, "_bus_id", lambda d: BUS[d])
+    monkeypatch.setattr(pp.socket, "gethostname", lambda: hosts[0])
+    if visible == 2:
+        other = {"host": hosts[1], "device": 1, "card": BUS[1],
+                 "reach": {BUS[0]: reach[1][0], BUS[1]: True}}
+    else:
+        other = {"host": hosts[1], "device": 0, "card": BUS[1],
+                 "reach": {BUS[1]: True}}
+    monkeypatch.setattr(pp, "_gather_objects",
+                        lambda obj, point: [obj, other])
+    monkeypatch.setattr(pp, "_EXCHANGES", {})
+
+    def no_buffer(*a, **k):
+        raise AssertionError("the set-up allocated before its check")
+
+    monkeypatch.setattr(torch, "zeros", no_buffer)
+    return ModelGroup(object(), 0, 2)
+
+
+@pytest.mark.parametrize("reach,pair", [
+    ([[True, False], [True, True]], f"rank 0 (cuda:0, {BUS[0]}) cannot "
+                                    f"access rank 1's card ({BUS[1]})"),
+    ([[True, True], [False, True]], f"rank 1 (cuda:1, {BUS[1]}) cannot "
+                                    f"access rank 0's card ({BUS[0]})")])
+def test_exchange_refuses_a_group_without_peer_access(monkeypatch, reach,
+                                                      pair):
+    point = _peers(monkeypatch, ["h", "h"], reach)
+    with pytest.raises(ValueError, match=pair.replace("(", r"\(").replace(
+            ")", r"\)")):
+        pp._exchange(point, 2, torch.device("cuda", 0))
+
+
+def test_exchange_refuses_ranks_that_see_only_their_own_card(monkeypatch):
+    """Two ranks that each see one card as cuda:0 (CUDA_VISIBLE_DEVICES):
+    the ordinals agree, the cards do not, and neither rank can ask whether
+    it reaches the other's, so the set-up raises before it allocates."""
+    point = _peers(monkeypatch, ["h", "h"], [[True, True], [True, True]],
+                   visible=1)
+    with pytest.raises(ValueError, match=re.escape(
+            f"rank 0 (cuda:0, {BUS[0]}) does not see rank 1's card "
+            f"({BUS[1]})")):
+        pp._exchange(point, 2, torch.device("cuda", 0))
+
+
+def test_peer_group_of_one_card_seen_by_both_ranks_passes():
+    """Two ranks on one card (the same bus id) reach each other."""
+    me = {"host": "h", "device": 0, "card": BUS[0], "reach": {BUS[0]: True}}
+    pp.check_peer_group([me, dict(me)])
+
+
+def test_exchange_refuses_a_group_across_hosts(monkeypatch):
+    point = _peers(monkeypatch, ["node-a", "node-b"],
+                   [[True, True], [True, True]])
+    with pytest.raises(ValueError, match="rank 0 is on 'node-a', rank 1 on "
+                                         "'node-b'"):
+        pp._exchange(point, 2, torch.device("cuda", 0))
+
+
+def test_cuda_tensors_take_the_loop_kernel_never_the_plain_loop(monkeypatch):
+    """The dispatch: a tensor the wrappers call CUDA goes to the loop
+    kernel, whatever the group; only a CPU tensor takes the plain loop."""
+    calls = []
+    monkeypatch.setattr(pp._kernels, "cuda_or_cpu", lambda t: True)
+    monkeypatch.setattr(pp, "_fps_loop_cuda",
+                        lambda xyz, npoint, point: calls.append(point.world))
+
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor took the plain loop")
+
+    monkeypatch.setattr(pp, "fps_sharded_plain", plain)
+    xyz = torch.rand(1, 8, 3)
+    pp.fps_sharded(xyz, 4)
+    pp.fps_sharded(xyz, 4, ModelGroup(object(), 1, 2))
+    assert calls == [1, 2]
+
+
+def test_loop_plan_and_exchange_layout():
+    """The loop kernel runs a cluster of at least two blocks (the dense
+    FPS's plan for long slabs), each thread at most 512 a block; a share
+    past registers streams (0 points a thread), however long the slab;
+    one rank's exchange buffer is two 48-byte candidate slots a (row,
+    rank)."""
+    assert pp.loop_plan(40960) == (16, 8)
+    assert pp.loop_plan(10240) == (16, 2)
+    assert pp.loop_plan(16) == (2, 2)
+    assert pp.loop_plan(40960, 8) == (8, 16)
+    assert pp.loop_plan(20480, 4) == (4, 16)
+    assert pp.loop_plan(131072) == (16, 16)
+    assert pp.loop_plan(131073) == (16, 0)
+    assert pp.loop_plan(1 << 20) == (16, 0)
+    assert pp.loop_plan(40960, 4) == (4, 0)
+    assert pp.exchange_words(8, 4) == 2 * 8 * 4 * 48 // 8
+    assert pp.exchange_words(1, 3) == 2 * 3 * 48 // 8

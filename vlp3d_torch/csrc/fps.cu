@@ -34,6 +34,8 @@
 //   block: no cluster-wide barrier inside the loop); every warp of every
 //   block waits for the step's candidates and merges them for itself.
 //   The index stays home: the block that owns the pick writes it out.
+// The two fps_regs_kernel forms are built from fps_regs.cuh, whose pieces
+// point_parallel.cu's point-sharded FPS loop shares.
 // fps_kernel: the first design, one 1024-thread block a row with the running
 //   distances in shared memory or, for rows past every other limit, in a
 //   global scratch; coordinates are read from L2 at every step.
@@ -45,25 +47,15 @@
 // between blocks (shares are consecutive index ranges), so equal
 // distances in two blocks' shares still give the lowest global index.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 
-namespace cg = cooperative_groups;
+#include "fps_regs.cuh"
 
 namespace {
 
 constexpr int kThreads = 1024;
-constexpr float kMinSqNorm = 1e-3f;
-constexpr float kInit = 1e10f;
-// the most blocks a cluster may have (the card's limit is 16)
-constexpr int kMaxBlocks = 16;
-
-__device__ __forceinline__ float sq3(float x, float y, float z) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)),
-                   __fmul_rn(z, z));
-}
 
 // (value, index) max with the lowest index on equal values
 __device__ __forceinline__ void argmax_merge(float& v, int& i, float ov,
@@ -140,69 +132,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// the most threads a block of fps_regs_kernel<P> may have: 4 registers a
-// point plus the loop's own, inside the 64K registers of an SM
-constexpr int regs_max_threads(int p) {
-  return p <= 4 ? 1024 : p <= 16 ? 512 : 256;
-}
-
-// float -> unsigned whose order is the float's (-inf < -1 < 0 < 1e10), so
-// that a warp's maximum is one redux.sync
-__device__ __forceinline__ unsigned ordered(float v) {
-  const unsigned u = __float_as_uint(v);
-  return u ^ ((u >> 31) ? 0xffffffffu : 0x80000000u);
-}
-
-// Warp argmax of (key, index), lowest index among equal keys: every lane
-// leaves with the winner's key and index; `mine` says whether the winner
-// was this lane's.
-__device__ __forceinline__ int warp_argmax(unsigned& key, int idx,
-                                           bool& mine) {
-  const unsigned top = __reduce_max_sync(0xffffffffu, key);
-  const int best =
-      __reduce_min_sync(0xffffffffu, key == top ? idx : INT_MAX);
-  mine = key == top && idx == best;
-  key = top;
-  return best;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// address of this block's shared-memory location `addr` in block `rank`
-// of the cluster
-__device__ __forceinline__ unsigned peer_addr(unsigned addr, unsigned rank) {
-  unsigned out;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
-               : "=r"(out)
-               : "r"(addr), "r"(rank));
-  return out;
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One row = one block (kCluster false) or one cluster of blocks. `share`
-// is the number of consecutive points a block owns (n for one block); a
-// thread holds P of them: point k of thread tid is index
-// rank * share + tid + k * blockDim.x, and P * blockDim.x >= share. The
-// loop over a thread's points has no branch and its maximum is a tree,
-// so the P dependent chains overlap. Dynamic shared memory holds the
-// block's coordinates as three arrays of P * blockDim.x floats, read
-// only to look up a candidate's coordinates by index.
+// One row = one block (kCluster false) or one cluster of blocks; the
+// pieces are fps_regs.cuh's (load_share, step_candidate, cluster_winner).
 //
 // In a cluster a step has no cluster-wide barrier. Warp 0 sends the
 // block's candidate to every block with st.async, which writes into the
@@ -228,7 +159,6 @@ __global__ void __launch_bounds__(regs_max_threads(P))
   const int threads = blockDim.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int warps = threads >> 5;
   int rank = 0, blocks = 1, row = blockIdx.x;
   if constexpr (kCluster) {
     cg::cluster_group cluster = cg::this_cluster();
@@ -243,38 +173,15 @@ __global__ void __launch_bounds__(regs_max_threads(P))
   float* xs = coords;
   float* ys = xs + span;
   float* zs = ys + span;
-  const float neg_inf = __int_as_float(0xff800000);
 
   float x[P], y[P], z[P], t[P];
-#pragma unroll
-  for (int k = 0; k < P; ++k) {
-    const int loc = tid + k * threads;
-    const int i = base + loc;
-    const bool in = loc < share && i < n;
-    float a = 0.0f, b = 0.0f, c = 0.0f;
-    if (in) {
-      a = p[3 * i];
-      b = p[3 * i + 1];
-      c = p[3 * i + 2];
-    }
-    x[k] = a;
-    y[k] = b;
-    z[k] = c;
-    t[k] = in ? (sq3(a, b, c) > kMinSqNorm ? kInit : -1.0f) : neg_inf;
-    xs[loc] = a;
-    ys[loc] = b;
-    zs[loc] = c;
-  }
+  load_share<P>(p, n, base, share, tid, threads, x, y, z, t, xs, ys, zs);
   float px = p[0], py = p[1], pz = p[2];
   if (rank == 0 && tid == 0) o[0] = 0;
   if constexpr (kCluster) {
     if (tid == 0) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
-                       smem_addr(&bars[0]))
-                   : "memory");
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
-                       smem_addr(&bars[1]))
-                   : "memory");
+      mbar_init(&bars[0]);
+      mbar_init(&bars[1]);
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
     // every block of the cluster must be running, its mbarriers set up,
@@ -286,59 +193,14 @@ __global__ void __launch_bounds__(regs_max_threads(P))
 
   for (int j = 1; j < npoint; ++j) {
     const int par = j & 1;
-    if constexpr (kCluster) {
-      // this step's candidates: 16 bytes from each block of the cluster
-      if (tid == 0)
-        asm volatile(
-            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                smem_addr(&bars[par])),
-            "r"(blocks * 16)
-            : "memory");
-    }
-    float v[P];
-    int id[P];
-#pragma unroll
-    for (int k = 0; k < P; ++k) {
-      const float d = sq3(__fsub_rn(x[k], px), __fsub_rn(y[k], py),
-                          __fsub_rn(z[k], pz));
-      t[k] = fminf(t[k], d);
-      v[k] = t[k];
-      id[k] = k;
-    }
-#pragma unroll
-    for (int s = 1; s < P; s <<= 1) {
-#pragma unroll
-      for (int k = 0; k + s < P; k += 2 * s) {
-        if (v[k + s] > v[k]) {  // strict >: the lower k, the lower index
-          v[k] = v[k + s];
-          id[k] = id[k + s];
-        }
-      }
-    }
-    bool mine;
-    unsigned key = ordered(v[0]);
-    int bi = warp_argmax(
-        key, v[0] == neg_inf ? INT_MAX : base + tid + id[0] * threads, mine);
-    // every lane of the warp now holds the warp's candidate; the block's
-    // candidate is the best of its warps' (warp 0 alone needs it in a
-    // cluster, every warp in a single block)
-    if (warps > 1) {
-      if (lane == 0) {
-        slot_k[par][warp] = key;
-        slot_i[par][warp] = bi;
-      }
-      __syncthreads();
-      if (!kCluster || warp == 0) {
-        key = 0;  // below every float's key
-        bi = INT_MAX;
-        if (lane < warps) {  // at most 32 warps
-          key = slot_k[par][lane];
-          bi = slot_i[par][lane];
-        }
-        bi = warp_argmax(key, bi, mine);
-      }
-    }
-
+    // this step's candidates: 16 bytes from each block of the cluster
+    if (kCluster && tid == 0) mbar_expect(&bars[par], blocks * 16);
+    unsigned key;
+    // every warp needs the block's candidate in a single block, warp 0
+    // alone in a cluster
+    const int bi = step_candidate<P>(x, y, z, t, px, py, pz, base, tid,
+                                     threads, !kCluster, slot_k, slot_i, par,
+                                     key);
     if constexpr (!kCluster) {
       px = xs[bi];
       py = ys[bi];
@@ -346,33 +208,16 @@ __global__ void __launch_bounds__(regs_max_threads(P))
       if (tid == 0) o[j] = bi;
     } else {
       if (warp == 0 && lane < blocks) {
-        // lane L sends the block's candidate to block L. Shares are
-        // consecutive index ranges, so among equal keys the lowest rank
-        // holds the lowest index and the index itself need not travel.
-        unsigned cx = 0, cy = 0, cz = 0;
-        if (bi != INT_MAX) {
-          const int loc = bi - base;
-          cx = __float_as_uint(xs[loc]);
-          cy = __float_as_uint(ys[loc]);
-          cz = __float_as_uint(zs[loc]);
-        }
-        asm volatile(
-            "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
-            "[%0], {%1, %2, %3, %4}, [%5];" ::"r"(
-                peer_addr(smem_addr(&peer_kxyz[par][rank]), lane)),
-            "r"(key), "r"(cx), "r"(cy), "r"(cz),
-            "r"(peer_addr(smem_addr(&bars[par]), lane))
-            : "memory");
+        // lane L sends the block's candidate to block L
+        const uint3 c = candidate_xyz(bi, base, xs, ys, zs);
+        st_async_v4(&peer_kxyz[par][rank], &bars[par], lane, key, c.x, c.y,
+                    c.z);
       }
       // steps 1 and 2 are the first use of their mbarriers (phase 0)
       mbar_wait(smem_addr(&bars[par]), ((j - 1) >> 1) & 1);
-      const uint4 c = peer_kxyz[par][lane < blocks ? lane : 0];
-      const unsigned top = __reduce_max_sync(0xffffffffu, c.x);
-      const int winner = __reduce_min_sync(
-          0xffffffffu, lane < blocks && c.x == top ? lane : INT_MAX);
-      px = __uint_as_float(__shfl_sync(0xffffffffu, c.y, winner));
-      py = __uint_as_float(__shfl_sync(0xffffffffu, c.z, winner));
-      pz = __uint_as_float(__shfl_sync(0xffffffffu, c.w, winner));
+      unsigned top;
+      const int winner =
+          cluster_winner(peer_kxyz[par], blocks, lane, top, px, py, pz);
       // warp 0 of the winning block still holds its candidate's index
       if (rank == winner && tid == 0) o[j] = bi;
     }
@@ -381,83 +226,23 @@ __global__ void __launch_bounds__(regs_max_threads(P))
   if constexpr (kCluster) cg::this_cluster().sync();
 }
 
-// threads a block so that P points a thread cover `share` points
-int regs_threads(int share, int p) {
-  return 32 * ((share + 32 * p - 1) / (32 * p));
-}
-
 template <int P, bool kCluster>
 struct RegsLaunch {
   static auto kernel() { return fps_regs_kernel<P, kCluster>; }
-
-  // fill cfg (and attr, which it points to) for `rows` rows
-  static cudaError_t config(int rows, int cluster, int share,
-                            cudaStream_t stream, cudaLaunchConfig_t& cfg,
-                            cudaLaunchAttribute& attr) {
-    const int threads = regs_threads(share, P);
-    if (threads > regs_max_threads(P)) return cudaErrorInvalidValue;
-    const size_t smem = (size_t)3 * P * threads * sizeof(float);
-    cudaError_t err = cudaSuccess;
-    if (smem > 32 * 1024) {  // with the static part, past the 48 KB default
-      err = cudaFuncSetAttribute(
-          kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return err;
-    }
-    if (cluster > 8) {  // past the portable cluster size
-      err = cudaFuncSetAttribute(
-          kernel(), cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-      if (err != cudaSuccess) return err;
-    }
-    cfg = {};
-    cfg.gridDim = dim3((unsigned)rows * cluster);
-    cfg.blockDim = dim3(threads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    if (kCluster) {
-      attr.id = cudaLaunchAttributeClusterDimension;
-      attr.val.clusterDim.x = cluster;
-      attr.val.clusterDim.y = 1;
-      attr.val.clusterDim.z = 1;
-      cfg.attrs = &attr;
-      cfg.numAttrs = 1;
-    }
-    return cudaSuccess;
-  }
 
   static cudaError_t launch(const float* xyz, int b, int n, int npoint,
                             int* out, int cluster, int share,
                             cudaStream_t stream) {
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
-    cudaError_t err = config(b, cluster, share, stream, cfg, attr);
+    cudaError_t err =
+        regs_config(kernel(), P, b, cluster, share, stream, cfg, attr);
     if (err != cudaSuccess) return err;
     err = cudaLaunchKernelEx(&cfg, kernel(), xyz, n, npoint, share, out);
     const cudaError_t last = cudaGetLastError();  // also clears it
     return err != cudaSuccess ? err : last;
   }
-
-  static int max_clusters(int cluster, int share) {
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute attr;
-    cudaError_t err = config(1, cluster, share, nullptr, cfg, attr);
-    int num = 0;
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveClusters(&num, kernel(), &cfg);
-    return err == cudaSuccess ? num : -(int)err;
-  }
 };
-
-// call `what` of RegsLaunch<points, kCluster>; points must be one of the
-// instantiated 2, 4, 8, 16, 32
-#define VLP3D_FPS_DISPATCH(points, kCluster, what, refused) \
-  switch (points) {                                          \
-    case 2: return RegsLaunch<2, kCluster>::what;            \
-    case 4: return RegsLaunch<4, kCluster>::what;            \
-    case 8: return RegsLaunch<8, kCluster>::what;            \
-    case 16: return RegsLaunch<16, kCluster>::what;          \
-    case 32: return RegsLaunch<32, kCluster>::what;          \
-    default: return refused;                                 \
-  }
 
 }  // namespace
 
@@ -492,15 +277,17 @@ int vlp3d_fps_regs(const void* xyz, int b, int n, int npoint, void* out,
   const int share = (n + cluster - 1) / cluster;
   cudaStream_t s = (cudaStream_t)stream;
   if (cluster == 1) {
-    VLP3D_FPS_DISPATCH(points, false,
-                       launch((const float*)xyz, b, n, npoint, (int*)out, 1,
-                              share, s),
-                       (int)cudaErrorInvalidValue)
+    VLP3D_REGS_DISPATCH(points,
+                        (RegsLaunch<P, false>::launch((const float*)xyz, b, n,
+                                                      npoint, (int*)out, 1,
+                                                      share, s)),
+                        (int)cudaErrorInvalidValue)
   }
-  VLP3D_FPS_DISPATCH(points, true,
-                     launch((const float*)xyz, b, n, npoint, (int*)out,
-                            cluster, share, s),
-                     (int)cudaErrorInvalidValue)
+  VLP3D_REGS_DISPATCH(points,
+                      (RegsLaunch<P, true>::launch((const float*)xyz, b, n,
+                                                   npoint, (int*)out, cluster,
+                                                   share, s)),
+                      (int)cudaErrorInvalidValue)
 }
 
 // How many clusters of `cluster` blocks, each thread holding `points`
@@ -508,7 +295,9 @@ int vlp3d_fps_regs(const void* xyz, int b, int n, int npoint, void* out,
 int vlp3d_fps_max_clusters(int cluster, int n, int points) {
   if (cluster < 2 || cluster > kMaxBlocks || n < 1) return -1;
   const int share = (n + cluster - 1) / cluster;
-  VLP3D_FPS_DISPATCH(points, true, max_clusters(cluster, share), -1)
+  VLP3D_REGS_DISPATCH(
+      points, regs_max_clusters(fps_regs_kernel<P, true>, P, cluster, share),
+      -1)
 }
 
 }  // extern "C"

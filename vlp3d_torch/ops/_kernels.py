@@ -2,8 +2,10 @@
 
 Each ``.cu`` file has a plain C interface and is compiled by ``nvcc`` into
 its own shared library at first use; all sources compile at once, one
-``nvcc`` process each. A library's file name carries a hash of its source
-and of ``NVCC_FLAGS``, so a change to either builds it anew. Libraries go
+``nvcc`` process each. A library's file name carries a hash of its source,
+of the headers under ``csrc`` (``fps_regs.cuh``, which ``fps.cu`` and
+``point_parallel.cu`` share) and of ``NVCC_FLAGS``, so a change to any of
+them builds it anew. Libraries go
 to ``$VLP3D_TORCH_BUILD_DIR`` when that is set, else to
 ``build/vlp3d_torch/`` one level above the package: the repository's
 ignored ``build/`` in a source checkout (an installed copy should set the
@@ -14,7 +16,7 @@ entry point returns ``cudaGetLastError()`` after its launch, which
 ``launches`` counts the launches of each kernel (a source may hold more
 than one: ``grouping.cu`` has the gather, its scatter-add backward and the
 three-NN interpolation's backward; ``point_parallel.cu`` the point-axis
-FPS step, the ball-query merge and the owned-rows gather),
+FPS loop, the ball-query merge and the owned-rows gather),
 so a run can show that its main path went through the kernels.
 
 A wrapper's host time is part of every call (a train step makes
@@ -45,7 +47,7 @@ BUILD_DIR = Path(os.environ.get(
 SOURCES = ("fps", "ball_query", "three_nn", "grouping", "point_parallel")
 # kernels with a launch counter; each wrapper adds one where it launches
 KERNELS = ("fps", "ball_query", "three_nn", "group_points",
-           "group_points_grad", "three_interpolate_grad", "fps_shard_step",
+           "group_points_grad", "three_interpolate_grad", "fps_shard_loop",
            "ball_query_merge", "gather_owned")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -54,8 +56,8 @@ NVCC_FLAGS = (
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                  ctypes.c_longlong)
+_P, _I, _F, _L, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_longlong, ctypes.c_ulonglong)
 # C entry points of each source: symbol -> argument types (all return int)
 SIGNATURES = {
     "fps": {
@@ -83,8 +85,12 @@ SIGNATURES = {
                                          _I, _I, _I, _P, _P],
     },
     "point_parallel": {
-        "vlp3d_fps_shard_step": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                                 _I, _I, _P, _P, _P],
+        "vlp3d_fps_shard_loop": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                 _P, _U, _F, _P, _P, _P],
+        "vlp3d_fps_shard_loop_max_clusters": [_I, _I, _I],
+        "vlp3d_pci_bus_id": [_I, _P, _I],
+        "vlp3d_ipc_handle": [_P, _P],
+        "vlp3d_ipc_open": [_P, _P],
         "vlp3d_ball_query_merge": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
         "vlp3d_gather_owned": [_P, _P, _I, _I, _L, _I, _I, _P, _P],
     },
@@ -114,8 +120,10 @@ def _nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     """The library of source ``name``, named by a hash of the source's
-    contents and the compiler flags."""
+    contents, the shared headers' and the compiler flags."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update("\0".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}.{h.hexdigest()[:16]}.so"
 

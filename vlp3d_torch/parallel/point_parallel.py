@@ -11,13 +11,18 @@ dense ops' on the whole cloud bit for bit:
 
   * :func:`fps_sharded`: start at global index 0, skip points with
     ``|p|^2 <= 1e-3``, take the largest running distance, the lowest
-    global index on ties, index 0 everywhere for an all-invalid row. Each
-    iteration is one launch of :func:`fps_shard_step` (the
-    ``fps_shard_step`` kernel of ``csrc/point_parallel.cu``) and one
-    all-gather of the candidates (JAX runs a ``pmax``, a ``pmin`` and a
-    ``psum`` an iteration). Sequential in npoint: ~npoint launches and
-    collectives a call, bound by the host and the collective's latency,
-    not by the card's rates;
+    global index on ties, index 0 everywhere for an all-invalid row. On
+    the card a call is one launch of the ``fps_shard_loop`` kernel
+    (``csrc/point_parallel.cu``), which runs every iteration and
+    exchanges each rank's candidate through peer memory (a group of one
+    through its own buffer): the group's exchange buffers are shared once
+    by CUDA IPC, which needs every rank on one host and every pair of its
+    cards able to reach each other (:func:`check_peer_group`, ROADMAP
+    C22; JAX runs a ``pmax``, a ``pmin`` and a ``psum`` an iteration). A
+    slab of any length: a share too long for registers streams from
+    global memory. On the CPU,
+    :func:`fps_sharded_plain` runs the iterations in Python with one
+    all-gather each;
   * :func:`ball_query_sharded`: ``ball_query.cu``'s count variant on the
     slab (the first ``nsample`` in-ball local indices and the count), an
     all-gather of both, and :func:`ball_query_merge` (the
@@ -42,8 +47,10 @@ collectives are the identity.
 
 from __future__ import annotations
 
+import ctypes
+import socket
+
 import torch
-import torch.nn.functional as F
 
 from vlp3d_torch.ops import _kernels
 from vlp3d_torch.ops.ball_query import ball_query_with_count
@@ -51,6 +58,7 @@ from vlp3d_torch.ops.grouping import (
     _group_points_grad_cuda,
     group_points_grad_plain,
 )
+from vlp3d_torch.ops.sampling import _CLUSTER, _REGS_THREADS, _fps_plan
 from vlp3d_torch.parallel.tensor_parallel import ModelGroup
 
 LOCAL_POINTS = ModelGroup()
@@ -59,11 +67,15 @@ identity."""
 
 _MIN_SQ_NORM = 1e-3  # sampling_gpu.cu:105-106
 _INF = 1e10
-_EMPTY = -3.0  # a chunk with no points: below any real candidate (-1)
+_EMPTY = -3.0  # a rank offering nothing: below any real candidate (-1)
 _NO_INDEX = 2 ** 31 - 1
-FPS_THREADS = 256  # threads a block of the FPS step kernel
-_FPS_BLOCKS = 264  # blocks an FPS step aims for (2 an SM of an H100)
-_FPS_MIN_CHUNK = 256  # points a block takes at least
+FPS_SPIN_TIMEOUT_S = 10.0
+"""Seconds an FPS loop waits for a rank's candidate before it traps. A
+call of several ranks starts behind a collective on its stream, so the
+wait counts from the moment every rank has reached the call: only a fault
+of the exchange (a rank whose launch failed) outlasts it, and that then
+fails the run instead of hanging it."""
+MERGE_MAX_RANKS = 32  # a point group the merge kernel takes: one warp
 
 
 # ------------------------------------------------------------ collectives
@@ -94,14 +106,6 @@ def _sum(x: torch.Tensor, point: ModelGroup) -> torch.Tensor:
 # ------------------------------------------------------------------ FPS
 
 
-def fps_groups(b: int, nl: int) -> int:
-    """Chunks of a row that the FPS step takes, one block each: enough
-    blocks over the batch to fill the card, at least
-    :data:`_FPS_MIN_CHUNK` points a chunk."""
-    return max(1, min(-(-_FPS_BLOCKS // max(b, 1)),
-                      -(-nl // _FPS_MIN_CHUNK)))
-
-
 def _seed(xyz: torch.Tensor, rank: int) -> torch.Tensor:
     """Each rank's candidate before the first iteration (1, B, 5): rank 0
     offers global point 0, which every rank then picks; the others offer
@@ -110,7 +114,7 @@ def _seed(xyz: torch.Tensor, rank: int) -> torch.Tensor:
     cand = torch.zeros((1, b, 5), dtype=torch.int32, device=xyz.device)
     as_float = cand.view(torch.float32)
     if rank == 0:
-        as_float[0, :, 0] = 1.0
+        as_float[0, :, 0] = _INF
         as_float[0, :, 2:5] = xyz[:, 0, :]
     else:
         as_float[0, :, 0] = _EMPTY
@@ -118,22 +122,25 @@ def _seed(xyz: torch.Tensor, rank: int) -> torch.Tensor:
     return cand
 
 
-def fps_shard_step_plain(xyz, temp, cands, offset: int, groups: int, t: int,
-                         last: bool, out_idx):
-    """Plain PyTorch FPS step: the kernel's arithmetic. ``cands`` (C, B, 5)
-    int32 (distance bits, global index, x, y, z bits) of the previous
-    iteration; writes the winner into ``out_idx[:, t]`` and, unless
-    ``last``, min-updates ``temp`` (B, Nl) in place and returns this
-    rank's candidates (groups, B, 5), one a chunk."""
-    b, nl, _ = xyz.shape
+def fps_shard_step_plain(xyz, temp, cands, offset: int, t: int, last: bool,
+                         out_idx):
+    """One FPS iteration on a slab in plain PyTorch, in the loop kernel's
+    layout: ``cands`` (W, B, 5) int32, one candidate a rank a row
+    (distance bits, global index, x, y, z bits) of the previous
+    iteration. Writes the winner (largest distance, then lowest global
+    index) into ``out_idx[:, t]`` and, unless ``last``, min-updates
+    ``temp`` (B, Nl) in place and returns this rank's candidate (1, B,
+    5): its largest running distance (-1 where the point is invalid),
+    lowest local index first, plus ``offset``."""
+    b = xyz.shape[0]
+    rows = torch.arange(b, device=xyz.device)
     vals = cands.view(torch.float32)[..., 0]
     idx = cands[..., 1]
     top = vals.max(0).values
     at = vals == top
     win = torch.where(at, idx, _NO_INDEX).min(0).values
-    row = (at & (idx == win)).int().argmax(0)
-    p = cands.view(torch.float32)[row, torch.arange(b, device=xyz.device),
-                                  2:5]
+    src = (at & (idx == win)).int().argmax(0)
+    p = cands.view(torch.float32)[src, rows, 2:5]
     out_idx[:, t] = win
     if last:
         return None
@@ -142,73 +149,257 @@ def fps_shard_step_plain(xyz, temp, cands, offset: int, groups: int, t: int,
     torch.minimum(temp, (dx * dx + dy * dy) + dz * dz, out=temp)
     cand = torch.where((x * x + y * y) + z * z > _MIN_SQ_NORM, temp,
                        torch.tensor(-1.0, device=xyz.device))
-    chunk = -(-nl // groups)
-    cp = F.pad(cand, (0, groups * chunk - nl), value=_EMPTY).view(
-        b, groups, chunk)
-    best = cp.max(-1).values  # (B, G)
-    local = (cp == best[..., None]).int().argmax(-1) + torch.arange(
-        groups, device=xyz.device)[None] * chunk
-    real = local < nl
-    safe = torch.where(real, local, 0)
-    coords = torch.gather(xyz, 1, safe[..., None].expand(-1, -1, 3))
-    out = torch.empty((groups, b, 5), dtype=torch.int32, device=xyz.device)
-    out.view(torch.float32)[..., 0] = best.t()
-    out[..., 1] = torch.where(real, local + offset, _NO_INDEX).t()
-    out.view(torch.float32)[..., 2:5] = torch.where(
-        real[..., None], coords, 0.0).transpose(0, 1)
+    best = cand.max(1).values
+    local = (cand == best[:, None]).int().argmax(1)  # the first maximum
+    out = torch.empty((1, b, 5), dtype=torch.int32, device=xyz.device)
+    out.view(torch.float32)[0, :, 0] = best
+    out[0, :, 1] = local + offset
+    out.view(torch.float32)[0, :, 2:5] = xyz[rows, local]
     return out
 
 
-def fps_shard_step(xyz, temp, cands, offset: int, groups: int, t: int,
-                   npoint: int, last: bool, out_idx):
-    """One FPS iteration on a slab (see :func:`fps_shard_step_plain`): the
-    ``fps_shard_step`` kernel for CUDA tensors, the plain version for CPU
-    ones."""
-    if not _kernels.cuda_or_cpu(xyz):
-        return fps_shard_step_plain(xyz, temp, cands, offset, groups, t,
-                                    last, out_idx)
-    _kernels.require(xyz, "xyz", torch.float32, 3, 3)
-    _kernels.require(temp, "temp", torch.float32, 2)
-    _kernels.require(cands, "cands", torch.int32, 3, 5)
-    _kernels.require(out_idx, "out_idx", torch.int32, 2)
-    b, nl, _ = xyz.shape
-    if temp.shape != (b, nl) or cands.shape[1] != b or out_idx.shape != (
-            b, npoint):
-        raise ValueError("fps_shard_step: the shapes of xyz, temp, cands "
-                         "and out_idx disagree")
-    mine = torch.empty((groups, b, 5), dtype=torch.int32, device=xyz.device)
-    with _kernels.on_device(xyz):
-        rc = _kernels.function("point_parallel", "vlp3d_fps_shard_step")(
-            xyz.data_ptr(), temp.data_ptr(), cands.data_ptr(),
-            cands.shape[0], b, nl, offset, groups, -(-nl // groups),
-            FPS_THREADS, t, npoint, int(last), out_idx.data_ptr(),
-            mine.data_ptr(), _kernels.stream_ptr(xyz))
-        if rc != 0:
-            _kernels.check(rc, "fps shard step kernel")
-    _kernels.launches["fps_shard_step"] += 1
-    return None if last else mine
-
-
-def fps_sharded(xyz: torch.Tensor, npoint: int,
-                point: ModelGroup = LOCAL_POINTS) -> torch.Tensor:
-    """FPS over a point-sharded cloud: xyz (B, Nl, 3), this rank's slab
-    of the global (B, N, 3) -> (B, npoint) int32 global indices, the same
-    on every rank of ``point``. No gradient."""
+def fps_sharded_plain(xyz: torch.Tensor, npoint: int,
+                      point: ModelGroup = LOCAL_POINTS) -> torch.Tensor:
+    """Plain :func:`fps_sharded`: npoint iterations of
+    :func:`fps_shard_step_plain`, each after an all-gather of the ranks'
+    candidates (on a CUDA tensor it runs as it does on the CPU: the loop
+    kernel's yardstick)."""
     with torch.no_grad():
         xyz = xyz.float().contiguous()
         b, nl, _ = xyz.shape
         out = torch.zeros((b, npoint), dtype=torch.int32, device=xyz.device)
         if b == 0 or npoint == 0:
             return out
-        groups = fps_groups(b, nl)
         temp = torch.full((b, nl), _INF, dtype=torch.float32,
                           device=xyz.device)
         cand = _seed(xyz, point.rank)
         for t in range(npoint):
-            cands = _gather(cand, point).view(-1, b, 5)
-            cand = fps_shard_step(xyz, temp, cands, point.rank * nl, groups,
-                                  t, npoint, t == npoint - 1, out)
+            cand = fps_shard_step_plain(xyz, temp, _gather(cand, point)
+                                        .view(-1, b, 5), point.rank * nl, t,
+                                        t == npoint - 1, out)
         return out
+
+
+def loop_plan(nl: int, cluster: int | None = None) -> tuple[int, int]:
+    """(blocks a cluster, points a thread) of the FPS loop kernel for
+    slabs of ``nl`` points: the dense FPS's plan for a row of that length
+    (at least two blocks: the loop kernel always runs a cluster), or
+    ``cluster`` blocks. 0 points a thread: a block's share is too long for
+    registers, and the block streams it from global memory, its running
+    distances in a scratch."""
+    if cluster is None:
+        plan = _fps_plan(nl)
+        cluster = max(2, plan[0]) if plan else _CLUSTER
+    share = -(-nl // cluster)
+    for points, most in _REGS_THREADS.items():
+        if -(-share // points) <= min(most, 512):
+            return cluster, points
+    return cluster, 0
+
+
+_MAX_CLUSTERS: dict = {}
+
+
+def loop_max_clusters(cluster: int, nl: int, points: int) -> int:
+    """Clusters of the loop kernel the current card runs at once (every
+    cluster of a launch must be resident: a cluster waiting on a peer
+    holds its SMs); asked once a configuration and card."""
+    key = (torch.cuda.current_device(), cluster, nl, points)
+    if key not in _MAX_CLUSTERS:
+        _MAX_CLUSTERS[key] = _kernels.function(
+            "point_parallel", "vlp3d_fps_shard_loop_max_clusters")(
+                cluster, nl, points)
+    return _MAX_CLUSTERS[key]
+
+
+def exchange_words(b: int, w: int) -> int:
+    """int64 words of one rank's exchange buffer: two slots of (B, W)
+    candidates, each five (lane, flag) pairs padded to 48 bytes."""
+    return 12 * b * w
+
+
+def _launch_loop(xyz, npoint: int, out, *, nl: int, w: int, rank0: int,
+                 ranks_here: int, nc: int, cluster: int, points: int,
+                 peers, seq: int, timeout_s: float = FPS_SPIN_TIMEOUT_S):
+    """One launch of the loop kernel (see ``vlp3d_fps_shard_loop``); the
+    streamed form (``points`` 0) gets a scratch for its distances."""
+    temp = None if points else torch.empty(
+        (ranks_here, xyz.shape[0], nl), dtype=torch.float32,
+        device=xyz.device)
+    with _kernels.on_device(xyz):
+        rc = _kernels.function("point_parallel", "vlp3d_fps_shard_loop")(
+            xyz.data_ptr(), xyz.shape[0], xyz.shape[1], nl, npoint, w, rank0,
+            ranks_here, nc, cluster, points, peers.data_ptr(), seq,
+            timeout_s, None if temp is None else temp.data_ptr(),
+            out.data_ptr(), _kernels.stream_ptr(xyz))
+        if rc != 0:
+            _kernels.check(rc, "fps shard loop kernel")
+    _kernels.launches["fps_shard_loop"] += 1
+
+
+# ---- the exchange buffers of a point group, shared once by CUDA IPC
+
+_EXCHANGES: dict = {}
+_OPENED: dict = {}  # IPC handle -> its base, opened in this process
+
+
+def _gather_objects(obj, point: ModelGroup) -> list:
+    import torch.distributed as dist
+
+    out = [None] * point.world
+    dist.all_gather_object(out, obj, group=point.group)
+    return out
+
+
+def _bus_id(device: int) -> str:
+    """The PCI bus id of this process's card ``device``: the name of a card
+    that every process of a host shares, however each numbers its cards
+    (``CUDA_VISIBLE_DEVICES``)."""
+    buf = ctypes.create_string_buffer(32)
+    _kernels.check(_kernels.function("point_parallel", "vlp3d_pci_bus_id")(
+        device, buf, len(buf)), "reading a card's PCI bus id")
+    return buf.value.decode()
+
+
+def peer_info(device: torch.device) -> dict:
+    """This rank's host and card (ordinal here, and PCI bus id), and which
+    cards this process sees, by bus id, the card reaches as a peer
+    (``cudaDeviceCanAccessPeer``)."""
+    me = device.index
+    return {"host": socket.gethostname(), "device": me, "card": _bus_id(me),
+            "reach": {_bus_id(d): d == me or
+                      torch.cuda.can_device_access_peer(me, d)
+                      for d in range(torch.cuda.device_count())}}
+
+
+def check_peer_group(infos: list) -> None:
+    """Raise a ValueError naming the first two ranks of a point group
+    (``infos``: :func:`peer_info` of each rank, in rank order) that are on
+    different hosts, or of which one cannot see the other's card (so that
+    peer access cannot be checked) or cannot reach it: the FPS loop
+    exchanges candidates through peer memory and has no other route."""
+    for a, ia in enumerate(infos):
+        for b, ib in enumerate(infos):
+            if ia["host"] != ib["host"]:
+                raise ValueError(
+                    f"fps_sharded exchanges candidates through peer memory, "
+                    f"so a point group must lie on one host: rank {a} is on "
+                    f"{ia['host']!r}, rank {b} on {ib['host']!r} (ROADMAP "
+                    f"C22)")
+            if ib["card"] not in ia["reach"]:
+                raise ValueError(
+                    f"fps_sharded exchanges candidates through peer memory: "
+                    f"rank {a} (cuda:{ia['device']}, {ia['card']}) does not "
+                    f"see rank {b}'s card ({ib['card']}), so peer access "
+                    f"between them cannot be checked; let every rank of a "
+                    f"point group see all of its cards (CUDA_VISIBLE_DEVICES)"
+                    f" (ROADMAP C22)")
+            if not ia["reach"][ib["card"]]:
+                raise ValueError(
+                    f"fps_sharded exchanges candidates through peer memory: "
+                    f"rank {a} (cuda:{ia['device']}, {ia['card']}) cannot "
+                    f"access rank {b}'s card ({ib['card']}) as a peer "
+                    f"(ROADMAP C22)")
+
+
+def _segment(t: torch.Tensor) -> tuple[int, int]:
+    """(base, offset) of ``t``'s data in the device allocation that holds
+    it: a CUDA IPC handle names a whole allocation."""
+    ptr = t.data_ptr()
+    for seg in torch.cuda.memory_snapshot():
+        if seg["device"] == t.device.index and \
+                seg["address"] <= ptr < seg["address"] + seg["total_size"]:
+            return seg["address"], ptr - seg["address"]
+    raise RuntimeError("fps_sharded: the exchange buffer's allocation was "
+                       "not found")
+
+
+def _open(handle: bytes) -> int:
+    if handle not in _OPENED:
+        ptr = ctypes.c_void_p()
+        _kernels.check(_kernels.function("point_parallel", "vlp3d_ipc_open")(
+            handle, ctypes.byref(ptr)), "opening a peer's exchange buffer")
+        _OPENED[handle] = ptr.value
+    return _OPENED[handle]
+
+
+class _Exchange:
+    """The exchange buffers of ``point`` for B rows: this rank's (zeroed),
+    and a device array of every rank's, peers' opened by CUDA IPC (a group
+    of one: its own buffer alone); the sequence number the next call
+    starts at."""
+
+    def __init__(self, point: ModelGroup, b: int, device: torch.device):
+        self.seq = 1  # every flag starts at 0
+        if point.group is None:
+            self.buf = torch.zeros(exchange_words(b, 1), dtype=torch.int64,
+                                   device=device)
+            self.peers = torch.tensor([self.buf.data_ptr()],
+                                      dtype=torch.int64, device=device)
+            return
+        # the group is checked before anything is allocated or launched
+        check_peer_group(_gather_objects(peer_info(device), point))
+        self.buf = torch.zeros(exchange_words(b, point.world),
+                               dtype=torch.int64, device=device)
+        base, offset = _segment(self.buf)
+        handle = ctypes.create_string_buffer(64)
+        _kernels.check(_kernels.function("point_parallel", "vlp3d_ipc_handle")(
+            base, handle), "sharing the exchange buffer")
+        # zero before a peer can write into it
+        torch.cuda.synchronize(device)
+        shared = _gather_objects((handle.raw, offset), point)
+        ptrs = [self.buf.data_ptr() if r == point.rank else _open(h) + off
+                for r, (h, off) in enumerate(shared)]
+        self.peers = torch.tensor(ptrs, dtype=torch.int64, device=device)
+        # the collective a call of the group starts behind
+        self.token = torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def _exchange(point: ModelGroup, b: int, device: torch.device) -> _Exchange:
+    key = (id(point.group), point.rank, b, device.index)
+    if key not in _EXCHANGES:
+        _EXCHANGES[key] = (point.group, _Exchange(point, b, device))
+    return _EXCHANGES[key][1]
+
+
+def _fps_loop_cuda(xyz: torch.Tensor, npoint: int,
+                   point: ModelGroup) -> torch.Tensor:
+    _kernels.require(xyz, "xyz", torch.float32, 3, 3)
+    b, nl, _ = xyz.shape
+    out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
+    if b == 0 or npoint == 0:
+        return out.zero_()
+    w = point.world if point.group is not None else 1
+    cluster, points = loop_plan(nl)
+    with _kernels.on_device(xyz):
+        most = loop_max_clusters(cluster, nl, points)
+    if most < 1:
+        raise RuntimeError(f"fps_sharded: the card runs no cluster of "
+                           f"{cluster} blocks of the loop kernel ({most})")
+    ex = _exchange(point, b, xyz.device)
+    if w > 1:
+        # on this stream the launch then starts once every rank has
+        # reached the call: the spin limit counts from there
+        _sum(ex.token, point)
+    seq = ex.seq
+    ex.seq += npoint
+    _launch_loop(xyz, npoint, out, nl=nl, w=w, rank0=point.rank,
+                 ranks_here=1, nc=min(b, most), cluster=cluster,
+                 points=points, peers=ex.peers, seq=seq)
+    return out
+
+
+def fps_sharded(xyz: torch.Tensor, npoint: int,
+                point: ModelGroup = LOCAL_POINTS) -> torch.Tensor:
+    """FPS over a point-sharded cloud: xyz (B, Nl, 3), this rank's slab
+    of the global (B, N, 3) -> (B, npoint) int32 global indices, the same
+    on every rank of ``point``. No gradient. A CUDA tensor takes one
+    launch of the loop kernel (a group of several ranks must pass
+    :func:`check_peer_group`), a CPU tensor :func:`fps_sharded_plain`."""
+    if not _kernels.cuda_or_cpu(xyz):
+        return fps_sharded_plain(xyz, npoint, point)
+    with torch.no_grad():
+        return _fps_loop_cuda(xyz.float().contiguous(), npoint, point)
 
 
 # ---------------------------------------------------------- ball query
@@ -239,8 +430,9 @@ def ball_query_merge_plain(all_idx: torch.Tensor, all_cnt: torch.Tensor,
 def ball_query_merge(all_idx: torch.Tensor, all_cnt: torch.Tensor, nl: int,
                      nsample: int) -> torch.Tensor:
     """The per-shard ball queries merged into global slots: the
-    ``ball_query_merge`` kernel for CUDA tensors, the plain version for CPU
-    ones."""
+    ``ball_query_merge`` kernel for CUDA tensors (one warp a centre, so at
+    most :data:`MERGE_MAX_RANKS` shards, and 32-bit indices), the plain
+    version for CPU ones."""
     if not _kernels.cuda_or_cpu(all_idx):
         return ball_query_merge_plain(all_idx, all_cnt, nl, nsample)
     _kernels.require(all_idx, "all_idx", torch.int32, 4, nsample)
@@ -248,6 +440,11 @@ def ball_query_merge(all_idx: torch.Tensor, all_cnt: torch.Tensor, nl: int,
     w, b, m, _ = all_idx.shape
     if all_cnt.shape != (w, b, m):
         raise ValueError("ball_query_merge: all_idx and all_cnt disagree")
+    if w > MERGE_MAX_RANKS:
+        raise ValueError(f"ball_query_merge: {w} shards; the kernel merges "
+                         f"at most {MERGE_MAX_RANKS}")
+    if all_idx.numel() >= 2 ** 31:
+        raise ValueError("ball_query_merge: 2^31 or more slots")
     out = torch.empty((b, m, nsample), dtype=torch.int32,
                       device=all_idx.device)
     if out.numel() == 0:
@@ -279,26 +476,60 @@ def ball_query_sharded(radius: float, nsample: int, xyz: torch.Tensor,
 
 
 def fps_emulated(xyz: torch.Tensor, w: int, npoint: int) -> list:
-    """:func:`fps_sharded` over ``w`` ranks emulated in one process, the
-    all-gather a concatenation of the ranks' candidates: xyz (B, N, 3)
-    the whole cloud -> every rank's (B, npoint) int32 indices. Checks the
-    FPS step's merge across slabs without a process group."""
+    """:func:`fps_sharded` over ``w`` ranks emulated on one device: xyz
+    (B, N, 3) the whole cloud -> every rank's (B, npoint) int32 indices.
+    On the card, one launch of the loop kernel holds the ``w`` ranks'
+    clusters, their exchange buffers in one device buffer (raises when
+    they cannot all be resident at once: a cluster of smaller blocks is
+    tried first); on the CPU, the plain steps in turn, the all-gather a
+    concatenation of the ranks' candidates."""
     with torch.no_grad():
+        xyz = xyz.float().contiguous()
         b, n, _ = xyz.shape
         nl = n // w
+        if _kernels.cuda_or_cpu(xyz):
+            return list(_fps_emulated_cuda(xyz, w, nl, npoint))
         slabs = [xyz[:, i * nl:(i + 1) * nl].contiguous() for i in range(w)]
         outs = [torch.zeros((b, npoint), dtype=torch.int32,
                             device=xyz.device) for _ in range(w)]
         temps = [torch.full((b, nl), _INF, dtype=torch.float32,
                             device=xyz.device) for _ in range(w)]
-        groups = fps_groups(b, nl)
         cands = [_seed(s, i) for i, s in enumerate(slabs)]
         for t in range(npoint):
             gathered = torch.cat(cands)
-            cands = [fps_shard_step(slabs[i], temps[i], gathered, i * nl,
-                                    groups, t, npoint, t == npoint - 1,
-                                    outs[i]) for i in range(w)]
+            cands = [fps_shard_step_plain(slabs[i], temps[i], gathered,
+                                          i * nl, t, t == npoint - 1,
+                                          outs[i]) for i in range(w)]
         return outs
+
+
+def _fps_emulated_cuda(xyz, w: int, nl: int, npoint: int) -> torch.Tensor:
+    _kernels.require(xyz, "xyz", torch.float32, 3, 3)
+    b = xyz.shape[0]
+    out = torch.zeros((w, b, npoint), dtype=torch.int32, device=xyz.device)
+    if b == 0 or npoint == 0:
+        return out
+    # the largest cluster whose w x B clusters are all resident at once,
+    # else the largest one that holds w of them (the rows then queue)
+    fits = []
+    for cluster in (c for c in (16, 8, 4, 2) if c <= loop_plan(nl)[0]):
+        cluster, points = loop_plan(nl, cluster)
+        with _kernels.on_device(xyz):
+            most = loop_max_clusters(cluster, nl, points)
+        if most >= w:
+            fits.append((most >= w * b, cluster, points, most))
+    if not fits:
+        raise RuntimeError(f"fps_emulated: the clusters of {w} ranks cannot "
+                           f"all be resident on this card")
+    _, cluster, points, most = max(fits, key=lambda f: (f[0], f[1]))
+    nc = min(b, most // w)
+    words = exchange_words(b, w)
+    buf = torch.zeros(w * words, dtype=torch.int64, device=xyz.device)
+    peers = torch.tensor([buf.data_ptr() + 8 * words * r for r in range(w)],
+                         dtype=torch.int64, device=xyz.device)
+    _launch_loop(xyz, npoint, out, nl=nl, w=w, rank0=0, ranks_here=w, nc=nc,
+                 cluster=cluster, points=points, peers=peers, seq=1)
+    return out
 
 
 def ball_query_emulated(radius: float, nsample: int, xyz: torch.Tensor,
