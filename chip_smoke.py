@@ -4,9 +4,11 @@ joint train step, the predict path, the trainer behind run.sh, the HTTP
 grounding server, Scan2Cap captioning, ScanQA question answering, the
 grounding model's options, data parallel, ZeRO-1, tensor, pipeline and
 point-axis parallel, the GloVe/LSTM task pipelines (ScanQA with MCAN,
-RefNet, CapNet), and the remaining variant models (MLCVNet, the DETR
+RefNet, CapNet), the remaining variant models (MLCVNet, the DETR
 head, the xbert captioner, the cross-modal MLM, positive match, the
-legacy InfoNCE with its negatives, ENet's compute_multiview).
+legacy InfoNCE with its negatives, ENet's compute_multiview), and the
+PointPillars encoder with the rotated BEV IoU / NMS and the multiview
+hdf5 read without h5py.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ranks 4
@@ -402,8 +404,37 @@ each fatal on failure:
    DETR_STEP, none on the xbert and MLM paths) and the median ms of
    VARIANT_STEPS with the peak memory; then the legacy InfoNCE over
    gather_negatives at world size 1 over NCCL (negatives_check);
-17. print {"kernels": [...]} with every kernel of the main paths (the
-   CUDA functions behind each in kernel_functions, host_us beside the
+17. PointPillars and the multiview hdf5 without h5py (PillarsPhase; its
+   two predict processes, PillarClis, run beside phase 8's CLIs): the
+   encoder at OpenPCDet's KITTI widths on PILLAR_ROWS seeded rows of
+   PILLAR_POINTS points (two LiDAR-like rows of ~10 000 pillars, one
+   uniform row past the 16 000-pillar cap, one row 30% out of range with
+   a 20 000-point pillar): dynamic_voxelize and hard_voxelize equal to
+   their plain versions bit for bit (every output), each timed; with
+   every count at 0, the evaluation forward
+   against the plain-op forward (PILLAR_CANVAS_TOL of the canvas's
+   largest entry) and a training forward + backward against the plain
+   ops (canvas, point and parameter gradients and the BatchNorm
+   statistics within STEP_GRAD_TOL), the launches of each held to
+   PILLAR_FORWARD, the median ms and peak of PILLAR_STEPS forwards and
+   steps; then, counts at 0, boxes_iou_bev
+   over NMS_BOXES x NMS_BOXES jittered car boxes within IOU_TOL of the
+   plain version (its operation count for the bound taken from the
+   plain run's clips) and nms_rotated / nms_normal at NMS_THRESHOLDS
+   equal to the plain scan over the kernel's own ranked IoU and, away
+   from ties (NMS_TIE), over the plain IoU, the edge cases of
+   tests/torch_pillar_cases.py, each kernel timed beside its plain
+   version; then the loader's batches through --multiview_hdf5 (the
+   port's stand-ins) equal to the baked npy's, the committed
+   h5py-written fixtures read and held to their formula, and the two
+   predict processes' pred.json equal. Its traces of a hard_voxelize
+   call, an evaluation forward and an NMS call come from a process of
+   its own (--pillar-traces): late in a long process torch.profiler
+   loses device events; a trace that lacks a hand kernel is reported as
+   not measured;
+18. print {"kernels": [...]} with every kernel of the main paths (the
+   CUDA functions behind each in kernel_functions, each found in its
+   source's built library, host_us beside the
    times, the launches of each path, and per_step and per_remat_step
    as counted in phase 8), the whole command's wall time, the
    card's name and power limit, and last {"ok": true, "device": {...}}.
@@ -442,7 +473,9 @@ TRAIN_STEPS_EPOCH0 = 8
 # kernel launches of one forward, and of one train step's backward
 PER_FORWARD = {"fps": 5, "ball_query": 5, "three_nn": 2, "group_points": 11,
                "group_points_grad": 0, "three_interpolate_grad": 0,
-               "fps_shard_loop": 0, "ball_query_merge": 0, "gather_owned": 0}
+               "fps_shard_loop": 0, "ball_query_merge": 0, "gather_owned": 0,
+               "dynamic_voxelize": 0, "hard_voxelize": 0, "boxes_iou_bev": 0,
+               "nms_bev": 0}
 PER_STEP = dict(PER_FORWARD, group_points_grad=5, three_interpolate_grad=2)
 WEIGHT_TOL = 1e-6  # interpolation weights, kernel against plain
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -674,6 +707,41 @@ MULTIVIEW = dict(scenes=2, frames=20, h=256, w=328, points=50000)
 # the contrastive negatives: B scenes x L sentences against K proposals
 # a scene, 128-d embeddings (run.sh's widths)
 NEG_WIDTHS = (8, 8, 256, 128)
+
+# phase 17: PointPillars at OpenPCDet's KITTI pointpillar.yaml widths
+# (voxel 0.16 x 0.16 x 4 m over [0, 69.12] x [-39.68, 39.68] x [-3, 1],
+# 32 points a pillar, 16000 pillars, 64 channels; NMS_PRE_MAXSIZE 4096,
+# NMS_THRESH 0.01), B rows of a KITTI frame's point count
+PILLAR_VOXEL = (0.16, 0.16, 4.0)
+PILLAR_RANGE = (0.0, -39.68, -3.0, 69.12, 39.68, 1.0)
+PILLAR_SLOTS, PILLAR_VOXELS = 32, 16000
+PILLAR_ROWS, PILLAR_POINTS = 4, 120000
+PILLAR_CHANNELS = 64
+# launches of one encoder forward (a step's backward launches none)
+PILLAR_FORWARD = dict(ZERO_LAUNCHES, dynamic_voxelize=1, hard_voxelize=1)
+# the CUDA functions behind each PointPillars kernel, in launch order;
+# hard_voxelize's entry point launches nine, after the dynamic kernel
+PILLAR_FUNCTIONS = {
+    "dynamic_voxelize": ["dynamic_voxelize_kernel"],
+    "hard_voxelize": ["voxel_head_kernel", "tile_sum_kernel",
+                      "tile_scan_kernel", "voxel_assign_kernel",
+                      "voxel_count_kernel", "voxel_offsets_kernel",
+                      "voxel_place_kernel", "voxel_rank_kernel",
+                      "voxel_rank_long_kernel"],
+    "boxes_iou_bev": ["iou_bev_kernel"],
+    "nms_bev": ["nms_mask_kernel", "nms_scan_kernel"],
+}
+PILLAR_CANVAS_TOL = 1e-6  # of the canvas's largest entry
+PILLAR_STEPS = 5  # timed forwards and steps of the encoder
+NMS_BOXES = 4096
+# phase 17's predict processes: on the baked npy, and through the hdf5
+PILLAR_PREDICTS = ("predict", "predict --multiview_hdf5")
+NMS_THRESHOLDS = (0.01, 0.5)
+IOU_TOL = 1e-6  # rotated IoU, kernel against plain
+NMS_TIE = 1e-5  # a ranked pair this near the threshold may decide apart
+# fp32 operations of one box's corners (centre, half sizes, sin, cos,
+# four rotated corners), beside the clip's per pair
+OPS_CORNERS = 72
 
 
 _T0 = time.perf_counter()
@@ -1405,9 +1473,14 @@ def check_gather_bounds(torch, out):
           f"included), with and without a subtrahend: {done}")
 
 
-def profile_call(torch, fn, tag: str, what: str, top: int = 15):
+def profile_call(torch, fn, tag: str, what: str, top: int = 15,
+                 expect=()):
     """Trace one call of fn with torch.profiler; print the device time by
-    kernel name and the device-busy share of the call's wall time."""
+    kernel name and the device-busy share of the call's wall time; return
+    {"wall_ms", "busy_ms", "events", "expect_ms"}. A trace that holds no
+    device time, or lacks one of the hand kernels ``expect`` (CUDA
+    function names) that fn launches, is reported as not measured and
+    returns {}: its busy share would leave them out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1436,24 +1509,40 @@ def profile_call(torch, fn, tag: str, what: str, top: int = 15):
     if busy_ms == 0:
         print(f"[{tag}] profile: the trace holds no device time (not "
               "measured)")
-        return
+        return {}
+    hits = {fn_: [e for e in events if f"{fn_}(" in e.key
+                  or f"{fn_}<" in e.key] for fn_ in expect}
+    lost = [fn_ for fn_, h in hits.items() if not h]
+    if lost:
+        print(f"[{tag}] profile of one {what}: not measured, the trace "
+              f"lost {len(lost)} of its {len(expect)} hand kernels "
+              f"({', '.join(lost)})")
+        return {}
     rows = [dict(op=e.key[:90], calls=e.count, device_ms=dev_us(e) / 1e3)
             for e in events[:top] if dev_us(e) > 0]
     # a zeroed table (torch.zeros) is a fill kernel, not a memset
     memsets = sum(e.count for e in events if "memset" in e.key.lower())
     fills = sum(e.count for e in events if "fill" in e.key.lower())
+    n_events = sum(e.count for e in events)
     print(f"[{tag}] profile of one {what}: wall {wall_ms:.3f} ms, device "
           f"busy {busy_ms:.3f} ms ({busy_ms / wall_ms:.3f} of wall; idle "
-          f"share {1 - busy_ms / wall_ms:.3f}), {sum(e.count for e in events)}"
+          f"share {1 - busy_ms / wall_ms:.3f}), {n_events}"
           f" device kernels and copies, {memsets} of them memsets and "
           f"{fills} fill kernels")
     for name in ("ball_query", "three_nn", "group_points_grad"):
-        hits = [e for e in events if name in e.key]
+        found = [e for e in events if name in e.key]
         print(f"[{tag}]   {name}*: " + ", ".join(
-            f"{e.key[:60]} x{e.count} {dev_us(e) / 1e3:.3f} ms" for e in hits))
+            f"{e.key[:60]} x{e.count} {dev_us(e) / 1e3:.3f} ms"
+            for e in found))
+    expect_ms = sum(dev_us(e) for h in hits.values() for e in h) / 1e3
+    if expect:
+        print(f"[{tag}]   the {len(expect)} hand kernels: "
+              f"{expect_ms:.3f} ms")
     for r in rows:
         print(f"[{tag}]   {r['device_ms']:9.3f} ms  x{r['calls']:<5d} "
               f"{r['op']}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "events": n_events,
+            "expect_ms": expect_ms}
 
 
 def kernel_line(rows, serving, train, predict, solver, http, per_step,
@@ -3436,16 +3525,19 @@ class CliProcesses:
         self.tmp = tempfile.TemporaryDirectory()
         self.procs, self.results, self.threads = {}, {}, []
 
-    def launch(self, module, args):
+    def launch(self, module, args, key=None):
+        """Start ``module``; its process and result go by ``key`` (the
+        module's name unless two processes run one module)."""
         import threading
 
+        key = key or module
         proc = subprocess.Popen(
             [sys.executable, "-m", f"vlp3d_torch.cli.{module}", *args],
             cwd=REPO, env=child_env(), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
-        self.procs[module] = proc
+        self.procs[key] = proc
         self.threads.append(threading.Thread(
-            target=self._wait, args=(module, time.perf_counter(), proc),
+            target=self._wait, args=(key, time.perf_counter(), proc),
             daemon=True))
         self.threads[-1].start()
 
@@ -3454,7 +3546,7 @@ class CliProcesses:
         self.results[module] = (text, time.perf_counter() - t0)
 
     def ended(self):
-        """{module: (output, s)} once each has exited 0; fails else."""
+        """{key: (output, s)} once each has exited 0; fails else."""
         for t in self.threads:
             t.join(timeout=600)
         for module, proc in self.procs.items():
@@ -5613,6 +5705,715 @@ class VariantsPhase:
         return launches, numbers
 
 
+def pillar_cloud(seed: int, kind: str, n: int = PILLAR_POINTS):
+    """One seeded (n, 4) float32 row of x, y, z, reflectance: "lidar"
+    (16 ground rings in a 80-degree field and 15 car-sized boxes of
+    points, ~10 000 pillars), "uniform" (over the range: ~92 000 cells,
+    the voxel cap bites) or "worst" (30% of the points out of range and
+    one pillar of 20 000 points: the slot cap and the ranking's longest
+    segment, its first point early enough to be kept)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lo, hi = np.array(PILLAR_RANGE[:3]), np.array(PILLAR_RANGE[3:])
+
+    def lidar(m):
+        ground = m * 3 // 5
+        r = (4.0 + 3.6 * rng.integers(0, 16, ground)
+             + rng.normal(0, 0.02, ground))
+        th = rng.uniform(-0.7, 0.7, ground)
+        g = np.stack([r * np.cos(th), r * np.sin(th),
+                      -1.73 + rng.normal(0, 0.03, ground)], 1)
+        k = 15
+        per = (m - ground) // k
+        c = np.stack([rng.uniform(6, 62, k), rng.uniform(-30, 30, k),
+                      np.full(k, -0.95)], 1)
+        yaw = rng.uniform(-np.pi, np.pi, k)
+        loc = rng.uniform(-0.5, 0.5, (k, per, 3)) * [3.9, 1.6, 1.55]
+        cs, sn = np.cos(yaw)[:, None], np.sin(yaw)[:, None]
+        objs = np.stack([c[:, None, 0] + cs * loc[..., 0] - sn * loc[..., 1],
+                         c[:, None, 1] + sn * loc[..., 0] + cs * loc[..., 1],
+                         c[:, None, 2] + loc[..., 2]], -1).reshape(-1, 3)
+        noise = rng.uniform(lo, hi, (m - ground - k * per, 3))
+        return np.concatenate([g, objs, noise])
+
+    if kind == "lidar":
+        xyz = lidar(n)
+    elif kind == "uniform":
+        xyz = rng.uniform(lo, hi, (n, 3))
+    else:
+        out, crowd = n * 3 // 10, 20000
+        far = rng.uniform(lo - 20, hi + 20, (out, 3))
+        far[:, 0] = np.where(rng.random(out) < 0.5,
+                             rng.uniform(-20, -0.01, out),
+                             rng.uniform(69.2, 90, out))
+        pillar = (np.array([20.0, 5.0, -1.0])
+                  + rng.uniform(0.005, 0.155, (crowd, 3)) * [1, 1, 10])
+        xyz = np.concatenate([lidar(n - out - crowd), far, pillar])
+    xyz = xyz[rng.permutation(n)]
+    refl = rng.uniform(0, 1, (n, 1))
+    return np.concatenate([xyz, refl], 1).astype(np.float32)
+
+
+def pillar_boxes(seed: int, n: int = NMS_BOXES):
+    """(n, 5) [x1, y1, x2, y2, angle] and (n,) scores: a detector's boxes
+    before NMS, 64 proposals jittered around each of n / 64 cars in the
+    KITTI range (centre 0.3 m, size 10%, yaw 0.1 rad), a few scores tied."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    k = n // 64
+    car = np.stack([rng.uniform(2, 67, k), rng.uniform(-37, 37, k)], 1)
+    size = np.stack([rng.uniform(3.5, 4.5, k), rng.uniform(1.5, 2.0, k)], 1)
+    yaw = rng.uniform(-np.pi, np.pi, k)
+    pick = rng.integers(0, k, n)
+    c = car[pick] + rng.normal(0, 0.3, (n, 2))
+    s = size[pick] * rng.uniform(0.9, 1.1, (n, 2))
+    a = yaw[pick] + rng.normal(0, 0.1, n)
+    boxes = np.concatenate([c - s / 2, c + s / 2, a[:, None]], 1)
+    scores = rng.uniform(0, 1, n)
+    scores[1::97] = scores[0]
+    return boxes.astype(np.float32), scores.astype(np.float32)
+
+
+@contextlib.contextmanager
+def pillar_plain_ops():
+    """Route the voxelization wrappers to their plain versions (the
+    plain-op encoder forward and step on the card); restored on exit."""
+    vox = importlib.import_module("vlp3d_torch.ops.voxelize")
+    saved = vox._hard_cuda, vox._dynamic_cuda
+    vox._hard_cuda = vox.hard_voxelize_plain
+    vox._dynamic_cuda = vox.dynamic_voxelize_plain
+    try:
+        yield
+    finally:
+        vox._hard_cuda, vox._dynamic_cuda = saved
+
+
+def rel_err(torch, got, want) -> float:
+    """Largest absolute difference over the largest entry of want."""
+    scale = max(float(want.abs().max()), 1e-30)
+    return float((got - want).abs().max()) / scale
+
+
+class PillarClis(CliProcesses):
+    """Phase 17's predict processes, started beside phase 8's: run.sh's
+    flags over the port's stand-ins, once on the baked npy and once on
+    the npy without multiview columns plus ``--multiview_hdf5`` (read
+    without h5py); seeded weights, so both must predict alike."""
+
+    def start(self):
+        from vlp3d_torch.data.standins import write_standin_assets
+
+        paths = write_standin_assets(self.tmp.name)
+        hdf5 = os.path.join(paths["multiview_nomv_data"],
+                            "enet_feats_maxpool.hdf5")
+        common = [*RUN_SH_FLAGS, "--scanrefer_dir", paths["scanrefer_dir"],
+                  "--bert_vocab", os.path.join(paths["bert_dir"],
+                                               "vocab.txt")]
+        self.out = {k: os.path.join(self.tmp.name, f"pred{i}.json")
+                    for i, k in enumerate(PILLAR_PREDICTS)}
+        baked, mv = PILLAR_PREDICTS
+        self.launch("predict", [
+            *common, "--scannet_data", paths["scannet_data"], "--out",
+            self.out[baked]], key=baked)
+        self.launch("predict", [
+            *common, "--scannet_data", paths["multiview_nomv_data"],
+            "--multiview_hdf5", hdf5, "--out", self.out[mv]], key=mv)
+        stamp("17", "predict CLIs (baked npy, --multiview_hdf5) started")
+
+    def check(self):
+        """Both exit 0; the hdf5 run's pred.json equals the baked run's
+        (boxes within BOX_TOL); returns seconds and the record count."""
+        import numpy as np
+
+        ended = self.ended()
+        preds = {}
+        for key, path in self.out.items():
+            with open(path) as f:
+                preds[key] = sorted(json.load(f), key=lambda r: (
+                    r["scene_id"], r["object_id"], r["ann_id"]))
+        base, mv = (preds[k] for k in PILLAR_PREDICTS)
+        box_err = 0.0
+        if len(base) != len(mv) or not base:
+            fail(f"predict --multiview_hdf5: {len(mv)} records, baked "
+                 f"{len(base)}")
+        for a, b in zip(base, mv):
+            if {k: v for k, v in a.items() if k != "bbox"} != \
+                    {k: v for k, v in b.items() if k != "bbox"}:
+                fail(f"predict --multiview_hdf5 record {b} != baked {a}")
+            box_err = max(box_err, float(np.abs(np.asarray(a["bbox"])
+                                                - np.asarray(b["bbox"]))
+                                         .max()))
+        if box_err > BOX_TOL:
+            fail(f"predict --multiview_hdf5 boxes differ from the baked "
+                 f"run's by {box_err}")
+        numbers = {
+            "records": len(mv), "box_err": box_err,
+            "baked_s": ended[PILLAR_PREDICTS[0]][1],
+            "hdf5_s": ended[PILLAR_PREDICTS[1]][1]}
+        print(f"[17] python -m vlp3d_torch.cli.predict --multiview_hdf5 "
+              f"(stand-ins, no h5py): exit 0 in {numbers['hdf5_s']:.1f} s, "
+              f"{len(mv)} records equal to the baked npy run's (boxes max "
+              f"abs err {box_err}; that run {numbers['baked_s']:.1f} s)")
+        return numbers
+
+
+class PillarsPhase:
+    """Phase 17, with the card to itself: the PointPillars encoder at
+    full width (PILLAR_ROWS rows of PILLAR_POINTS points), the rotated BEV
+    IoU and NMS at OpenPCDet's post-processing size (NMS_BOXES boxes) and
+    the multiview hdf5 read without h5py."""
+
+    def __init__(self, torch, smi):
+        self.smi = smi
+        self.device = torch.device("cuda")
+
+    def trace(self, torch) -> dict:
+        """Trace a hard_voxelize call, an evaluation forward and an NMS
+        call; run in a process of its own (``--pillar-traces``): late in a
+        long process the profiler loses device events (PERF.md, section
+        7)."""
+        from vlp3d_torch.ops import iou3d
+        from vlp3d_torch.ops import voxelize as vox
+
+        profiles = {}
+        model, pts = self._encoder(torch)
+        b, n, _ = pts.shape
+        voxel = (PILLAR_FUNCTIONS["dynamic_voxelize"]
+                 + PILLAR_FUNCTIONS["hard_voxelize"])
+        profiles["hard_voxelize"] = profile_call(
+            torch, lambda: vox._hard_cuda(pts, PILLAR_VOXEL, PILLAR_RANGE,
+                                          PILLAR_SLOTS, PILLAR_VOXELS),
+            "17", f"hard_voxelize call (B {b} x {n})", top=12, expect=voxel)
+        with torch.no_grad():
+            profiles["forward"] = profile_call(
+                torch, lambda: model.eval()(pts), "17",
+                "PillarEncoder evaluation forward", top=12, expect=voxel)
+        host_boxes, host_scores = pillar_boxes(16)
+        boxes = torch.from_numpy(host_boxes).to(self.device)
+        scores = torch.from_numpy(host_scores).to(self.device)
+        profiles["nms_rotated"] = profile_call(
+            torch, lambda: iou3d.nms_rotated(boxes, scores,
+                                             NMS_THRESHOLDS[0]),
+            "17", f"nms_rotated call ({boxes.shape[0]} boxes)", top=6,
+            expect=PILLAR_FUNCTIONS["nms_bev"])
+        return profiles
+
+    def drive(self, torch, cli_numbers: dict):
+        t0 = time.perf_counter()
+        self.cli_numbers = cli_numbers
+        rows, numbers = {}, {"profiles": pillar_traces()}
+        model, pts = self._encoder(torch)
+        rows.update(self._voxel_kernels(torch, pts))
+        numbers["encoder"] = self._encoder_checks(torch, model, pts)
+        del model, pts
+        torch.cuda.empty_cache()
+        iou_rows, numbers["nms"] = self._iou_nms(torch)
+        rows.update(iou_rows)
+        numbers["multiview_hdf5"] = self._hdf5(torch)
+        numbers["phase_s"] = time.perf_counter() - t0
+        stamp("17", f"PointPillars, IoU / NMS and the hdf5 read in "
+              f"{numbers['phase_s']:.1f} s")
+        return rows, numbers
+
+    # -- (a) the encoder ---------------------------------------------------
+
+    def _encoder(self, torch):
+        import numpy as np
+
+        from vlp3d_torch.models.pointpillars import PillarEncoder
+
+        model = PillarEncoder(out_channel=PILLAR_CHANNELS,
+                              device=self.device)
+        g = torch.Generator().manual_seed(17)
+        c_out, c_in = model.conv.weight.shape[:2]
+        sd = {"conv.weight": torch.randn(c_out, c_in, 1, generator=g)
+              * (2.0 / c_in) ** 0.5,
+              "bn.weight": 1.0 + 0.1 * torch.randn(c_out, generator=g),
+              "bn.bias": 0.1 * torch.randn(c_out, generator=g),
+              "bn.running_mean": 0.1 * torch.randn(c_out, generator=g),
+              "bn.running_var": 1.0 + torch.rand(c_out, generator=g),
+              "bn.num_batches_tracked": torch.tensor(0)}
+        model.load_state_dict(sd, strict=True)
+        host = [pillar_cloud(17 + i, kind) for i, kind in
+                enumerate(("lidar", "lidar", "uniform", "worst"))]
+        pts = torch.from_numpy(np.stack(host)).to(self.device)
+        return model, pts
+
+    def _voxel_kernels(self, torch, pts):
+        """Both kernels against their plain versions bit for bit, timed."""
+        from vlp3d_torch.ops import voxelize as vox
+        from vlp3d_torch.ops.host_time import host_us
+
+        vs, pr = PILLAR_VOXEL, PILLAR_RANGE
+        p, v = PILLAR_SLOTS, PILLAR_VOXELS
+        got = vox._hard_cuda(pts, vs, pr, p, v)
+        want = vox.hard_voxelize_plain(pts, vs, pr, p, v)
+        names = ("voxels", "coors", "num_points_per_voxel", "voxel_num",
+                 "voxel_mask", "slot")
+        for name, a, b in zip(names, got, want):
+            if a.shape != b.shape or a.dtype != b.dtype \
+                    or not torch.equal(a, b):
+                fail(f"hard_voxelize kernel {name} differs from the plain "
+                     "version")
+        coords, _ = vox._dynamic_cuda(pts, vs, pr)
+        if not torch.equal(coords, vox.dynamic_voxelize_plain(pts, vs,
+                                                              pr)[0]):
+            fail("dynamic_voxelize kernel differs from the plain version")
+        voxel_num = got[3].tolist()
+        npts = got[2]
+        shape = dict(rows=PILLAR_ROWS, points=PILLAR_POINTS,
+                     voxel_num=voxel_num,
+                     max_count=int(npts.max()),
+                     outside=float((coords[..., 0] < 0).float().mean()))
+        if not (5000 <= voxel_num[0] <= 12000 and 5000 <= voxel_num[1]
+                <= 12000 and voxel_num[2] == v and int(npts[3].max()) == p):
+            fail(f"phase 17's clouds are not the ones described: {shape}")
+        b, n, c = pts.shape
+        tiny = pts[:1, :64].contiguous()
+        rows = {}
+        for name, fn, plain, nbytes in (
+                ("dynamic_voxelize",
+                 lambda: vox._dynamic_cuda(pts, vs, pr),
+                 lambda: vox.dynamic_voxelize_plain(pts, vs, pr),
+                 4 * b * n * c + 4 * b * n * 3),
+                ("hard_voxelize",
+                 lambda: vox._hard_cuda(pts, vs, pr, p, v),
+                 lambda: vox.hard_voxelize_plain(pts, vs, pr, p, v),
+                 4 * b * n * c + 4 * b * v * p * c + 4 * b * v * 3
+                 + 4 * b * v + 4 * b + b * v + 4 * b * n)):
+            ms = cuda_ms(torch, fn, reps=20)
+            plain_ms = cuda_ms(torch, plain, reps=2, warmup=1)
+            bound, by = bound_ms(nbytes, 0)
+            rows[name] = [{
+                "site": "PillarEncoder", "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by, "library_ms": None,
+                "max_abs_err": 0.0, "shape": shape}]
+            print(f"[17] {name} (B {b} x {n} points, {v} voxels x {p} "
+                  f"slots): kernel {ms:.4f} ms, plain {plain_ms:.3f}, bound "
+                  f"{bound:.5f} ({by}); equal to the plain version bit for "
+                  "bit")
+        rows["dynamic_voxelize"][0]["host_us"] = host_us(
+            lambda: vox.dynamic_voxelize(tiny, vs, pr))
+        rows["hard_voxelize"][0]["host_us"] = host_us(
+            lambda: vox.hard_voxelize(tiny, vs, pr, p, v))
+        print(f"[17] clouds {shape}; host us dynamic "
+              f"{rows['dynamic_voxelize'][0]['host_us']:.1f}, hard "
+              f"{rows['hard_voxelize'][0]['host_us']:.1f}")
+        return rows
+
+    def _encoder_checks(self, torch, model, pts):
+        """The evaluation forward and a training forward + backward
+        against the plain ops, the launches of each (the main path, counts
+        at 0), the median ms and peak memory."""
+        import copy
+
+        from vlp3d_torch.ops import _kernels
+
+        out = {}
+        model.eval()
+        with torch.no_grad():
+            _kernels.reset_launches()
+            canvas = model(pts)
+            torch.cuda.synchronize()
+            out["launches_forward"] = dict(_kernels.launches)
+            with pillar_plain_ops():
+                ref = model(pts)
+        if tuple(canvas.shape) != (PILLAR_ROWS, 496, 432, PILLAR_CHANNELS) \
+                or not torch.isfinite(canvas).all():
+            fail(f"PillarEncoder canvas {tuple(canvas.shape)}")
+        out["canvas_err"] = (0.0 if torch.equal(canvas, ref)
+                             else rel_err(torch, canvas, ref))
+        if out["canvas_err"] > PILLAR_CANVAS_TOL:
+            fail(f"PillarEncoder canvas differs from the plain-op forward "
+                 f"by {out['canvas_err']} of its largest entry")
+        out["filled_cells"] = [int(x) for x in
+                               (canvas.abs().sum(-1) > 0).sum((1, 2))]
+        g = torch.randn(canvas.shape, generator=torch.Generator(
+            device=self.device).manual_seed(3), device=self.device)
+
+        def step(m, plain=False):
+            x = pts.clone().requires_grad_(True)
+            with pillar_plain_ops() if plain else contextlib.nullcontext():
+                y = m.train()(x)
+                (y * g).sum().backward()
+            return y.detach(), x.grad, {k: p.grad for k, p in
+                                        m.named_parameters()}, m
+
+        kernel_model, plain_model = copy.deepcopy(model), copy.deepcopy(model)
+        _kernels.reset_launches()
+        y, gx, grads, m_k = step(kernel_model)
+        torch.cuda.synchronize()
+        out["launches_step"] = dict(_kernels.launches)
+        y_p, gx_p, grads_p, m_p = step(plain_model, plain=True)
+        errs = {"canvas": rel_err(torch, y, y_p),
+                "points": rel_err(torch, gx, gx_p),
+                **{k: rel_err(torch, v, grads_p[k]) for k, v in
+                   grads.items()},
+                "running_mean": rel_err(torch, m_k.bn.running_mean,
+                                        m_p.bn.running_mean),
+                "running_var": rel_err(torch, m_k.bn.running_var,
+                                       m_p.bn.running_var)}
+        out["step_errs"] = errs
+        if max(errs.values()) > STEP_GRAD_TOL:
+            fail(f"PillarEncoder training step against the plain ops: "
+                 f"{errs}")
+        for path in ("launches_forward", "launches_step"):
+            if out[path] != PILLAR_FORWARD:
+                fail(f"PillarEncoder {path} {out[path]} != {PILLAR_FORWARD}")
+        del kernel_model, plain_model, y, gx, grads, y_p, gx_p, grads_p
+        torch.cuda.empty_cache()
+        model.eval()
+        with torch.no_grad():
+            out["forward_ms"], out["forward_peak_gib"] = median_ms(
+                torch, lambda: model(pts), PILLAR_STEPS)
+        step_model = copy.deepcopy(model)
+        out["step_ms"], out["step_peak_gib"] = median_ms(
+            torch, lambda: step(step_model), PILLAR_STEPS)
+        del step_model
+        print(f"[17] PillarEncoder at {PILLAR_ROWS} x {PILLAR_POINTS} points "
+              f"(canvas {PILLAR_ROWS} x 496 x 432 x {PILLAR_CHANNELS}, filled "
+              f"cells "
+              f"{out['filled_cells']}): evaluation canvas "
+              f"{'bit-equal to' if out['canvas_err'] == 0 else 'within'} "
+              f"the plain-op forward's (err {out['canvas_err']}); training "
+              f"step errors {json.dumps(errs)}; launches a forward "
+              f"{out['launches_forward']}, a step {out['launches_step']}; "
+              f"median of {PILLAR_STEPS}: forward {out['forward_ms']:.3f} ms "
+              f"(peak +{out['forward_peak_gib']:.3f} GiB), forward + "
+              f"backward {out['step_ms']:.3f} ms (peak "
+              f"+{out['step_peak_gib']:.3f} GiB)")
+        return out
+
+    # -- (b) IoU and NMS ---------------------------------------------------
+
+    def _iou_nms(self, torch):
+        import numpy as np
+
+        from vlp3d_torch.ops import _kernels
+        from vlp3d_torch.ops import iou3d
+        from vlp3d_torch.ops.host_time import host_us
+
+        dev = self.device
+        host_boxes, host_scores = pillar_boxes(16)
+        boxes = torch.from_numpy(host_boxes).to(dev)
+        scores = torch.from_numpy(host_scores).to(dev)
+        n = boxes.shape[0]
+        numbers, rows = {}, {}
+        # the path: every count at 0, one IoU matrix and each NMS form
+        _kernels.reset_launches()
+        iou = iou3d.boxes_iou_bev(boxes, boxes)
+        keeps = {(form, th): getattr(iou3d, f"nms_{form}")(boxes, scores, th)
+                 for form in ("rotated", "normal") for th in NMS_THRESHOLDS}
+        torch.cuda.synchronize()
+        numbers["launches"] = dict(_kernels.launches)
+        want_launches = dict(ZERO_LAUNCHES, boxes_iou_bev=1,
+                             nms_bev=len(keeps))
+        if numbers["launches"] != want_launches:
+            fail(f"IoU / NMS launches {numbers['launches']}")
+        # the IoU against its plain version, the plain run counting the
+        # clip's operations for the bound, each timed once by events
+        ops_count = []
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        iou_plain = iou3d.boxes_iou_bev_plain(boxes, boxes, ops_count)
+        end.record()
+        torch.cuda.synchronize()
+        iou_plain_ms = start.elapsed_time(end)
+        pair_ops = (float(sum(int(o) for o in ops_count))
+                    + float(OPS_CORNERS) * 2 * n)
+        iou_err = float((iou - iou_plain).abs().max())
+        if iou_err > IOU_TOL:
+            fail(f"boxes_iou_bev {n} x {n}: kernel against plain {iou_err}")
+        over = iou3d.boxes_overlap_bev(boxes, boxes[:256])
+        over_err = float(((over - iou3d.boxes_overlap_bev_plain(
+            boxes, boxes[:256])).abs() / torch.clamp(over.abs(), min=1.0))
+            .max())
+        if over_err > IOU_TOL:
+            fail(f"boxes_overlap_bev: kernel against plain {over_err} "
+                 "(relative above 1)")
+        # NMS: equal to the plain scan on the kernel's own ranked matrix;
+        # against the plain scan on the plain matrix, equal unless a
+        # ranked pair lies within NMS_TIE of the threshold
+        nms = {}
+        order = iou3d.rank_boxes(scores)
+        for form in ("rotated", "normal"):
+            b = boxes.clone()
+            if form == "normal":
+                b[:, 4] = 0
+            ranked = b[order].contiguous()
+            own = iou3d.boxes_iou_bev(ranked, ranked)
+            plain = (iou_plain[order][:, order] if form == "rotated"
+                     else iou3d.boxes_iou_bev_plain(ranked, ranked))
+            for th in NMS_THRESHOLDS:
+                keep = keeps[(form, th)]
+                alive = iou3d.nms_scan_plain(own, th)
+                want = torch.zeros_like(alive)
+                want[order] = alive
+                if not torch.equal(keep, want):
+                    fail(f"nms_{form} {th}: kernel keep mask differs from "
+                         "the plain scan on the kernel's IoU")
+                eye = torch.eye(n, dtype=torch.bool, device=dev)
+                near = ((plain - th).abs() < NMS_TIE) & ~eye
+                differ = ((own > th) != (plain > th)) & ~eye
+                if (differ & ~near).any():
+                    fail(f"nms_{form} {th}: a decision away from the "
+                         "threshold differs between kernel and plain IoU")
+                alive_p = iou3d.nms_scan_plain(plain, th)
+                want_p = torch.zeros_like(alive_p)
+                want_p[order] = alive_p
+                if not differ.any() and not torch.equal(keep, want_p):
+                    fail(f"nms_{form} {th}: keep mask differs from plain "
+                         "NMS on the plain IoU")
+                nms[f"{form}_{th}"] = {
+                    "kept": int(keep.sum()), "near_pairs": int(near.sum()),
+                    "differing_decisions": int(differ.sum()),
+                    "equal_to_plain_nms": bool(torch.equal(keep, want_p))}
+        numbers["nms"] = nms
+        numbers["edges"] = self._iou_edges(torch)
+        # timing
+        th = NMS_THRESHOLDS[0]
+        ms = cuda_ms(torch, lambda: iou3d.boxes_iou_bev(boxes, boxes), 10)
+        nms_ms = cuda_ms(torch, lambda: iou3d.nms_rotated(boxes, scores, th),
+                         10)
+        start.record()
+        iou3d.nms_rotated_plain(boxes, scores, th)
+        end.record()
+        torch.cuda.synchronize()
+        nms_plain_ms = start.elapsed_time(end)
+        iou_bound = bound_ms(4 * 5 * 2 * n + 4 * n * n, pair_ops)
+        nms_bound = bound_ms(4 * 5 * n + 8 * n + n + 8 * n * (n + 63) // 64,
+                             pair_ops * (n - 1) / n)
+        tiny = boxes[:4].contiguous()
+        rows["boxes_iou_bev"] = [{
+            "site": f"{n} x {n} boxes", "ms": ms, "plain_ms": iou_plain_ms,
+            "bound_ms": iou_bound[0], "bound_by": iou_bound[1],
+            "library_ms": None, "max_abs_err": iou_err,
+            "overlap_rel_err": over_err, "ops_a_pair": pair_ops / n / n,
+            "host_us": host_us(lambda: iou3d.boxes_iou_bev(tiny, tiny))}]
+        rows["nms_bev"] = [{
+            "site": f"{n} boxes, thresh {th}", "ms": nms_ms,
+            "plain_ms": nms_plain_ms, "bound_ms": nms_bound[0],
+            "bound_by": nms_bound[1], "library_ms": None,
+            "max_abs_err": 0.0,
+            "host_us": host_us(lambda: iou3d.nms_rotated(tiny, scores[:4],
+                                                         th))}]
+        print(f"[17] boxes_iou_bev {n} x {n} ({pair_ops / n / n:.1f} fp32 "
+              f"operations a pair): kernel {ms:.4f} ms, plain "
+              f"{iou_plain_ms:.2f}, bound {iou_bound[0]:.5f} "
+              f"({iou_bound[1]}), max abs err {iou_err} (overlap, relative "
+              f"above 1: {over_err}); nms_rotated at {th}: kernel "
+              f"{nms_ms:.4f} ms, plain {nms_plain_ms:.2f}, bound "
+              f"{nms_bound[0]:.5f} ({nms_bound[1]}); keep masks "
+              f"{json.dumps(nms)}; launches {numbers['launches']}; host us "
+              f"{rows['boxes_iou_bev'][0]['host_us']:.1f} / "
+              f"{rows['nms_bev'][0]['host_us']:.1f}")
+        return rows, numbers
+
+    def _iou_edges(self, torch):
+        """The degenerate boxes of tests/torch_pillar_cases.py, tied scores
+        and N = 1, 63, 64, 65: the
+        IoU within IOU_TOL of the plain version (relative above 1: a zero
+        union gives 2e8), NMS equal to the plain scan on the kernel's
+        IoU."""
+        import numpy as np
+
+        from vlp3d_torch.ops import iou3d
+
+        cases = load_test_module("torch_pillar_cases")
+        rng = np.random.default_rng(5)
+        sets = {"edges": cases.edge_boxes(),
+                **{f"n{n}": cases.bev_boxes(n, n, spread=4.0)
+                   for n in (1, 63, 64, 65)}}
+        out = {}
+        for name, host in sets.items():
+            b = torch.from_numpy(host).to(self.device)
+            n = b.shape[0]
+            sc = torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32)
+                                  ).to(self.device)
+            sc[n // 2:] = sc[0].clone()  # ties
+            iou = iou3d.boxes_iou_bev(b, b)
+            want = iou3d.boxes_iou_bev_plain(b, b)
+            err = float(((iou - want).abs() / torch.clamp(want.abs(),
+                                                          min=1.0)).max())
+            if err > IOU_TOL:
+                fail(f"boxes_iou_bev {name}: {err} from the plain version")
+            order = iou3d.rank_boxes(sc)
+            for form in ("rotated", "normal"):
+                r = b.clone()
+                if form == "normal":
+                    r[:, 4] = 0
+                r = r[order].contiguous()
+                for th in NMS_THRESHOLDS:
+                    keep = getattr(iou3d, f"nms_{form}")(b, sc, th)
+                    alive = iou3d.nms_scan_plain(iou3d.boxes_iou_bev(r, r),
+                                                 th)
+                    want_k = torch.zeros_like(alive)
+                    want_k[order] = alive
+                    if not torch.equal(keep, want_k):
+                        fail(f"nms_{form} {name} {th}: keep mask differs")
+            out[name] = err
+        print(f"[17] IoU / NMS edge cases (identical, edge-sharing, nested, "
+              f"zero-area, angles at multiples of pi / 2, tied scores, N = 1, "
+              f"63, 64, 65): IoU errors {json.dumps(out)}, keep masks equal")
+        return out
+
+    # -- (c) the multiview hdf5 without h5py --------------------------------
+
+    def _hdf5(self, torch):
+        """The loader's batches through --multiview_hdf5 (the port's own
+        stand-ins) against the baked npy's, bit for bit; the committed
+        h5py-written fixtures held to their formula."""
+        import tempfile
+
+        import numpy as np
+
+        from vlp3d_torch.data import dataset as data
+        from vlp3d_torch.data.hdf5 import read_datasets
+        from vlp3d_torch.data.standins import write_standin_assets
+        from vlp3d_torch.data.tokenizer import load_tokenizer
+
+        try:
+            import h5py  # noqa: F401
+            has_h5py = True
+        except ImportError:
+            has_h5py = False
+        tmp = tempfile.TemporaryDirectory()
+        paths = write_standin_assets(tmp.name)
+        hdf5 = os.path.join(paths["multiview_nomv_data"],
+                            "enet_feats_maxpool.hdf5")
+        tsv = os.path.join(tmp.name, "labels.tsv")
+        with open(tsv, "w") as f:
+            f.write("id\traw_category\tcategory\tcount\tnyu40id\teigen13id"
+                    "\tnyuClass\tnyu40class\n2\tchair\tchair\t10\t5\t6\tchair"
+                    "\tchair\n3\ttable\ttable\t10\t7\t10\ttable\ttable\n")
+        with open(os.path.join(paths["scanrefer_dir"],
+                               "ScanRefer_filtered_val.json")) as f:
+            anns = json.load(f)
+        tok = load_tokenizer(os.path.join(paths["bert_dir"], "vocab.txt"))
+
+        def batches(scene_dir, hdf5):
+            import random
+
+            random.seed(3)
+            ds = data.ScanReferJointDataset(
+                anns, data.DirectorySceneSource(scene_dir,
+                                                multiview_hdf5=hdf5),
+                tok, split="val", num_points=40000, lang_num_max=2,
+                augment=True, shuffle=True,
+                raw2label=data.load_raw2label(tsv),
+                nyu40id2class=data.build_nyu40id2class(tsv), seed=9)
+            return list(data.BatchIterator(ds, 2, epoch=0, drop_last=False,
+                                           num_workers=2,
+                                           rng=np.random.default_rng(0)))
+
+        baked = batches(paths["scannet_data"], None)
+        got = batches(paths["multiview_nomv_data"], hdf5)
+        tmp.cleanup()
+        if len(got) != len(baked) or not got:
+            fail(f"--multiview_hdf5 loader: {len(got)} batches, baked "
+                 f"{len(baked)}")
+        for w, g in zip(baked, got):
+            for k, v in w.items():
+                if isinstance(v, list):
+                    same = g[k] == v
+                else:
+                    v, gk = np.asarray(v), np.asarray(g[k])
+                    same = gk.dtype == v.dtype and np.array_equal(gk, v)
+                if not same:
+                    fail(f"--multiview_hdf5 batch {k} differs from the "
+                         "baked npy's")
+        fx = load_test_module("torch_write_hdf5_fixtures")
+        fixtures = {}
+        for name in sorted(fx.LAYOUTS):
+            t0 = time.perf_counter()
+            sets = read_datasets(os.path.join(fx.FIXTURES, name))
+            if list(sets) != [fx.fixture_name(i) for i in range(fx.COUNT)] \
+                    or not all(np.array_equal(sets[fx.fixture_name(i)],
+                                              fx.fixture_value(i))
+                               for i in range(fx.COUNT)):
+                fail(f"the h5py-written fixture {name} read wrong")
+            fixtures[name] = {"datasets": len(sets),
+                              "ms": (time.perf_counter() - t0) * 1e3}
+        out = {"batches": len(got), "h5py_installed": has_h5py,
+               "fixtures": fixtures, "cli": self.cli_numbers}
+        print(f"[17] --multiview_hdf5 loader (the port's stand-ins, 40000 "
+              f"points): {len(got)} batches equal to the baked npy's bit for "
+              f"bit; h5py installed here: {has_h5py}; h5py-written fixtures "
+              f"read and held to their formula: {json.dumps(fixtures)}")
+        return out
+
+
+def pillar_kernel_rows(rows, numbers):
+    """The four PointPillars kernels' entries of the {"kernels": ...}
+    line; launches are those of phase 17's main-path runs."""
+    sources = {
+        "dynamic_voxelize": ("vlp3d_torch/csrc/voxelize.cu",
+                             "vlp3d/ops/voxelize.py:26"),
+        "hard_voxelize": ("vlp3d_torch/csrc/voxelize.cu",
+                          "vlp3d/ops/voxelize.py:38"),
+        "boxes_iou_bev": ("vlp3d_torch/csrc/iou3d.cu",
+                          "vlp3d/ops/iou3d.py:106"),
+        "nms_bev": ("vlp3d_torch/csrc/iou3d.cu", "vlp3d/ops/iou3d.py:116"),
+    }
+    enc, iou = numbers["encoder"], numbers["nms"]["launches"]
+    out = []
+    for name, (source, replaces) in sources.items():
+        functions = PILLAR_FUNCTIONS[name]
+        r = rows[name][0]
+        launches = {"pillar_forward": enc["launches_forward"][name],
+                    "pillar_step": enc["launches_step"][name],
+                    "iou_nms": iou[name]}
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": sum(launches.values()),
+            **{f"launches_{k}": v for k, v in launches.items()},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "host_us": r["host_us"], "kernel_functions": functions,
+            "site": r["site"]})
+    return out
+
+
+def check_kernel_functions(kernels) -> None:
+    """Fail unless every CUDA function a row of the kernels line names
+    is a kernel of the library built from the row's source: its mangled
+    name (``<length><identifier>``, anonymous namespace and template
+    arguments aside) is in the library the run loaded."""
+    from pathlib import Path
+
+    from vlp3d_torch.ops import _kernels
+
+    for k in kernels:
+        data = _kernels.lib_path(Path(k["source"]).stem).read_bytes()
+        for fn in k["kernel_functions"]:
+            ident = fn.split("<")[0].strip()
+            if f"{len(ident)}{ident}".encode() not in data:
+                fail(f"kernel {k['name']} names {fn}, which "
+                     f"{k['source']}'s library does not hold")
+    print(f"[18] the kernel functions of all {len(kernels)} rows found in "
+          "their libraries")
+
+
+def pillar_traces() -> dict:
+    """Phase 17's traces (PillarsPhase.trace) from a process of its own,
+    which prints them; its last line is their numbers."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--pillar-traces"],
+        cwd=REPO, env=child_env(), capture_output=True, text=True,
+        timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0:
+        print(proc.stdout)
+        fail(f"the PointPillars trace process exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    print("\n".join(lines[:-1]))
+    stamp("17", "PointPillars traces")
+    return json.loads(lines[-1])
+
+
 def free_port() -> int:
     """A free port on 127.0.0.1 for a rendezvous."""
     import socket
@@ -7198,6 +7999,11 @@ def main() -> int:
     sys.pycache_prefix, sys.dont_write_bytecode = PYCACHE, False
     if "--rank-worker" in sys.argv[1:]:
         return rank_worker(tiny="--tiny" in sys.argv[1:])
+    if "--pillar-traces" in sys.argv[1:]:
+        import torch
+
+        print(json.dumps(PillarsPhase(torch, None).trace(torch)))
+        return 0
     if "--ranks" in sys.argv[1:]:
         try:
             return ranks_main(int(sys.argv[sys.argv.index("--ranks") + 1]))
@@ -7261,13 +8067,14 @@ def main() -> int:
     # phase 8's training-CLI processes and phase 10's caption_predict and
     # caption_eval processes start once phase 7's timing is done
     cli, caption_clis, task_clis = TrainCli(), CaptionClis(), TaskClis()
-    variant_clis = VariantClis()
+    variant_clis, pillar_clis = VariantClis(), PillarClis()
 
     def start_clis():
         cli.start()
         caption_clis.start()
         task_clis.start()
         variant_clis.start()
+        pillar_clis.start()
 
     try:
         predict = drive_predict(torch, smi, after_timing=start_clis)
@@ -7312,11 +8119,14 @@ def main() -> int:
         stamp("15", "task CLIs")
         variant_cli_numbers = variant_clis.check()
         stamp("16", "variant CLIs")
+        pillar_cli_numbers = pillar_clis.check()
+        stamp("17", "predict --multiview_hdf5 CLI")
     finally:
         cli.stop()
         caption_clis.stop()
         task_clis.stop()
         variant_clis.stop()
+        pillar_clis.stop()
     remat, per_remat_step = check_remat(torch, smi, remat, batch)
     del batch
     http, latency = drive_http(torch, smi, http_phase)
@@ -7337,6 +8147,9 @@ def main() -> int:
     task_paths, task_numbers = tasks.drive(torch)
     # 16. the remaining variant models with the card to itself
     variant_paths, variant_numbers = variants.drive(torch)
+    # 17. PointPillars, the rotated IoU / NMS and the multiview hdf5
+    pillar_rows, pillar_numbers = PillarsPhase(torch, smi).drive(
+        torch, pillar_cli_numbers)
     paths = {**captions, **answers, **options, "dp_step": dp_step,
              "sp_front": sp_front, **task_paths, **variant_paths}
     task_steps = [p for p in task_paths if p.endswith("_step")]
@@ -7365,9 +8178,14 @@ def main() -> int:
                             "detector_forward")))):
             fail(f"kernel {name} was not launched on a main path")
 
-    # 17. results
+    # 18. results
     line = kernel_line(rows, serving, train, predict, solver, http,
                        per_step, per_remat_step, paths)
+    line["kernels"] += pillar_kernel_rows(pillar_rows, pillar_numbers)
+    for k in line["kernels"]:
+        if k["launches"] == 0:
+            fail(f"kernel {k['name']} was not launched on its main path")
+    check_kernel_functions(line["kernels"])
     line["remat_step"] = remat
     line["http"] = latency
     line["caption"] = caption_numbers
@@ -7377,8 +8195,9 @@ def main() -> int:
     line["parallel_modes"] = mode_numbers
     line["task_pipelines"] = dict(task_numbers, clis=task_cli_numbers)
     line["variants"] = dict(variant_numbers, clis=variant_cli_numbers)
+    line["pointpillars"] = pillar_numbers
     line["wall_s"] = time.perf_counter() - _T0
-    print(f"[17] the whole command took {line['wall_s']:.1f} s")
+    print(f"[18] the whole command took {line['wall_s']:.1f} s")
     print(json.dumps(line))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

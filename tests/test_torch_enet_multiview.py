@@ -291,8 +291,9 @@ def test_hdf5_writer_is_what_h5py_reads(tmp_path):
     """vlp3d_torch.data.hdf5 writes the file without h5py: h5py reads
     every dataset back bit for bit (datasets added in any order, 1600 of
     them in one symbol-table node, none), and so does the port's reader,
-    as read-only memory maps; the reader refuses a file of another
-    layout (h5py's own, whose group B-tree has several levels)."""
+    as read-only memory maps; the reader also reads h5py's own layout
+    (whose group B-tree has several levels) and refuses a chunked
+    dataset, naming it."""
     import h5py
 
     from vlp3d_torch.data.hdf5 import DatasetWriter, read_datasets
@@ -330,8 +331,18 @@ def test_hdf5_writer_is_what_h5py_reads(tmp_path):
     with h5py.File(theirs, "w") as f:
         for i in range(700):
             f.create_dataset(f"s{i:04d}", data=np.full((2, 3), i, np.float32))
-    with pytest.raises(ValueError, match="not the one leaf"):
-        read_datasets(str(theirs))
+    got = read_datasets(str(theirs))
+    assert list(got) == [f"s{i:04d}" for i in range(700)]
+    assert all(np.array_equal(got[f"s{i:04d}"], np.full((2, 3), i,
+                                                        np.float32))
+               for i in range(700))
+    chunked = tmp_path / "chunked.hdf5"
+    with h5py.File(chunked, "w") as f:
+        f.create_dataset("s0000", data=np.ones((2, 3), np.float32))
+        f.create_dataset("s0001", data=np.ones((4, 3), np.float32),
+                         chunks=(2, 3))
+    with pytest.raises(ValueError, match="s0001: chunked layout"):
+        read_datasets(str(chunked))
     mine = read_datasets(str(path))
     assert sorted(mine) == sorted(data)
     for k, v in mine.items():

@@ -17,6 +17,13 @@ long for registers (its streamed form) at 1 and 2 ranks; a launch whose
 peer never writes must trap in a process of its own
 (``tests/torch_stall_probe.py``). The ball-query merge runs at 1 and 4
 shards against its plain version and the dense ball query.
+The PointPillars kernels: dynamic and hard voxelization equal to their
+plain versions bit for bit (the voxel and slot caps, a 20000-point
+pillar, most points outside, the encoder's B=4 x 120000), the points'
+gradient equal to the CPU's; the rotated BEV IoU and overlap within
+1e-6 of the plain version (relative above 1), NMS keep masks equal to
+the plain scan over the kernel's own ranked IoU (N = 1, 63, 64, 65,
+1000, degenerate boxes, tied scores).
 Ball query runs its tile kernel under every plan the smoke run sweeps,
 on inputs built against the plans' segment boundaries
 (``tests/torch_bq_cases.py``); three-NN runs its team kernel, alone and
@@ -77,12 +84,15 @@ from vlp3d_torch.ops.interpolate import (
 from vlp3d_torch.ops.sampling import _fps_cuda, _fps_plan, fps_plain
 from vlp3d_torch.parallel import point_parallel as pp
 from vlp3d_torch.serving import STREAM_KEYS
+from torch_pillar_cases import bev_boxes, edge_boxes
 from torch_point_cases import fps_cases, merge_cases
 
 TOL = dict(rtol=1e-4, atol=1e-4)
-# the point-axis kernels, which no single-card path below launches
+# the point-axis and PointPillars kernels, which no single-card JointNet
+# path below launches
 NO_POINT_AXIS = {"fps_shard_loop": 0, "ball_query_merge": 0,
-                 "gather_owned": 0}
+                 "gather_owned": 0, "dynamic_voxelize": 0, "hard_voxelize": 0,
+                 "boxes_iou_bev": 0, "nms_bev": 0}
 FLAGS = dict(use_con=False, no_caption=True)
 
 
@@ -958,3 +968,126 @@ def test_ball_query_merge_refuses_more_than_32_shards(cuda):
     cnt = torch.zeros((33, 1, 2), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="at most 32"):
         pp.ball_query_merge(idx, cnt, 8, 4)
+
+
+# -- the PointPillars kernels (csrc/voxelize.cu, csrc/iou3d.cu) -----------
+
+PILLAR_VOXEL = (0.16, 0.16, 4.0)
+PILLAR_RANGE = (0.0, -39.68, -3.0, 69.12, 39.68, 1.0)
+
+
+def _pillar_points(b, n, seed, crowd=0, outside=0.0):
+    """(b, n, 4) float32 over PointPillars' KITTI range, a share outside
+    it, the first row's first ``crowd`` points (shuffled in) in one
+    pillar."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.array(PILLAR_RANGE[:3]), np.array(PILLAR_RANGE[3:])
+    xyz = rng.uniform(lo - (hi - lo) * outside, hi + (hi - lo) * outside,
+                      (b, n, 3))
+    if crowd:
+        xyz[0, :crowd] = [20.01, 5.01, -1.0] + rng.uniform(0, 0.14,
+                                                           (crowd, 3))
+        xyz[0] = xyz[0, rng.permutation(n)]
+    return np.concatenate([xyz, rng.uniform(0, 1, (b, n, 1))],
+                          -1).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,crowd,outside,slots,voxels", [
+    (1, 1, 0, 0.0, 32, 16000),
+    (2, 5000, 0, 0.2, 32, 16000),
+    (3, 40000, 0, 0.0, 8, 3000),       # the voxel cap
+    (1, 60000, 20000, 0.3, 32, 16000),  # the slot cap, a long segment
+    (4, 120000, 0, 0.0, 32, 16000),     # the encoder's shape
+    (2, 3000, 0, 3.0, 32, 100),         # most points outside
+])
+def test_voxelize_kernels_equal_plain(cuda, b, n, crowd, outside, slots,
+                                      voxels):
+    from vlp3d_torch.ops import voxelize as vox
+
+    pts = t(_pillar_points(b, n, n + b, crowd, outside)).to(cuda)
+    ops.reset_launches()
+    got = vox._hard_cuda(pts, PILLAR_VOXEL, PILLAR_RANGE, slots, voxels)
+    torch.cuda.synchronize()
+    assert _kernels.launches["dynamic_voxelize"] == 1
+    assert _kernels.launches["hard_voxelize"] == 1
+    want = vox.hard_voxelize_plain(pts, PILLAR_VOXEL, PILLAR_RANGE, slots,
+                                   voxels)
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and torch.equal(a, w)
+    coords, grid = vox.dynamic_voxelize(pts, PILLAR_VOXEL, PILLAR_RANGE)
+    assert torch.equal(coords, vox.dynamic_voxelize_plain(
+        pts, PILLAR_VOXEL, PILLAR_RANGE)[0])
+    assert grid.tolist() == [432, 496, 1]
+    # the batched launch is its rows
+    one = vox._hard_cuda(pts[-1:].contiguous(), PILLAR_VOXEL, PILLAR_RANGE,
+                         slots, voxels)
+    for a, w in zip(one, got):
+        assert torch.equal(a[0], w[-1])
+
+
+@pytest.mark.gpu
+def test_voxelize_gradient_and_refusals(cuda):
+    from vlp3d_torch.ops import voxelize as vox
+
+    host = _pillar_points(2, 3000, 4, crowd=200)
+    g = np.random.default_rng(1).normal(size=(2, 400, 8, 4)).astype(
+        np.float32)
+    grads = []
+    for dev in ("cpu", cuda):
+        x = t(host).to(dev).requires_grad_(True)
+        out = vox.hard_voxelize(x, PILLAR_VOXEL, PILLAR_RANGE, 8, 400)
+        out["voxels"].backward(t(g).to(dev))
+        grads.append(x.grad.cpu())
+    assert torch.equal(grads[0], grads[1])
+    with pytest.raises(ValueError, match="cells"):
+        vox.hard_voxelize(t(host).to(cuda), (0.01, 0.01, 0.01),
+                          PILLAR_RANGE, 8, 400)
+    with pytest.raises(ValueError, match="float32"):
+        vox.dynamic_voxelize(t(host).to(cuda).double(), PILLAR_VOXEL,
+                             PILLAR_RANGE)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m", [(1, 1), (17, 33), (300, 257), (4096, 64)])
+def test_iou_bev_kernel_matches_plain(cuda, n, m):
+    from vlp3d_torch.ops import iou3d
+
+    a = t(bev_boxes(n, n, spread=40.0, size=(1, 5))).to(cuda)
+    b = t(bev_boxes(m, m + 1, spread=40.0, size=(1, 5))).to(cuda)
+    got = iou3d.boxes_iou_bev(a, b)
+    assert (got - iou3d.boxes_iou_bev_plain(a, b)).abs().max() <= 1e-6
+    over = iou3d.boxes_overlap_bev(a, b)
+    want = iou3d.boxes_overlap_bev_plain(a, b)
+    assert ((over - want).abs() / want.abs().clamp(min=1)).max() <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 12, 63, 64, 65, 1000])
+@pytest.mark.parametrize("thresh", [0.01, 0.5])
+def test_nms_kernel_matches_the_plain_scan(cuda, n, thresh):
+    from vlp3d_torch.ops import iou3d
+
+    boxes = (edge_boxes() if n == 12 else bev_boxes(
+        n, n, spread=max(4.0, n ** 0.5), size=(1, 5)))
+    b = t(boxes).to(cuda)
+    scores = t(np.random.default_rng(n).uniform(0, 1, n).astype(
+        np.float32)).to(cuda)
+    scores[n // 2:] = scores[0].clone()  # ties
+    order = iou3d.rank_boxes(scores)
+    for form in ("rotated", "normal"):
+        ops.reset_launches()
+        keep = getattr(iou3d, f"nms_{form}")(b, scores, thresh)
+        assert _kernels.launches["nms_bev"] == 1
+        r = b.clone()
+        if form == "normal":
+            r[:, 4] = 0
+        r = r[order].contiguous()
+        alive = iou3d.nms_scan_plain(iou3d.boxes_iou_bev(r, r), thresh)
+        want = torch.zeros_like(alive)
+        want[order] = alive
+        assert torch.equal(keep, want)
+    if n == 12:
+        iou = iou3d.boxes_iou_bev(b, b)
+        want = iou3d.boxes_iou_bev_plain(b, b)
+        assert ((iou - want).abs() / want.abs().clamp(min=1)).max() <= 1e-6

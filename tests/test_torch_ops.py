@@ -178,7 +178,9 @@ def test_cpu_path_launches_no_kernel_and_other_devices_raise():
                             "group_points": 0, "group_points_grad": 0,
                             "three_interpolate_grad": 0,
                             "fps_shard_loop": 0, "ball_query_merge": 0,
-                            "gather_owned": 0}
+                            "gather_owned": 0, "dynamic_voxelize": 0,
+                            "hard_voxelize": 0, "boxes_iou_bev": 0,
+                            "nms_bev": 0}
     meta = torch.empty(1, 64, 3, device="meta")
     for call in (
         lambda: ops.furthest_point_sample(meta, 8),

@@ -1,0 +1,351 @@
+"""The port's PointPillars ops and encoder against the JAX package's, on
+the CPU.
+
+Voxelization (``vlp3d_torch.ops.voxelize``, plain path) equals
+``vlp3d.ops.voxelize`` and the sequential oracle of
+``tests/test_voxel_iou.py`` exactly, every output: points on cell
+boundaries and at the range's upper edge, negative coordinates, the
+voxel cap and the slot cap, every point out of range, one cell holding
+every point; the point gradient through ``voxels`` equals ``jax.vjp``'s.
+The rotated BEV overlap and IoU are within 1e-5 of JAX's (``sin`` and
+``cos`` round differently in XLA and torch); NMS keep masks equal JAX's
+exactly when the port's scan runs on JAX's own ranked IoU matrix, and on
+the port's matrix where no ranked pair is within 1e-5 of the threshold.
+C23 (the whole-row suppression) and C24 (training BatchNorm statistics
+over empty voxels) are pinned. ``PillarEncoder`` through
+``pillar_encoder_to_torch_state_dict``: the canvas within 1e-5 of the
+largest entry in evaluation; in training the canvas within 1e-5, the
+running statistics and the parameter and point gradients within 1e-4 of
+the largest entry. The CPU path launches no kernel.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_voxel_iou import hard_voxelize_oracle
+from torch_pillar_cases import bev_boxes, edge_boxes
+from vlp3d.models.pointpillars import PillarEncoder as JaxPillarEncoder
+from vlp3d.ops import iou3d as jax_iou
+from vlp3d.ops import voxelize as jax_vox
+from vlp3d_torch.convert import pillar_encoder_to_torch_state_dict
+from vlp3d_torch.models.pointpillars import PillarEncoder
+from vlp3d_torch.ops import _kernels
+from vlp3d_torch.ops import iou3d, voxelize
+
+IOU_TOL = 1e-5
+TIE_MARGIN = 1e-5
+CANVAS_TOL = 1e-5  # of the largest entry
+GRAD_TOL = 1e-4  # of the largest entry
+
+# the JAX functions jitted (one compile a shape instead of one an op)
+jax_hard = jax.jit(jax_vox.hard_voxelize, static_argnums=(1, 2, 3, 4))
+jax_dynamic = jax.jit(jax_vox.dynamic_voxelize, static_argnums=(1, 2))
+jax_nms = {"rotated": jax.jit(jax_iou.nms_rotated, static_argnums=2),
+           "normal": jax.jit(jax_iou.nms_normal, static_argnums=2)}
+
+KITTI = ((0.16, 0.16, 4.0), (0.0, -39.68, -3.0, 69.12, 39.68, 1.0))
+SMALL = ((0.5, 0.5, 0.5), (0.0, 0.0, 0.0, 2.0, 2.0, 2.0))
+
+
+def _cloud(rng, case):
+    """(points (N, 4), voxel_size, coors_range, max_points, max_voxels)."""
+    vs, cr = SMALL
+    if case == "uniform":
+        pts = rng.uniform(-1, 3, (500, 4))
+        return pts, vs, cr, 8, 32
+    if case == "slot_cap":
+        pts = rng.uniform(0, 2, (400, 4))
+        return pts, vs, cr, 3, 100
+    if case == "voxel_cap":
+        pts = rng.uniform(0, 2, (400, 4))
+        return pts, vs, cr, 35, 20
+    if case == "boundaries":
+        # every coordinate on a cell boundary, the range's edges included
+        # (hi is outside), a step either side of them
+        # (at 0 a step of 1e-7: XLA's CPU flushes subnormals to zero)
+        g = (np.arange(-2, 7) * 0.5).astype(np.float32)
+        up = np.where(g == 0, np.float32(1e-7), np.nextafter(g, 9))
+        g = np.concatenate([g, up, np.where(g == 0, -up, np.nextafter(
+            g, -9))])
+        xyz = np.stack(np.meshgrid(g, g[::5], g[::7]), -1).reshape(-1, 3)
+        pts = np.concatenate([xyz, rng.normal(size=(len(xyz), 1))], 1)
+        return pts[rng.permutation(len(pts))], vs, cr, 4, 40
+    if case == "kitti_negative":
+        vs, cr = KITTI
+        pts = rng.uniform([-3, -42, -4, 0], [72, 42, 2, 1], (3000, 4))
+        return pts, vs, cr, 6, 700
+    if case == "all_out":
+        pts = rng.uniform(2.0, 5.0, (200, 4))
+        pts[:50, :3] *= -1
+        return pts, vs, cr, 8, 16
+    if case == "one_cell":
+        pts = rng.uniform(0.5, 0.999, (300, 4))
+        return pts, vs, cr, 32, 16
+    raise ValueError(case)
+
+
+CASES = ["uniform", "slot_cap", "voxel_cap", "boundaries", "kitti_negative",
+         "all_out", "one_cell"]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_voxelize_equals_jax_and_oracle(case):
+    rng = np.random.default_rng(CASES.index(case))
+    pts, vs, cr, p, v = _cloud(rng, case)
+    pts = pts.astype(np.float32)
+    want = jax_hard(jnp.asarray(pts), vs, cr, p, v)
+    got = voxelize.hard_voxelize(torch.from_numpy(pts), vs, cr, p, v)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        w, g = np.asarray(w), got[k].numpy()
+        assert g.shape == w.shape and g.dtype == w.dtype, k
+        assert np.array_equal(g, w), k
+    vox, coors, num, voxel_num = hard_voxelize_oracle(pts, vs, cr, p, v)
+    assert int(got["voxel_num"]) == voxel_num
+    assert np.array_equal(got["coors"].numpy(), coors)
+    assert np.array_equal(got["num_points_per_voxel"].numpy(), num)
+    assert np.array_equal(got["voxels"].numpy(), vox)
+    jc, jg = jax_dynamic(jnp.asarray(pts), vs, cr)
+    pc, pg = voxelize.dynamic_voxelize(torch.from_numpy(pts), vs, cr)
+    assert np.array_equal(pc.numpy(), np.asarray(jc))
+    assert np.array_equal(pg.numpy(), np.asarray(jg))
+    if case == "voxel_cap":
+        assert voxel_num == v and num.max() <= p
+    if case == "slot_cap":
+        assert num.max() == p
+    if case == "all_out":
+        assert voxel_num == 0 and (pc.numpy() == -1).all()
+    if case == "one_cell":
+        assert voxel_num == 1 and num[0] == 32
+
+
+def test_batched_voxelize_is_the_rows():
+    rng = np.random.default_rng(11)
+    pts = rng.uniform(-1, 3, (3, 300, 4)).astype(np.float32)
+    pts[2, :200, :3] = 0.7  # one cell past the slot cap
+    x = torch.from_numpy(pts)
+    both = voxelize.hard_voxelize(x, *SMALL, 5, 24)
+    for b in range(3):
+        one = voxelize.hard_voxelize(x[b], *SMALL, 5, 24)
+        for k, v in one.items():
+            assert torch.equal(both[k][b], v), (b, k)
+
+
+def test_voxelize_point_gradient_equals_jax_vjp():
+    rng = np.random.default_rng(5)
+    pts, vs, cr, p, v = _cloud(rng, "slot_cap")
+    pts = pts.astype(np.float32)
+    pts[:60, :3] = 1.2  # one crowded cell: dropped points get 0
+    out, vjp = jax.vjp(lambda q: jax_hard(q, vs, cr, p, v)["voxels"],
+                       jnp.asarray(pts))
+    g = rng.normal(size=out.shape).astype(np.float32)
+    (want,) = vjp(jnp.asarray(g))
+    x = torch.from_numpy(pts).requires_grad_(True)
+    voxels = voxelize.hard_voxelize(x, vs, cr, p, v)["voxels"]
+    voxels.backward(torch.from_numpy(g))
+    assert np.array_equal(x.grad.numpy(), np.asarray(want))
+    assert (x.grad[:60].abs().sum(1) == 0).sum() >= 60 - p
+
+
+@pytest.mark.parametrize("which", ["random", "edges"])
+def test_iou_and_overlap_within_tolerance_of_jax(which):
+    if which == "random":
+        a, b = bev_boxes(40, 3), bev_boxes(33, 4)
+    else:
+        a = b = edge_boxes()
+    for jf, pf in ((jax_iou.boxes_iou_bev, iou3d.boxes_iou_bev),
+                   (jax_iou.boxes_overlap_bev, iou3d.boxes_overlap_bev)):
+        want = np.asarray(jf(jnp.asarray(a), jnp.asarray(b)))
+        got = pf(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+        assert got.shape == want.shape
+        # degenerate pairs reach 2e8 (a zero union clipped at 1e-8)
+        tol = IOU_TOL * np.maximum(1.0, np.abs(want))
+        assert (np.abs(got - want) <= tol).all()
+    corners = iou3d.box_to_corners(torch.from_numpy(a)).numpy()
+    for k in range(len(a)):
+        np.testing.assert_allclose(
+            corners[k], np.asarray(jax_iou.box_to_corners(jnp.asarray(a[k]))),
+            atol=1e-6)
+
+
+def _ranked_iou_jax(boxes, scores):
+    order = np.asarray(jnp.argsort(-jnp.asarray(scores)))
+    ranked = jnp.asarray(boxes)[order]
+    return order, np.array(jax_iou.boxes_iou_bev(ranked, ranked))
+
+
+def _keep_from(order, alive):
+    keep = np.zeros(len(order), bool)
+    keep[order] = alive
+    return keep
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65])
+@pytest.mark.parametrize("thresh", [0.01, 0.5])
+def test_nms_equals_jax(n, thresh):
+    rng = np.random.default_rng(n)
+    boxes = bev_boxes(n, n, spread=4.0)
+    scores = rng.uniform(0, 1, n).astype(np.float32)
+    scores[n // 2:n // 2 + 3] = scores[n // 2]  # tied scores
+    for jf, pf, zero in ((jax_nms["rotated"], iou3d.nms_rotated, False),
+                         (jax_nms["normal"], iou3d.nms_normal, True)):
+        want = np.asarray(jf(jnp.asarray(boxes), jnp.asarray(scores),
+                             thresh))
+        b = boxes.copy()
+        if zero:
+            b[:, 4] = 0
+        order, ious = _ranked_iou_jax(b, scores)
+        assert np.array_equal(order, iou3d.rank_boxes(
+            torch.from_numpy(scores)).numpy())
+        alive = iou3d.nms_scan_plain(torch.from_numpy(ious), thresh)
+        assert np.array_equal(_keep_from(order, alive.numpy()), want)
+        # the port's own IoU: equal unless a ranked pair is near the
+        # threshold (the tie rule)
+        near = np.abs(ious - np.float32(thresh)) < TIE_MARGIN
+        np.fill_diagonal(near, False)
+        got = pf(torch.from_numpy(boxes), torch.from_numpy(scores),
+                 thresh).numpy()
+        assert got.dtype == bool and got.shape == (n,)
+        if not near.any():
+            assert np.array_equal(got, want)
+
+
+def test_nms_suppresses_over_the_whole_row_c23():
+    """ROADMAP C23: overlap(a, b) != overlap(b, a) in the last bits, so
+    the ranked IoU matrix is asymmetric. With the threshold between
+    iou[0, 1] and iou[1, 0], box 0 keeps box 1 and box 1 then drops box 0:
+    JAX suppresses over a kept box's whole row, and so does the port; a
+    j > i-only bitmask (the reference's) would keep both."""
+    for seed in range(200):
+        boxes = bev_boxes(2, seed, spread=1.0)
+        scores = np.array([0.9, 0.1], np.float32)
+        _, ious = _ranked_iou_jax(boxes, scores)
+        if 0 < ious[0, 1] < ious[1, 0]:
+            break
+    else:
+        pytest.fail("no asymmetric pair in 200 draws")
+    thresh = float(ious[0, 1])
+    want = np.asarray(jax_iou.nms_rotated(jnp.asarray(boxes),
+                                          jnp.asarray(scores), thresh))
+    assert want.tolist() == [False, True]
+    alive = iou3d.nms_scan_plain(torch.from_numpy(ious), thresh).numpy()
+    assert alive.tolist() == [False, True]
+    upper = np.triu(ious > np.float32(thresh), 1)  # j > i only
+    keep_upper = np.ones(2, bool)
+    for i in range(2):
+        if keep_upper[i]:
+            keep_upper &= ~upper[i]
+    assert keep_upper.tolist() == [True, True]
+
+
+def _pillar_setup(rng, b=2, n=300):
+    kw = dict(voxel_size=(0.5, 0.5, 4.0),
+              point_cloud_range=(0.0, -2.0, -3.0, 4.0, 2.0, 1.0),
+              max_num_points=8, max_voxels=64, out_channel=16)
+    pts = rng.uniform([-0.5, -2.5, -3.5, 0], [4.5, 2.5, 1.5, 1],
+                      (b, n, 4)).astype(np.float32)
+    pts[1, :60, :3] = [1.1, 0.3, 0.0]  # a pillar past the slot cap
+    params = {
+        "Dense_0": {"kernel": jnp.asarray(
+            rng.normal(size=(9, 16)).astype(np.float32))},
+        "BatchNorm_0": {
+            "scale": jnp.asarray(rng.uniform(0.5, 1.5, 16).astype(
+                np.float32)),
+            "bias": jnp.asarray(rng.normal(size=16).astype(np.float32)
+                                * 0.1)}}
+    stats = {"BatchNorm_0": {
+        "mean": jnp.asarray(rng.normal(size=16).astype(np.float32)),
+        "var": jnp.asarray(rng.uniform(0.5, 2, 16).astype(np.float32))}}
+    model = PillarEncoder(**kw, device="cpu")
+    model.load_state_dict(pillar_encoder_to_torch_state_dict(params, stats),
+                          strict=True)
+    return JaxPillarEncoder(**kw), model, pts, params, stats
+
+
+def _close(got, want, tol):
+    want = np.asarray(want)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    return float(np.abs(np.asarray(got) - want).max()) <= tol * scale
+
+
+def test_pillar_encoder_eval_equals_jax():
+    rng = np.random.default_rng(1)
+    jm, model, pts, params, stats = _pillar_setup(rng)
+    want = jax.jit(jm.apply)({"params": params, "batch_stats": stats},
+                             jnp.asarray(pts))
+    got = model.eval()(torch.from_numpy(pts))
+    assert tuple(got.shape) == want.shape == (2, 8, 8, 16)
+    assert _close(got.detach().numpy(), want, CANVAS_TOL)
+    assert (np.asarray(want) != 0).any()
+
+
+def test_pillar_encoder_training_step_equals_jax():
+    rng = np.random.default_rng(2)
+    jm, model, pts, params, stats = _pillar_setup(rng)
+    g = rng.normal(size=(2, 8, 8, 16)).astype(np.float32)
+
+    def loss(p, x):
+        out, upd = jm.apply({"params": p, "batch_stats": stats}, x,
+                            train=True, mutable=["batch_stats"])
+        return jnp.sum(out * g), (out, upd)
+
+    (_, (out, upd)), (gp, gx) = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True))(params, jnp.asarray(pts))
+    x = torch.from_numpy(pts).requires_grad_(True)
+    got = model.train()(x)
+    (got * torch.from_numpy(g)).sum().backward()
+    assert _close(got.detach().numpy(), out, CANVAS_TOL)
+    new = upd["batch_stats"]["BatchNorm_0"]
+    assert _close(model.bn.running_mean.numpy(), new["mean"], GRAD_TOL)
+    assert _close(model.bn.running_var.numpy(), new["var"], GRAD_TOL)
+    assert _close(model.conv.weight.grad.numpy()[..., 0],
+                  np.asarray(gp["Dense_0"]["kernel"]).T, GRAD_TOL)
+    assert _close(model.bn.weight.grad.numpy(),
+                  gp["BatchNorm_0"]["scale"], GRAD_TOL)
+    assert _close(model.bn.bias.grad.numpy(), gp["BatchNorm_0"]["bias"],
+                  GRAD_TOL)
+    assert _close(x.grad.numpy(), gx, GRAD_TOL)
+
+
+def test_training_batchnorm_counts_empty_voxels_c24():
+    """ROADMAP C24: in training the BatchNorm statistics are over every
+    (B, max_voxels, max_points) row, empty voxels and slots (whose
+    features are zeroed, so their conv output is 0) included, as JAX
+    computes them; the reference pools only the non-empty pillars."""
+    rng = np.random.default_rng(24)
+    _, model, pts, _, _ = _pillar_setup(rng)
+    seen = {}
+    model.bn.register_forward_hook(
+        lambda m, inp, out: seen.setdefault("x", inp[0].detach()))
+    before = model.bn.running_mean.clone()
+    model.train()(torch.from_numpy(pts))
+    x = seen["x"]
+    assert tuple(x.shape) == (2, 64, 8, 16)
+    rows = x.reshape(-1, 16)
+    empty = (rows == 0).all(1)
+    assert 0 < int(empty.sum()) < len(rows)
+    mean_all = rows.mean(0)
+    mean_filled = rows[~empty].mean(0)
+    want = before + 0.01 * (mean_all - before)
+    assert torch.allclose(model.bn.running_mean, want, rtol=0, atol=1e-6)
+    assert not torch.allclose(mean_all, mean_filled, rtol=0, atol=1e-3)
+
+
+def test_cpu_path_launches_no_kernel_and_other_devices_raise():
+    _kernels.reset_launches()
+    rng = np.random.default_rng(0)
+    pts = torch.from_numpy(rng.uniform(0, 2, (2, 50, 4)).astype(np.float32))
+    voxelize.hard_voxelize(pts, *SMALL, 4, 8)
+    voxelize.dynamic_voxelize(pts, *SMALL)
+    b = torch.from_numpy(bev_boxes(5, 0))
+    iou3d.boxes_iou_bev(b, b)
+    iou3d.nms_rotated(b, torch.rand(5), 0.1)
+    assert _kernels.launches == dict.fromkeys(_kernels.KERNELS, 0)
+    meta = torch.empty(2, 50, 4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        voxelize.dynamic_voxelize(meta, *SMALL)
+    with pytest.raises(ValueError, match="unsupported device"):
+        iou3d.boxes_iou_bev(meta[0, :, :5], meta[0, :, :5])

@@ -43,7 +43,8 @@ __all__ = ["jax_to_torch_state_dict", "scanqa_to_torch_state_dict",
            "refnet_to_torch_state_dict", "capnet_to_torch_state_dict",
            "mlcvnet_detector_to_torch_state_dict", "detr_to_torch_state_dict",
            "caption_xbert_to_torch_state_dict",
-           "lang_cross_mlm_to_torch_state_dict", "enet_to_torch_state_dict"]
+           "lang_cross_mlm_to_torch_state_dict", "enet_to_torch_state_dict",
+           "pillar_encoder_to_torch_state_dict"]
 
 
 def _f32(v) -> np.ndarray:
@@ -592,6 +593,15 @@ def enet_to_torch_state_dict(params, batch_stats) -> dict:
         i += 1
     if "classifier" in p:
         walk({"classifier": p["classifier"]}, st, "")
+    return to_tensors(sd)
+
+
+def pillar_encoder_to_torch_state_dict(params, batch_stats) -> dict:
+    """JAX PillarEncoder -> the port's: ``Dense_0`` (9, 64) becomes
+    ``conv.weight`` (64, 9, 1), ``BatchNorm_0`` ``bn.*``."""
+    sd: dict = {}
+    dense(params["Dense_0"], "conv", sd)
+    bn(params["BatchNorm_0"], batch_stats["BatchNorm_0"], "bn", sd)
     return to_tensors(sd)
 
 

@@ -43,6 +43,7 @@ from vlp3d_torch.data.glove import (
     transform_description_caption,
     transform_descriptions,
 )
+from vlp3d_torch.data.hdf5 import read_datasets
 from vlp3d_torch.data.prompt import Prompt
 from vlp3d_torch.geometry.boxes import get_3d_box_batch
 
@@ -150,18 +151,19 @@ class DirectorySceneSource:
         self.root = root
         self.cache: dict = {}
         self.multiview_hdf5 = multiview_hdf5
-        self._mv = None  # lazily opened per process (h5py is not fork-safe)
+        self._mv = None  # {scene_id: memory map}, read at first use
         # loader worker threads call __call__ concurrently; serialize the
-        # lazy h5py open and first-touch cache fill (h5py reads are not
-        # thread-safe on one handle, and a race leaked file descriptors)
+        # lazy read of the hdf5's index and first-touch cache fill
         self._lock = threading.Lock()
 
     def _multiview(self, scene_id: str):
+        """The scene's (N, 128) float32 multiview block, copied out of the
+        hdf5 (read by vlp3d_torch.data.hdf5; no h5py needed)."""
         if self._mv is None:
-            import h5py
-
-            self._mv = h5py.File(self.multiview_hdf5, "r", libver="latest")
-        return np.asarray(self._mv[scene_id], np.float32)
+            self._mv = read_datasets(self.multiview_hdf5)
+        if scene_id not in self._mv:
+            raise KeyError(f"{scene_id} is not in {self.multiview_hdf5}")
+        return np.array(self._mv[scene_id], np.float32)
 
     def __call__(self, scene_id: str, split: str) -> dict:
         key = (scene_id, split)

@@ -1,15 +1,14 @@
 """Stand-in assets in the layouts of the real downloads.
 
-The port's own copy of ``vlp3d/data/standins.py``'s grounding and
-ScanQA writers: one preprocessed ScanNet scene (the ``_preprocess_val`` /
-``_ins_label`` / ``_sem_label`` / ``_aligned_bbox`` npys, columns xyz,
-normals, 128-d multiview), ``ScanRefer_filtered_val.json``,
-``ScanQA_v1.0_val.json`` and a BERT ``vocab.txt``. The same seed writes
-the same files as the JAX writers, so both packages read one stand-in
-directory alike. The multiview hdf5 flavour waits for a machine with
-``h5py`` (ROADMAP.md queue A item A22); the BERT weights file is not
-needed by the port, whose text encoder weights come from the model's
-state dict.
+The port's own copy of ``vlp3d/data/standins.py``'s writers: one
+preprocessed ScanNet scene (the ``_preprocess_val`` / ``_ins_label`` /
+``_sem_label`` / ``_aligned_bbox`` npys, columns xyz, normals, 128-d
+multiview), its multiview-as-hdf5 flavour (a 6-column npy and
+``enet_feats_maxpool.hdf5``, written by :mod:`vlp3d_torch.data.hdf5`),
+``ScanRefer_filtered_val.json``, ``ScanQA_v1.0_val.json`` and a BERT
+``vocab.txt`` with HF-layout ``pytorch_model.bin`` (tiny, seeded). The
+same seed writes the same arrays, tensors and vocabulary as the JAX
+writers, so both packages read one stand-in directory alike.
 """
 
 from __future__ import annotations
@@ -36,6 +35,45 @@ def write_bert_vocab(bert_dir) -> str:
     with open(path, "w") as f:
         f.write("\n".join(VOCAB) + "\n")
     return path
+
+
+def write_bert_assets(bert_dir, hidden: int = 32, layers: int = 2) -> None:
+    """vocab.txt and an HF-layout pytorch_model.bin (tiny dims, seeded):
+    the tensors of ``vlp3d/data/standins.py``'s writer, key for key."""
+    import torch
+
+    write_bert_vocab(bert_dir)
+    v, h, i, pos = len(VOCAB), hidden, 2 * hidden, 64
+    g = torch.Generator().manual_seed(0)
+
+    def t(*shape):
+        return torch.randn(*shape, generator=g) * 0.05
+
+    sd = {
+        "embeddings.word_embeddings.weight": t(v, h),
+        "embeddings.position_embeddings.weight": t(pos, h),
+        "embeddings.token_type_embeddings.weight": t(2, h),
+        "embeddings.LayerNorm.weight": torch.ones(h),
+        "embeddings.LayerNorm.bias": torch.zeros(h),
+        "pooler.dense.weight": t(h, h),  # deliberately unconsumed
+        "pooler.dense.bias": torch.zeros(h),
+    }
+    for layer in range(layers):
+        p = f"encoder.layer.{layer}."
+        for name, shape in (
+            ("attention.self.query", (h, h)),
+            ("attention.self.key", (h, h)),
+            ("attention.self.value", (h, h)),
+            ("attention.output.dense", (h, h)),
+            ("intermediate.dense", (i, h)),
+            ("output.dense", (h, i)),
+        ):
+            sd[p + name + ".weight"] = t(*shape)
+            sd[p + name + ".bias"] = torch.zeros(shape[0])
+        for ln in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[p + ln + ".weight"] = torch.ones(h)
+            sd[p + ln + ".bias"] = torch.zeros(h)
+    torch.save(sd, os.path.join(bert_dir, "pytorch_model.bin"))
 
 
 def write_scene_assets(scannet_data, rng, stale: bool = False) -> dict:
@@ -67,6 +105,27 @@ def write_scene_assets(scannet_data, rng, stale: bool = False) -> dict:
     np.save(os.path.join(scannet_data, f"{SCENE}_aligned_bbox.npy"), bboxes)
     return {"xyz": xyz, "normals": normals, "mv": mv, "ins": ins,
             "sem": sem, "bboxes": bboxes}
+
+
+def write_scene_assets_nomv(nomv_dir, arrays) -> str:
+    """The multiview-as-hdf5 flavour of the same scene: a 6-column (xyz,
+    normals) preprocess npy plus ``enet_feats_maxpool.hdf5`` holding the
+    per-point 128-d block under the scene id, the layout the reference's
+    task-variant datasets read. Appending the hdf5 features to the npy
+    gives the baked [xyz, normal, multiview] cache bit for bit. Returns
+    the hdf5 path."""
+    from vlp3d_torch.data.hdf5 import DatasetWriter
+
+    pc = np.concatenate([arrays["xyz"], arrays["normals"]], axis=1)
+    np.save(os.path.join(nomv_dir, f"{SCENE}_preprocess_val.npy"), pc)
+    np.save(os.path.join(nomv_dir, f"{SCENE}_ins_label.npy"), arrays["ins"])
+    np.save(os.path.join(nomv_dir, f"{SCENE}_sem_label.npy"), arrays["sem"])
+    np.save(os.path.join(nomv_dir, f"{SCENE}_aligned_bbox.npy"),
+            arrays["bboxes"])
+    hdf5_path = os.path.join(nomv_dir, "enet_feats_maxpool.hdf5")
+    with DatasetWriter(hdf5_path) as w:
+        w.add(SCENE, arrays["mv"])
+    return hdf5_path
 
 
 def write_scanrefer(scanrefer_dir) -> None:
@@ -107,20 +166,24 @@ def write_scanqa(scanqa_dir) -> None:
 
 
 def write_standin_assets(root: str, seed: int = 7) -> dict:
-    """The vocabulary, the scene and the annotations under ``root``;
-    returns the directory of each by the CLI flag that takes it
-    (``bert_dir`` holds vocab.txt, for ``--bert_vocab``)."""
+    """The BERT assets, the scene (baked, and as npy + hdf5) and the
+    annotations under ``root``; returns the directory of each by the CLI
+    flag that takes it (``bert_dir`` holds vocab.txt, for
+    ``--bert_vocab``; ``multiview_nomv_data`` the scene for
+    ``--scannet_data`` with ``--multiview_hdf5``)."""
     rng = np.random.default_rng(seed)
     paths = {
         "bert_dir": os.path.join(root, "bert"),
         "scannet_data": os.path.join(root, "scannet_data"),
         "scanrefer_dir": os.path.join(root, "scanrefer"),
         "scanqa_dir": os.path.join(root, "scanqa"),
+        "multiview_nomv_data": os.path.join(root, "scannet_data_nomv"),
     }
     for p in paths.values():
         os.makedirs(p, exist_ok=True)
-    write_bert_vocab(paths["bert_dir"])
-    write_scene_assets(paths["scannet_data"], rng)
+    write_bert_assets(paths["bert_dir"])
+    arrays = write_scene_assets(paths["scannet_data"], rng)
+    write_scene_assets_nomv(paths["multiview_nomv_data"], arrays)
     write_scanrefer(paths["scanrefer_dir"])
     write_scanqa(paths["scanqa_dir"])
     return paths

@@ -16,7 +16,9 @@ entry point returns ``cudaGetLastError()`` after its launch, which
 ``launches`` counts the launches of each kernel (a source may hold more
 than one: ``grouping.cu`` has the gather, its scatter-add backward and the
 three-NN interpolation's backward; ``point_parallel.cu`` the point-axis
-FPS loop, the ball-query merge and the owned-rows gather),
+FPS loop, the ball-query merge and the owned-rows gather; ``voxelize.cu``
+dynamic and hard voxelization; ``iou3d.cu`` the rotated BEV overlap / IoU
+and NMS),
 so a run can show that its main path went through the kernels.
 
 A wrapper's host time is part of every call (a train step makes
@@ -44,11 +46,13 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(os.environ.get(
     "VLP3D_TORCH_BUILD_DIR",
     Path(__file__).resolve().parents[2] / "build" / "vlp3d_torch"))
-SOURCES = ("fps", "ball_query", "three_nn", "grouping", "point_parallel")
+SOURCES = ("fps", "ball_query", "three_nn", "grouping", "point_parallel",
+           "voxelize", "iou3d")
 # kernels with a launch counter; each wrapper adds one where it launches
 KERNELS = ("fps", "ball_query", "three_nn", "group_points",
            "group_points_grad", "three_interpolate_grad", "fps_shard_loop",
-           "ball_query_merge", "gather_owned")
+           "ball_query_merge", "gather_owned", "dynamic_voxelize",
+           "hard_voxelize", "boxes_iou_bev", "nms_bev")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # index parity: no FMA contraction of d2 (the sources also spell
@@ -93,6 +97,16 @@ SIGNATURES = {
         "vlp3d_ipc_open": [_P, _P],
         "vlp3d_ball_query_merge": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
         "vlp3d_gather_owned": [_P, _P, _I, _I, _L, _I, _I, _P, _P],
+    },
+    "voxelize": {
+        "vlp3d_dynamic_voxelize": [_P, _L, _I, _F, _F, _F, _F, _F, _F, _I,
+                                   _I, _I, _P, _P],
+        "vlp3d_hard_voxelize": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                                _P, _P, _P, _P, _P, _P, _P],
+    },
+    "iou3d": {
+        "vlp3d_iou_bev": [_P, _P, _I, _I, _I, _P, _P],
+        "vlp3d_nms_bev": [_P, _P, _I, _F, _P, _P, _P],
     },
 }
 
