@@ -12,9 +12,12 @@ hdf5 read without h5py.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ranks 4
+    python3 chip_smoke.py --iou-times
 
 Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX and
-nothing of the vlp3d package. ``--ranks N`` runs instead only the
+nothing of the vlp3d package. ``--iou-times`` times only the rotated IoU
+and NMS on phase 17's box sets with the vlp3d_torch beside the file (a
+copy in another checkout's root times that checkout's kernels). ``--ranks N`` runs instead only the
 parallel modes over N cards of the host: N ranks over NCCL under
 torch.distributed.run, each building phase 6's model twice from its
 seed; the data-parallel step on the global batch of 8 (8 / N rows a
@@ -422,16 +425,24 @@ each fatal on failure:
    plain version (its operation count for the bound taken from the
    plain run's clips) and nms_rotated / nms_normal at NMS_THRESHOLDS
    equal to the plain scan over the kernel's own ranked IoU and, away
-   from ties (NMS_TIE), over the plain IoU, the edge cases of
-   tests/torch_pillar_cases.py, each kernel timed beside its plain
-   version; then the loader's batches through --multiview_hdf5 (the
-   port's stand-ins) equal to the baked npy's, the committed
+   from ties (NMS_TIE), over the plain IoU; the same checks (the keep
+   masks on the kernel's IoU) on a uniform unclustered set, a crowded
+   set (most pairs through the ordered clip), at NMS_RAGGED (no whole
+   tile) and NMS at NMS_LARGE boxes (many 64-row scan blocks); the edge
+   cases of tests/torch_pillar_cases.py (with the pairs whose clip
+   passes 8 vertices: the kernels' 16-slot path), each kernel timed
+   beside its plain version and on each set of NMS_BOXES (sets_ms),
+   with the share of pairs each of the kernels' screens settles
+   (screens); then the loader's batches through
+   --multiview_hdf5 (the port's stand-ins) equal to the baked npy's, the
+   committed
    h5py-written fixtures read and held to their formula, and the two
    predict processes' pred.json equal. Its traces of a hard_voxelize
    call, an evaluation forward and an NMS call come from a process of
    its own (--pillar-traces): late in a long process torch.profiler
    loses device events; a trace that lacks a hand kernel is reported as
-   not measured;
+   not measured, and the NMS trace's split by CUDA function goes into
+   the kernels line (split_ms);
 18. print {"kernels": [...]} with every kernel of the main paths (the
    CUDA functions behind each in kernel_functions, each found in its
    source's built library, host_us beside the
@@ -728,12 +739,14 @@ PILLAR_FUNCTIONS = {
                       "voxel_count_kernel", "voxel_offsets_kernel",
                       "voxel_place_kernel", "voxel_rank_kernel",
                       "voxel_rank_long_kernel"],
-    "boxes_iou_bev": ["iou_bev_kernel"],
-    "nms_bev": ["nms_mask_kernel", "nms_scan_kernel"],
+    "boxes_iou_bev": ["box_corners_kernel", "iou_tile_kernel"],
+    "nms_bev": ["box_corners_kernel", "nms_mask_kernel", "nms_scan_kernel"],
 }
 PILLAR_CANVAS_TOL = 1e-6  # of the canvas's largest entry
 PILLAR_STEPS = 5  # timed forwards and steps of the encoder
 NMS_BOXES = 4096
+# NMS beside the main size: ragged tiles, and many 64-row scan blocks
+NMS_RAGGED, NMS_LARGE = (4095, 4097), 20000
 # phase 17's predict processes: on the baked npy, and through the hdf5
 PILLAR_PREDICTS = ("predict", "predict --multiview_hdf5")
 NMS_THRESHOLDS = (0.01, 0.5)
@@ -1477,7 +1490,8 @@ def profile_call(torch, fn, tag: str, what: str, top: int = 15,
                  expect=()):
     """Trace one call of fn with torch.profiler; print the device time by
     kernel name and the device-busy share of the call's wall time; return
-    {"wall_ms", "busy_ms", "events", "expect_ms"}. A trace that holds no
+    {"wall_ms", "busy_ms", "events", "expect_ms", "expect_split"} (the
+    last the device ms of each of ``expect``). A trace that holds no
     device time, or lacks one of the hand kernels ``expect`` (CUDA
     function names) that fn launches, is reported as not measured and
     returns {}: its busy share would leave them out."""
@@ -1534,15 +1548,16 @@ def profile_call(torch, fn, tag: str, what: str, top: int = 15,
         print(f"[{tag}]   {name}*: " + ", ".join(
             f"{e.key[:60]} x{e.count} {dev_us(e) / 1e3:.3f} ms"
             for e in found))
-    expect_ms = sum(dev_us(e) for h in hits.values() for e in h) / 1e3
+    split = {fn_: sum(dev_us(e) for e in h) / 1e3 for fn_, h in hits.items()}
+    expect_ms = sum(split.values())
     if expect:
         print(f"[{tag}]   the {len(expect)} hand kernels: "
-              f"{expect_ms:.3f} ms")
+              f"{expect_ms:.3f} ms ({json.dumps(split)})")
     for r in rows:
         print(f"[{tag}]   {r['device_ms']:9.3f} ms  x{r['calls']:<5d} "
               f"{r['op']}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "events": n_events,
-            "expect_ms": expect_ms}
+            "expect_ms": expect_ms, "expect_split": split}
 
 
 def kernel_line(rows, serving, train, predict, solver, http, per_step,
@@ -5776,6 +5791,85 @@ def pillar_boxes(seed: int, n: int = NMS_BOXES):
     return boxes.astype(np.float32), scores.astype(np.float32)
 
 
+def uniform_boxes(seed: int, n: int):
+    """(n, 5) boxes and (n,) scores as pillar_boxes gives them, but each
+    box a car of its own, uniform over the KITTI range: no clusters."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    c = np.stack([rng.uniform(0, 69.12, n), rng.uniform(-39.68, 39.68, n)], 1)
+    s = np.stack([rng.uniform(3.5, 4.5, n), rng.uniform(1.5, 2.0, n)], 1)
+    a = rng.uniform(-np.pi, np.pi, n)
+    boxes = np.concatenate([c - s / 2, c + s / 2, a[:, None]], 1)
+    return boxes.astype(np.float32), rng.uniform(0, 1, n).astype(np.float32)
+
+
+def crowded_boxes(seed: int, n: int):
+    """(n, 5) boxes and (n,) scores: a worst case for the IoU's screens,
+    n proposals around 4 cars side by side 1.5 m apart (closer than cars
+    park), centre jitter 0.5 m, size 20%, yaw 0.3 rad, so that most pairs
+    straddle an edge and reach the ordered clip."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    k = 4
+    yaw0 = rng.uniform(-np.pi, np.pi)
+    across = np.array([-np.sin(yaw0), np.cos(yaw0)])
+    car = (np.array([rng.uniform(10, 60), rng.uniform(-30, 30)])
+           + np.outer((np.arange(k) - (k - 1) / 2) * 1.5, across))
+    size = np.stack([rng.uniform(3.5, 4.5, k), rng.uniform(1.5, 2.0, k)], 1)
+    yaw = yaw0 + rng.normal(0, 0.05, k)
+    pick = rng.integers(0, k, n)
+    c = car[pick] + rng.normal(0, 0.5, (n, 2))
+    s = size[pick] * rng.uniform(0.8, 1.2, (n, 2))
+    a = yaw[pick] + rng.normal(0, 0.3, n)
+    boxes = np.concatenate([c - s / 2, c + s / 2, a[:, None]], 1)
+    return boxes.astype(np.float32), rng.uniform(0, 1, n).astype(np.float32)
+
+
+def iou_box_sets() -> dict:
+    """Phase 17's sets of NMS_BOXES boxes and scores: clustered proposals
+    (pillar_boxes, the main path's), uniform and crowded."""
+    return {"pillar": pillar_boxes(16), "uniform": uniform_boxes(17, NMS_BOXES),
+            "crowded": crowded_boxes(21, NMS_BOXES)}
+
+
+def iou_nms_ms(torch, sets: dict) -> dict:
+    """Device ms of boxes_iou_bev and of nms_rotated at the first of
+    NMS_THRESHOLDS on each set of :func:`iou_box_sets` (host arrays),
+    mean of 10 calls, through the public functions of whichever
+    vlp3d_torch this process imports."""
+    from vlp3d_torch.ops import iou3d
+
+    out = {}
+    th = NMS_THRESHOLDS[0]
+    for name, (hb, hs) in sets.items():
+        b = torch.from_numpy(hb).cuda()
+        s = torch.from_numpy(hs).cuda()
+        out[name] = {
+            "iou": cuda_ms(torch, lambda: iou3d.boxes_iou_bev(b, b), 10),
+            "nms": cuda_ms(torch, lambda: iou3d.nms_rotated(b, s, th), 10)}
+    return out
+
+
+def iou_times_main() -> int:
+    """``--iou-times``: iou_nms_ms on iou_box_sets with the vlp3d_torch
+    beside this file, for a comparison of two checkouts in one run on one
+    card (copy this file into the other's root); the last line is the
+    numbers."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this run needs one",
+              file=sys.stderr)
+        return 1
+    smi = smi_line()
+    ms = iou_nms_ms(torch, iou_box_sets())
+    print(f"[iou-times] {REPO} ({smi}): {json.dumps(ms)}")
+    print(json.dumps({"root": REPO, "device": smi, "ms": ms}))
+    return 0
+
+
 @contextlib.contextmanager
 def pillar_plain_ops():
     """Route the voxelization wrappers to their plain versions (the
@@ -5903,7 +5997,8 @@ class PillarsPhase:
     def drive(self, torch, cli_numbers: dict):
         t0 = time.perf_counter()
         self.cli_numbers = cli_numbers
-        rows, numbers = {}, {"profiles": pillar_traces()}
+        self.profiles = pillar_traces()
+        rows, numbers = {}, {"profiles": self.profiles}
         model, pts = self._encoder(torch)
         rows.update(self._voxel_kernels(torch, pts))
         numbers["encoder"] = self._encoder_checks(torch, model, pts)
@@ -6133,50 +6228,44 @@ class PillarsPhase:
         if over_err > IOU_TOL:
             fail(f"boxes_overlap_bev: kernel against plain {over_err} "
                  "(relative above 1)")
-        # NMS: equal to the plain scan on the kernel's own ranked matrix;
-        # against the plain scan on the plain matrix, equal unless a
-        # ranked pair lies within NMS_TIE of the threshold
-        nms = {}
-        order = iou3d.rank_boxes(scores)
-        for form in ("rotated", "normal"):
-            b = boxes.clone()
-            if form == "normal":
-                b[:, 4] = 0
-            ranked = b[order].contiguous()
-            own = iou3d.boxes_iou_bev(ranked, ranked)
-            plain = (iou_plain[order][:, order] if form == "rotated"
-                     else iou3d.boxes_iou_bev_plain(ranked, ranked))
-            for th in NMS_THRESHOLDS:
-                keep = keeps[(form, th)]
-                alive = iou3d.nms_scan_plain(own, th)
-                want = torch.zeros_like(alive)
-                want[order] = alive
-                if not torch.equal(keep, want):
-                    fail(f"nms_{form} {th}: kernel keep mask differs from "
-                         "the plain scan on the kernel's IoU")
-                eye = torch.eye(n, dtype=torch.bool, device=dev)
-                near = ((plain - th).abs() < NMS_TIE) & ~eye
-                differ = ((own > th) != (plain > th)) & ~eye
-                if (differ & ~near).any():
-                    fail(f"nms_{form} {th}: a decision away from the "
-                         "threshold differs between kernel and plain IoU")
-                alive_p = iou3d.nms_scan_plain(plain, th)
-                want_p = torch.zeros_like(alive_p)
-                want_p[order] = alive_p
-                if not differ.any() and not torch.equal(keep, want_p):
-                    fail(f"nms_{form} {th}: keep mask differs from plain "
-                         "NMS on the plain IoU")
-                nms[f"{form}_{th}"] = {
-                    "kept": int(keep.sum()), "near_pairs": int(near.sum()),
-                    "differing_decisions": int(differ.sum()),
-                    "equal_to_plain_nms": bool(torch.equal(keep, want_p))}
-        numbers["nms"] = nms
+        nms = self._nms_checks(torch, boxes, scores, keeps, iou_plain)
+        # the other sets: the IoU against plain, every keep mask against
+        # the plain scan on the kernel's IoU
+        full_sets = iou_box_sets()
+        sets = {"uniform": full_sets["uniform"],
+                "crowded": full_sets["crowded"],
+                **{f"n{k}": pillar_boxes(18 + i, k)
+                   for i, k in enumerate(NMS_RAGGED)}}
+        errs = {"pillar": iou_err}
+        for name, (hb, hs) in sets.items():
+            b = torch.from_numpy(hb).to(dev)
+            s = torch.from_numpy(hs).to(dev)
+            errs[name] = float((iou3d.boxes_iou_bev(b, b)
+                                - iou3d.boxes_iou_bev_plain(b, b))
+                               .abs().max())
+            if errs[name] > IOU_TOL:
+                fail(f"boxes_iou_bev {name}: kernel against plain "
+                     f"{errs[name]}")
+            nms[name] = self._nms_checks(torch, b, s)
+        hb, hs = pillar_boxes(20, NMS_LARGE)
+        large = (torch.from_numpy(hb).to(dev), torch.from_numpy(hs).to(dev))
+        nms[f"n{NMS_LARGE}"] = self._nms_checks(torch, *large)
+        numbers["nms"], numbers["iou_errors"] = nms, errs
         numbers["edges"] = self._iou_edges(torch)
-        # timing
+        # where the kernels settle each set's pairs (the screens' shares)
+        cases = load_test_module("torch_pillar_cases")
+        screens = {}
+        for name, (hb, _) in full_sets.items():
+            b = torch.from_numpy(hb).to(dev)
+            screens[name] = cases.stage_shares(b, b)
+        numbers["screens"] = screens
+        # timing: the main set, the other sets of NMS_BOXES, NMS_LARGE
         th = NMS_THRESHOLDS[0]
-        ms = cuda_ms(torch, lambda: iou3d.boxes_iou_bev(boxes, boxes), 10)
-        nms_ms = cuda_ms(torch, lambda: iou3d.nms_rotated(boxes, scores, th),
-                         10)
+        sets_ms = iou_nms_ms(torch, full_sets)
+        ms, nms_ms = sets_ms["pillar"]["iou"], sets_ms["pillar"]["nms"]
+        numbers["sets_ms"] = sets_ms
+        numbers[f"nms_{NMS_LARGE}_ms"] = cuda_ms(
+            torch, lambda: iou3d.nms_rotated(*large, th), 3)
         start.record()
         iou3d.nms_rotated_plain(boxes, scores, th)
         end.record()
@@ -6189,34 +6278,97 @@ class PillarsPhase:
         rows["boxes_iou_bev"] = [{
             "site": f"{n} x {n} boxes", "ms": ms, "plain_ms": iou_plain_ms,
             "bound_ms": iou_bound[0], "bound_by": iou_bound[1],
-            "library_ms": None, "max_abs_err": iou_err,
-            "overlap_rel_err": over_err, "ops_a_pair": pair_ops / n / n,
+            "library_ms": None, "max_abs_err": max(errs.values()),
+            "max_abs_err_sets": errs, "overlap_rel_err": over_err,
+            "ops_a_pair": pair_ops / n / n, "screens": screens,
+            "sets_ms": {k: v["iou"] for k, v in sets_ms.items()},
             "host_us": host_us(lambda: iou3d.boxes_iou_bev(tiny, tiny))}]
+        split = self.profiles.get("nms_rotated", {}).get("expect_split")
         rows["nms_bev"] = [{
             "site": f"{n} boxes, thresh {th}", "ms": nms_ms,
             "plain_ms": nms_plain_ms, "bound_ms": nms_bound[0],
             "bound_by": nms_bound[1], "library_ms": None,
             "max_abs_err": 0.0,
+            "split_ms": split or "not measured",
+            "sets_ms": {k: v["nms"] for k, v in sets_ms.items()},
+            f"ms_{NMS_LARGE}": numbers[f"nms_{NMS_LARGE}_ms"],
             "host_us": host_us(lambda: iou3d.nms_rotated(tiny, scores[:4],
                                                          th))}]
         print(f"[17] boxes_iou_bev {n} x {n} ({pair_ops / n / n:.1f} fp32 "
               f"operations a pair): kernel {ms:.4f} ms, plain "
               f"{iou_plain_ms:.2f}, bound {iou_bound[0]:.5f} "
-              f"({iou_bound[1]}), max abs err {iou_err} (overlap, relative "
-              f"above 1: {over_err}); nms_rotated at {th}: kernel "
-              f"{nms_ms:.4f} ms, plain {nms_plain_ms:.2f}, bound "
-              f"{nms_bound[0]:.5f} ({nms_bound[1]}); keep masks "
-              f"{json.dumps(nms)}; launches {numbers['launches']}; host us "
+              f"({iou_bound[1]}), max abs err against plain "
+              f"{json.dumps(errs)} (overlap, relative above 1: {over_err}); "
+              f"nms_rotated at {th}: kernel {nms_ms:.4f} ms (split "
+              f"{json.dumps(split)}), plain {nms_plain_ms:.2f}, bound "
+              f"{nms_bound[0]:.5f} ({nms_bound[1]}); by set "
+              f"{json.dumps(sets_ms)}, pairs by screen {json.dumps(screens)}; "
+              f"nms_rotated at {NMS_LARGE} boxes "
+              f"{numbers[f'nms_{NMS_LARGE}_ms']:.4f} ms; "
+              f"keep masks {json.dumps(nms)}; "
+              f"launches {numbers['launches']}; host us "
               f"{rows['boxes_iou_bev'][0]['host_us']:.1f} / "
               f"{rows['nms_bev'][0]['host_us']:.1f}")
         return rows, numbers
 
+    def _nms_checks(self, torch, boxes, scores, keeps=None, iou_plain=None):
+        """nms_rotated and nms_normal at NMS_THRESHOLDS (``keeps``: those
+        the path run gave) equal to the plain scan on the kernel's own
+        ranked IoU; with ``iou_plain`` (the plain IoU of ``boxes``), also
+        to the plain scan on the plain IoU unless a ranked pair lies
+        within NMS_TIE of the threshold. Returns the counts kept."""
+        from vlp3d_torch.ops import iou3d
+
+        n, out = boxes.shape[0], {}
+        order = iou3d.rank_boxes(scores)
+        for form in ("rotated", "normal"):
+            b = boxes.clone()
+            if form == "normal":
+                b[:, 4] = 0
+            ranked = b[order].contiguous()
+            own = iou3d.boxes_iou_bev(ranked, ranked)
+            plain = None
+            if iou_plain is not None:
+                plain = (iou_plain[order][:, order] if form == "rotated"
+                         else iou3d.boxes_iou_bev_plain(ranked, ranked))
+            for th in NMS_THRESHOLDS:
+                keep = (keeps[(form, th)] if keeps is not None
+                        else getattr(iou3d, f"nms_{form}")(boxes, scores, th))
+                alive = iou3d.nms_scan_plain(own, th)
+                want = torch.zeros_like(alive)
+                want[order] = alive
+                if not torch.equal(keep, want):
+                    fail(f"nms_{form} {th} ({n} boxes): kernel keep mask "
+                         "differs from the plain scan on the kernel's IoU")
+                entry = {"kept": int(keep.sum())}
+                if plain is not None:
+                    eye = torch.eye(n, dtype=torch.bool, device=boxes.device)
+                    near = ((plain - th).abs() < NMS_TIE) & ~eye
+                    differ = ((own > th) != (plain > th)) & ~eye
+                    if (differ & ~near).any():
+                        fail(f"nms_{form} {th}: a decision away from the "
+                             "threshold differs between kernel and plain IoU")
+                    alive_p = iou3d.nms_scan_plain(plain, th)
+                    want_p = torch.zeros_like(alive_p)
+                    want_p[order] = alive_p
+                    if not differ.any() and not torch.equal(keep, want_p):
+                        fail(f"nms_{form} {th}: keep mask differs from plain "
+                             "NMS on the plain IoU")
+                    entry.update(
+                        near_pairs=int(near.sum()),
+                        differing_decisions=int(differ.sum()),
+                        equal_to_plain_nms=bool(torch.equal(keep, want_p)))
+                out[f"{form}_{th}"] = entry
+            del own, plain
+        return out
+
     def _iou_edges(self, torch):
-        """The degenerate boxes of tests/torch_pillar_cases.py, tied scores
-        and N = 1, 63, 64, 65: the
-        IoU within IOU_TOL of the plain version (relative above 1: a zero
-        union gives 2e8), NMS equal to the plain scan on the kernel's
-        IoU."""
+        """The degenerate boxes of tests/torch_pillar_cases.py (edge_boxes,
+        and overflow_boxes, whose clips pass 8 vertices: the kernels'
+        16-slot path), tied scores and N = 1, 63, 64, 65: the IoU within
+        IOU_TOL of the plain version (relative above 1: a zero union gives
+        2e8), NMS equal to the plain scan on the kernel's IoU; the pairs
+        past 8 vertices counted by the plain clip on the card."""
         import numpy as np
 
         from vlp3d_torch.ops import iou3d
@@ -6224,9 +6376,10 @@ class PillarsPhase:
         cases = load_test_module("torch_pillar_cases")
         rng = np.random.default_rng(5)
         sets = {"edges": cases.edge_boxes(),
+                "overflow": cases.overflow_boxes(),
                 **{f"n{n}": cases.bev_boxes(n, n, spread=4.0)
                    for n in (1, 63, 64, 65)}}
-        out = {}
+        out, past8 = {}, {}
         for name, host in sets.items():
             b = torch.from_numpy(host).to(self.device)
             n = b.shape[0]
@@ -6239,6 +6392,7 @@ class PillarsPhase:
                                                           min=1.0)).max())
             if err > IOU_TOL:
                 fail(f"boxes_iou_bev {name}: {err} from the plain version")
+            past8[name] = int((cases.max_clip_counts(b, b) > 8).sum())
             order = iou3d.rank_boxes(sc)
             for form in ("rotated", "normal"):
                 r = b.clone()
@@ -6255,9 +6409,11 @@ class PillarsPhase:
                         fail(f"nms_{form} {name} {th}: keep mask differs")
             out[name] = err
         print(f"[17] IoU / NMS edge cases (identical, edge-sharing, nested, "
-              f"zero-area, angles at multiples of pi / 2, tied scores, N = 1, "
-              f"63, 64, 65): IoU errors {json.dumps(out)}, keep masks equal")
-        return out
+              f"zero-area, angles at multiples of pi / 2, near-coincident "
+              f"squares, tied scores, N = 1, 63, 64, 65): IoU errors "
+              f"{json.dumps(out)}, keep masks equal; pairs whose clip passes "
+              f"8 vertices (the 16-slot path) {json.dumps(past8)}")
+        return {"errors": out, "pairs_past_8": past8}
 
     # -- (c) the multiview hdf5 without h5py --------------------------------
 
@@ -6345,6 +6501,13 @@ class PillarsPhase:
         return out
 
 
+# what the IoU and NMS rows add to the kernels line: the errors of every
+# box set, the pairs' shares by screen, each set's ms and NMS_LARGE's, and
+# the NMS trace's split by CUDA function
+PILLAR_ROW_EXTRAS = ("max_abs_err_sets", "overlap_rel_err", "ops_a_pair",
+                     "screens", "sets_ms", f"ms_{NMS_LARGE}", "split_ms")
+
+
 def pillar_kernel_rows(rows, numbers):
     """The four PointPillars kernels' entries of the {"kernels": ...}
     line; launches are those of phase 17's main-path runs."""
@@ -6373,7 +6536,8 @@ def pillar_kernel_rows(rows, numbers):
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "host_us": r["host_us"], "kernel_functions": functions,
-            "site": r["site"]})
+            "site": r["site"],
+            **{k: r[k] for k in PILLAR_ROW_EXTRAS if k in r}})
     return out
 
 
@@ -7999,6 +8163,8 @@ def main() -> int:
     sys.pycache_prefix, sys.dont_write_bytecode = PYCACHE, False
     if "--rank-worker" in sys.argv[1:]:
         return rank_worker(tiny="--tiny" in sys.argv[1:])
+    if "--iou-times" in sys.argv[1:]:
+        return iou_times_main()
     if "--pillar-traces" in sys.argv[1:]:
         import torch
 
@@ -8050,7 +8216,8 @@ def main() -> int:
     stamp("2", "build")
     for name, log in ptxas.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry function" in line):
                 print(f"[2] {name}: {line.strip()}")
 
     # 3-5. the full-width model: Config() grounding defaults, B=8, N=40960

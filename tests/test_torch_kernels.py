@@ -84,7 +84,8 @@ from vlp3d_torch.ops.interpolate import (
 from vlp3d_torch.ops.sampling import _fps_cuda, _fps_plan, fps_plain
 from vlp3d_torch.parallel import point_parallel as pp
 from vlp3d_torch.serving import STREAM_KEYS
-from torch_pillar_cases import bev_boxes, edge_boxes
+from torch_pillar_cases import (bev_boxes, edge_boxes, max_clip_counts,
+                                overflow_boxes)
 from torch_point_cases import fps_cases, merge_cases
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -1049,7 +1050,8 @@ def test_voxelize_gradient_and_refusals(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,m", [(1, 1), (17, 33), (300, 257), (4096, 64)])
+@pytest.mark.parametrize("n,m", [(1, 1), (17, 33), (300, 257), (4096, 64),
+                                 (4095, 4095), (4097, 4097)])
 def test_iou_bev_kernel_matches_plain(cuda, n, m):
     from vlp3d_torch.ops import iou3d
 
@@ -1063,7 +1065,7 @@ def test_iou_bev_kernel_matches_plain(cuda, n, m):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [1, 12, 63, 64, 65, 1000])
+@pytest.mark.parametrize("n", [1, 12, 63, 64, 65, 1000, 4095, 4097, 20000])
 @pytest.mark.parametrize("thresh", [0.01, 0.5])
 def test_nms_kernel_matches_the_plain_scan(cuda, n, thresh):
     from vlp3d_torch.ops import iou3d
@@ -1091,3 +1093,24 @@ def test_nms_kernel_matches_the_plain_scan(cuda, n, thresh):
         iou = iou3d.boxes_iou_bev(b, b)
         want = iou3d.boxes_iou_bev_plain(b, b)
         assert ((iou - want).abs() / want.abs().clamp(min=1)).max() <= 1e-6
+
+
+@pytest.mark.gpu
+def test_iou_and_nms_kernels_on_clips_past_8_vertices(cuda):
+    """overflow_boxes' pairs whose clip passes 8 vertices go to the
+    kernels' 16-slot path: the IoU equal to plain, NMS to the plain scan."""
+    from vlp3d_torch.ops import iou3d
+
+    b = t(overflow_boxes()).to(cuda)
+    assert (max_clip_counts(b, b) > 8).any()
+    iou = iou3d.boxes_iou_bev(b, b)
+    assert (iou - iou3d.boxes_iou_bev_plain(b, b)).abs().max() <= 1e-6
+    scores = t(np.random.default_rng(3).uniform(0, 1, len(b)).astype(
+        np.float32)).to(cuda)
+    order = iou3d.rank_boxes(scores)
+    r = b[order].contiguous()
+    for thresh in (0.01, 0.5):
+        alive = iou3d.nms_scan_plain(iou3d.boxes_iou_bev(r, r), thresh)
+        want = torch.zeros_like(alive)
+        want[order] = alive
+        assert torch.equal(iou3d.nms_rotated(b, scores, thresh), want)

@@ -26,7 +26,8 @@ import pytest
 import torch
 
 from test_voxel_iou import hard_voxelize_oracle
-from torch_pillar_cases import bev_boxes, edge_boxes
+from torch_pillar_cases import (STAGES, bev_boxes, edge_boxes, max_clip_counts,
+                                overflow_boxes, screen_stages)
 from vlp3d.models.pointpillars import PillarEncoder as JaxPillarEncoder
 from vlp3d.ops import iou3d as jax_iou
 from vlp3d.ops import voxelize as jax_vox
@@ -150,12 +151,12 @@ def test_voxelize_point_gradient_equals_jax_vjp():
     assert (x.grad[:60].abs().sum(1) == 0).sum() >= 60 - p
 
 
-@pytest.mark.parametrize("which", ["random", "edges"])
+@pytest.mark.parametrize("which", ["random", "edges", "overflow"])
 def test_iou_and_overlap_within_tolerance_of_jax(which):
     if which == "random":
         a, b = bev_boxes(40, 3), bev_boxes(33, 4)
     else:
-        a = b = edge_boxes()
+        a = b = edge_boxes() if which == "edges" else overflow_boxes()
     for jf, pf in ((jax_iou.boxes_iou_bev, iou3d.boxes_iou_bev),
                    (jax_iou.boxes_overlap_bev, iou3d.boxes_overlap_bev)):
         want = np.asarray(jf(jnp.asarray(a), jnp.asarray(b)))
@@ -239,6 +240,111 @@ def test_nms_suppresses_over_the_whole_row_c23():
         if keep_upper[i]:
             keep_upper &= ~upper[i]
     assert keep_upper.tolist() == [True, True]
+
+
+def test_overflow_boxes_reach_the_16_slot_path():
+    """The kernels clip a pair in 8 register slots and give one whose clip
+    passes 8 vertices to JAX's 16-slot routine. edge_boxes has no such
+    pair; overflow_boxes (which chip_smoke.py's edge cases and the card's
+    tests add) has hundreds, by the plain clip. None passes 16: no box
+    pair found in a search of ~27 M near-degenerate pairs did."""
+    e = torch.from_numpy(edge_boxes())
+    assert int(max_clip_counts(e, e).max()) <= 8
+    b = torch.from_numpy(overflow_boxes())
+    counts = max_clip_counts(b, b)
+    assert int((counts > 8).sum()) >= 100
+    assert int(counts.max()) <= 16
+
+
+@pytest.mark.parametrize("which", ["random", "edges", "overflow"])
+def test_screen_stages_settle_pairs_as_the_plain_clip(which):
+    """screen_stages (the kernels' screens in PyTorch, which chip_smoke.py
+    counts on the card) against the plain overlap: a pair a screen finds
+    empty has overlap 0, one with A inside B has A's area as the clip
+    sums it, and past 8 vertices is where the plain clip passes 8."""
+    if which == "random":
+        b = torch.from_numpy(bev_boxes(60, 5, spread=4.0))
+    else:
+        b = torch.from_numpy(edge_boxes() if which == "edges"
+                             else overflow_boxes())
+    stages = screen_stages(b, b).long()
+    over = iou3d.boxes_overlap_bev_plain(b, b)
+    empty = (stages == STAGES.index("empty")) | (
+        stages == STAGES.index("second_screen"))
+    assert (over[empty] == 0).all()
+    inside = stages == STAGES.index("inside")
+    assert inside.any()
+    own = iou3d.boxes_overlap_bev_plain(b, b).diagonal()
+    rows = inside.nonzero()[:, 0]
+    assert torch.equal(over[inside], own[rows])
+    assert torch.equal(stages == STAGES.index("past_8"),
+                       max_clip_counts(b, b) > 8)
+
+
+def _scan_blocks(over):
+    """csrc/iou3d.cu's nms_scan_kernel in numpy: over (n, n) bool, the
+    diagonal clear, as 64-bit row words; the 64-row blocks in rank order,
+    each block's members of S resolved from its still-alive word and its
+    diagonal words, then their whole rows ORed into `removed`; kept is
+    ~removed. Returns the alive mask (n,) in rank order."""
+    n = over.shape[0]
+    words = -(-n // 64)
+    padded = np.zeros((n, 64 * words), bool)
+    padded[:, :n] = over
+    rows = [[int.from_bytes(np.packbits(padded[i, 64 * w:64 * w + 64],
+                                        bitorder="little").tobytes(),
+                            "little") for w in range(words)]
+            for i in range(n)]
+    removed = [0] * words
+    for b in range(words):
+        left = n - 64 * b
+        alive = ~removed[b] & ((1 << min(left, 64)) - 1)
+        members = []
+        while alive:
+            r = (alive & -alive).bit_length() - 1
+            members.append(64 * b + r)
+            alive &= alive - 1
+            alive &= ~rows[64 * b + r][b]
+        for k in members:
+            removed = [x | y for x, y in zip(removed, rows[k])]
+    return np.array([not (removed[i >> 6] >> (i & 63)) & 1
+                     for i in range(n)])
+
+
+def _scan_plain(over):
+    m = torch.from_numpy(over.astype(np.float32))
+    return iou3d.nms_scan_plain(m, 0.5).numpy()
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 129, 200])
+def test_nms_scan_block_form_equals_the_plain_scan(n):
+    rng = np.random.default_rng(n)
+    for density in (0.005, 0.05, 0.3):
+        over = rng.random((n, n)) < density  # asymmetric
+        np.fill_diagonal(over, False)
+        assert np.array_equal(_scan_blocks(over), _scan_plain(over))
+
+
+def test_nms_scan_block_form_across_block_boundaries():
+    n = 200
+    cases = []
+    # a chain over a block boundary: 63 drops 64, so 65 survives 64's row
+    over = np.zeros((n, n), bool)
+    over[63, 64] = over[64, 65] = True
+    cases.append((over, {64}))
+    # over two boundaries: 0 drops 64, so 128 survives 64's row
+    over = np.zeros((n, n), bool)
+    over[0, 64] = over[64, 128] = True
+    cases.append((over, {64}))
+    # C23 within a block and across one: a later member drops an earlier
+    over = np.zeros((n, n), bool)
+    over[1, 0] = over[64, 63] = over[199, 5] = True
+    cases.append((over, {0, 63, 5}))
+    for over, gone in cases:
+        want = np.ones(n, bool)
+        want[list(gone)] = False
+        assert np.array_equal(_scan_plain(over), want)
+        assert np.array_equal(_scan_blocks(over), want)
 
 
 def _pillar_setup(rng, b=2, n=300):

@@ -105,8 +105,8 @@ SIGNATURES = {
                                 _P, _P, _P, _P, _P, _P, _P],
     },
     "iou3d": {
-        "vlp3d_iou_bev": [_P, _P, _I, _I, _I, _P, _P],
-        "vlp3d_nms_bev": [_P, _P, _I, _F, _P, _P, _P],
+        "vlp3d_iou_bev": [_P, _P, _I, _I, _I, _P, _P, _P],
+        "vlp3d_nms_bev": [_P, _P, _I, _F, _P, _P, _P, _P],
     },
 }
 

@@ -10,10 +10,12 @@ as JAX does, suppresses over a kept box's whole row, earlier boxes
 included (ROADMAP C23): where the matrix is asymmetric a later kept box
 can drop an earlier kept one.
 
-A CUDA tensor goes to the hand-written kernels (``csrc/iou3d.cu``), a
-CPU tensor to the ``*_plain`` functions; there is no fallback between
-the two. Ranking is ``torch.argsort(-scores, stable=True)``, JAX's
-stable ``jnp.argsort(-scores)``, outside the kernels as in JAX.
+A CUDA tensor goes to the hand-written kernels (``csrc/iou3d.cu``: a
+corner table, then tiles of screened pairs, the clip in registers;
+NMS's mask by warp ballot and a scan over 64-row blocks), a CPU tensor
+to the ``*_plain`` functions; there is no fallback between the two.
+Ranking is ``torch.argsort(-scores, stable=True)``, JAX's stable
+``jnp.argsort(-scores)``, outside the kernels as in JAX.
 """
 
 from __future__ import annotations
@@ -23,8 +25,10 @@ import torch
 from vlp3d_torch.ops import _kernels
 
 _MAXV = 16
-# the NMS scan keeps its alive bitmap in 48 KB of shared memory
+# the NMS scan keeps its removed bitmap, a word per 64 boxes, in shared
+# memory (with its 2 x 64 diagonal words: 49 KB here)
 MAX_NMS_BOXES = 64 * (48 * 1024 // 8)
+_CORNERS = 9  # a corner table's row: x0..x3, y0..y3, area
 # pairs a chunk of the plain overlap (its buffers are 16 slots a pair)
 _PLAIN_PAIRS = 1 << 20
 
@@ -158,10 +162,12 @@ def _iou_cuda(boxes_a, boxes_b, iou: bool):
     _kernels.require(boxes_b, "boxes_b", torch.float32, 2, 5)
     n, m = boxes_a.shape[0], boxes_b.shape[0]
     out = torch.empty((n, m), dtype=torch.float32, device=boxes_a.device)
+    tables = torch.empty((n + m, _CORNERS), dtype=torch.float32,
+                         device=boxes_a.device)
     with _kernels.on_device(boxes_a):
         rc = _kernels.function("iou3d", "vlp3d_iou_bev")(
             boxes_a.data_ptr(), boxes_b.data_ptr(), n, m, int(iou),
-            out.data_ptr(), _kernels.stream_ptr(boxes_a))
+            tables.data_ptr(), out.data_ptr(), _kernels.stream_ptr(boxes_a))
         _kernels.check(rc, "iou_bev kernel")
     _kernels.launches["boxes_iou_bev"] += 1
     return out
@@ -223,12 +229,15 @@ def _nms_cuda(boxes, scores, thresh: float):
     order = rank_boxes(scores)
     ranked = boxes[order].contiguous()
     words = -(-n // 64)
+    table = torch.empty((n, _CORNERS), dtype=torch.float32,
+                        device=boxes.device)
     mask = torch.empty((n, words), dtype=torch.int64, device=boxes.device)
     keep = torch.empty((n,), dtype=torch.bool, device=boxes.device)
     with _kernels.on_device(boxes):
         rc = _kernels.function("iou3d", "vlp3d_nms_bev")(
             ranked.data_ptr(), order.data_ptr(), n, float(thresh),
-            mask.data_ptr(), keep.data_ptr(), _kernels.stream_ptr(boxes))
+            table.data_ptr(), mask.data_ptr(), keep.data_ptr(),
+            _kernels.stream_ptr(boxes))
         _kernels.check(rc, "nms_bev kernels")
     _kernels.launches["nms_bev"] += 1
     return keep
