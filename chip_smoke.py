@@ -13,11 +13,15 @@ hdf5 read without h5py.
     python3 chip_smoke.py
     python3 chip_smoke.py --ranks 4
     python3 chip_smoke.py --iou-times
+    python3 chip_smoke.py --redesign-times SAVE [AGAINST]
 
 Needs one CUDA device (Hopper, sm_90a) and nvcc; imports no JAX and
 nothing of the vlp3d package. ``--iou-times`` times only the rotated IoU
 and NMS on phase 17's box sets with the vlp3d_torch beside the file (a
-copy in another checkout's root times that checkout's kernels). ``--ranks N`` runs instead only the
+copy in another checkout's root times that checkout's kernels);
+``--redesign-times`` does the same for the interpolation's backward at
+the FP shapes and hard_voxelize on phase 17's clouds, and holds their
+outputs against another run's bit for bit. ``--ranks N`` runs instead only the
 parallel modes over N cards of the host: N ranks over NCCL under
 torch.distributed.run, each building phase 6's model twice from its
 seed; the data-parallel step on the global batch of 8 (8 / N rows a
@@ -116,9 +120,11 @@ each fatal on failure:
    interpolation its own tensors (C = 3, 64, 128, 135; the multiview site
    is a sliced view; the folded SA sites pass their centre term as the
    subtrahend). The interpolation's weighted backward at FP1 and FP2,
-   under its plan and every swept plan, against the plain weighted
-   backward (fatal above GRAD_RTOL of the absolute sum meeting in a row,
-   or unless two launches are equal bit for bit), timed beside the route
+   under its plan and every plan of INTERP_GRAD_PLANS, against the plain
+   weighted backward (fatal above GRAD_RTOL of the absolute sum meeting
+   in a row, or unless two launches are equal bit for bit) and against
+   the ordered sum of tests/torch_three_nn_cases.py (fatal unless equal
+   bit for bit), timed beside its fixed cost (floor_ms), the route
    it replaced (broadcast multiply + the gather's sorted backward) and
    torch.sparse.mm. The row gather:
    the forward kernel is held against torch.gather (fatal unless the
@@ -413,7 +419,8 @@ each fatal on failure:
    PILLAR_POINTS points (two LiDAR-like rows of ~10 000 pillars, one
    uniform row past the 16 000-pillar cap, one row 30% out of range with
    a 20 000-point pillar): dynamic_voxelize and hard_voxelize equal to
-   their plain versions bit for bit (every output), each timed; with
+   their plain versions bit for bit (every output; hard_voxelize also
+   between two launches), each timed; with
    every count at 0, the evaluation forward
    against the plain-op forward (PILLAR_CANVAS_TOL of the canvas's
    largest entry) and a training forward + backward against the plain
@@ -441,8 +448,10 @@ each fatal on failure:
    call, an evaluation forward and an NMS call come from a process of
    its own (--pillar-traces): late in a long process torch.profiler
    loses device events; a trace that lacks a hand kernel is reported as
-   not measured, and the NMS trace's split by CUDA function goes into
-   the kernels line (split_ms);
+   not measured, and the NMS and hard_voxelize traces' split by CUDA
+   function goes into the kernels line (split_ms), with the hard call's
+   device operations (at most HARD_DEVICE_OPS, one memset: fatal
+   otherwise);
 18. print {"kernels": [...]} with every kernel of the main paths (the
    CUDA functions behind each in kernel_functions, each found in its
    source's built library, host_us beside the
@@ -731,17 +740,16 @@ PILLAR_CHANNELS = 64
 # launches of one encoder forward (a step's backward launches none)
 PILLAR_FORWARD = dict(ZERO_LAUNCHES, dynamic_voxelize=1, hard_voxelize=1)
 # the CUDA functions behind each PointPillars kernel, in launch order;
-# hard_voxelize's entry point launches nine, after the dynamic kernel
+# hard_voxelize's entry point launches four after the dynamic kernel and
+# one memset: HARD_DEVICE_OPS device operations a call
 PILLAR_FUNCTIONS = {
     "dynamic_voxelize": ["dynamic_voxelize_kernel"],
-    "hard_voxelize": ["voxel_head_kernel", "tile_sum_kernel",
-                      "tile_scan_kernel", "voxel_assign_kernel",
-                      "voxel_count_kernel", "voxel_offsets_kernel",
-                      "voxel_place_kernel", "voxel_rank_kernel",
-                      "voxel_rank_long_kernel"],
+    "hard_voxelize": ["voxel_head_count_kernel", "voxel_scan_kernel",
+                      "voxel_place_kernel", "voxel_write_kernel"],
     "boxes_iou_bev": ["box_corners_kernel", "iou_tile_kernel"],
     "nms_bev": ["box_corners_kernel", "nms_mask_kernel", "nms_scan_kernel"],
 }
+HARD_DEVICE_OPS = 6
 PILLAR_CANVAS_TOL = 1e-6  # of the canvas's largest entry
 PILLAR_STEPS = 5  # timed forwards and steps of the encoder
 NMS_BOXES = 4096
@@ -1490,8 +1498,8 @@ def profile_call(torch, fn, tag: str, what: str, top: int = 15,
                  expect=()):
     """Trace one call of fn with torch.profiler; print the device time by
     kernel name and the device-busy share of the call's wall time; return
-    {"wall_ms", "busy_ms", "events", "expect_ms", "expect_split"} (the
-    last the device ms of each of ``expect``). A trace that holds no
+    {"wall_ms", "busy_ms", "events", "memsets", "expect_ms",
+    "expect_split"} (the last the device ms of each of ``expect``). A trace that holds no
     device time, or lacks one of the hand kernels ``expect`` (CUDA
     function names) that fn launches, is reported as not measured and
     returns {}: its busy share would leave them out."""
@@ -1557,7 +1565,8 @@ def profile_call(torch, fn, tag: str, what: str, top: int = 15,
         print(f"[{tag}]   {r['device_ms']:9.3f} ms  x{r['calls']:<5d} "
               f"{r['op']}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "events": n_events,
-            "expect_ms": expect_ms, "expect_split": split}
+            "memsets": memsets, "expect_ms": expect_ms,
+            "expect_split": split}
 
 
 def kernel_line(rows, serving, train, predict, solver, http, per_step,
@@ -1604,9 +1613,9 @@ def kernel_line(rows, serving, train, predict, solver, http, per_step,
                      "three_nn_kernel"],
         "group_points": ["group_points_vec_kernel",
                          "group_points_stream_kernel"],
-        "group_points_grad": ["group_points_grad_sorted_kernel<V, false>",
+        "group_points_grad": ["group_points_grad_sorted_kernel<V>",
                               "group_points_grad_kernel"],
-        "three_interpolate_grad": ["group_points_grad_sorted_kernel<V, true>"],
+        "three_interpolate_grad": ["three_interpolate_grad_kernel<V, kU>"],
         "fps_shard_loop": ["fps_shard_loop_kernel<P>"],
         "ball_query_merge": ["ball_query_merge_kernel"],
         "gather_owned": ["gather_owned_kernel"],
@@ -1735,14 +1744,23 @@ def record_interp_sites(torch, run):
     return sites
 
 
+def interp_grad_ordered(torch, grad, idx, weight, m):
+    """The interpolation's backward in the kernel's exact order (a loop
+    over list positions, tests/torch_three_nn_cases.py)."""
+    cases = load_test_module("torch_three_nn_cases")
+    return cases.interp_grad_ordered(grad, idx, weight, m)
+
+
 def check_interp_grad_site(torch, label, site, reps=20):
     """The interpolation's weighted backward at one FP site of a train
-    step: the weighted sorted scatter under the wrapper's plan and every
-    swept plan against the plain weighted backward (fatal above GRAD_RTOL
-    of the absolute sum meeting in a row, or unless two launches are
-    equal bit for bit); times of kernel, plain version, the route it
-    replaced (broadcast multiply + the gather's sorted backward) and one
-    sparse product (torch.sparse.mm of the transposed weight matrix)."""
+    step: three_interpolate_grad_kernel under the wrapper's plan and every
+    plan of INTERP_GRAD_PLANS against the plain weighted backward (fatal
+    above GRAD_RTOL of the absolute sum meeting in a row, or unless two
+    launches are equal bit for bit) and, bit for bit, against the ordered
+    sum of interp_grad_ordered; times of kernel, plain version, the route
+    it replaced (broadcast multiply + the gather's sorted backward) and
+    one sparse product (torch.sparse.mm of the transposed weight
+    matrix)."""
     grp = importlib.import_module("vlp3d_torch.ops.grouping")
     itp = importlib.import_module("vlp3d_torch.ops.interpolate")
     unknown, known, feats = site["unknown"], site["known"], site["feats"]
@@ -1772,13 +1790,15 @@ def check_interp_grad_site(torch, label, site, reps=20):
 
     plan = itp._interp_grad_plan(b, m, c, 3 * n)
     err, rel = check(None)
+    ordered = interp_grad_ordered(torch, grad, idx, weight, m)
+    if not torch.equal(itp._three_interpolate_grad_cuda(grad, idx, weight,
+                                                        m), ordered):
+        fail(f"three_interpolate_grad {label}: kernel differs from the "
+             "ordered sum")
     sweep = {}
-    for cand in [(rows, sl, warps, grp.SORTED_CAP)
-                 for rows in (16, 32, 64, 128)
-                 for sl in ((1, 2) if c > 128 else (1,))
-                 for warps in (8, 16, 32)]:
+    for cand in itp.INTERP_GRAD_PLANS:
         check(cand)
-        sweep["%dx%dx%d" % cand[:3]] = cuda_ms(
+        sweep["%dx%d" % cand] = cuda_ms(
             torch, lambda: itp._three_interpolate_grad_cuda(
                 grad, idx, weight, m, cand), reps, warmup=1)
     # the transposed (B*m, B*n) weight matrix, three entries a column
@@ -1806,12 +1826,12 @@ def check_interp_grad_site(torch, label, site, reps=20):
             idx.view(b, 3 * n), m), reps),
         library_ms=cuda_ms(torch, lambda: torch.sparse.mm(wt, g2), reps),
         library_max_abs_err=lib_err.item(),
-        # one unknown point's three rows: the four dependent passes
-        # (count, scan, place, sum) with next to no work
+        # one unknown point's three rows: the kernel's fixed cost (its
+        # scan, place and sum passes with next to no work)
         floor_ms=cuda_ms(torch, lambda: itp._three_interpolate_grad_cuda(
             grad[:1, :1].contiguous(), idx[:1, :1].contiguous(),
             weight[:1, :1].contiguous(), m), reps),
-        bound_ms=bms, bound_by=by, sweep_ms=sweep)
+        bound_ms=bms, bound_by=by, sweep_ms=sweep, equal_to_ordered=True)
     print(f"[6] three_interpolate_grad {json.dumps(bwd)}")
     return bwd
 
@@ -5870,6 +5890,69 @@ def iou_times_main() -> int:
     return 0
 
 
+# --redesign-times: the interpolation backward at phase 6's FP shapes (B,
+# unknown points, known points, channels)
+FP_GRAD_SHAPES = (("FP1", 8, 512, 256, 256), ("FP2", 8, 1024, 512, 256))
+
+
+def redesign_times_main(save: str, against: str | None) -> int:
+    """``--redesign-times SAVE [AGAINST]``: the device ms of the
+    interpolation backward at FP_GRAD_SHAPES and of hard_voxelize on
+    phase 17's clouds (means of 50 and 20 calls), with the vlp3d_torch
+    beside this file, for a comparison of two checkouts in one run on one
+    card (copy this file into the other's root). The inputs are made on
+    the host from seeds, so both checkouts see the same; the outputs go
+    to SAVE (torch.save) and, given AGAINST (another run's SAVE), are
+    held against those bit for bit. The last line is the numbers."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this run needs one",
+              file=sys.stderr)
+        return 1
+    from vlp3d_torch.ops import interpolate as itp
+    from vlp3d_torch.ops import voxelize as vox
+
+    smi = smi_line()
+    rng = np.random.default_rng(18)
+    ms, outs = {}, {}
+    for label, b, n, m, c in FP_GRAD_SHAPES:
+        # the known points a subset of the unknown ones, as FPS gives them
+        unknown = torch.from_numpy(
+            rng.uniform(0, 4, (b, n, 3)).astype(np.float32))
+        known = unknown[:, ::n // m][:, :m].contiguous()
+        dist2, idx = itp.three_nn_plain(unknown, known)
+        weight = itp.interpolation_weights(dist2).cuda()
+        idx = idx.cuda()
+        grad = torch.from_numpy(
+            rng.normal(size=(b, n, c)).astype(np.float32)).cuda()
+        outs[label] = itp._three_interpolate_grad_cuda(grad, idx, weight, m)
+        ms[label] = cuda_ms(torch, lambda: itp._three_interpolate_grad_cuda(
+            grad, idx, weight, m), 50)
+    pts = torch.from_numpy(np.stack([
+        pillar_cloud(17 + i, kind) for i, kind in
+        enumerate(("lidar", "lidar", "uniform", "worst"))])).cuda()
+    args = (pts, PILLAR_VOXEL, PILLAR_RANGE, PILLAR_SLOTS, PILLAR_VOXELS)
+    outs["hard_voxelize"] = vox._hard_cuda(*args)
+    ms["hard_voxelize"] = cuda_ms(torch, lambda: vox._hard_cuda(*args), 20)
+    torch.cuda.synchronize()
+    host = {k: ([t.cpu() for t in v] if isinstance(v, tuple) else v.cpu())
+            for k, v in outs.items()}
+    torch.save(host, save)
+    equal = None
+    if against:
+        other = torch.load(against)
+        equal = {k: (all(torch.equal(a, b) for a, b in zip(v, other[k]))
+                     if isinstance(v, list) else torch.equal(v, other[k]))
+                 for k, v in host.items()}
+    print(f"[redesign-times] {REPO} ({smi}): {json.dumps(ms)}; equal bit "
+          f"for bit to {against}: {json.dumps(equal)}")
+    print(json.dumps({"root": REPO, "device": smi, "ms": ms,
+                      "equal": equal}))
+    return 0
+
+
 @contextlib.contextmanager
 def pillar_plain_ops():
     """Route the voxelization wrappers to their plain versions (the
@@ -6044,14 +6127,18 @@ class PillarsPhase:
         vs, pr = PILLAR_VOXEL, PILLAR_RANGE
         p, v = PILLAR_SLOTS, PILLAR_VOXELS
         got = vox._hard_cuda(pts, vs, pr, p, v)
+        again = vox._hard_cuda(pts, vs, pr, p, v)
         want = vox.hard_voxelize_plain(pts, vs, pr, p, v)
         names = ("voxels", "coors", "num_points_per_voxel", "voxel_num",
                  "voxel_mask", "slot")
-        for name, a, b in zip(names, got, want):
+        for name, a, a2, b in zip(names, got, again, want):
             if a.shape != b.shape or a.dtype != b.dtype \
                     or not torch.equal(a, b):
                 fail(f"hard_voxelize kernel {name} differs from the plain "
                      "version")
+            if not torch.equal(a, a2):
+                fail(f"hard_voxelize kernel {name} differs between two "
+                     "launches")
         coords, _ = vox._dynamic_cuda(pts, vs, pr)
         if not torch.equal(coords, vox.dynamic_voxelize_plain(pts, vs,
                                                               pr)[0]):
@@ -6089,6 +6176,19 @@ class PillarsPhase:
                   f"slots): kernel {ms:.4f} ms, plain {plain_ms:.3f}, bound "
                   f"{bound:.5f} ({by}); equal to the plain version bit for "
                   "bit")
+        # the trace of one call (--pillar-traces): time by CUDA function
+        # and the device operations (the dynamic kernel, one memset, four
+        # kernels)
+        trace = self.profiles.get("hard_voxelize", {})
+        if trace and (trace["events"] > HARD_DEVICE_OPS
+                      or trace["memsets"] != 1):
+            fail(f"a hard_voxelize call ran {trace['events']} device "
+                 f"operations, {trace['memsets']} of them memsets (expected "
+                 f"{HARD_DEVICE_OPS}, one memset)")
+        rows["hard_voxelize"][0].update(
+            split_ms=trace.get("expect_split", "not measured"),
+            device_ops=trace.get("events", "not measured"),
+            memsets=trace.get("memsets", "not measured"))
         rows["dynamic_voxelize"][0]["host_us"] = host_us(
             lambda: vox.dynamic_voxelize(tiny, vs, pr))
         rows["hard_voxelize"][0]["host_us"] = host_us(
@@ -6501,11 +6601,13 @@ class PillarsPhase:
         return out
 
 
-# what the IoU and NMS rows add to the kernels line: the errors of every
-# box set, the pairs' shares by screen, each set's ms and NMS_LARGE's, and
-# the NMS trace's split by CUDA function
+# what the IoU, NMS and hard voxelization rows add to the kernels line:
+# the errors of every box set, the pairs' shares by screen, each set's ms
+# and NMS_LARGE's, the NMS and hard_voxelize traces' split by CUDA
+# function, and the hard_voxelize call's device operations and memsets
 PILLAR_ROW_EXTRAS = ("max_abs_err_sets", "overlap_rel_err", "ops_a_pair",
-                     "screens", "sets_ms", f"ms_{NMS_LARGE}", "split_ms")
+                     "screens", "sets_ms", f"ms_{NMS_LARGE}", "split_ms",
+                     "device_ops", "memsets")
 
 
 def pillar_kernel_rows(rows, numbers):
@@ -8165,6 +8267,10 @@ def main() -> int:
         return rank_worker(tiny="--tiny" in sys.argv[1:])
     if "--iou-times" in sys.argv[1:]:
         return iou_times_main()
+    if "--redesign-times" in sys.argv[1:]:
+        rest = sys.argv[sys.argv.index("--redesign-times") + 1:]
+        return redesign_times_main(rest[0], rest[1] if len(rest) > 1
+                                   else None)
     if "--pillar-traces" in sys.argv[1:]:
         import torch
 

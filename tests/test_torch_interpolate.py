@@ -11,10 +11,12 @@ The port's ``interpolate_features`` (the plain version, which a CPU
 tensor runs) is held within 1e-5 of ``vlp3d.ops.interpolate_features``
 and its gradient with respect to the known features within 1e-5 of the
 absolute sum meeting in a row of ``jax.vjp``'s; no gradient reaches the
-coordinates. The plain weighted backward, which the card's weighted
-sorted scatter is held to, is checked against the gather's backward on
-pre-weighted rows and against ``jax.vjp`` of ``three_interpolate``. The
-plan functions are checked against the kernels' limits.
+coordinates. The plain weighted backward, which the card's
+``three_interpolate_grad_kernel`` is held to, is checked against the
+gather's backward on pre-weighted rows and against ``jax.vjp`` of
+``three_interpolate``, and equal bit for bit to ``interp_grad_ordered``
+(the kernel's exact order, the card tests' reference). The plan
+functions are checked against the kernels' limits.
 """
 
 import jax
@@ -23,17 +25,14 @@ import numpy as np
 import pytest
 import torch
 
-from torch_three_nn_cases import NN_CASES, nn_case
+from torch_three_nn_cases import NN_CASES, interp_grad_ordered, nn_case
 from vlp3d import ops as jops
 from vlp3d_torch import ops
-from vlp3d_torch.ops.ball_query import MAX_SMEM
-from vlp3d_torch.ops.grouping import (
-    _grad_plan,
-    group_points_grad_plain,
-    sorted_smem_bytes,
-)
+from vlp3d_torch.ops.grouping import group_points_grad_plain
 from vlp3d_torch.ops.interpolate import (
+    INTERP_GRAD_PLANS,
     TEAM_PLANS,
+    _check_interp_grad_plan,
     _check_team_plan,
     _interp_grad_plan,
     _three_nn_plan,
@@ -231,8 +230,41 @@ def test_team_plans_and_refused_shapes():
 @pytest.mark.parametrize("b,n,c,m", [(8, 512, 256, 256), (8, 1024, 256, 512),
                                      (2, 45, 13, 37), (2, 300, 8, 20000)])
 def test_interp_grad_plan_takes_the_sorted_kernel(b, n, c, m):
-    rows, slices, warps, cap = _interp_grad_plan(b, m, c, 3 * n)
-    if m <= 16384:
-        assert (rows, slices, warps, cap) == _grad_plan(b, m, c, 3 * n)
-    assert 1 <= rows <= 1024 and 1 <= warps <= 32 and slices >= 1
-    assert sorted_smem_bytes(warps, rows, cap) <= MAX_SMEM
+    """The backward's plan is one its kernel takes, within the default
+    48 KB of shared memory (the list, 512 entries a warp, and 64 staged
+    entries a warp), a lane's units covering C = 256 in float4 in one
+    slice."""
+    plan = _interp_grad_plan(b, m, c, 3 * n)
+    assert plan in INTERP_GRAD_PLANS
+    warps, lane_units = _check_interp_grad_plan(plan)
+    assert 4 * (warps * (512 + 64) + 32) <= 48 * 1024
+    units = c // 4 if c % 4 == 0 else c
+    # the fewer units a lane that cover the row in one slice, at most 2
+    assert 32 * lane_units >= min(units, 64)
+    assert lane_units == 1 or units > 32
+    if c == 256:
+        assert lane_units == 2
+
+
+def test_interp_grad_plans_and_refused_plans():
+    for plan in INTERP_GRAD_PLANS:
+        assert _check_interp_grad_plan(plan) == plan
+    for plan in ((0, 1), (17, 1), (8, 3), (8, 4), (8, 0), (8,), "ab",
+                 [8, 2], (8.0, 2)):
+        with pytest.raises(ValueError, match="plan"):
+            _check_interp_grad_plan(plan)
+
+
+@pytest.mark.parametrize("name", ("random", "all_zero_known", "b3"))
+def test_ordered_backward_sum_equals_plain_on_the_cpu(name):
+    """interp_grad_ordered (the card tests' bit-exact reference for the
+    kernel) is the plain backward's sum: on the CPU index_add_ adds in
+    ascending entry order, so the two agree bit for bit."""
+    unknown, known, feats = nn_case(name)
+    b, n, _ = unknown.shape
+    m, c = feats.shape[1:]
+    g = t(np.random.default_rng(2).normal(size=(b, n, c)).astype(np.float32))
+    d, i = three_nn_plain(t(unknown), t(known))
+    w = interpolation_weights(d)
+    assert torch.equal(interp_grad_ordered(g, i, w, m),
+                       three_interpolate_grad_plain(g, i, w, m))

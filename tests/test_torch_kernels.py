@@ -18,9 +18,10 @@ peer never writes must trap in a process of its own
 (``tests/torch_stall_probe.py``). The ball-query merge runs at 1 and 4
 shards against its plain version and the dense ball query.
 The PointPillars kernels: dynamic and hard voxelization equal to their
-plain versions bit for bit (the voxel and slot caps, a 20000-point
-pillar, most points outside, the encoder's B=4 x 120000), the points'
-gradient equal to the CPU's; the rotated BEV IoU and overlap within
+plain versions bit for bit and between two launches (the voxel and slot
+caps, 35 and 100 slots, a 20000-point pillar, a row's 120000 points in
+one cell, most points outside, C = 3, 4 and 5, the encoder's B=4 x
+120000), the points' gradient equal to the CPU's; the rotated BEV IoU and overlap within
 1e-6 of the plain version (relative above 1), NMS keep masks equal to
 the plain scan over the kernel's own ranked IoU (N = 1, 63, 64, 65,
 1000, degenerate boxes, tied scores).
@@ -33,7 +34,9 @@ equal; three-NN distances and interpolation weights within 1e-6 and
 interpolated features within 1e-5; the row gather exact and the
 scatter-add backwards (the gather's two, the interpolation's weighted
 one) within ``GRAD_RTOL`` (1e-5) of the absolute sum meeting in a row,
-the sorted ones also equal bit for bit from launch to launch; the tiny
+the sorted one and the interpolation's also equal bit for bit from
+launch to launch, the interpolation's also to its ordered sum
+(``interp_grad_ordered``) under every plan; the tiny
 JointNet's cluster_ref within 1e-4 of the CPU forward; and one Solver
 epoch on the card, with and without remat, launching each kernel the
 stated number of times a step.
@@ -56,7 +59,7 @@ from torch_bq_cases import (
     ball_query_case,
     grad_case,
 )
-from torch_three_nn_cases import NN_CASES, nn_case
+from torch_three_nn_cases import NN_CASES, interp_grad_ordered, nn_case
 from vlp3d_torch.ops.ball_query import (
     _ball_query_cuda,
     _ball_query_plan,
@@ -72,6 +75,7 @@ from vlp3d_torch.ops.grouping import (
     group_points_plain,
 )
 from vlp3d_torch.ops.interpolate import (
+    INTERP_GRAD_PLANS,
     TEAM_PLANS,
     _interpolate_cuda,
     _three_interpolate_grad_cuda,
@@ -439,7 +443,9 @@ def test_team_kernel_every_plan_where_trouble_is_likely(cuda, name):
 def _interp_grad_check(grad, idx, weight, m, plan=None):
     """The weighted backward under ``plan`` against the plain one, within
     GRAD_RTOL of the absolute sum meeting in a row, and equal bit for bit
-    to a second launch."""
+    to a second launch and to the ordered sum (a plain loop over list
+    positions: each known row from +0, its entries in ascending 3 i + k,
+    one product and one addition at a time)."""
     want = three_interpolate_grad_plain(grad, idx, weight, m)
     scale = three_interpolate_grad_plain(grad.abs(), idx, weight.abs(), m)
     ops.reset_launches()
@@ -450,6 +456,7 @@ def _interp_grad_check(grad, idx, weight, m, plan=None):
     err = (got - want).abs()
     assert bool((err <= GRAD_RTOL * scale + 1e-30).all()), err.max().item()
     assert torch.equal(got, again), plan
+    assert torch.equal(got, interp_grad_ordered(grad, idx, weight, m)), plan
     return got
 
 
@@ -462,8 +469,7 @@ def test_interpolation_backward_kernel_where_trouble_is_likely(cuda, name):
     d, idx = three_nn_plain(unknown, known)
     weight = interpolation_weights(d)
     grad = torch.randn(b, n, c, device=cuda)
-    for plan in (None, (16, 1, 8, 33), (128, 1, 32, 4096),
-                 (1024, 2, 4, 1000), (7, 3, 1, 1)):
+    for plan in (None, *INTERP_GRAD_PLANS, (1, 1), (3, 2), (5, 1)):
         _interp_grad_check(grad, idx, weight, m, plan)
 
 
@@ -483,9 +489,8 @@ def test_interpolation_backward_at_the_fp_shapes(cuda, b, n, m):
     _, idx, weight = _interpolate_cuda(unknown, known, feats.detach())
     got = _interp_grad_check(grad, idx, weight, m)
     assert torch.equal(feats.grad, got)
-    for rows in (16, 32, 64, 128):
-        for warps in (8, 32):
-            _interp_grad_check(grad, idx, weight, m, (rows, 2, warps, 4096))
+    for plan in INTERP_GRAD_PLANS:
+        _interp_grad_check(grad, idx, weight, m, plan)
 
 
 @pytest.mark.gpu
@@ -977,10 +982,10 @@ PILLAR_VOXEL = (0.16, 0.16, 4.0)
 PILLAR_RANGE = (0.0, -39.68, -3.0, 69.12, 39.68, 1.0)
 
 
-def _pillar_points(b, n, seed, crowd=0, outside=0.0):
-    """(b, n, 4) float32 over PointPillars' KITTI range, a share outside
+def _pillar_points(b, n, seed, crowd=0, outside=0.0, c=4):
+    """(b, n, c) float32 over PointPillars' KITTI range, a share outside
     it, the first row's first ``crowd`` points (shuffled in) in one
-    pillar."""
+    pillar; channels past x, y, z uniform over [0, 1)."""
     rng = np.random.default_rng(seed)
     lo, hi = np.array(PILLAR_RANGE[:3]), np.array(PILLAR_RANGE[3:])
     xyz = rng.uniform(lo - (hi - lo) * outside, hi + (hi - lo) * outside,
@@ -989,33 +994,40 @@ def _pillar_points(b, n, seed, crowd=0, outside=0.0):
         xyz[0, :crowd] = [20.01, 5.01, -1.0] + rng.uniform(0, 0.14,
                                                            (crowd, 3))
         xyz[0] = xyz[0, rng.permutation(n)]
-    return np.concatenate([xyz, rng.uniform(0, 1, (b, n, 1))],
+    return np.concatenate([xyz, rng.uniform(0, 1, (b, n, c - 3))],
                           -1).astype(np.float32)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,n,crowd,outside,slots,voxels", [
-    (1, 1, 0, 0.0, 32, 16000),
-    (2, 5000, 0, 0.2, 32, 16000),
-    (3, 40000, 0, 0.0, 8, 3000),       # the voxel cap
-    (1, 60000, 20000, 0.3, 32, 16000),  # the slot cap, a long segment
-    (4, 120000, 0, 0.0, 32, 16000),     # the encoder's shape
-    (2, 3000, 0, 3.0, 32, 100),         # most points outside
+@pytest.mark.parametrize("b,n,crowd,outside,slots,voxels,c", [
+    (1, 1, 0, 0.0, 32, 16000, 4),
+    (2, 5000, 0, 0.2, 32, 16000, 4),
+    (3, 40000, 0, 0.0, 8, 3000, 4),       # the voxel cap
+    (1, 60000, 20000, 0.3, 32, 16000, 4),  # the slot cap, a long segment
+    (4, 120000, 0, 0.0, 32, 16000, 4),     # the encoder's shape
+    (2, 3000, 0, 3.0, 32, 100, 4),         # most points outside
+    (2, 5000, 300, 0.2, 35, 16000, 4),     # 35 slots (JAX's default)
+    (2, 8000, 2000, 0.1, 100, 4000, 4),    # 100 slots
+    (1, 120000, 120000, 0.0, 32, 16000, 4),  # every point in one cell
+    (2, 5000, 500, 0.1, 32, 16000, 3),     # C = 3 (no float4 rows)
+    (2, 5000, 500, 0.1, 35, 2000, 5),      # C = 5
 ])
 def test_voxelize_kernels_equal_plain(cuda, b, n, crowd, outside, slots,
-                                      voxels):
+                                      voxels, c):
     from vlp3d_torch.ops import voxelize as vox
 
-    pts = t(_pillar_points(b, n, n + b, crowd, outside)).to(cuda)
+    pts = t(_pillar_points(b, n, n + b, crowd, outside, c)).to(cuda)
     ops.reset_launches()
     got = vox._hard_cuda(pts, PILLAR_VOXEL, PILLAR_RANGE, slots, voxels)
+    again = vox._hard_cuda(pts, PILLAR_VOXEL, PILLAR_RANGE, slots, voxels)
     torch.cuda.synchronize()
-    assert _kernels.launches["dynamic_voxelize"] == 1
-    assert _kernels.launches["hard_voxelize"] == 1
+    assert _kernels.launches["dynamic_voxelize"] == 2
+    assert _kernels.launches["hard_voxelize"] == 2
     want = vox.hard_voxelize_plain(pts, PILLAR_VOXEL, PILLAR_RANGE, slots,
                                    voxels)
-    for a, w in zip(got, want):
+    for a, a2, w in zip(got, again, want):
         assert a.dtype == w.dtype and torch.equal(a, w)
+        assert torch.equal(a, a2)
     coords, grid = vox.dynamic_voxelize(pts, PILLAR_VOXEL, PILLAR_RANGE)
     assert torch.equal(coords, vox.dynamic_voxelize_plain(
         pts, PILLAR_VOXEL, PILLAR_RANGE)[0])

@@ -151,6 +151,165 @@ def test_voxelize_point_gradient_equals_jax_vjp():
     assert (x.grad[:60].abs().sum(1) == 0).sum() >= 60 - p
 
 
+# -- the hard kernel's algorithm (csrc/voxelize.cu (a)-(d)) in numpy ------
+
+EMU_TILE = 64  # points a tile of the emulated prefix sum
+EMU_WARP_LONG = 256  # the longest segment the emulated warp merges
+EMU_WINDOW = 96  # point indices a window of the emulated bitmap
+
+
+def _emulate_hard_row(pts, coords, grid, max_points, max_voxels, rng):
+    """One batch row through the steps of ``vlp3d_hard_voxelize``, every
+    order the card leaves to its atomics and to the tiles' timing drawn
+    from ``rng``: (voxels, coors, num, voxel_num, mask, slot)."""
+    n, c = pts.shape
+    g0, g1, g2 = (int(g) for g in grid)
+    j = np.arange(n)
+    # (a) keys; a cell's head entry n - (its first index) by max, 0 when
+    # empty; its count
+    key = np.where(coords[:, 0] < 0, -1,
+                   (coords[:, 2] * g1 + coords[:, 1]) * g0 + coords[:, 0])
+    head = np.zeros(g0 * g1 * g2, np.int64)
+    count = np.zeros(g0 * g1 * g2, np.int64)
+    order = rng.permutation(np.flatnonzero(key >= 0))
+    np.maximum.at(head, key[order], n - order)
+    np.add.at(count, key[order], 1)
+    # (b) the pair (heads, their points) summed tile by tile: a tile
+    # publishes its sum, looks back over its predecessors' words (some
+    # still sums) to the first inclusive one, publishes its inclusive
+    # prefix; a kept head records its voxel and turns its cell's entry
+    # into -1 - offset
+    vhead, voff, vcnt = (np.zeros(max_voxels, np.int64) for _ in range(3))
+    status, incl = [], []  # (inclusive?, pair) as later tiles read them
+    for t0 in range(0, n, EMU_TILE):
+        tj = j[t0:t0 + EMU_TILE]
+        tk = np.maximum(key[tj], 0)
+        flag = (key[tj] >= 0) & (head[tk] == n - tj)
+        h, pc = flag.astype(np.int64), np.where(flag, count[tk], 0)
+        excl = np.zeros(2, np.int64)
+        for inclusive, pair in reversed(status):
+            excl += pair
+            if inclusive:
+                break
+        incl.append(excl + [h.sum(), pc.sum()])
+        status.append((False, incl[-1] - excl))
+        for q in np.flatnonzero(rng.random(len(status)) < 0.5):
+            status[q] = (True, incl[q])  # inclusive words arrive late
+        vid = excl[0] + np.cumsum(h) - h
+        off = excl[1] + np.cumsum(pc) - pc
+        kept = flag & (vid < max_voxels)
+        vhead[vid[kept]], voff[vid[kept]] = tj[kept], off[kept]
+        vcnt[vid[kept]] = pc[kept]
+        head[tk[kept]] = -1 - off[kept]
+    voxel_num = min(int(incl[-1][0]) if incl else 0, max_voxels)
+    # (c) every point, in a shuffled order, takes one from its cell's
+    # entry; an entry below 0 (a kept cell's -1 - next place) places it
+    order = rng.permutation(np.flatnonzero(key >= 0))
+    ks = key[order]
+    by_cell = np.argsort(ks, kind="stable")
+    rank = np.empty_like(by_cell)
+    rank[by_cell] = (np.arange(len(ks))
+                     - np.searchsorted(ks[by_cell], ks[by_cell]))
+    old = head[ks] - rank
+    assert ((old < 0) == (head[ks] < 0)).all()  # a dropped cell stays >= 1
+    seg = np.full(n, -1)
+    seg[-1 - old[old < 0]] = order[old < 0]
+    live = np.sort(order[old < 0])
+    assert np.array_equal(np.sort(seg[:len(live)]), live)
+    # (d) a voxel's kept points: the min(count, max_points) smallest
+    # indices of its segment, by a sort up to 32; by a running merge of
+    # 32-entry chunks where max_points <= 32 and the segment is short
+    # enough for a warp; else by a bitmap over windows of the row
+    voxels = np.zeros((max_voxels, max_points, c), np.float32)
+    coors = np.full((max_voxels, 3), -1, np.int32)
+    num = np.zeros(max_voxels, np.int32)
+    slot = np.full(n, -1, np.int32)
+    for v in range(voxel_num):
+        s = seg[voff[v]:voff[v] + vcnt[v]]
+        kept = min(len(s), max_points)
+        if len(s) <= 32:
+            sel = np.sort(s)[:kept]
+        elif max_points <= 32 and len(s) <= EMU_WARP_LONG:
+            sel = np.sort(s[:32])
+            for t0 in range(32, len(s), 32):
+                chunk = s[t0:t0 + 32]
+                if (chunk < sel[-1]).any():  # else the merge is skipped
+                    sel = np.sort(np.concatenate([sel, chunk]))[:32]
+            sel = sel[:kept]
+        else:
+            sel = np.zeros(0, np.int64)
+            for w0 in range(0, n, EMU_WINDOW):
+                if len(sel) >= kept:
+                    break
+                bits = np.zeros(EMU_WINDOW, bool)
+                bits[s[(s >= w0) & (s < w0 + EMU_WINDOW)] - w0] = True
+                sel = np.concatenate([sel, w0 + np.flatnonzero(bits)])
+            sel = sel[:kept]
+        voxels[v, :kept] = pts[sel]
+        slot[sel] = v * max_points + np.arange(kept)
+        coors[v] = coords[vhead[v]]
+        num[v] = kept
+    mask = np.arange(max_voxels) < voxel_num
+    return voxels, coors, num, voxel_num, mask, slot
+
+
+def _emu_cloud(rng, case):
+    """(points (B, N, C), voxel_size, coors_range, max_points,
+    max_voxels) over SMALL's 4 x 4 x 4 grid."""
+    vs, cr = SMALL
+    if case == "hot_cell":  # cells of 400 and 100 of 700 points, shuffled
+        pts = rng.uniform(-0.5, 2.5, (1, 700, 5))
+        pts[0, :400, :3] = rng.uniform(1.01, 1.49, (400, 3))
+        pts[0, 400:500, :3] = rng.uniform(0.01, 0.49, (100, 3))
+        pts[0] = pts[0, rng.permutation(700)]
+        return pts, vs, cr, 32, 40
+    if case == "voxel_cap":  # and a cell of 60 past 32 lanes, slots 35
+        pts = rng.uniform(0, 2, (1, 500, 3))
+        pts[0, 5:65, :3] = rng.uniform(0.51, 0.99, (60, 3))
+        return pts, vs, cr, 35, 20
+    if case == "one_slot":
+        return rng.uniform(-0.5, 2.5, (1, 300, 5)), vs, cr, 1, 64
+    if case == "row_all_out":  # the second row lies outside the range
+        pts = rng.uniform(0, 2, (2, 200, 3))
+        pts[1, :, 0] += 3.0
+        return pts, vs, cr, 8, 64
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["hot_cell", "voxel_cap", "one_slot",
+                                  "row_all_out"])
+def test_hard_kernel_algorithm_emulated_equals_plain_and_jax(case):
+    """The hard kernel's steps in numpy (head and count, the tile-wise
+    pair prefix sum with look-back, placement in a shuffled order, the
+    smallest-max_points selection by sort, merge and bitmap) equal
+    hard_voxelize_plain and JAX's hard_voxelize bit for bit, every
+    output."""
+    rng = np.random.default_rng(len(case))
+    pts, vs, cr, p, v = _emu_cloud(rng, case)
+    pts = pts.astype(np.float32)
+    x = torch.from_numpy(pts)
+    coords, grid = voxelize.dynamic_voxelize_plain(x, vs, cr)
+    want = voxelize.hard_voxelize_plain(x, vs, cr, p, v)
+    keys = ("voxels", "coors", "num_points_per_voxel", "voxel_num",
+            "voxel_mask")
+    for b in range(pts.shape[0]):
+        got = _emulate_hard_row(pts[b], coords[b].numpy(), grid.numpy(), p,
+                                v, rng)
+        for k, (g, w) in enumerate(zip(got, want)):
+            w = np.asarray(w[b])
+            assert np.array_equal(np.asarray(g), w) and \
+                np.asarray(g).shape == w.shape, (b, k)
+        jw = jax_hard(jnp.asarray(pts[b]), vs, cr, p, v)
+        for k, g in zip(keys, got):
+            assert np.array_equal(np.asarray(g), np.asarray(jw[k])), (b, k)
+    if case == "hot_cell":
+        assert int(want[2].max()) == p
+    if case == "voxel_cap":
+        assert int(want[3][0]) == v and int(want[2].max()) == p
+    if case == "row_all_out":
+        assert int(want[3][1]) == 0
+
+
 @pytest.mark.parametrize("which", ["random", "edges", "overflow"])
 def test_iou_and_overlap_within_tolerance_of_jax(which):
     if which == "random":

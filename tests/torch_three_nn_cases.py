@@ -1,6 +1,7 @@
 """Inputs where the three-NN team kernel and its fused interpolation are
 likely to go wrong, shared by the CPU tests (against the JAX package) and
-the card tests (against the plain versions). numpy only: no JAX, no torch.
+the card tests (against the plain versions). numpy only at import: no
+JAX, no torch.
 
 The team kernel splits a row's known points over L lanes (j = t mod L),
 keeps a top 3 a lane and merges the lanes' lists under the order (d, then
@@ -11,6 +12,10 @@ points a block, squared distances that overflow to inf, channel widths
 that take the scalar path (3, 5, 13) and the float4 path (8 to 256), and
 B = 1, 3, 9. Every unknown point has at least one finite distance, so the
 weights stay finite.
+
+:func:`interp_grad_ordered` is the interpolation's backward in the
+kernel's exact order, for bit-equality checks on the card (torch is
+imported inside it).
 """
 
 from __future__ import annotations
@@ -93,3 +98,32 @@ def nn_case(name: str):
     feats = rng.normal(size=(b, m, c))
     return (unknown.astype(np.float32), known.astype(np.float32),
             feats.astype(np.float32))
+
+
+def interp_grad_ordered(grad, idx, weight, m: int):
+    """The three-NN interpolation's backward as a plain loop over list
+    positions: known row j of batch row b sums, from +0, the products
+    weight[b, r] * grad[b, r // 3] of the entries r of the (B, 3N) index
+    table with idx[b, r] == j, in ascending r, one float32 product and one
+    addition at a time (entries outside [0, m) are dropped). grad (B, N,
+    C), idx (B, N, 3) int, weight (B, N, 3), torch tensors on one device;
+    returns (B, m, C)."""
+    import torch
+
+    b, n, c = grad.shape
+    dev = grad.device
+    ix = idx.reshape(b, 3 * n).long()
+    w = weight.reshape(b, 3 * n)
+    key = torch.where((ix >= 0) & (ix < m), ix, torch.full_like(ix, m))
+    order = torch.sort(key, dim=1, stable=True).indices  # ascending r a row
+    rows = torch.gather(key, 1, order)
+    pos = (torch.arange(3 * n, device=dev).expand(b, -1)
+           - torch.searchsorted(rows, rows))  # place in the row's list
+    live = rows < m
+    bi = torch.arange(b, device=dev)[:, None].expand(b, 3 * n)
+    out = torch.zeros((b, m, c), dtype=grad.dtype, device=dev)
+    for p in range(int(pos[live].max()) + 1 if bool(live.any()) else 0):
+        sel = live & (pos == p)  # at most one entry a known row
+        bb, jj, rr = bi[sel], rows[sel], order[sel]
+        out[bb, jj] = out[bb, jj] + grad[bb, rr // 3] * w[bb, rr][:, None]
+    return out

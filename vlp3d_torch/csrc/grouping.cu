@@ -72,13 +72,34 @@
 //   source row, say) is taken in several windows; a source row that
 //   spans two keeps its partial sum in the output row, which only the
 //   lane that wrote it reads back, so the order stays the same.
-//   Its weighted instantiation is the backward of the three-NN
+// three_interpolate_grad_kernel: the backward of the three-NN
 //   interpolation (vlp3d/ops/interpolate.py::three_interpolate, whose
-//   forward csrc/three_nn.cu fuses): the (b, 3n) table of neighbour
-//   indices, entry r standing for gradient row r / 3 times weight[b, r].
-//   The sort and the ordered sum are the same, so no (b, n, 3, c)
-//   weighted gradient is ever written and two launches give the same
-//   bits.
+//   forward csrc/three_nn.cu fuses), replacing XLA's VJP of its gather
+//   (a scatter-add of the weighted rows):
+//     dfeats[b, j, :] = sum over the entries r of the (b, 3n) index table
+//                       with idx[b, r] == j, in ascending r, from +0, of
+//                       weight[b, r] * grad[b, r / 3, :]
+//   (one __fmul_rn, then one addition an entry: the products and sums of
+//   the sorted kernel that computed it before, so the bits are the same).
+//   What bounds it on the H100: bytes (the gradient read, the output
+//   written), 1.9 / 3.8 us at the FP sites (8 x 512 / 1024 unknown points,
+//   256 channels); what held the sorted form back was its fixed cost,
+//   four barrier-separated passes in blocks of up to 1024 threads, about
+//   one an SM. Here one warp owns one known row of a block's `warps`
+//   consecutive rows, on a slice of up to 32 x kU channel units. The
+//   block scans the batch row's index table once a window of 512 x warps
+//   entries: a lane takes 16 consecutive entries (four int4 loads where
+//   the table allows), keeps those landing in the block's rows, and a
+//   shuffle scan of the lanes' counts plus one barrier for the warps'
+//   gives each its place in a list in shared memory that ascends in r.
+//   After a second barrier each warp filters the list for its own row by
+//   ballot (about 6 x warps entries at the FP sites), stages its entries'
+//   numbers, and sums their rows in registers, 8 vector loads in flight
+//   a lane, in list order; the row is written once, zeros included. Every
+//   gradient row is read once an entry, three times in all, from L2
+//   after the first: at FP2 those 24 MB are most of the time. Blocks of
+//   256 threads, several an SM; no zeroed table, no float atomics, two
+//   launches give the same bits.
 // group_points_grad_kernel: the first design, as the reference's
 //   group_points_grad kernel does: atomicAdd straight into a zeroed
 //   table, 16-byte vector atomics where the row allows. Its sum is exact
@@ -286,28 +307,16 @@ __device__ __forceinline__ int target_of(int i, int i0, int rows, int n) {
   return (unsigned)i < (unsigned)n && t < (unsigned)rows ? (int)t : -1;
 }
 
-// Entry r of a batch row's index table contributes gradient row r (the
-// gather's backward) or, kWeighted, gradient row r / 3 scaled by
-// weight[b, r] (the three-NN interpolation's backward: three entries an
-// unknown point, one float32 product each, then the same ordered sum).
-template <typename V, bool kWeighted>
-__device__ __forceinline__ V grad_term(const V* gb, const float* wb, int r,
-                                       int units, int u) {
-  if (!kWeighted) return __ldg(gb + (size_t)r * units + u);
-  return vmul(__ldg(gb + (size_t)(r / 3) * units + u), __ldg(wb + r));
-}
-
 // Grid: x = ranges of `rows` source rows, y = batch rows, z = slices of
 // `uslice` channel units (a unit is a V: float4, or float); blockDim.x
 // a multiple of 32. Dynamic shared memory: per warp and source row a
 // count, then a start, and a cursor; per source row its list start
 // (rows + 1); the list window of `cap` gradient row numbers; 32 words of
-// scan scratch. weight: null, or kWeighted (b, rows_per_batch) f32.
-template <typename V, bool kWeighted>
+// scan scratch.
+template <typename V>
 __global__ void __launch_bounds__(kSortMaxThreads)
     group_points_grad_sorted_kernel(const V* __restrict__ grad,
                                     const int* __restrict__ idx,
-                                    const float* __restrict__ weight,
                                     int rows_per_batch, int units, int n,
                                     int rows, int uslice, int lanes, int cap,
                                     V* __restrict__ dpoints) {
@@ -386,8 +395,7 @@ __global__ void __launch_bounds__(kSortMaxThreads)
   __syncthreads();
 
   const int groups = threads / lanes, g = tid / lanes, gl = tid % lanes;
-  const V* gb = grad + (size_t)b * (kWeighted ? r_all / 3 : r_all) * units;
-  const float* wb = kWeighted ? weight + (size_t)b * r_all : nullptr;
+  const V* gb = grad + (size_t)b * r_all * units;
   V* db = dpoints + (size_t)b * n * units;
   // the list in windows of cap entries (one window unless rows pile up)
   for (int ws = 0; ws < max(total, 1); ws += cap) {
@@ -434,18 +442,14 @@ __global__ void __launch_bounds__(kSortMaxThreads)
         V acc = lo > s ? dst[u] : vzero<V>();
         int k = lo;
         for (; k + 4 <= hi; k += 4) {
-          const V g0 = grad_term<V, kWeighted>(gb, wb, list[k - ws], units, u);
-          const V g1 =
-              grad_term<V, kWeighted>(gb, wb, list[k + 1 - ws], units, u);
-          const V g2 =
-              grad_term<V, kWeighted>(gb, wb, list[k + 2 - ws], units, u);
-          const V g3 =
-              grad_term<V, kWeighted>(gb, wb, list[k + 3 - ws], units, u);
+          const V g0 = __ldg(gb + (size_t)list[k - ws] * units + u);
+          const V g1 = __ldg(gb + (size_t)list[k + 1 - ws] * units + u);
+          const V g2 = __ldg(gb + (size_t)list[k + 2 - ws] * units + u);
+          const V g3 = __ldg(gb + (size_t)list[k + 3 - ws] * units + u);
           acc = vadd(vadd(vadd(vadd(acc, g0), g1), g2), g3);
         }
         for (; k < hi; ++k)
-          acc = vadd(acc,
-                     grad_term<V, kWeighted>(gb, wb, list[k - ws], units, u));
+          acc = vadd(acc, __ldg(gb + (size_t)list[k - ws] * units + u));
         dst[u] = acc;
       }
     }
@@ -457,16 +461,15 @@ size_t sorted_smem_bytes(int warps, int rows, int cap) {
   return 4 * ((size_t)2 * warps * rows + rows + 1 + cap + 32);
 }
 
-template <typename V, bool kWeighted>
-int launch_sorted(const V* grad, const int* idx, const float* weight, int b,
-                  int rows_per_batch, int units, int n, int rows, int uslice,
-                  int lanes, int warps, int cap, V* dpoints,
-                  cudaStream_t stream) {
+template <typename V>
+int launch_sorted(const V* grad, const int* idx, int b, int rows_per_batch,
+                  int units, int n, int rows, int uslice, int lanes,
+                  int warps, int cap, V* dpoints, cudaStream_t stream) {
   if (rows < 1 || rows > 1024 || uslice < 1 || warps < 1 || warps > 32 ||
       cap < 1)
     return (int)cudaErrorInvalidValue;
   const size_t smem = sorted_smem_bytes(warps, rows, cap);
-  auto kernel = group_points_grad_sorted_kernel<V, kWeighted>;
+  auto kernel = group_points_grad_sorted_kernel<V>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -476,10 +479,211 @@ int launch_sorted(const V* grad, const int* idx, const float* weight, int b,
     }
   }
   dim3 grid((n + rows - 1) / rows, b, (units + uslice - 1) / uslice);
-  kernel<<<grid, 32 * warps, smem, stream>>>(grad, idx, weight,
-                                             rows_per_batch, units, n, rows,
-                                             uslice, lanes, cap, dpoints);
+  kernel<<<grid, 32 * warps, smem, stream>>>(grad, idx, rows_per_batch,
+                                             units, n, rows, uslice, lanes,
+                                             cap, dpoints);
   return (int)cudaGetLastError();
+}
+
+// index-table entries a lane holds in a window's scan; stage slots a warp
+constexpr int kScanPer = 16;
+constexpr int kStage = 64;
+constexpr int kInterpMaxWarps = 16;
+
+// Sum the n staged entries (numbers r of the batch row's index table) of
+// this warp's row into acc, in staged order: 8 / kU entries' loads in
+// flight, then their products added one by one.
+template <typename V, int kU>
+__device__ __forceinline__ void sum_staged(const int* st, int n,
+                                           const V* gb, const float* wb,
+                                           int units, int u0, int lane,
+                                           V (&acc)[kU]) {
+  constexpr int kB = 8 / kU;
+  for (int s = 0; s < n; s += kB) {
+    V g[kB][kU];
+    float w[kB];
+#pragma unroll
+    for (int h = 0; h < kB; ++h) {
+      w[h] = 0.0f;
+      if (s + h < n) {
+        const int r = st[s + h];
+        w[h] = __ldg(wb + r);
+        const V* row = gb + (size_t)(r / 3) * units;
+#pragma unroll
+        for (int q = 0; q < kU; ++q) {
+          const int u = u0 + lane + 32 * q;
+          g[h][q] = u < units ? __ldg(row + u) : vzero<V>();
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < kB; ++h)
+      if (s + h < n)
+#pragma unroll
+        for (int q = 0; q < kU; ++q) acc[q] = vadd(acc[q], vmul(g[h][q], w[h]));
+  }
+}
+
+// Grid: x = ranges of blockDim.x / 32 known rows, y = batch rows, z =
+// slices of 32 * kU channel units (a unit is a V). Dynamic shared memory:
+// the list (512 entries a warp), kStage staged entries a warp, 32 counts.
+template <typename V, int kU>
+__global__ void __launch_bounds__(32 * kInterpMaxWarps)
+    three_interpolate_grad_kernel(const V* __restrict__ grad,
+                                  const int* __restrict__ idx,
+                                  const float* __restrict__ weight,
+                                  int r_all, int units, int m,
+                                  V* __restrict__ dfeats) {
+  extern __shared__ int sm[];
+  const int warps = blockDim.x >> 5;
+  const int cap = warps * 32 * kScanPer;  // entries a window
+  int* list = sm;                         // [cap]: (r - ws) << 5 | row
+  int* stage = list + cap;                // [warps][kStage]
+  int* wcount = stage + warps * kStage;   // [32]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j0 = blockIdx.x * warps, b = blockIdx.y;
+  const int u0 = blockIdx.z * 32 * kU;
+  const bool own = j0 + warp < m;  // this warp's known row exists
+  const int* ix = idx + (size_t)b * r_all;
+  const float* wb = weight + (size_t)b * r_all;
+  const V* gb = grad + (size_t)b * (r_all / 3) * units;
+  int* st = stage + warp * kStage;
+  const unsigned below = (1u << lane) - 1u;
+  V acc[kU];
+#pragma unroll
+  for (int q = 0; q < kU; ++q) acc[q] = vzero<V>();
+  int staged = 0;
+  // the index table as int4 where its rows allow
+  const bool vec_idx = (r_all & 3) == 0 && ((size_t)idx & 15) == 0;
+
+  for (int ws = 0; ws < r_all; ws += cap) {
+    // 1. this warp's 512 entries of the window, 16 consecutive a lane:
+    // their rows in the block (-1: another block's, or an index outside
+    // [0, m)), counted, and the lanes' counts scanned
+    const int wbase = ws + warp * 32 * kScanPer;
+    const int lbase = wbase + kScanPer * lane;
+    int t[kScanPer];
+    unsigned hits = 0;
+#pragma unroll
+    for (int q = 0; q < kScanPer; ++q) t[q] = -1;
+    if (wbase < r_all) {
+      if (vec_idx && lbase + kScanPer <= r_all) {
+#pragma unroll
+        for (int v = 0; v < kScanPer / 4; ++v) {
+          const int4 f = __ldg(reinterpret_cast<const int4*>(ix + lbase) + v);
+          t[4 * v] = f.x;
+          t[4 * v + 1] = f.y;
+          t[4 * v + 2] = f.z;
+          t[4 * v + 3] = f.w;
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < kScanPer; ++q)
+          if (lbase + q < r_all) t[q] = __ldg(ix + lbase + q);
+      }
+#pragma unroll
+      for (int q = 0; q < kScanPer; ++q) {
+        const unsigned d = (unsigned)(t[q] - j0);
+        const bool hit = lbase + q < r_all && (unsigned)t[q] < (unsigned)m &&
+                         d < (unsigned)warps;
+        t[q] = hit ? (int)d : -1;
+        hits |= (unsigned)hit << q;
+      }
+    }
+    const int mine = __popc(hits);
+    int incl = mine;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (lane == 31) wcount[warp] = incl;
+    __syncthreads();
+
+    // 2. place at the offset of the warps and lanes before: the list
+    // ascends in r
+    const int c = lane < warps ? wcount[lane] : 0;
+    int at = __reduce_add_sync(0xffffffffu, lane < warp ? c : 0) + incl - mine;
+    const int total = __reduce_add_sync(0xffffffffu, c);
+    if (hits) {
+#pragma unroll
+      for (int q = 0; q < kScanPer; ++q)
+        if (t[q] >= 0) list[at++] = ((lbase + q - ws) << 5) | t[q];
+    }
+    __syncthreads();
+
+    // 3. this warp's row: its entries in list order, staged, summed; the
+    // row written after the last window
+    if (own) {
+      for (int k0 = 0; k0 < total; k0 += 32) {
+        const int e = k0 + lane < total ? list[k0 + lane] : -1;
+        const bool hit = e >= 0 && (e & 31) == warp;
+        const unsigned bal = __ballot_sync(0xffffffffu, hit);
+        if (hit) st[staged + __popc(bal & below)] = ws + (e >> 5);
+        staged += __popc(bal);
+        if (staged >= 32) {
+          __syncwarp();
+          sum_staged<V, kU>(st, staged, gb, wb, units, u0, lane, acc);
+          staged = 0;
+          __syncwarp();
+        }
+      }
+      if (ws + cap >= r_all) {
+        __syncwarp();
+        sum_staged<V, kU>(st, staged, gb, wb, units, u0, lane, acc);
+        V* dst = dfeats + ((size_t)b * m + j0 + warp) * units;
+#pragma unroll
+        for (int q = 0; q < kU; ++q) {
+          const int u = u0 + lane + 32 * q;
+          if (u < units) dst[u] = acc[q];
+        }
+      }
+    }
+    if (ws + cap < r_all) __syncthreads();  // the next window rewrites
+  }
+}
+
+size_t interp_smem_bytes(int warps) {
+  return 4 * ((size_t)warps * (32 * kScanPer + kStage) + 32);
+}
+
+template <typename V, int kU>
+int launch_interp(const V* grad, const int* idx, const float* weight, int b,
+                  int n, int units, int m, int warps, V* dfeats,
+                  cudaStream_t stream) {
+  const size_t smem = interp_smem_bytes(warps);
+  auto kernel = three_interpolate_grad_kernel<V, kU>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it
+      return (int)err;
+    }
+  }
+  dim3 grid((m + warps - 1) / warps, b,
+            (units + 32 * kU - 1) / (32 * kU));
+  kernel<<<grid, 32 * warps, smem, stream>>>(grad, idx, weight, 3 * n,
+                                             units, m, dfeats);
+  return (int)cudaGetLastError();
+}
+
+template <typename V>
+int launch_interp_units(const V* grad, const int* idx, const float* weight,
+                        int b, int n, int units, int m, int warps,
+                        int lane_units, V* dfeats, cudaStream_t stream) {
+  if (warps < 1 || warps > kInterpMaxWarps)
+    return (int)cudaErrorInvalidValue;
+  switch (lane_units) {
+    case 1:
+      return launch_interp<V, 1>(grad, idx, weight, b, n, units, m, warps,
+                                 dfeats, stream);
+    case 2:
+      return launch_interp<V, 2>(grad, idx, weight, b, n, units, m, warps,
+                                 dfeats, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // threads that share a row: the smallest power of two >= cv, at most 32
@@ -566,34 +770,35 @@ int vlp3d_group_points_grad_sorted(const void* grad, const void* idx, int b,
   const int units = vec ? c / 4 : c;
   const int lanes = lanes_for(std::min(units, uslice));
   if (vec)
-    return launch_sorted<float4, false>(
-        (const float4*)grad, (const int*)idx, nullptr, b, rows_per_batch,
-        units, n, rows, uslice, lanes, warps, cap, (float4*)dpoints, s);
-  return launch_sorted<float, false>(
-      (const float*)grad, (const int*)idx, nullptr, b, rows_per_batch, units,
-      n, rows, uslice, lanes, warps, cap, (float*)dpoints, s);
+    return launch_sorted<float4>((const float4*)grad, (const int*)idx, b,
+                                 rows_per_batch, units, n, rows, uslice,
+                                 lanes, warps, cap, (float4*)dpoints, s);
+  return launch_sorted<float>((const float*)grad, (const int*)idx, b,
+                              rows_per_batch, units, n, rows, uslice, lanes,
+                              warps, cap, (float*)dpoints, s);
 }
 
-// The backward of the three-NN interpolation, through the same kernel:
-// dfeats[b, j, :] = sum over (i, k) with idx[b, i, k] == j, in ascending
-// 3 i + k, of weight[b, i, k] * grad[b, i, :]. grad: (b, n, c) f32
-// contiguous; idx, weight: (b, n, 3) i32 / f32 contiguous; dfeats:
-// (b, m, c) f32, every row written. Plan arguments as above.
+// The backward of the three-NN interpolation
+// (three_interpolate_grad_kernel): dfeats[b, j, :] = sum over (i, k)
+// with idx[b, i, k] == j, in ascending 3 i + k, of weight[b, i, k] *
+// grad[b, i, :]. grad: (b, n, c) f32 contiguous; idx, weight: (b, n, 3)
+// i32 / f32 contiguous; dfeats: (b, m, c) f32, every row written. vec != 0
+// moves float4 units (the caller has checked that c and the addresses are
+// multiples of 4 floats). `warps` known rows a block (1 to 16), one a
+// warp; `lane_units` channel units a lane (1 or 2), so a block covers
+// 32 x lane_units units and the grid's z the rest.
 int vlp3d_three_interpolate_grad(const void* grad, const void* idx,
                                  const void* weight, int b, int n, int c,
-                                 int m, int vec, int rows, int uslice,
-                                 int warps, int cap, void* dfeats,
-                                 void* stream) {
+                                 int m, int vec, int warps, int lane_units,
+                                 void* dfeats, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const int units = vec ? c / 4 : c;
-  const int lanes = lanes_for(std::min(units, uslice));
   if (vec)
-    return launch_sorted<float4, true>(
-        (const float4*)grad, (const int*)idx, (const float*)weight, b, 3 * n,
-        units, m, rows, uslice, lanes, warps, cap, (float4*)dfeats, s);
-  return launch_sorted<float, true>(
-      (const float*)grad, (const int*)idx, (const float*)weight, b, 3 * n,
-      units, m, rows, uslice, lanes, warps, cap, (float*)dfeats, s);
+    return launch_interp_units<float4>(
+        (const float4*)grad, (const int*)idx, (const float*)weight, b, n,
+        c / 4, m, warps, lane_units, (float4*)dfeats, s);
+  return launch_interp_units<float>((const float*)grad, (const int*)idx,
+                                    (const float*)weight, b, n, c, m, warps,
+                                    lane_units, (float*)dfeats, s);
 }
 
 }  // extern "C"

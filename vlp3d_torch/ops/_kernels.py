@@ -86,7 +86,7 @@ SIGNATURES = {
         "vlp3d_group_points_grad_sorted": [_P, _P, _I, _I, _I, _I, _I, _I,
                                            _I, _I, _I, _P, _P],
         "vlp3d_three_interpolate_grad": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                         _I, _I, _I, _P, _P],
+                                         _I, _P, _P],
     },
     "point_parallel": {
         "vlp3d_fps_shard_loop": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -12,7 +12,7 @@ versions beside them (:func:`three_nn_plain`,
 two. On the card ``interpolate_features`` is one launch of the team
 kernel of ``csrc/three_nn.cu`` (three-NN, the weights and the weighted
 sum, no (B, N, 3, C) tensor) and, where the known features need a
-gradient, one launch of the weighted sorted scatter of
+gradient, one launch of ``three_interpolate_grad_kernel`` of
 ``csrc/grouping.cu`` in its backward, both bound in one
 :class:`torch.autograd.Function`. Only the known features receive a
 gradient, as in the JAX op, which stops the gradient at the distances;
@@ -29,8 +29,6 @@ import torch
 
 from vlp3d_torch.ops import _kernels
 from vlp3d_torch.ops.grouping import (
-    SORTED_CAP,
-    _grad_plan,
     group_points,
     group_points_grad_plain,
     group_points_plain,
@@ -208,16 +206,38 @@ def _interpolate_cuda(unknown: torch.Tensor, known: torch.Tensor,
     return (out, idx, weight) + ((dist2,) if with_dist2 else ())
 
 
+# the backward's plans that chip_smoke.py sweeps at the FP sites and the
+# card tests run: (known rows a block, one a warp; channel units a lane)
+INTERP_GRAD_PLANS = tuple((warps, lane_units) for warps in (4, 8, 16)
+                          for lane_units in (1, 2))
+
+
+def _check_interp_grad_plan(plan) -> tuple[int, int]:
+    """(warps, lane_units) of a backward plan, or ValueError for one the
+    kernel does not take: 1 to 16 warps (known rows) a block, 1 or 2
+    channel units (float4, or float) a lane."""
+    if not (isinstance(plan, tuple) and len(plan) == 2
+            and all(isinstance(v, int) for v in plan)):
+        raise ValueError(f"interpolation backward plan {plan!r} is not "
+                         "(warps, lane_units)")
+    warps, lane_units = plan
+    if not 1 <= warps <= 16 or lane_units not in (1, 2):
+        raise ValueError(f"interpolation backward plan {plan!r}: warps must "
+                         "be 1 to 16 and lane_units 1 or 2")
+    return warps, lane_units
+
+
 @functools.lru_cache(maxsize=None)
-def _interp_grad_plan(b: int, m: int, c: int, r: int):
-    """Plan of the weighted sorted scatter for a (B, R = 3N, C) table of
-    weighted rows into (B, m, C): the gather backward's plan
-    (:func:`~vlp3d_torch.ops.grouping._grad_plan`: rows a block, channel
-    slices, warps, list capacity); the sorted kernel also where that
-    hands the gather over to its atomic kernel (no weighted atomic
-    kernel exists), at 128 rows a block."""
-    return _grad_plan(b, m, c, r) or (128, 2 if c > 128 else 1, 32,
-                                      SORTED_CAP)
+def _interp_grad_plan(b: int, m: int, c: int, r: int) -> tuple[int, int]:
+    """Plan of ``three_interpolate_grad_kernel`` for a (B, R = 3N, C)
+    table of weighted rows into (B, m, C): (known rows a block, channel
+    units a lane). 2 units a lane (C = 256 in float4 in one slice; a
+    wider row takes more slices) unless one covers the row; 8 rows a
+    block, so the FP sites run 256 and 512 blocks of 256 threads. In the
+    sweep chip_smoke.py prints, on an H100, it was the fastest plan at
+    both FP sites."""
+    units = c // 4 if c % 4 == 0 else c
+    return 8, 1 if units <= 32 else 2
 
 
 def _three_interpolate_grad_cuda(grad: torch.Tensor, idx: torch.Tensor,
@@ -234,17 +254,18 @@ def _three_interpolate_grad_cuda(grad: torch.Tensor, idx: torch.Tensor,
         raise ValueError("grad, idx and weight shapes differ")
     if grad.numel() == 0 or m == 0:
         return torch.zeros((b, m, c), dtype=torch.float32, device=grad.device)
-    if plan is None:
-        plan = _interp_grad_plan(b, m, c, 3 * n)
-    rows, slices, warps, cap = plan
+    if b > 65535 or 3 * n >= 2 ** 31:
+        raise ValueError(f"three_interpolate_grad: {b} batch rows of {n} "
+                         "points are outside the kernel's grid")
+    warps, lane_units = _check_interp_grad_plan(
+        _interp_grad_plan(b, m, c, 3 * n) if plan is None else plan)
     dfeats = torch.empty((b, m, c), dtype=torch.float32, device=grad.device)
     vec = (c % 4 == 0 and grad.data_ptr() % 16 == 0
            and dfeats.data_ptr() % 16 == 0)
-    units = c // 4 if vec else c
     with _kernels.on_device(grad):
         rc = _kernels.function("grouping", "vlp3d_three_interpolate_grad")(
             grad.data_ptr(), idx.data_ptr(), weight.data_ptr(), b, n, c, m,
-            vec, rows, -(-units // slices), warps, cap, dfeats.data_ptr(),
+            vec, warps, lane_units, dfeats.data_ptr(),
             _kernels.stream_ptr(grad))
         if rc != 0:
             _kernels.check(rc, f"three_interpolate_grad kernel ({plan})")
@@ -254,8 +275,8 @@ def _three_interpolate_grad_cuda(grad: torch.Tensor, idx: torch.Tensor,
 
 class _InterpolateCuda(torch.autograd.Function):
     """The FP module's interpolation on the card: forward the team kernel
-    with the interpolation, backward the weighted sorted scatter, for the
-    known features only."""
+    with the interpolation, backward ``three_interpolate_grad_kernel``,
+    for the known features only."""
 
     @staticmethod
     def forward(ctx, unknown, known, known_feats):

@@ -33,9 +33,10 @@ import torch
 
 from vlp3d_torch.ops import _kernels
 
-# cells of the hard kernel's dense table a batch row (64 MiB of int32)
+# cells of the hard kernel's two dense tables (head, count) a batch row
+# (64 MiB of int32 each)
 MAX_CELLS = 1 << 24
-# items a block of the kernel's prefix sums (kTile in csrc/voxelize.cu)
+# points a tile of the kernel's prefix sum (kTile in csrc/voxelize.cu)
 VOXEL_TILE = 2048
 
 
@@ -188,7 +189,7 @@ def _hard_cuda(points, voxel_size, coors_range, max_points, max_voxels):
     if cells > MAX_CELLS:
         raise ValueError(f"a grid of {cells} cells is more than the hard "
                          f"voxelization kernel's table holds ({MAX_CELLS})")
-    if b * n >= 2 ** 31 or b * max_voxels >= 2 ** 31 \
+    if b * n >= 2 ** 31 or b * max_voxels >= 2 ** 31 or b > 65535 \
             or b * max_voxels * max_points * c >= 2 ** 40:
         raise ValueError(f"points {tuple(points.shape)} too large")
     if b == 0:
@@ -202,9 +203,12 @@ def _hard_cuda(points, voxel_size, coors_range, max_points, max_voxels):
     voxel_num = torch.empty((b,), dtype=torch.int32, device=dev)
     mask = torch.empty((b, max_voxels), dtype=torch.bool, device=dev)
     slot = torch.empty((b, n), dtype=torch.int32, device=dev)
-    tiles = -(-n // VOXEL_TILE) + -(-max_voxels // VOXEL_TILE)
-    work = torch.empty(3 * b * n + b * cells + 5 * b * max_voxels + 1
-                       + b * tiles, dtype=torch.int32, device=dev)
+    # keys and segments a point, the scan's status words (two ints a
+    # tile) and ticket, the cell table (head, count), up to three ints of
+    # padding, four ints a voxel
+    tiles = -(-n // VOXEL_TILE)
+    work = torch.empty(2 * b * n + 2 * b * tiles + 2 + 2 * b * cells + 3
+                       + 4 * b * max_voxels, dtype=torch.int32, device=dev)
     with _kernels.on_device(points):
         rc = _kernels.function("voxelize", "vlp3d_hard_voxelize")(
             points.data_ptr(), coords.data_ptr(), b, n, c, *g, max_points,
