@@ -8,7 +8,8 @@ RefNet, CapNet), the remaining variant models (MLCVNet, the DETR
 head, the xbert captioner, the cross-modal MLM, positive match, the
 legacy InfoNCE with its negatives, ENet's compute_multiview), and the
 PointPillars encoder with the rotated BEV IoU / NMS and the multiview
-hdf5 read without h5py.
+hdf5 read without h5py, and the visualizers, the benchmark scorer,
+weight import / export and the validation runbook.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --ranks 4
@@ -452,7 +453,25 @@ each fatal on failure:
    function goes into the kernels line (split_ms), with the hard call's
    device operations (at most HARD_DEVICE_OPS, one memset: fatal
    otherwise);
-18. print {"kernels": [...]} with every kernel of the main paths (the
+18. the visualizers, the benchmark scorer, weight import / export and
+   the validation runbook (ToolsPhase) over phase 7's stand-in assets
+   and its saved model, at run.sh's widths (3 + 132 channels, 40000
+   points, batch 8, 256 proposals): `python -m vlp3d_torch.cli.validate
+   --synthetic_standins --model_dir` (its defaults: 40000 points, 256
+   proposals) and export_torch then import_torch start as processes of
+   their own; meanwhile, in this process and with every count at 0
+   before each, ground_visualize, heatmap_visualize and
+   caption_visualize run with --max_scenes 1, each must launch the
+   forward's kernels (PER_FORWARD) once a batch and no backward, write
+   its dumps as its contract names them (every PLY and OBJ parses, every
+   coordinate finite), with its ms a batch (wall clock from the batch
+   to the files) printed; eval_benchmark over phase 7's pred.json
+   against GTs built from the same records' boxes must give Acc@0.25 =
+   Acc@0.5 = 1.0 over every record; the imported snapshot must equal
+   phase 7's bit for bit, and so must a batch's cluster_ref on it; the
+   runbook must exit 0 with every check ok, except tokenizer_golden
+   skipped for want of transformers (its "no HF oracle" reason);
+19. print {"kernels": [...]} with every kernel of the main paths (the
    CUDA functions behind each in kernel_functions, each found in its
    source's built library, host_us beside the
    times, the launches of each path, and per_step and per_remat_step
@@ -2385,14 +2404,15 @@ def _predict_path(torch, smi, model, ds, device, args, config):
     return launches, batches[0]
 
 
-def drive_predict(torch, smi, after_timing=lambda: None):
-    """Phase 7: the ScanRefer predict / evaluate path at run.sh's widths;
-    returns its launch counts."""
+def drive_predict(torch, smi, tmp, after_timing=lambda: None):
+    """Phase 7: the ScanRefer predict / evaluate path at run.sh's widths,
+    its stand-in assets and saved model under ``tmp``; returns its launch
+    counts and what phase 18 reads of it (the flags, the assets' flags,
+    the model's directory, the predict CLI's pred.json and the loader's
+    first batch)."""
     import numpy as np
 
     import argparse
-
-    import tempfile
 
     from vlp3d_torch import native
     from vlp3d_torch.cli import ground_eval
@@ -2432,65 +2452,64 @@ def drive_predict(torch, smi, after_timing=lambda: None):
     # by save_params, runs in a process of its own from here to the end of
     # the phase; its start-up (imports, CUDA context, model) overlaps the
     # synthetic data and the timed loader and predict runs below
-    with tempfile.TemporaryDirectory() as tmp:
-        paths = write_standin_assets(tmp)
-        run_dir = os.path.join(tmp, "run")
-        save_params(run_dir, "model", model.state_dict())
-        assets = ["--scanrefer_dir", paths["scanrefer_dir"],
-                  "--scannet_data", paths["scannet_data"], "--bert_vocab",
-                  os.path.join(paths["bert_dir"], "vocab.txt"),
-                  "--model_dir", run_dir]
-        pred_path = os.path.join(tmp, "pred.json")
-        t_cli = time.perf_counter()
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "vlp3d_torch.cli.predict", *argv, *assets,
-             "--out", pred_path], cwd=REPO, env=child_env(),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        try:
-            t0 = time.perf_counter()
-            ds = make_synthetic_dataset(config, n_scenes=PREDICT_SCENES,
-                                        n_points=PREDICT_POINTS,
-                                        anns_per_scene=PREDICT_ANNS,
-                                        split="val")
-            print(f"[7] {PREDICT_SCENES} synthetic scenes of "
-                  f"{PREDICT_POINTS} points built in "
-                  f"{time.perf_counter() - t0:.1f} s")
-            launches, batch = _predict_path(torch, smi, model, ds, device,
-                                            args, config)
-            after_timing()
-            # the same batch with the plain ops on the card, then
-            # ground_eval in this process (neither is timed)
-            got = predict_batch(model, batch, device)
-            with plain_ops():
-                ref = predict_batch(model, batch, device)
-            del model
-            boxes = [get_3d_box_batch(r["pred_size"], r["pred_heading"],
-                                      r["pred_center"]) for r in (got, ref)]
-            box_err = float(np.abs(boxes[0] - boxes[1]).max())
-            if not np.array_equal(got["chosen"], ref["chosen"]):
-                fail("predict: chosen proposals differ from the plain-op "
-                     "forward")
-            if box_err > BOX_TOL:
-                fail(f"predict: boxes differ from the plain-op forward by "
-                     f"{box_err}")
-            print(f"[7] plain-op predict on the card: chosen proposals "
-                  f"equal, boxes max abs err {box_err} (tolerance {BOX_TOL})")
-            # ground_eval drops a partial batch: batch 1 for 3 annotations
-            res = ground_eval.main(argv + assets + ["--batch_size", "1"])
-            cli_out, _ = proc.communicate(timeout=600)
-        finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        cli_s = time.perf_counter() - t_cli
-        if proc.returncode != 0:
-            fail(f"python -m vlp3d_torch.cli.predict exited "
-                 f"{proc.returncode}:\n{cli_out[-3000:]}")
-        with open(pred_path) as f:
-            preds = json.load(f)
-        with open(os.path.join(paths["scanrefer_dir"],
-                               "ScanRefer_filtered_val.json")) as f:
-            anns = json.load(f)
+    paths = write_standin_assets(tmp)
+    run_dir = os.path.join(tmp, "run")
+    save_params(run_dir, "model", model.state_dict())
+    assets = ["--scanrefer_dir", paths["scanrefer_dir"],
+              "--scannet_data", paths["scannet_data"], "--bert_vocab",
+              os.path.join(paths["bert_dir"], "vocab.txt"),
+              "--model_dir", run_dir]
+    pred_path = os.path.join(tmp, "pred.json")
+    t_cli = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "vlp3d_torch.cli.predict", *argv, *assets,
+         "--out", pred_path], cwd=REPO, env=child_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        t0 = time.perf_counter()
+        ds = make_synthetic_dataset(config, n_scenes=PREDICT_SCENES,
+                                    n_points=PREDICT_POINTS,
+                                    anns_per_scene=PREDICT_ANNS,
+                                    split="val")
+        print(f"[7] {PREDICT_SCENES} synthetic scenes of "
+              f"{PREDICT_POINTS} points built in "
+              f"{time.perf_counter() - t0:.1f} s")
+        launches, batch = _predict_path(torch, smi, model, ds, device,
+                                        args, config)
+        after_timing()
+        # the same batch with the plain ops on the card, then
+        # ground_eval in this process (neither is timed)
+        got = predict_batch(model, batch, device)
+        with plain_ops():
+            ref = predict_batch(model, batch, device)
+        del model
+        boxes = [get_3d_box_batch(r["pred_size"], r["pred_heading"],
+                                  r["pred_center"]) for r in (got, ref)]
+        box_err = float(np.abs(boxes[0] - boxes[1]).max())
+        if not np.array_equal(got["chosen"], ref["chosen"]):
+            fail("predict: chosen proposals differ from the plain-op "
+                 "forward")
+        if box_err > BOX_TOL:
+            fail(f"predict: boxes differ from the plain-op forward by "
+                 f"{box_err}")
+        print(f"[7] plain-op predict on the card: chosen proposals "
+              f"equal, boxes max abs err {box_err} (tolerance {BOX_TOL})")
+        # ground_eval drops a partial batch: batch 1 for 3 annotations
+        res = ground_eval.main(argv + assets + ["--batch_size", "1"])
+        cli_out, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    cli_s = time.perf_counter() - t_cli
+    if proc.returncode != 0:
+        fail(f"python -m vlp3d_torch.cli.predict exited "
+             f"{proc.returncode}:\n{cli_out[-3000:]}")
+    with open(pred_path) as f:
+        preds = json.load(f)
+    with open(os.path.join(paths["scanrefer_dir"],
+                           "ScanRefer_filtered_val.json")) as f:
+        anns = json.load(f)
     keys = sorted((r["scene_id"], r["object_id"], r["ann_id"]) for r in preds)
     if keys != sorted((a["scene_id"], int(a["object_id"]), int(a["ann_id"]))
                       for a in anns):
@@ -2504,7 +2523,8 @@ def drive_predict(torch, smi, after_timing=lambda: None):
           f"Acc@0.25 {res['overall_acc@0.25']} Acc@0.5 "
           f"{res['overall_acc@0.5']} over {res['overall_count']}")
     stamp("7", "CLIs")
-    return launches
+    return launches, {"argv": argv, "assets": assets, "run_dir": run_dir,
+                      "pred_path": pred_path, "batch": batch}
 
 
 def _cli(module, argv, result):
@@ -6659,7 +6679,7 @@ def check_kernel_functions(kernels) -> None:
             if f"{len(ident)}{ident}".encode() not in data:
                 fail(f"kernel {k['name']} names {fn}, which "
                      f"{k['source']}'s library does not hold")
-    print(f"[18] the kernel functions of all {len(kernels)} rows found in "
+    print(f"[19] the kernel functions of all {len(kernels)} rows found in "
           "their libraries")
 
 
@@ -8261,6 +8281,250 @@ def ranks_main(n: int) -> int:
     return 0
 
 
+# phase 18: the visualizers, the benchmark scorer, weight import / export
+# and the validation runbook, over phase 7's stand-ins and saved model
+VISUALIZERS = ("ground_visualize", "heatmap_visualize", "caption_visualize")
+VALIDATE_CHECKS = ("tokenizer_golden", "bert_weight_import", "scene_cache",
+                   "predict_contract", "grounding_acc", "caption_smoke",
+                   "vqa_smoke", "multiview_hdf5", "torch_import_chain")
+
+
+def dump_points(path: str):
+    """The vertices (V, k) of an ASCII PLY or of an OBJ's ``v`` lines;
+    fails on a file that does not parse as its format says."""
+    import numpy as np
+
+    lines = open(path).read().splitlines()
+    if path.endswith(".obj"):
+        rows = [ln.split()[1:] for ln in lines if ln.startswith("v ")]
+    else:
+        if lines[:2] != ["ply", "format ascii 1.0"] \
+                or "end_header" not in lines:
+            fail(f"{path} is not an ASCII PLY")
+        n = int(next(ln.split()[2] for ln in lines
+                     if ln.startswith("element vertex")))
+        start = lines.index("end_header") + 1
+        rows = [ln.split() for ln in lines[start:start + n]]
+        if len(rows) != n:
+            fail(f"{path}: {len(rows)} of {n} vertices")
+    pts = np.asarray(rows, np.float64)
+    if pts.ndim != 2 or pts.shape[1] < 3 or not np.isfinite(pts).all():
+        fail(f"{path}: vertices {pts.shape} not finite")
+    return pts
+
+
+def wait_for(clis, key: str, timeout: float = 600.0):
+    """(output, s) of ``clis``'s process ``key`` once it has exited 0."""
+    t0 = time.perf_counter()
+    while key not in clis.results:
+        if time.perf_counter() - t0 > timeout:
+            fail(f"python -m vlp3d_torch.cli.{key} did not end")
+        time.sleep(0.05)
+    if clis.procs[key].returncode != 0:
+        fail(f"python -m vlp3d_torch.cli.{key} exited "
+             f"{clis.procs[key].returncode}:\n{clis.results[key][0][-3000:]}")
+    return clis.results[key]
+
+
+class ToolsPhase:
+    """Phase 18 (see the module doc): the three visualizers in this
+    process, counts at 0 before each, beside export_torch -> import_torch
+    and the validation runbook as processes of their own."""
+
+    def __init__(self, torch, smi, phase7):
+        self.smi, self.p7 = smi, phase7
+        self.clis = CliProcesses()
+        self.tmp = self.clis.tmp.name
+
+    def drive(self, torch) -> dict:
+        t0 = time.perf_counter()
+        run_dir = self.p7["run_dir"]
+        report = os.path.join(self.tmp, "validate_report.json")
+        self.ref_pth = os.path.join(self.tmp, "reference.pth")
+        try:
+            self.clis.launch("validate", [
+                "--synthetic_standins", os.path.join(self.tmp, "standins"),
+                "--model_dir", run_dir, "--out", report])
+            self.clis.launch("export_torch", [
+                "--model_dir", run_dir, "--out", self.ref_pth])
+            numbers = {"visualizers": self.visualizers(torch)}
+            numbers["eval_benchmark"] = self.eval_benchmark()
+            numbers["import_export"] = self.import_export(torch)
+            numbers["validate"] = self.validate(report)
+        finally:
+            self.clis.stop()
+        numbers["wall_s"] = time.perf_counter() - t0
+        print(f"[18] phase 18 took {numbers['wall_s']:.1f} s ({self.smi})")
+        stamp("18", "visualizers, eval_benchmark, import / export, validate")
+        return numbers
+
+    def visualizers(self, torch) -> dict:
+        """Each visualizer's main in this process over phase 7's
+        stand-ins and model: launch counts, its dump contract, its ms a
+        batch from the batch to the files."""
+        from vlp3d_torch import ops
+
+        out = {}
+        for name in VISUALIZERS:
+            mod = importlib.import_module(f"vlp3d_torch.cli.{name}")
+            setup, marks = mod.visualizer_setup, []
+
+            def timed(*a, _setup=setup, **k):
+                got = _setup(*a, **k)
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+                return got
+
+            out_dir = os.path.join(self.tmp, name)
+            mod.visualizer_setup = timed
+            try:
+                torch.cuda.synchronize()
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                n = mod.main(self.p7["argv"] + self.p7["assets"] + [
+                    "--max_scenes", "1", "--out_dir", out_dir])
+                t1 = time.perf_counter()
+                launches = dict(ops.launches)
+            finally:
+                mod.visualizer_setup = setup
+            batches = 1  # one scene: the stand-ins' three sentences
+            want = {k: v * batches for k, v in PER_FORWARD.items()}
+            if n != 1 or launches != want:
+                fail(f"{name}: {n} scene(s), launches {launches} != {want}")
+            files = self.check_dumps(name, out_dir)
+            ms = (t1 - marks[0]) * 1e3 / batches
+            out[name] = {"ms_a_batch": ms, "s_whole": t1 - t0,
+                         "files": files, "launches": launches}
+            print(f"[18] {name}: {files} files, launches {launches} (one "
+                  f"batch, no backward); {ms:.3f} ms a batch from the batch "
+                  f"to the files, {t1 - t0:.1f} s with the model's build "
+                  f"({self.smi})")
+        return out
+
+    def check_dumps(self, name: str, out_dir: str) -> int:
+        """The files of ``name``'s dump contract: their names, every PLY
+        / OBJ parsed, every coordinate finite; returns the file count."""
+        import re
+
+        paths = sorted(os.path.join(d, f) for d, _, fs in os.walk(out_dir)
+                       for f in fs)
+        rel = [os.path.relpath(p, out_dir) for p in paths]
+        if name == "ground_visualize":
+            preds = [r for r in rel if re.fullmatch(
+                r"scene\d{4}_\d{2}/pred_\d+_.+_\d+_\d\.\d{5}_\d\.\d{5}\.ply",
+                r)]
+            gts = [r for r in rel if re.fullmatch(
+                r"scene\d{4}_\d{2}/gt_\d+_.+\.ply", r)]
+            ok = (len(preds) == 3 and gts and
+                  sum(r.endswith("/pc.ply") for r in rel) == 1
+                  and len(rel) == len(preds) + len(gts) + 1)
+        elif name == "heatmap_visualize":
+            dirs = sorted({os.path.dirname(r) for r in rel})
+            maps = [r for r in rel if re.fullmatch(r".+/0_\d+\.ply", r)]
+            ok = (len(dirs) == 3 and maps and all(
+                f"{d}/scene_scene.ply" in rel and f"{d}/scene_pred.obj" in rel
+                for d in dirs) and len(rel) == len(maps) + 2 * len(dirs))
+        else:
+            caps = [r for r in rel if r.endswith("captions.json")]
+            boxes = [r for r in rel if re.fullmatch(
+                r".+/pred-\d+-class\d+\.ply", r)]
+            got = json.load(open(os.path.join(out_dir, caps[0]))) \
+                if len(caps) == 1 else {}
+            ok = (len(caps) == 1 and len(boxes) == len(got) and all(
+                set(v) == {"object_name", "description"}
+                for v in got.values())
+                and len(rel) == len(boxes) + 2)
+        if not ok:
+            fail(f"{name}: the dump contract does not hold: {rel[:20]}")
+        for p in paths:
+            if not p.endswith(".json"):
+                dump_points(p)
+        return len(paths)
+
+    def eval_benchmark(self) -> dict:
+        """Phase 7's pred.json scored against GTs built from its own
+        boxes: 1.0 at both thresholds over every record."""
+        from vlp3d_torch.cli.eval_benchmark import evaluate
+
+        with open(self.p7["pred_path"]) as f:
+            preds = json.load(f)
+        gts = {}
+        for r in preds:
+            gts.setdefault(r["scene_id"], {}).setdefault(
+                str(r["object_id"]), {})[str(r["ann_id"])] = {
+                    "bbox": r["bbox"]}
+        res = evaluate(preds, gts)
+        if (res["overall_acc@0.25"] != 1.0 or res["overall_acc@0.5"] != 1.0
+                or res["num_scored"] != len(preds) or not preds):
+            fail(f"eval_benchmark on pred-as-GT: {res}")
+        print(f"[18] eval_benchmark over phase 7's pred.json ({len(preds)} "
+              f"records) against its own boxes: Acc@0.25 "
+              f"{res['overall_acc@0.25']} Acc@0.5 {res['overall_acc@0.5']}")
+        return {k: res[k] for k in ("overall_acc@0.25", "overall_acc@0.5",
+                                    "num_scored")}
+
+    def import_export(self, torch) -> dict:
+        """export_torch's .pth through import_torch: the snapshot and a
+        batch's cluster_ref equal phase 7's bit for bit."""
+        import argparse
+
+        from vlp3d_torch.cli.common import add_common_args, config_from_args
+        from vlp3d_torch.serving import GroundingPredictor, ground, to_device
+        from vlp3d_torch.train.checkpoint import load_params
+
+        _, export_s = wait_for(self.clis, "export_torch")
+        imported = os.path.join(self.tmp, "imported")
+        self.clis.launch("import_torch", [
+            "--checkpoint", self.ref_pth, "--out", imported])
+        # phase 7's weights on phase 7's batch while the import runs
+        parser = argparse.ArgumentParser()
+        add_common_args(parser)
+        config = config_from_args(parser.parse_args(self.p7["argv"]))
+        want = load_params(self.p7["run_dir"], "model")
+        predictor = GroundingPredictor(config, want)
+        batch = to_device(self.p7["batch"], predictor.device)
+        ref = ground(predictor.model, batch)["cluster_ref"].cpu()
+        import_out, import_s = wait_for(self.clis, "import_torch")
+        got = load_params(imported, "model")
+        if set(got) != set(want):
+            fail(f"import_torch keys differ: {sorted(set(got) ^ set(want))}")
+        for k, w in want.items():
+            if got[k].dtype != w.dtype or not torch.equal(got[k], w):
+                fail(f"import_torch: {k} differs from phase 7's")
+        predictor.model.load_state_dict(got, strict=True)
+        again = ground(predictor.model, batch)["cluster_ref"].cpu()
+        if not torch.equal(again, ref):
+            fail("cluster_ref on the imported weights differs from phase 7's")
+        del predictor
+        torch.cuda.empty_cache()
+        print(f"[18] export_torch ({export_s:.1f} s) -> import_torch "
+              f"({import_s:.1f} s; {import_out.strip().splitlines()[-1]}): "
+              f"all {len(want)} entries bit-equal to phase 7's, cluster_ref "
+              f"{tuple(ref.shape)} on a batch bit-equal")
+        return {"entries": len(want), "export_s": export_s,
+                "import_s": import_s}
+
+    def validate(self, report: str) -> dict:
+        """The runbook's exit code and its checks' statuses."""
+        text, s = wait_for(self.clis, "validate")
+        with open(report) as f:
+            checks = json.load(f)["checks"]
+        statuses = {k: checks[k]["status"] for k in VALIDATE_CHECKS}
+        for k in VALIDATE_CHECKS:
+            c = checks[k]
+            if c["status"] == "ok":
+                continue
+            if k == "tokenizer_golden" and c["status"] == "skipped" \
+                    and c["reason"].startswith("no HF oracle"):
+                continue
+            fail(f"validate: {k} is {c['status']}: "
+                 f"{c.get('reason') or c.get('error')}")
+        print(f"[18] python -m vlp3d_torch.cli.validate exited 0 in {s:.1f} "
+              f"s: {statuses} ({text.strip().splitlines()[-1][:200]})")
+        return {"statuses": statuses, "s": s,
+                "weights": checks["predict_contract"].get("weights")}
+
+
 def main() -> int:
     sys.pycache_prefix, sys.dont_write_bytecode = PYCACHE, False
     if "--rank-worker" in sys.argv[1:]:
@@ -8341,6 +8605,10 @@ def main() -> int:
     # caption_eval processes start once phase 7's timing is done
     cli, caption_clis, task_clis = TrainCli(), CaptionClis(), TaskClis()
     variant_clis, pillar_clis = VariantClis(), PillarClis()
+    # phase 7's stand-in assets and saved model, which phase 18 reads
+    import tempfile
+
+    phase7_dir = tempfile.TemporaryDirectory()
 
     def start_clis():
         cli.start()
@@ -8350,7 +8618,8 @@ def main() -> int:
         pillar_clis.start()
 
     try:
-        predict = drive_predict(torch, smi, after_timing=start_clis)
+        predict, phase7 = drive_predict(torch, smi, phase7_dir.name,
+                                        after_timing=start_clis)
         torch.cuda.empty_cache()
 
         # 8. training: the Solver in this process beside the training
@@ -8451,7 +8720,12 @@ def main() -> int:
                             "detector_forward")))):
             fail(f"kernel {name} was not launched on a main path")
 
-    # 18. results
+    # 18. the visualizers, eval_benchmark, weight import / export and the
+    # validation runbook over phase 7's stand-ins and model
+    tools_numbers = ToolsPhase(torch, smi, phase7).drive(torch)
+    phase7_dir.cleanup()
+
+    # 19. results
     line = kernel_line(rows, serving, train, predict, solver, http,
                        per_step, per_remat_step, paths)
     line["kernels"] += pillar_kernel_rows(pillar_rows, pillar_numbers)
@@ -8469,8 +8743,9 @@ def main() -> int:
     line["task_pipelines"] = dict(task_numbers, clis=task_cli_numbers)
     line["variants"] = dict(variant_numbers, clis=variant_cli_numbers)
     line["pointpillars"] = pillar_numbers
+    line["tools"] = tools_numbers
     line["wall_s"] = time.perf_counter() - _T0
-    print(f"[18] the whole command took {line['wall_s']:.1f} s")
+    print(f"[19] the whole command took {line['wall_s']:.1f} s")
     print(json.dumps(line))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -16,13 +16,16 @@ carries (``text_encoder.bert.encoder.layer.0.attention.self.query``).
 LayerNorm eps is 1e-12; the attention mask is ADDED as
 (1 - mask) * -10000; GELU is the exact erf form. DistilBERT
 (:func:`distilbert_config`, ``use_distil``) is the same stack with 6
-layers and no token-type table.
+layers and no token-type table. :func:`load_hf_bert` puts a HF
+bert-base-uncased checkpoint (:func:`read_hf_state_dict`) into the text
+encoder, the counterpart of ``load_hf_bert_params``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -258,6 +261,73 @@ class LangModule(nn.Module):
         if self.lang_cls is not None:
             out["lang_scores"] = self.lang_cls(lang_emb)
         return out
+
+
+def read_hf_state_dict(bert_dir: str) -> dict:
+    """The tensors of a HF BERT directory: ``model.safetensors`` where it
+    exists (read without the ``safetensors`` package), else
+    ``pytorch_model.bin``."""
+    st_path = os.path.join(bert_dir, "model.safetensors")
+    if os.path.exists(st_path):
+        from vlp3d_torch.data.safetensors_file import read_safetensors
+
+        return read_safetensors(st_path)
+    return torch.load(os.path.join(bert_dir, "pytorch_model.bin"),
+                      map_location="cpu", weights_only=True)
+
+
+def _hf_key(sd: dict, name: str) -> str:
+    return name if name in sd else "bert." + name
+
+
+def bert_config_from_state_dict(sd: dict) -> BertConfig:
+    """The BertConfig of a HF checkpoint's tensors (bare or ``bert.``
+    names), so that a small stand-in checkpoint takes the path bert-base
+    takes: its vocabulary, width, depth, feed-forward width and positions
+    from the tensors' shapes, a head every 64 channels, text mode over
+    the first min(6, depth) layers (``_bert_config_from_state_dict`` of
+    ``vlp3d/cli/validate.py``)."""
+    emb = sd[_hf_key(sd, "embeddings.word_embeddings.weight")]
+    n_layers = 0
+    while any(k.startswith((f"encoder.layer.{n_layers}.",
+                            f"bert.encoder.layer.{n_layers}.")) for k in sd):
+        n_layers += 1
+    hidden = emb.shape[1]
+    return BertConfig(
+        vocab_size=emb.shape[0], hidden_size=hidden,
+        num_hidden_layers=n_layers, num_attention_heads=max(1, hidden // 64),
+        intermediate_size=sd[_hf_key(
+            sd, "encoder.layer.0.intermediate.dense.weight")].shape[0],
+        max_position_embeddings=sd[_hf_key(
+            sd, "embeddings.position_embeddings.weight")].shape[0],
+        fusion_layer=min(6, n_layers))
+
+
+def load_hf_bert(encoder: BertTextEncoder, sd: dict) -> list:
+    """Copy a HF BERT state dict (``bert.``-prefixed or bare names) into
+    ``encoder``, each tensor's shape checked, and return the keys of
+    ``sd`` it did not take, in ``sd``'s order. The encoder's names are
+    HF's under ``bert.``; its layers past ``fusion_layer`` do not exist,
+    so theirs are among the keys returned, as are the pooler's and any
+    head's. ``position_ids`` is taken where the checkpoint has it and
+    kept otherwise."""
+    taken, own = set(), encoder.state_dict()
+    with torch.no_grad():
+        for name, dst in own.items():
+            bare = name[len("bert."):]
+            key = name if name in sd else bare
+            if key not in sd:
+                if bare == "embeddings.position_ids":
+                    continue
+                raise KeyError(f"the checkpoint has no {name!r} (nor "
+                               f"{bare!r})")
+            src = torch.as_tensor(sd[key])
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"{key}: shape {tuple(src.shape)}, the "
+                                 f"encoder's {name} is {tuple(dst.shape)}")
+            dst.copy_(src)
+            taken.add(key)
+    return [k for k in sd if k not in taken]
 
 
 class BertMLMHead(nn.Module):

@@ -9,7 +9,9 @@ with ``torch.save``:
   reference-layout state dict, BatchNorm statistics included, as the
   reference's ``model.state_dict()`` files do, so it loads with
   ``load_state_dict(..., strict=True)``; :func:`load_params_partial` is
-  the ``--pretrain`` warm start (strict=False).
+  the ``--pretrain`` warm start (strict=False); :func:`load_params_into`
+  loads a snapshot into a model that may carry other heads (the
+  visualizers' and the validation runbook's ``--model_dir``).
 * :func:`save_checkpoint` / :func:`load_checkpoint`: the resume
   checkpoint (model, optimizer, its step count, the epoch and the best
   metrics). Each save goes to the slot that ``checkpoint_meta.json`` does
@@ -66,6 +68,18 @@ def save_params(root: str, name: str, state_dict: dict) -> str:
 def load_params(root: str, name: str) -> dict:
     """The state dict a :func:`save_params` snapshot holds, on the CPU."""
     return _load(params_path(root, name))
+
+
+def load_params_into(model, root: str, name: str) -> dict:
+    """A :func:`save_params` snapshot into ``model`` as far as it goes:
+    every entry the model has is taken (a shape that differs raises), the
+    model's entries the snapshot lacks (a head it was not trained with)
+    keep their values, and the snapshot's entries the model lacks are
+    ignored. Returns the counts: ``restored``, ``fresh``, ``ignored``."""
+    missing, unexpected = model.load_state_dict(load_params(root, name),
+                                                strict=False)
+    return {"restored": len(model.state_dict()) - len(missing),
+            "fresh": len(missing), "ignored": len(unexpected)}
 
 
 def load_params_partial(path: str, template: dict):
