@@ -528,7 +528,8 @@ TRAIN_STEPS_EPOCH0 = 8
 # kernel launches of one forward, and of one train step's backward
 PER_FORWARD = {"fps": 5, "ball_query": 5, "three_nn": 2, "group_points": 11,
                "group_points_grad": 0, "three_interpolate_grad": 0,
-               "fps_shard_loop": 0, "ball_query_merge": 0, "gather_owned": 0,
+               "fps_shard_loop": 0, "fps_shard_step": 0,
+               "ball_query_merge": 0, "gather_owned": 0,
                "dynamic_voxelize": 0, "hard_voxelize": 0, "boxes_iou_bev": 0,
                "nms_bev": 0}
 PER_STEP = dict(PER_FORWARD, group_points_grad=5, three_interpolate_grad=2)
@@ -642,12 +643,17 @@ PIPE_MICROBATCHES = 4
 PIPE_TOL = 1e-5
 BACKBONE_TOL = 1e-4
 # the point-axis kernels, launched on phase 14's front end only
-SP_KERNELS = ("fps_shard_loop", "ball_query_merge", "gather_owned")
+SP_KERNELS = ("fps_shard_loop", "fps_shard_step", "ball_query_merge",
+              "gather_owned")
 # launches of the point-sharded SA1 front end: the FPS loop (one launch a
 # call), the slab's ball query and the merge, three owned gathers (the
 # centres, the xyz rows, the feature rows)
 SP_FRONT = {"fps_shard_loop": 1, "ball_query": 1, "ball_query_merge": 1,
             "gather_owned": 3}
+# the same front with its FPS on the collective route: the step kernel
+# once an iteration (added where SA1's npoint is known) instead of the loop
+SP_FRONT_COLLECTIVE = {"ball_query": 1, "ball_query_merge": 1,
+                       "gather_owned": 3}
 STALL_LIMIT_S = 0.5  # the stalled-peer probe's spin limit
 STALL_SPREAD_S = 4.0  # its second run's limit, this much longer
 # a slab past registers (a 16-block cluster's share over 8192 points):
@@ -785,6 +791,13 @@ PILLAR_FUNCTIONS = {
     "nms_bev": ["box_corners_kernel", "nms_mask_kernel", "nms_scan_kernel"],
 }
 HARD_DEVICE_OPS = 6
+# SECOND's KITTI grid (OpenPCDet kitti_models/second.yaml: voxel 0.05 x
+# 0.05 x 0.1 m over [0, 70.4] x [-40, 40] x [-3, 1], 1408 x 1600 x 40 =
+# 90 112 000 cells, 5 points a voxel, 16000 voxels training and 40000
+# testing) on phase 17's clouds
+SECOND_VOXEL = (0.05, 0.05, 0.1)
+SECOND_RANGE = (0.0, -40.0, -3.0, 70.4, 40.0, 1.0)
+SECOND_SLOTS, SECOND_VOXELS = 5, (16000, 40000)
 PILLAR_CANVAS_TOL = 1e-6  # of the canvas's largest entry
 PILLAR_STEPS = 5  # timed forwards and steps of the encoder
 NMS_BOXES = 4096
@@ -867,6 +880,37 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def scratch_bytes(torch, fn) -> int:
+    """Bytes one call of fn asked the card's allocator for beyond what it
+    returned: the peak of the allocator's requested bytes during the call
+    less those still requested once it has returned, its outputs kept
+    (its workspace and temporaries, as requested, before the allocator's
+    rounding)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    stats = torch.cuda.memory_stats()
+    held = (stats["requested_bytes.all.peak"]
+            - stats["requested_bytes.all.current"])
+    del out
+    return int(held)
+
+
+def check_scratch(held: int, b: int, n: int, v: int, where: str) -> None:
+    """hard_voxelize's measured scratch against what its kernel addresses:
+    the workspace (``hard_workspace_ints``) and the points' (b, n, 3) int32
+    cell coordinates. Fails if the call held less; prints both."""
+    from vlp3d_torch.ops import voxelize as vox
+
+    need = 4 * vox.hard_workspace_ints(b, n, v) + 12 * b * n
+    print(f"[17] hard_voxelize at {where}: held {held} bytes of scratch, "
+          f"its kernel's layout and the coordinates {need}")
+    if held < need:
+        fail(f"hard_voxelize at {where} held {held} bytes of scratch, less "
+             f"than the {need} its kernel addresses")
 
 
 def index_err(torch, got, want) -> float:
@@ -1635,6 +1679,8 @@ def kernel_line(rows, serving, train, predict, solver, http, per_step,
                                    "vlp3d/ops/interpolate.py:49"),
         "fps_shard_loop": ("vlp3d_torch/csrc/point_parallel.cu",
                            "vlp3d/parallel/point_parallel.py:74"),
+        "fps_shard_step": ("vlp3d_torch/csrc/point_parallel.cu",
+                           "vlp3d/parallel/point_parallel.py:74"),
         "ball_query_merge": ("vlp3d_torch/csrc/point_parallel.cu",
                              "vlp3d/parallel/point_parallel.py:133"),
         "gather_owned": ("vlp3d_torch/csrc/point_parallel.cu",
@@ -1652,7 +1698,8 @@ def kernel_line(rows, serving, train, predict, solver, http, per_step,
                               "group_points_grad_kernel"],
         "three_interpolate_grad": ["three_interpolate_grad_kernel<V, kU>"],
         "fps_shard_loop": ["fps_shard_loop_kernel<P>"],
-        "ball_query_merge": ["ball_query_merge_kernel"],
+        "fps_shard_step": ["fps_shard_step_kernel"],
+        "ball_query_merge": ["ball_query_merge_kernel<kWide>"],
         "gather_owned": ["gather_owned_kernel"],
     }
     kernels = []
@@ -5934,7 +5981,10 @@ FP_GRAD_SHAPES = (("FP1", 8, 512, 256, 256), ("FP2", 8, 1024, 512, 256))
 def redesign_times_main(save: str, against: str | None) -> int:
     """``--redesign-times SAVE [AGAINST]``: the device ms of the
     interpolation backward at FP_GRAD_SHAPES and of hard_voxelize on
-    phase 17's clouds (means of 50 and 20 calls), with the vlp3d_torch
+    phase 17's clouds (means of 50 and 20 calls), and of the kernels whose
+    grids fold the batch into x (SA1's ball query, SA2's gather backward,
+    FP2's three-NN interpolation) and the ball-query merge at 1 and 4
+    shards (means of 50), with the vlp3d_torch
     beside this file, for a comparison of two checkouts in one run on one
     card (copy this file into the other's root). The inputs are made on
     the host from seeds, so both checkouts see the same; the outputs go
@@ -5966,6 +6016,46 @@ def redesign_times_main(save: str, against: str | None) -> int:
         outs[label] = itp._three_interpolate_grad_cuda(grad, idx, weight, m)
         ms[label] = cuda_ms(torch, lambda: itp._three_interpolate_grad_cuda(
             grad, idx, weight, m), 50)
+    # SA1's ball query and its gather's backward, FP2's interpolation and
+    # the merge at 1 and 4 shards, on a seeded cloud at run.sh's widths
+    from vlp3d_torch import ops
+    from vlp3d_torch.ops import grouping as grp
+    from vlp3d_torch.parallel import point_parallel as pp
+
+    cloud = torch.from_numpy(rng.uniform(0, 6, (B, N, 3)).astype(
+        np.float32)).cuda()
+    ctr = cloud[:, ::N // 2048][:, :2048].contiguous()
+    outs["ball_query"] = ops.ball_query(0.2, 64, cloud, ctr)
+    ms["ball_query"] = cuda_ms(torch, lambda: ops.ball_query(
+        0.2, 64, cloud, ctr), 50)
+    # the sorted backward at SA2's site: 1024 x 32 rows of 128 channels
+    # into a 2048-point table
+    sa2 = cloud[:, :2048].contiguous()
+    gidx = ops.ball_query(0.4, 32, sa2, sa2[:, ::2].contiguous()).reshape(
+        B, -1).contiguous()
+    ggrad = torch.from_numpy(rng.normal(size=(B, gidx.shape[1], 128))
+                             .astype(np.float32)).cuda()
+    outs["group_points_grad"] = grp._group_points_grad_cuda(ggrad, gidx,
+                                                            2048)
+    ms["group_points_grad"] = cuda_ms(
+        torch, lambda: grp._group_points_grad_cuda(ggrad, gidx, 2048), 50)
+    fp_u, fp_k = cloud[:, :1024].contiguous(), ctr[:, :512].contiguous()
+    fp_f = torch.from_numpy(rng.normal(size=(B, 512, 256)).astype(
+        np.float32)).cuda()
+    outs["interpolate"] = itp._interpolate_cuda(fp_u, fp_k, fp_f)[0]
+    ms["interpolate"] = cuda_ms(
+        torch, lambda: itp._interpolate_cuda(fp_u, fp_k, fp_f), 50)
+    for w in (1, 4):
+        nl = N // w
+        parts = [ops.ball_query_with_count(
+            0.2, 64, cloud[:, i * nl:(i + 1) * nl].contiguous(), ctr)
+            for i in range(w)]
+        a_w = torch.stack([q[0] for q in parts])
+        c_w = torch.stack([q[1] for q in parts])
+        outs[f"merge_w{w}"] = pp.ball_query_merge(a_w, c_w, nl, 64)
+        ms[f"merge_w{w}"] = cuda_ms(torch, lambda: pp.ball_query_merge(
+            a_w, c_w, nl, 64), 50)
+    del cloud, ctr, sa2, gidx, ggrad, fp_u, fp_k, fp_f, parts, a_w, c_w
     pts = torch.from_numpy(np.stack([
         pillar_cloud(17 + i, kind) for i, kind in
         enumerate(("lidar", "lidar", "uniform", "worst"))])).cuda()
@@ -6099,6 +6189,11 @@ class PillarsPhase:
             torch, lambda: vox._hard_cuda(pts, PILLAR_VOXEL, PILLAR_RANGE,
                                           PILLAR_SLOTS, PILLAR_VOXELS),
             "17", f"hard_voxelize call (B {b} x {n})", top=12, expect=voxel)
+        profiles["hard_voxelize_second"] = profile_call(
+            torch, lambda: vox._hard_cuda(pts, SECOND_VOXEL, SECOND_RANGE,
+                                          SECOND_SLOTS, SECOND_VOXELS[0]),
+            "17", f"hard_voxelize call at SECOND's grid (B {b} x {n})",
+            top=12, expect=voxel)
         with torch.no_grad():
             profiles["forward"] = profile_call(
                 torch, lambda: model.eval()(pts), "17",
@@ -6212,19 +6307,33 @@ class PillarsPhase:
                   f"slots): kernel {ms:.4f} ms, plain {plain_ms:.3f}, bound "
                   f"{bound:.5f} ({by}); equal to the plain version bit for "
                   "bit")
-        # the trace of one call (--pillar-traces): time by CUDA function
-        # and the device operations (the dynamic kernel, one memset, four
-        # kernels)
-        trace = self.profiles.get("hard_voxelize", {})
-        if trace and (trace["events"] > HARD_DEVICE_OPS
-                      or trace["memsets"] != 1):
-            fail(f"a hard_voxelize call ran {trace['events']} device "
-                 f"operations, {trace['memsets']} of them memsets (expected "
-                 f"{HARD_DEVICE_OPS}, one memset)")
-        rows["hard_voxelize"][0].update(
-            split_ms=trace.get("expect_split", "not measured"),
-            device_ops=trace.get("events", "not measured"),
-            memsets=trace.get("memsets", "not measured"))
+        scratch = scratch_bytes(torch, lambda: vox._hard_cuda(pts, vs, pr,
+                                                              p, v))
+        check_scratch(scratch, b, n, v, "PointPillars' grid")
+        rows["hard_voxelize"][0]["scratch_bytes"] = scratch
+        second = rows["hard_voxelize"][0]["second"] = self._second_grid(
+            torch, pts)
+        # the workspace follows the points and the voxel cap, not the grid
+        if v in SECOND_VOXELS and second[f"v{v}"]["scratch_bytes"] != scratch:
+            fail(f"hard_voxelize held {second[f'v{v}']['scratch_bytes']} "
+                 f"bytes at SECOND's grid and {scratch} at PointPillars', "
+                 f"at {v} voxels both")
+        # the trace of one call at each grid (--pillar-traces): time by
+        # CUDA function and the device operations (the dynamic kernel, one
+        # memset, four kernels)
+        for key, row in (("hard_voxelize", rows["hard_voxelize"][0]),
+                         ("hard_voxelize_second",
+                          rows["hard_voxelize"][0]["second"])):
+            trace = self.profiles.get(key, {})
+            if trace and (trace["events"] > HARD_DEVICE_OPS
+                          or trace["memsets"] != 1):
+                fail(f"a {key} call ran {trace['events']} device "
+                     f"operations, {trace['memsets']} of them memsets "
+                     f"(expected {HARD_DEVICE_OPS}, one memset)")
+            row.update(
+                split_ms=trace.get("expect_split", "not measured"),
+                device_ops=trace.get("events", "not measured"),
+                memsets=trace.get("memsets", "not measured"))
         rows["dynamic_voxelize"][0]["host_us"] = host_us(
             lambda: vox.dynamic_voxelize(tiny, vs, pr))
         rows["hard_voxelize"][0]["host_us"] = host_us(
@@ -6233,6 +6342,55 @@ class PillarsPhase:
               f"{rows['dynamic_voxelize'][0]['host_us']:.1f}, hard "
               f"{rows['hard_voxelize'][0]['host_us']:.1f}")
         return rows
+
+    def _second_grid(self, torch, pts) -> dict:
+        """hard_voxelize at SECOND's 90 112 000-cell grid on the same
+        clouds, at 16000 and 40000 voxels of 5 points: every output equal
+        to the plain version and between two launches, the kernel timed
+        beside its plain version and bound, the scratch a call held
+        (measured: the workspace, its cell table sized by the points, and
+        the points' cell coordinates)."""
+        from vlp3d_torch.ops import voxelize as vox
+
+        b, n, c = pts.shape
+        vs, pr, p = SECOND_VOXEL, SECOND_RANGE, SECOND_SLOTS
+        out = {"grid": [1408, 1600, 40], "cells": 1408 * 1600 * 40}
+        for v in SECOND_VOXELS:
+            got = vox._hard_cuda(pts, vs, pr, p, v)
+            again = vox._hard_cuda(pts, vs, pr, p, v)
+            want = vox.hard_voxelize_plain(pts, vs, pr, p, v)
+            for a, a2, w in zip(got, again, want):
+                if a.dtype != w.dtype or not torch.equal(a, w) \
+                        or not torch.equal(a, a2):
+                    fail(f"hard_voxelize at SECOND's grid ({v} voxels) "
+                         f"differs from the plain version or between two "
+                         f"launches")
+            grid = vox.dynamic_voxelize(pts, vs, pr)[1].tolist()
+            if grid != out["grid"]:
+                fail(f"SECOND's grid is {grid}")
+            ms = cuda_ms(torch, lambda: vox._hard_cuda(pts, vs, pr, p, v),
+                         reps=20)
+            plain_ms = cuda_ms(torch, lambda: vox.hard_voxelize_plain(
+                pts, vs, pr, p, v), reps=2, warmup=1)
+            bound, by = bound_ms(4 * b * n * c + 4 * b * v * p * c
+                                 + 4 * b * v * 3 + 4 * b * v + 4 * b
+                                 + b * v + 4 * b * n, 0)
+            scratch = scratch_bytes(torch, lambda: vox._hard_cuda(
+                pts, vs, pr, p, v))
+            check_scratch(scratch, b, n, v, f"SECOND's grid ({v} voxels)")
+            out[f"v{v}"] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": by, "voxel_num": got[3].tolist(),
+                "max_count": int(got[2].max()), "max_abs_err": 0.0,
+                "scratch_bytes": scratch}
+            print(f"[17] hard_voxelize at SECOND's grid (1408 x 1600 x 40 "
+                  f"cells, B {b} x {n} points, {v} voxels x {p} slots): "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.3f}, bound "
+                  f"{bound:.5f} ({by}); voxels {got[3].tolist()}; "
+                  f"held {scratch} bytes of scratch; "
+                  f"equal to the plain version bit for bit and between two "
+                  f"launches")
+        return out
 
     def _encoder_checks(self, torch, model, pts):
         """The evaluation forward and a training forward + backward
@@ -6643,7 +6801,7 @@ class PillarsPhase:
 # function, and the hard_voxelize call's device operations and memsets
 PILLAR_ROW_EXTRAS = ("max_abs_err_sets", "overlap_rel_err", "ops_a_pair",
                      "screens", "sets_ms", f"ms_{NMS_LARGE}", "split_ms",
-                     "device_ops", "memsets")
+                     "device_ops", "memsets", "scratch_bytes", "second")
 
 
 def pillar_kernel_rows(rows, numbers):
@@ -7300,6 +7458,27 @@ def sa1_upstream_witness(torch, shard, kept1, kept2, m1, m2) -> dict:
                  "float64": float(g_up64.flatten()[i])} for i in top]}
 
 
+def check_batch_rows_phase(torch, smi) -> dict:
+    """Every kernel whose launch once put the batch on the grid's y (ball
+    query's two, the gather's two backwards, three-NN's two, the
+    interpolation and its backward, hard voxelization), at
+    tests/torch_batch_rows.py's 65537 rows of a few points against its
+    plain version."""
+    cases = load_test_module("torch_batch_rows")
+    t0 = time.perf_counter()
+    try:
+        errs = cases.check_batch_rows(torch, torch.device("cuda"))
+    except AssertionError as e:
+        fail(f"a kernel at {cases.ROWS} batch rows differs from its plain "
+             f"version: {e!r}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"[17] {cases.ROWS} batch rows of {cases.N} points: each kernel "
+          f"against its plain version, largest errors {errs} (indices and "
+          f"voxels exact) in {wall:.1f} s ({smi})")
+    return {"rows": cases.ROWS, "errors": errs, "s": wall}
+
+
 def parity_ok(p: dict, cuda: bool) -> bool:
     return (p["loss_rel"] <= STEP_LOSS_RTOL and p["grad_err"] <= STEP_GRAD_TOL
             and p["bn_err"] <= STEP_GRAD_TOL and p["near"] <= FLIP_TOL
@@ -7372,12 +7551,101 @@ def stalled_peer_probe() -> dict:
     return out
 
 
-def check_point_kernels(torch, xyz, feats, sa1):
+def check_step_kernel(torch, xyz, npoint, point, peer, dense, ties,
+                      tie_want) -> dict:
+    """The collective route's row: fps_sharded forced onto it at SA1's
+    shapes over ``point`` (phase 14's one-rank NCCL group: an all-gather a
+    step) and without a group, each one step-kernel launch an iteration
+    and bit-equal to the dense FPS (``dense``) and the peer route
+    (``peer``); 2, 4 and 33 ranks emulated in turn on the tie cloud and
+    at SA1. A step's CUDA-event time beside its plain version's and its
+    bound; a call's time (host-bound: a launch and an all-gather a step)
+    and its share a step."""
+    from vlp3d_torch import ops
+    from vlp3d_torch.ops import _kernels
+    from vlp3d_torch.ops.host_time import host_us
+    from vlp3d_torch.parallel import point_parallel as pp
+
+    b, n, _ = xyz.shape
+
+    def steps_of(call):
+        before = _kernels.launches["fps_shard_step"]
+        got = call()
+        torch.cuda.synchronize()
+        return got, _kernels.launches["fps_shard_step"] - before
+
+    err, counts = 0.0, []
+    for group in (point, pp.LOCAL_POINTS):
+        got, count = steps_of(lambda: pp.fps_sharded(
+            xyz, npoint, group, route="collective"))
+        counts.append(count)
+        err = max(err, index_err(torch, got, dense),
+                  index_err(torch, got, peer))
+    if counts != [npoint, npoint]:
+        fail(f"the collective route launched the step kernel {counts} "
+             f"times, not once an iteration ({npoint})")
+    emul_err = 0.0
+    for w in (2, 4, 33):
+        if w == 33:
+            ties = torch.zeros((2, 33 * 8, 3), device=xyz.device)
+            ties[0] = xyz[1, :8].repeat(33, 1)
+            tie_want = ops.furthest_point_sample(ties, 40)
+        for got in pp.fps_emulated(ties, w, tie_want.shape[1],
+                                   route="collective"):
+            emul_err = max(emul_err, index_err(torch, got, tie_want))
+        cloud = xyz[:, :n // w * w].contiguous()
+        want = dense if cloud.shape[1] == n else \
+            ops.furthest_point_sample(cloud, npoint)
+        for got in pp.fps_emulated(cloud, w, npoint, route="collective"):
+            emul_err = max(emul_err, index_err(torch, got, want))
+    if err != 0 or emul_err != 0:
+        fail(f"fps_shard_step differs from the dense FPS or the peer "
+             f"route: {err}; emulated 2, 4 and 33 ranks {emul_err}")
+    # host clock to a synchronise, median of 3: the call is host-bound
+    call_ms = median_ms(torch, lambda: pp.fps_sharded(
+        xyz, npoint, point, route="collective"), reps=3)[0]
+    alone_ms = median_ms(torch, lambda: pp.fps_sharded(
+        xyz, npoint, route="collective"), reps=3)[0]
+    # one step's kernel, mid-call state (every distance already min-ed)
+    temp = torch.full((b, n), 1e10, device=xyz.device)
+    out = torch.zeros((b, npoint), dtype=torch.int32, device=xyz.device)
+    cand = pp._seed(xyz, 0)
+    pp.fps_shard_step(xyz, temp, cand, 0, 0, False, out)
+    step_ms = cuda_ms(torch, lambda: pp.fps_shard_step(
+        xyz, temp, cand, 0, 1, False, out), reps=50)
+    plain_ms = cuda_ms(torch, lambda: pp.fps_shard_step_plain(
+        xyz, temp, cand, 0, 1, False, out), reps=20)
+    # a step reads the slab and its distances and writes the distances
+    sb, sby = bound_ms(b * n * (12 + 4 + 4) + 2 * b * 20 + 4 * b,
+                       b * n * OPS_PER_TEST)
+    small = xyz[:1, :4096].contiguous()
+    row = {"site": "SA1", "shape": [b, n, npoint], "max_abs_err": err,
+           "edge_err": emul_err, "ms": step_ms, "plain_ms": plain_ms,
+           "bound_ms": sb, "bound_by": sby, "library_ms": None,
+           "call_ms": call_ms, "call_no_group_ms": alone_ms,
+           "us_per_step": call_ms * 1e3 / npoint,
+           "host_us": host_us(lambda: pp.fps_shard_step(
+               small, temp[:1, :4096], cand[:, :1], 0, 1, False, out[:1]))}
+    print(f"[14] fps_shard_step (the collective route) at SA1 ({b} x {n}, "
+          f"W=1): a call over the one-rank NCCL group {call_ms:.3f} ms "
+          f"({row['us_per_step']:.3f} us a step: a launch and an "
+          f"all-gather), without a group {alone_ms:.3f} ms; a step's "
+          f"kernel {step_ms * 1e3:.3f} us (bound {sb * 1e3:.3f} us, {sby}), "
+          f"plain step {plain_ms * 1e3:.3f} us; host "
+          f"{row['host_us']:.1f} us a step call; {npoint} launches a call; "
+          f"error {err} (dense FPS, peer route); emulated 2, 4, 33 ranks "
+          f"(ties, an all-invalid row, SA1) {emul_err}")
+    return row
+
+
+def check_point_kernels(torch, xyz, feats, sa1, point):
     """Phase 14's kernel rows: each point-axis kernel against its plain
     version at SA1's shapes (B x N points, W=1, and 2 and 4 ranks
     emulated in one launch or stacked slabs), the edge cases, CUDA-event
     times behind the device sleep, bounds and host us; the stalled-peer
-    probe."""
+    probe. The collective route's step kernel at W=1 over ``point`` (a
+    one-rank NCCL group) and without a group, and 2, 4 and 33 ranks
+    emulated in turn; the merge at 33 and 64 emulated shards."""
     from vlp3d_torch import ops
     from vlp3d_torch.ops import _kernels
     from vlp3d_torch.ops.host_time import host_us
@@ -7473,6 +7741,9 @@ def check_point_kernels(torch, xyz, feats, sa1):
           f"centres) {stream_ms:.3f} ms at W=1 (the dense FPS "
           f"{stream_dense_ms:.3f} ms), error {stream_err} at W=1 and 2")
     rows["fps_shard_loop"][0]["stall"] = stalled_peer_probe()
+    rows["fps_shard_step"] = [check_step_kernel(torch, xyz, npoint, point,
+                                                whole, dense, ties,
+                                                tie_want)]
 
     # merge: W=1 at SA1, W=4 emulated, the edge cases
     new_xyz = ops.gather_points(xyz, whole)
@@ -7502,6 +7773,30 @@ def check_point_kernels(torch, xyz, feats, sa1):
         pp.ball_query_merge_plain(a4, c4, nl4, nsample)))
     merge4_ms = cuda_ms(torch, lambda: pp.ball_query_merge(
         a4, c4, nl4, nsample), reps=100)
+    # past 32 shards (the merge's chunks of 32): 33 and 64 emulated
+    # shards of the cloud's first W x floor(N / W) points
+    wide_ms = {}
+    for w in (33, 64):
+        nw = n // w * w
+        cloud = xyz[:, :nw].contiguous()
+        want_w = ops.ball_query(radius, nsample, cloud, new_xyz)
+        err = max(err, index_err(torch, pp.ball_query_emulated(
+            radius, nsample, cloud, new_xyz, w), want_w), index_err(
+            torch, pp.ball_query_emulated(
+                radius, nsample, cloud, new_xyz, w,
+                merge=pp.ball_query_merge_plain), want_w))
+        nlw = nw // w
+        parts = [ops.ball_query_with_count(
+            radius, nsample, cloud[:, i * nlw:(i + 1) * nlw].contiguous(),
+            new_xyz) for i in range(w)]
+        aw = torch.stack([p[0] for p in parts])
+        cw = torch.stack([p[1] for p in parts])
+        err = max(err, index_err(
+            torch, pp.ball_query_merge(aw, cw, nlw, nsample),
+            pp.ball_query_merge_plain(aw, cw, nlw, nsample)))
+        wide_ms[f"w{w}_ms"] = cuda_ms(torch, lambda: pp.ball_query_merge(
+            aw, cw, nlw, nsample), reps=100)
+        del parts, aw, cw, cloud, want_w
     exyz, ectr, _ = point_edge_clouds(torch, xyz.device)
     edge_err = 0.0
     for w in (2, 4):
@@ -7509,6 +7804,14 @@ def check_point_kernels(torch, xyz, feats, sa1):
             edge_err = max(edge_err, index_err(
                 torch, pp.ball_query_emulated(0.5, ns, exyz, ectr, w),
                 ops.ball_query(0.5, ns, exyz, ectr)))
+    cases = load_test_module("torch_point_cases")
+    for w in (33, 64):
+        wxyz, wctr = (torch.from_numpy(a).to(xyz.device)
+                      for a in cases.wide_merge_cases(w))
+        for ns in (8, 64):
+            edge_err = max(edge_err, index_err(
+                torch, pp.ball_query_emulated(0.5, ns, wxyz, wctr, w),
+                ops.ball_query(0.5, ns, wxyz, wctr)))
     if err != 0 or edge_err != 0:
         fail(f"ball_query_merge differs from its plain version or the dense "
              f"ball query: {err}, edge cases {edge_err}")
@@ -7518,13 +7821,15 @@ def check_point_kernels(torch, xyz, feats, sa1):
         "site": "SA1", "shape": [1, b, m, nsample], "max_abs_err": err,
         "edge_err": edge_err, "ms": merge_ms, "plain_ms": merge_plain_ms,
         "bound_ms": mb, "bound_by": mby, "library_ms": None,
-        "w4_ms": merge4_ms,
+        "w4_ms": merge4_ms, **wide_ms,
         "host_us": host_us(lambda: pp.ball_query_merge(
             all_idx[:, :1, :16], all_cnt[:, :1, :16], n, nsample))}]
     print(f"[14] ball_query_merge at SA1 ({b} x {m} x {nsample}): W=1 "
           f"{merge_ms * 1e3:.3f} us (bound {mb * 1e3:.3f} us, {mby}), plain "
-          f"{merge_plain_ms * 1e3:.3f} us, W=4 {merge4_ms * 1e3:.3f} us; "
-          f"error {err} (against the dense ball query too); edge cases "
+          f"{merge_plain_ms * 1e3:.3f} us, W=4 {merge4_ms * 1e3:.3f} us, "
+          f"W=33 {wide_ms['w33_ms'] * 1e3:.3f} us, W=64 "
+          f"{wide_ms['w64_ms'] * 1e3:.3f} us; error {err} (against the "
+          f"dense ball query too); edge cases (33 and 64 shards included) "
           f"{edge_err}")
 
     # owned gather: the front's three calls (centres, xyz rows, feature
@@ -7753,6 +8058,19 @@ class ParallelModesPhase:
             torch.cuda.synchronize()
             dense_ms = (time.perf_counter() - t0) * 1e3
             same = front_equal(torch, got, want)
+            # the front with its FPS forced onto the collective route over
+            # the same one-rank NCCL group: a step kernel and an
+            # all-gather an iteration (counts at 0 just before it)
+            collective = pp.large_scene_front(
+                grid.model, sa1.npoint, sa1.radius, sa1.nsample,
+                fps_route="collective")
+            ops.reset_launches()
+            got_c = collective(xyz, feats)
+            torch.cuda.synchronize()
+            collective_launches = dict(ops.launches)
+            collective_ms = median_ms(torch, lambda: collective(xyz,
+                                                                feats))[0]
+            same_c = front_equal(torch, got_c, got)
             sharded = pp.apply_backbone_large_scene(backbone, pc, grid.model)
             dense = backbone(pc)
             bb_err = max(float((sharded[k] - dense[k]).abs().max()
@@ -7761,6 +8079,9 @@ class ParallelModesPhase:
             inds_equal = bool(torch.equal(sharded["sa1_inds"],
                                           dense["sa1_inds"]))
         want_launches = dict({k: 0 for k in PER_STEP}, **SP_FRONT)
+        want_collective = dict({k: 0 for k in PER_STEP},
+                               **SP_FRONT_COLLECTIVE,
+                               fps_shard_step=sa1.npoint)
         print(f"[14] large_scene_front at B={pc.shape[0]} x {pc.shape[1]} "
               f"points (SA1: "
               f"{sa1.npoint} centres, r {sa1.radius}, {sa1.nsample} "
@@ -7773,22 +8094,31 @@ class ParallelModesPhase:
               f"apply_backbone_large_scene against the dense backbone: "
               f"sa1_inds equal {inds_equal}, outputs within {bb_err} of "
               f"their largest entry ({self.smi})")
-        kernels_ok = (front_launches == want_launches
+        print(f"[14] large_scene_front, its FPS forced onto the collective "
+              f"route over the one-rank NCCL group: equal to the peer "
+              f"route's front: {same_c}; {collective_ms:.3f} ms, median of "
+              f"5 ({collective_ms * 1e3 / sa1.npoint:.3f} us a centre); "
+              f"launches {collective_launches} ({self.smi})")
+        kernels_ok = ((front_launches == want_launches
+                       and collective_launches == want_collective)
                       or device.type == "cpu")  # a CPU rehearsal: no kernels
-        if not same or not kernels_ok or not inds_equal \
+        if not same or not same_c or not kernels_ok or not inds_equal \
                 or bb_err > BACKBONE_TOL:
             fail("the point-sharded front end or backbone differs from the "
                  "dense one, or launched otherwise")
         numbers["front"] = {"ms": front_ms, "first_ms": first_ms,
                             "dense_ms": dense_ms,
                             "us_per_iteration": front_ms * 1e3 / sa1.npoint,
-                            "backbone_err": bb_err}
-        rows = check_point_kernels(torch, xyz, feats, sa1)
+                            "backbone_err": bb_err,
+                            "collective_ms": collective_ms,
+                            "collective_us_per_iteration":
+                                collective_ms * 1e3 / sa1.npoint}
+        rows = check_point_kernels(torch, xyz, feats, sa1, grid.model)
         du.dist_close()
-        del backbone, batch, pc, xyz, feats, got, want, sharded, dense
+        del backbone, batch, pc, xyz, feats, got, want, sharded, dense, got_c
         torch.cuda.empty_cache()
         stamp("14", "ZeRO-1, tensor, pipeline and point-axis parallel")
-        return rows, front_launches, numbers
+        return rows, (front_launches, collective_launches), numbers
 
 
 def rank_modes(torch, config, device, host, full, points, main_rank):
@@ -7803,15 +8133,11 @@ def rank_modes(torch, config, device, host, full, points, main_rank):
     import numpy as np
     import torch.distributed as dist
 
-    from vlp3d_torch import ops
-    from vlp3d_torch.data.synthetic import make_batch
     from vlp3d_torch.parallel import LOCAL, BatchShard
     from vlp3d_torch.parallel import distributed as du
-    from vlp3d_torch.parallel import point_parallel as pp
     from vlp3d_torch.parallel.pipeline import pipeline_text_encoder
     from vlp3d_torch.parallel.tensor_parallel import make_grid
     from vlp3d_torch.parallel.zero import optimizer_state_bytes
-    from vlp3d_torch.train import batch_to_device
 
     cuda = device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -7864,8 +8190,42 @@ def rank_modes(torch, config, device, host, full, points, main_rank):
     out["pp2"] = {"err": perr, "stages": 2, "data": grid.data.world}
     del owner, enc
 
-    # the point-sharded front end over the N ranks: its FPS one launch of
-    # the loop kernel a rank, the candidates exchanged through peer memory
+    front, front_ok = rank_front(torch, config, device, points)
+    out[f"sp{world}"] = front
+    ok &= front_ok
+    ok = du.all_processes_agree(ok)
+    results = [None] * world
+    dist.all_gather_object(results, out)
+    if main_rank:
+        print(f"[modes] {world} ranks over {du.backend()}: each mode against "
+              f"the one-process reference, every rank's numbers: {results}",
+              flush=True)
+    return results, ok
+
+
+def rank_front(torch, config, device, points) -> tuple[dict, bool]:
+    """The point-sharded front end over the N ranks of the process group,
+    each holding ``points`` of every scene, against the dense ops on the
+    whole clouds: its FPS on the peer route (one launch of the loop
+    kernel a rank, the candidates exchanged through peer memory) and
+    forced onto the collective route (a step kernel and an all-gather
+    over NCCL an iteration), the two fronts bit-equal; both timed, the
+    FPS alone on each, and the peer route's exchange a step where the
+    points are few. Returns (this rank's numbers, whether its checks
+    passed)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from vlp3d_torch import ops
+    from vlp3d_torch.data.synthetic import make_batch
+    from vlp3d_torch.parallel import distributed as du
+    from vlp3d_torch.parallel import point_parallel as pp
+    from vlp3d_torch.parallel.tensor_parallel import make_grid
+    from vlp3d_torch.train import batch_to_device
+
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    world = dist.get_world_size()
     point = make_grid(world).model
     sa1 = config.model
     npoint, radius, nsample = (sa1.sa_npoints[0], sa1.sa_radii[0],
@@ -7896,6 +8256,19 @@ def rank_modes(torch, config, device, host, full, points, main_rank):
         front = pp.large_scene_front(point, npoint, radius, nsample)
         # the first call sets up the group's exchange buffers
         got, front_runs = timed(lambda: front(slab, slab_feats), 4)
+        # the route the group's verdict chose (the CPU has one: gloo)
+        route = (pp._exchange(point, slab.shape[0], device) if cuda else
+                 pp._Collective("the CPU's plain loop over gloo"))
+        collective = pp.large_scene_front(point, npoint, radius, nsample,
+                                          fps_route="collective")
+        before = ops.launches["fps_shard_step"]
+        got_c, collective_runs = timed(lambda: collective(slab, slab_feats),
+                                       4)
+        steps_c = ops.launches["fps_shard_step"] - before
+        same_c = front_equal(torch, got_c, got) and (
+            steps_c == 4 * npoint or not cuda)
+        _, fps_c_runs = timed(lambda: pp.fps_sharded(
+            slab, npoint, point, route="collective"), 3)
         t0 = time.perf_counter()
         want = dense_front(torch, xyz, feats, npoint, radius, nsample)
         sync()
@@ -7918,27 +8291,25 @@ def rank_modes(torch, config, device, host, full, points, main_rank):
         _, reduce_runs = timed(lambda: dist.all_reduce(token), 5)
         same &= bool(torch.equal(tiny_inds, ops.furthest_point_sample(
             xyz[:1, :few * world].contiguous(), steps)))
-    ok &= same
     med = {k: float(np.median(v)) for k, v in (
         ("front_ms", front_runs[1:]), ("fps_ms", fps_runs[1:]),
+        ("collective_front_ms", collective_runs[1:]),
+        ("collective_fps_ms", fps_c_runs[1:]),
         ("tiny_ms", tiny_runs[1:]), ("alone_ms", alone_runs[1:]),
         ("all_reduce_ms", reduce_runs[1:]))}
-    out[f"sp{world}"] = dict(
-        med, equal=same, points_a_rank=points, first_front_ms=front_runs[0],
+    out = dict(
+        med, equal=same, collective_equal=same_c, route=route.route,
+        route_why=route.why, collective_steps=steps_c, points_a_rank=points,
+        first_front_ms=front_runs[0],
+        first_collective_front_ms=collective_runs[0],
+        collective_us_per_step=med["collective_fps_ms"] * 1e3 / npoint,
         dense_ms=dense_ms, few_points_a_rank=few, few_centres=steps,
         step_us=med["tiny_ms"] * 1e3 / max(steps - 1, 1),
         alone_step_us=med["alone_ms"] * 1e3 / max(steps - 1, 1),
         peer_extra_us_per_step=(
             med["tiny_ms"] - med["alone_ms"]) * 1e3 / max(steps - 1, 1))
-    del got, want, scene, xyz, feats, slab, slab_feats
-    ok = du.all_processes_agree(ok)
-    results = [None] * world
-    dist.all_gather_object(results, out)
-    if main_rank:
-        print(f"[modes] {world} ranks over {du.backend()}: each mode against "
-              f"the one-process reference, every rank's numbers: {results}",
-              flush=True)
-    return results, ok
+    del got, got_c, want, scene, xyz, feats, slab, slab_feats
+    return out, same and same_c
 
 
 def drive(torch, config, batch_size, num_points, smi):
@@ -8251,9 +8622,9 @@ def rank_worker(tiny: bool) -> int:
 
 
 def ranks_main(n: int) -> int:
-    """``python3 chip_smoke.py --ranks N``: data parallel over N cards of
-    this host. Builds the kernels, then runs ``N`` ranks of
-    :func:`rank_worker` under torch.distributed.run over NCCL (each
+    """``python3 chip_smoke.py --ranks N``: data parallel
+    over N cards of this host. Builds the kernels, then runs ``N`` ranks
+    of :func:`rank_worker` under torch.distributed.run over NCCL (each
     ``chip_smoke.py --rank-worker``); exits 0 when every rank did. Run
     with no arguments the script needs one card; this mode needs N."""
     import torch
@@ -8904,7 +9275,7 @@ def main() -> int:
     # 13. data parallel with the card to itself
     dp_step, dp_numbers = data_parallel.drive(torch, http_phase)
     # 14. ZeRO-1, tensor, pipeline and point-axis parallel
-    sp_rows, sp_front, mode_numbers = ParallelModesPhase(
+    sp_rows, (sp_front, sp_collective), mode_numbers = ParallelModesPhase(
         torch, smi, train_host).drive(torch)
     rows.update(sp_rows)
     # 15. the GloVe/LSTM task pipelines with the card to itself
@@ -8914,14 +9285,16 @@ def main() -> int:
     # 17. PointPillars, the rotated IoU / NMS and the multiview hdf5
     pillar_rows, pillar_numbers = PillarsPhase(torch, smi).drive(
         torch, pillar_cli_numbers)
+    batch_rows = check_batch_rows_phase(torch, smi)
     paths = {**captions, **answers, **options, "dp_step": dp_step,
-             "sp_front": sp_front, **task_paths, **variant_paths}
+             "sp_front": sp_front, "sp_front_collective": sp_collective,
+             **task_paths, **variant_paths}
     task_steps = [p for p in task_paths if p.endswith("_step")]
     task_forwards = [p for p in task_paths if p.endswith("_forward")]
     for name in rows:
         if name in SP_KERNELS:
-            if sp_front[name] == 0:
-                fail(f"kernel {name} was not launched on phase 14's path")
+            if sp_front[name] + sp_collective[name] == 0:
+                fail(f"kernel {name} was not launched on phase 14's paths")
             continue
         if train[name] == 0 or solver[name] == 0 \
                 or paths["caption_step"][name] == 0 \
@@ -8969,6 +9342,7 @@ def main() -> int:
     line["task_pipelines"] = dict(task_numbers, clis=task_cli_numbers)
     line["variants"] = dict(variant_numbers, clis=variant_cli_numbers)
     line["pointpillars"] = pillar_numbers
+    line["batch_rows"] = batch_rows
     line["tools"] = tools_numbers
     line["build_cache"] = cache_numbers
     line["wall_s"] = time.perf_counter() - _T0

@@ -201,7 +201,7 @@ def test_plain_weighted_backward(name):
 
 # (b, n, m): FP1 and FP2 at B=8, then odd shapes
 PLAN_SHAPES = [(8, 512, 256), (8, 1024, 512), (1, 1, 3), (3, 45, 37),
-               (9, 100000, 5000), (65535, 7, 4)]
+               (9, 100000, 5000), (65535, 7, 4), (65537, 7, 4)]
 
 
 @pytest.mark.parametrize("b,n,m", PLAN_SHAPES)
@@ -219,7 +219,7 @@ def test_team_plans_and_refused_shapes():
                  [8, 32], (8.0, 32)):
         with pytest.raises(ValueError, match="plan"):
             _check_team_plan(plan)
-    for shape in ((1, 10, 2), (65536, 10, 5), (0, 10, 5)):
+    for shape in ((1, 10, 2), (4, -1, 5), (0, 10, 5)):
         with pytest.raises(ValueError):
             _three_nn_plan(*shape)
     with pytest.raises(ValueError, match="at least 3"):

@@ -15,13 +15,18 @@ dense FPS, and at 2 and 4 ranks emulated in one launch against the dense
 FPS, ties across shards and an all-invalid row included, and on slabs too
 long for registers (its streamed form) at 1 and 2 ranks; a launch whose
 peer never writes must trap in a process of its own
-(``tests/torch_stall_probe.py``). The ball-query merge runs at 1 and 4
-shards against its plain version and the dense ball query.
+(``tests/torch_stall_probe.py``). The collective route's step kernel
+runs forced at one rank against the plain loop, the dense FPS and the
+peer route, and at 2, 4 and 33 ranks emulated in turn. The ball-query
+merge runs at 1, 4, 33 and 64 shards against its plain version and the
+dense ball query. Every kernel that once put the batch on the grid's y
+runs at 65537 rows (``tests/torch_batch_rows.py``).
 The PointPillars kernels: dynamic and hard voxelization equal to their
 plain versions bit for bit and between two launches (the voxel and slot
 caps, 35 and 100 slots, a 20000-point pillar, a row's 120000 points in
 one cell, most points outside, C = 3, 4 and 5, the encoder's B=4 x
-120000), the points' gradient equal to the CPU's; the rotated BEV IoU and overlap within
+120000; SECOND's 90 112 000-cell grid at 16000 and 40000 voxels), the
+points' gradient equal to the CPU's; the rotated BEV IoU and overlap within
 1e-6 of the plain version (relative above 1), NMS keep masks equal to
 the plain scan over the kernel's own ranked IoU (N = 1, 63, 64, 65,
 1000, degenerate boxes, tied scores).
@@ -90,12 +95,14 @@ from vlp3d_torch.parallel import point_parallel as pp
 from vlp3d_torch.serving import STREAM_KEYS
 from torch_pillar_cases import (bev_boxes, edge_boxes, max_clip_counts,
                                 overflow_boxes)
-from torch_point_cases import fps_cases, merge_cases
+from torch_batch_rows import check_batch_rows
+from torch_point_cases import fps_cases, merge_cases, wide_merge_cases
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 # the point-axis and PointPillars kernels, which no single-card JointNet
 # path below launches
-NO_POINT_AXIS = {"fps_shard_loop": 0, "ball_query_merge": 0,
+NO_POINT_AXIS = {"fps_shard_loop": 0, "fps_shard_step": 0,
+                 "ball_query_merge": 0,
                  "gather_owned": 0, "dynamic_voxelize": 0, "hard_voxelize": 0,
                  "boxes_iou_bev": 0, "nms_bev": 0}
 FLAGS = dict(use_con=False, no_caption=True)
@@ -969,11 +976,76 @@ def test_ball_query_merge_kernel_where_trouble_is_likely(cuda, w, nsample):
 
 
 @pytest.mark.gpu
-def test_ball_query_merge_refuses_more_than_32_shards(cuda):
-    idx = torch.zeros((33, 1, 2, 4), dtype=torch.int32, device=cuda)
-    cnt = torch.zeros((33, 1, 2), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="at most 32"):
-        pp.ball_query_merge(idx, cnt, 8, 4)
+@pytest.mark.parametrize("w", [33, 64])
+@pytest.mark.parametrize("nsample", [8, 64])
+def test_ball_query_merge_past_32_shards(cuda, w, nsample):
+    """The merge over more shards than a warp's lanes, its chunks of 32
+    shards: hits in every shard, only past the first 32, across shards 31
+    and 32, none; and a scene's balls over w slabs."""
+    xyz, ctr = (t(a).to(cuda) for a in wide_merge_cases(w))
+    all_idx, all_cnt, nl = _merge_inputs(xyz, ctr, 0.5, nsample, w)
+    ops.reset_launches()
+    got = pp.ball_query_merge(all_idx, all_cnt, nl, nsample)
+    torch.cuda.synchronize()
+    assert _kernels.launches["ball_query_merge"] == 1
+    assert torch.equal(got, pp.ball_query_merge_plain(all_idx, all_cnt, nl,
+                                                      nsample))
+    assert torch.equal(got, ops.ball_query(0.5, nsample, xyz, ctr))
+    scene = _scene(2, w * 160, 7, cuda)
+    ctr = scene[:, :100].contiguous()
+    all_idx, all_cnt, nl = _merge_inputs(scene, ctr, 0.8, nsample, w)
+    got = pp.ball_query_merge(all_idx, all_cnt, nl, nsample)
+    assert torch.equal(got, pp.ball_query_merge_plain(all_idx, all_cnt, nl,
+                                                      nsample))
+    assert torch.equal(got, ops.ball_query(0.8, nsample, scene, ctr))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,npoint", [(2, 300, 40), (8, 40960, 2048),
+                                        (3, 10240, 256), (2, 140000, 64)])
+def test_fps_shard_step_collective_route_matches_plain_and_dense(
+        cuda, b, n, npoint):
+    """The collective route forced at one rank: one step kernel an
+    iteration, bit-equal to the plain loop, the dense FPS and the peer
+    route."""
+    xyz = _scene(b, n, 1, cuda)
+    ops.reset_launches()
+    got = pp.fps_sharded(xyz, npoint, route="collective")
+    torch.cuda.synchronize()
+    assert _kernels.launches["fps_shard_step"] == npoint
+    assert _kernels.launches["fps_shard_loop"] == 0
+    assert torch.equal(got, pp.fps_sharded_plain(xyz, npoint))
+    assert torch.equal(got, fps_plain(xyz, npoint))
+    assert torch.equal(got, pp.fps_sharded(xyz, npoint, route="peer"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [2, 4, 33])
+def test_fps_shard_step_emulated_ranks_equal_dense(cuda, w):
+    """w ranks' step kernels in turn, each on its slab (33: the pick among
+    more candidates than a warp's lanes): ties across shards, an
+    all-invalid row, a scene."""
+    ties = torch.zeros((2, w * 8, 3), device=cuda)
+    ties[0] = t(np.tile(np.random.default_rng(6).standard_normal((8, 3)),
+                        (w, 1)).astype(np.float32)).to(cuda)
+    want = fps_plain(ties, 40)
+    for got in pp.fps_emulated(ties, w, 40, route="collective"):
+        assert torch.equal(got, want)
+    xyz = _scene(3, w * 512, 2, cuda)
+    want = _fps_cuda(xyz, 256)
+    for got in pp.fps_emulated(xyz, w, 256, route="collective"):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_kernels_take_65537_batch_rows(cuda):
+    """Ball query (both kernels), the gather's backward (both), three-NN
+    (both), the interpolation and its backward, and hard voxelization at
+    65537 rows, past the 65535 a grid's y takes, against their plain
+    versions (tests/torch_batch_rows.py)."""
+    errs = check_batch_rows(torch, cuda)
+    assert set(errs) == {"ball_query", "group_points_grad", "three_nn",
+                         "three_interpolate_grad", "hard_voxelize"}
 
 
 # -- the PointPillars kernels (csrc/voxelize.cu, csrc/iou3d.cu) -----------
@@ -982,12 +1054,14 @@ PILLAR_VOXEL = (0.16, 0.16, 4.0)
 PILLAR_RANGE = (0.0, -39.68, -3.0, 69.12, 39.68, 1.0)
 
 
-def _pillar_points(b, n, seed, crowd=0, outside=0.0, c=4):
-    """(b, n, c) float32 over PointPillars' KITTI range, a share outside
-    it, the first row's first ``crowd`` points (shuffled in) in one
-    pillar; channels past x, y, z uniform over [0, 1)."""
+def _pillar_points(b, n, seed, crowd=0, outside=0.0, c=4,
+                   coors_range=PILLAR_RANGE):
+    """(b, n, c) float32 over PointPillars' KITTI range (or
+    ``coors_range``), a share outside it, the first row's first ``crowd``
+    points (shuffled in) in one pillar; channels past x, y, z uniform over
+    [0, 1)."""
     rng = np.random.default_rng(seed)
-    lo, hi = np.array(PILLAR_RANGE[:3]), np.array(PILLAR_RANGE[3:])
+    lo, hi = np.array(coors_range[:3]), np.array(coors_range[3:])
     xyz = rng.uniform(lo - (hi - lo) * outside, hi + (hi - lo) * outside,
                       (b, n, 3))
     if crowd:
@@ -1037,6 +1111,35 @@ def test_voxelize_kernels_equal_plain(cuda, b, n, crowd, outside, slots,
                          slots, voxels)
     for a, w in zip(one, got):
         assert torch.equal(a[0], w[-1])
+
+
+# OpenPCDet's SECOND (kitti_models/second.yaml): 90 112 000 cells, past
+# any dense cell table; 5 points a voxel, 16000 (train) / 40000 (test)
+SECOND_VOXEL = (0.05, 0.05, 0.1)
+SECOND_RANGE = (0.0, -40.0, -3.0, 70.4, 40.0, 1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("voxels", [16000, 40000])
+@pytest.mark.parametrize("b,n,crowd", [(4, 120000, 0), (2, 60000, 20000),
+                                       (3, 5000, 0)])
+def test_hard_voxelize_kernel_at_second_grid(cuda, voxels, b, n, crowd):
+    from vlp3d_torch.ops import voxelize as vox
+
+    pts = t(_pillar_points(b, n, n + voxels, crowd, 0.1,
+                           coors_range=SECOND_RANGE)).to(cuda)
+    got = vox._hard_cuda(pts, SECOND_VOXEL, SECOND_RANGE, 5, voxels)
+    again = vox._hard_cuda(pts, SECOND_VOXEL, SECOND_RANGE, 5, voxels)
+    want = vox.hard_voxelize_plain(pts, SECOND_VOXEL, SECOND_RANGE, 5,
+                                   voxels)
+    for a, a2, w in zip(got, again, want):
+        assert a.dtype == w.dtype and torch.equal(a, w)
+        assert torch.equal(a, a2)
+    _, grid = vox.dynamic_voxelize(pts, SECOND_VOXEL, SECOND_RANGE)
+    assert grid.tolist() == [1408, 1600, 40]
+    assert int(got[3].min()) > 0
+    if crowd:  # the crowd's voxels fill their 5 slots
+        assert int(got[2].max()) == 5
 
 
 @pytest.mark.gpu

@@ -172,12 +172,14 @@ def test_cpu_path_launches_no_kernel_and_other_devices_raise():
     ops.three_nn(xyz, xyz[:, :8])
     # the point-axis wrappers (no process group: one rank's slab)
     inds = pp.fps_sharded(xyz, 8)
+    pp.fps_sharded(xyz, 8, route="collective")
     pp.ball_query_sharded(0.3, 4, xyz, xyz[:, :8])
     pp.gather_points_sharded(xyz, inds)
     assert ops.launches == {"fps": 0, "ball_query": 0, "three_nn": 0,
                             "group_points": 0, "group_points_grad": 0,
                             "three_interpolate_grad": 0,
-                            "fps_shard_loop": 0, "ball_query_merge": 0,
+                            "fps_shard_loop": 0, "fps_shard_step": 0,
+                            "ball_query_merge": 0,
                             "gather_owned": 0, "dynamic_voxelize": 0,
                             "hard_voxelize": 0, "boxes_iou_bev": 0,
                             "nms_bev": 0}

@@ -20,10 +20,10 @@ over stacked per-shard outputs (the ranks emulated in turn), against the
 dense ops on the whole cloud and against JAX's ``fps_sharded`` on point
 meshes of 1, 2 and 4 devices, on the cases where a merge can go wrong:
 all hits in one shard, hits across shards, an empty ball, ties across
-shards, an all-invalid row. The FPS exchange's set-up refuses a group
-whose ranks are on two hosts, see only their own cards or whose cards
-cannot reach each other as peers (ROADMAP C22), with the capability
-mocked.
+shards, an all-invalid row. The FPS route of a group whose ranks are on
+two hosts, see only their own cards or whose cards cannot reach each
+other as peers is the collective one (ROADMAP C22), of a full peer group
+the peer one, with the capability mocked.
 """
 
 import re
@@ -38,7 +38,7 @@ from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from test_torch_distributed import run_ranks
-from torch_point_cases import fps_cases, merge_cases
+from torch_point_cases import fps_cases, merge_cases, wide_merge_cases
 from vlp3d.models.backbone import PointNet2Backbone as JaxBackbone
 from vlp3d.models.backbone import (
     apply_backbone_large_scene as jax_apply_backbone_large_scene,
@@ -213,6 +213,32 @@ def test_ball_query_merge_equals_dense(w, nsample):
     assert torch.unique(got[0, 1]).numel() == min(nsample, 4)
 
 
+@pytest.mark.parametrize("w", [33, 64])
+@pytest.mark.parametrize("nsample", [8, 64])
+def test_ball_query_merge_past_32_shards_equals_dense(w, nsample):
+    """The merge over more shards than a warp's lanes: hits in every
+    shard, only past the first 32, across shards 31 and 32, none."""
+    xyz, centers = map(torch.from_numpy, wide_merge_cases(w))
+    got = ball_query_emulated(0.5, nsample, xyz, centers, w)
+    assert torch.equal(got, ball_query(0.5, nsample, xyz, centers))
+    assert (got[0, 3] == 0).all()
+    assert got[0, 0, :w].tolist() == (8 * np.arange(w) + 3)[:nsample].tolist()
+    assert int(got[0, 1, 0]) == 8 * 32 + 5
+
+
+def test_fps_steps_past_32_ranks_equal_dense():
+    """The collective route's step takes the winner among more candidates
+    than a warp's lanes: 33 emulated ranks of 8 points, ties across the
+    shards (every shard the same points) and an all-invalid row."""
+    xyz = torch.zeros((2, 33 * 8, 3))
+    xyz[0] = torch.from_numpy(np.tile(np.random.default_rng(6)
+                                      .standard_normal((8, 3)), (33, 1)))
+    want = furthest_point_sample(xyz, 40)
+    for got in fps_emulated(xyz, 33, 40, route="collective"):
+        assert torch.equal(got, want)
+    assert (want[1] == 0).all()
+
+
 @pytest.mark.parametrize("w", [2, 4])
 def test_fps_step_ties_and_invalid_rows_equal_dense(w):
     xyz = torch.from_numpy(fps_cases())
@@ -324,38 +350,81 @@ def _peers(monkeypatch, hosts, reach, visible=2):
                                     f"access rank 1's card ({BUS[1]})"),
     ([[True, True], [False, True]], f"rank 1 (cuda:1, {BUS[1]}) cannot "
                                     f"access rank 0's card ({BUS[0]})")])
-def test_exchange_refuses_a_group_without_peer_access(monkeypatch, reach,
-                                                      pair):
+def test_exchange_routes_a_group_without_peer_access_over_nccl(monkeypatch,
+                                                               reach, pair):
     point = _peers(monkeypatch, ["h", "h"], reach)
-    with pytest.raises(ValueError, match=pair.replace("(", r"\(").replace(
-            ")", r"\)")):
-        pp._exchange(point, 2, torch.device("cuda", 0))
+    ex = pp._exchange(point, 2, torch.device("cuda", 0))
+    assert ex.route == "collective" and pair in ex.why
 
 
-def test_exchange_refuses_ranks_that_see_only_their_own_card(monkeypatch):
+def test_exchange_routes_ranks_that_see_only_their_own_card_over_nccl(
+        monkeypatch):
     """Two ranks that each see one card as cuda:0 (CUDA_VISIBLE_DEVICES):
     the ordinals agree, the cards do not, and neither rank can ask whether
-    it reaches the other's, so the set-up raises before it allocates."""
+    it reaches the other's, so the group takes the collective route,
+    allocating nothing for it."""
     point = _peers(monkeypatch, ["h", "h"], [[True, True], [True, True]],
                    visible=1)
-    with pytest.raises(ValueError, match=re.escape(
-            f"rank 0 (cuda:0, {BUS[0]}) does not see rank 1's card "
-            f"({BUS[1]})")):
-        pp._exchange(point, 2, torch.device("cuda", 0))
+    ex = pp._exchange(point, 2, torch.device("cuda", 0))
+    assert ex.route == "collective"
+    assert f"rank 0 (cuda:0, {BUS[0]}) does not see rank 1's card " \
+           f"({BUS[1]})" in ex.why
 
 
 def test_peer_group_of_one_card_seen_by_both_ranks_passes():
     """Two ranks on one card (the same bus id) reach each other."""
     me = {"host": "h", "device": 0, "card": BUS[0], "reach": {BUS[0]: True}}
-    pp.check_peer_group([me, dict(me)])
+    assert pp.check_peer_group([me, dict(me)]) is None
 
 
-def test_exchange_refuses_a_group_across_hosts(monkeypatch):
+def test_exchange_routes_a_group_across_hosts_over_nccl(monkeypatch):
     point = _peers(monkeypatch, ["node-a", "node-b"],
                    [[True, True], [True, True]])
-    with pytest.raises(ValueError, match="rank 0 is on 'node-a', rank 1 on "
-                                         "'node-b'"):
-        pp._exchange(point, 2, torch.device("cuda", 0))
+    ex = pp._exchange(point, 2, torch.device("cuda", 0))
+    assert ex.route == "collective"
+    assert "rank 0 is on 'node-a', rank 1 on 'node-b'" in ex.why
+
+
+def test_exchange_takes_the_peer_route_for_a_full_peer_group(monkeypatch):
+    """Two ranks of one host whose cards reach each other take the peer
+    route: its buffers are set up (here a stand-in records the call), once
+    a group and batch size; a forced collective route skips the check, a
+    forced peer route takes it."""
+    point = _peers(monkeypatch, ["h", "h"], [[True, True], [True, True]])
+    made = []
+    monkeypatch.setattr(pp, "_Exchange", lambda *a: made.append(a) or
+                        type("Peer", (), {"route": "peer", "why": a[-1]})())
+    dev = torch.device("cuda", 0)
+    ex = pp._exchange(point, 2, dev)
+    assert ex.route == "peer" and ex.why == "every card a peer"
+    assert pp._exchange(point, 2, dev) is ex and len(made) == 1
+    assert pp._exchange(point, 2, dev, "collective").route == "collective"
+    forced = pp._exchange(point, 2, dev, "peer")
+    assert forced.route == "peer"
+    assert forced.why == "forced (every card a peer)"
+    assert pp.fps_route(ModelGroup(object(), 0, 33), dev)[0] == "collective"
+    assert pp.fps_route(ModelGroup(), dev) == ("peer", "a group of one")
+
+
+@pytest.mark.parametrize("hosts,reach,visible,why", [
+    (["h", "h"], [[True, False], [True, True]], 2, "cannot access"),
+    (["h", "h"], [[True, True], [True, True]], 1, "does not see"),
+    (["node-a", "node-b"], [[True, True], [True, True]], 2, "is on")])
+def test_forcing_the_peer_route_on_a_group_that_cannot_take_it_raises(
+        monkeypatch, hosts, reach, visible, why):
+    """A forced peer route is refused, with the group's reason and before
+    any buffer is allocated (``_peers`` traps ``torch.zeros``), where the
+    verdict is the collective route; so is a group past the loop kernel's
+    LOOP_MAX_RANKS."""
+    point = _peers(monkeypatch, hosts, reach, visible)
+    dev = torch.device("cuda", 0)
+    with pytest.raises(ValueError,
+                       match=f"peer route was forced, but .*{why}"):
+        pp._exchange(point, 2, dev, "peer")
+    assert not pp._EXCHANGES
+    big = ModelGroup(object(), 0, pp.LOOP_MAX_RANKS + 1)
+    with pytest.raises(ValueError, match="past the loop kernel's 32"):
+        pp._exchange(big, 2, dev, "peer")
 
 
 def test_cuda_tensors_take_the_loop_kernel_never_the_plain_loop(monkeypatch):
@@ -364,7 +433,8 @@ def test_cuda_tensors_take_the_loop_kernel_never_the_plain_loop(monkeypatch):
     calls = []
     monkeypatch.setattr(pp._kernels, "cuda_or_cpu", lambda t: True)
     monkeypatch.setattr(pp, "_fps_loop_cuda",
-                        lambda xyz, npoint, point: calls.append(point.world))
+                        lambda xyz, npoint, point, route: calls.append(
+                            (point.world, route)))
 
     def plain(*a, **k):
         raise AssertionError("a CUDA tensor took the plain loop")
@@ -373,7 +443,10 @@ def test_cuda_tensors_take_the_loop_kernel_never_the_plain_loop(monkeypatch):
     xyz = torch.rand(1, 8, 3)
     pp.fps_sharded(xyz, 4)
     pp.fps_sharded(xyz, 4, ModelGroup(object(), 1, 2))
-    assert calls == [1, 2]
+    pp.fps_sharded(xyz, 4, ModelGroup(object(), 1, 2), route="collective")
+    assert calls == [(1, None), (2, None), (2, "collective")]
+    with pytest.raises(ValueError, match="route"):
+        pp.fps_sharded(xyz, 4, route="nccl")
 
 
 def test_loop_plan_and_exchange_layout():

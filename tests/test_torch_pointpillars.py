@@ -49,6 +49,8 @@ jax_nms = {"rotated": jax.jit(jax_iou.nms_rotated, static_argnums=2),
 
 KITTI = ((0.16, 0.16, 4.0), (0.0, -39.68, -3.0, 69.12, 39.68, 1.0))
 SMALL = ((0.5, 0.5, 0.5), (0.0, 0.0, 0.0, 2.0, 2.0, 2.0))
+# OpenPCDet's SECOND (kitti_models/second.yaml): 1408 x 1600 x 40 cells
+SECOND = ((0.05, 0.05, 0.1), (0.0, -40.0, -3.0, 70.4, 40.0, 1.0))
 
 
 def _cloud(rng, case):
@@ -161,16 +163,31 @@ EMU_WINDOW = 96  # point indices a window of the emulated bitmap
 def _emulate_hard_row(pts, coords, grid, max_points, max_voxels, rng):
     """One batch row through the steps of ``vlp3d_hard_voxelize``, every
     order the card leaves to its atomics and to the tiles' timing drawn
-    from ``rng``: (voxels, coors, num, voxel_num, mask, slot)."""
+    from ``rng``, the cell table addressed as the kernel addresses it (by
+    the key where the grid fits the table, else hashed): (voxels, coors,
+    num, voxel_num, mask, slot)."""
     n, c = pts.shape
-    g0, g1, g2 = (int(g) for g in grid)
+    g0, g1, _ = (int(g) for g in grid)
     j = np.arange(n)
-    # (a) keys; a cell's head entry n - (its first index) by max, 0 when
+    # (a) keys, each cell's entry in the row's hash table (claimed in the
+    # order the atomics run, probed linearly from the multiplicative
+    # hash); a cell's head entry n - (its first index) by max, 0 when
     # empty; its count
-    key = np.where(coords[:, 0] < 0, -1,
-                   (coords[:, 2] * g1 + coords[:, 1]) * g0 + coords[:, 0])
-    head = np.zeros(g0 * g1 * g2, np.int64)
-    count = np.zeros(g0 * g1 * g2, np.int64)
+    cell = np.where(coords[:, 0] < 0, -1,
+                    (coords[:, 2].astype(np.int64) * g1 + coords[:, 1]) * g0
+                    + coords[:, 0])
+    slots = voxelize.table_slots(n)
+    shift = 33 - slots.bit_length()
+    tags = np.zeros(slots, np.int64)
+    key = cell.copy()  # a grid that fits the table: the key is the entry
+    for q in ([] if g0 * g1 * int(grid[2]) <= slots else
+              rng.permutation(np.flatnonzero(cell >= 0))):
+        e = (int(cell[q]) * 2654435761 & 0xffffffff) >> shift
+        while tags[e] not in (0, cell[q] + 1):
+            e = (e + 1) & (slots - 1)
+        tags[e], key[q] = cell[q] + 1, e
+    head = np.zeros(slots, np.int64)
+    count = np.zeros(slots, np.int64)
     order = rng.permutation(np.flatnonzero(key >= 0))
     np.maximum.at(head, key[order], n - order)
     np.add.at(count, key[order], 1)
@@ -273,11 +290,18 @@ def _emu_cloud(rng, case):
         pts = rng.uniform(0, 2, (2, 200, 3))
         pts[1, :, 0] += 3.0
         return pts, vs, cr, 8, 64
+    if case == "second_grid":  # SECOND's KITTI grid, 90 112 000 cells
+        vs, cr = SECOND
+        pts = np.concatenate([rng.uniform(cr[:3], cr[3:], (1, 600, 3)),
+                              rng.uniform(0, 1, (1, 600, 1))], -1)
+        pts[0, :300, :3] = (rng.uniform(-0.06, 0.06, (300, 3))
+                            + [30.0, 2.0, -1.0])
+        return pts, vs, cr, 5, 400
     raise ValueError(case)
 
 
 @pytest.mark.parametrize("case", ["hot_cell", "voxel_cap", "one_slot",
-                                  "row_all_out"])
+                                  "row_all_out", "second_grid"])
 def test_hard_kernel_algorithm_emulated_equals_plain_and_jax(case):
     """The hard kernel's steps in numpy (head and count, the tile-wise
     pair prefix sum with look-back, placement in a shuffled order, the

@@ -56,6 +56,8 @@
 
 #include <algorithm>
 
+#include "batch_rows.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -71,13 +73,13 @@ __device__ __forceinline__ float sq3(float x, float y, float z) {
 
 __global__ void __launch_bounds__(kWarps * 32)
     ball_query_kernel(const float* __restrict__ xyz,
-                      const float* __restrict__ centers, int n, int m,
+                      const float* __restrict__ centers, int B, int n, int m,
                       float r2, int nsample, int* __restrict__ idx,
                       int* __restrict__ count) {
   const int lane = threadIdx.x & 31;
   const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int b = blockIdx.y;
-  if (c >= m) return;  // the whole warp leaves together
+  const int b = grid_row();
+  if (c >= m || b >= B) return;  // the whole warp leaves together
 
   const size_t row = (size_t)b * m + c;
   const float cx = centers[3 * row], cy = centers[3 * row + 1],
@@ -142,8 +144,8 @@ size_t tile_smem_bytes(int threads, int tile, int nsample,
 template <typename L>
 __global__ void __launch_bounds__(1024)
     ball_query_tile_kernel(const float* __restrict__ xyz,
-                           const float* __restrict__ centers, int n, int m,
-                           float r2, int nsample, int seg, int tile,
+                           const float* __restrict__ centers, int B, int n,
+                           int m, float r2, int nsample, int seg, int tile,
                            int segs, int* __restrict__ idx,
                            int* __restrict__ count) {
   extern __shared__ __align__(16) float smem[];
@@ -157,7 +159,8 @@ __global__ void __launch_bounds__(1024)
   L* lists = reinterpret_cast<L*>(firsts + threads);
   L* list = lists + tid * stride;  // this thread's center's hits
 
-  const int b = blockIdx.y;
+  const int b = grid_row();
+  if (b >= B) return;  // the whole block, before any barrier
   const int rank = blockIdx.x % segs;
   const int c0 = blockIdx.x / segs * threads;
   const bool live = c0 + tid < m;
@@ -308,7 +311,7 @@ int launch_tile(const float* xyz, const float* centers, int b, int n, int m,
   const int blocks_m = (m + threads - 1) / threads;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  cfg.gridDim = dim3((unsigned)(segs * blocks_m), (unsigned)b);
+  cfg.gridDim = rows_grid((unsigned)(segs * blocks_m), b);
   cfg.blockDim = dim3((unsigned)threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -320,8 +323,8 @@ int launch_tile(const float* xyz, const float* centers, int b, int n, int m,
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
   }
-  err = cudaLaunchKernelEx(&cfg, kernel, xyz, centers, n, m, r2, nsample, seg,
-                           tile, segs, idx, count);
+  err = cudaLaunchKernelEx(&cfg, kernel, xyz, centers, b, n, m, r2, nsample,
+                           seg, tile, segs, idx, count);
   const cudaError_t last = cudaGetLastError();  // also clears it
   return (int)(err != cudaSuccess ? err : last);
 }
@@ -336,9 +339,9 @@ extern "C" {
 int vlp3d_ball_query(const void* xyz, const void* centers, int b, int n,
                      int m, float r2, int nsample, void* idx, void* count,
                      void* stream) {
-  dim3 grid((m + kWarps - 1) / kWarps, b);
+  const dim3 grid = rows_grid((m + kWarps - 1) / kWarps, b);
   ball_query_kernel<<<grid, kWarps * 32, 0, (cudaStream_t)stream>>>(
-      (const float*)xyz, (const float*)centers, n, m, r2, nsample,
+      (const float*)xyz, (const float*)centers, b, n, m, r2, nsample,
       (int*)idx, (int*)count);
   return (int)cudaGetLastError();
 }

@@ -329,7 +329,9 @@ __global__ void __launch_bounds__(kSortMaxThreads)
   int* scan = list + cap;               // [32]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int i0 = blockIdx.x * rows, b = blockIdx.y;
+  // the row of the batch outer in x (no grid limit on the batch)
+  const int per_row = (n + rows - 1) / rows;
+  const int i0 = blockIdx.x % per_row * rows, b = blockIdx.x / per_row;
   const int u0 = blockIdx.z * uslice, u1 = min(units, u0 + uslice);
   const int r_all = rows_per_batch;
   const int* ix = idx + (size_t)b * r_all;
@@ -478,7 +480,11 @@ int launch_sorted(const V* grad, const int* idx, int b, int rows_per_batch,
       return (int)err;
     }
   }
-  dim3 grid((n + rows - 1) / rows, b, (units + uslice - 1) / uslice);
+  // the batch folded into x with the row's blocks (z holds the channel
+  // slices): at SA2 0.160 -> 0.119 ms against the batch on y on an H100
+  // (PERF.md section 6)
+  dim3 grid((unsigned)((long long)((n + rows - 1) / rows) * b), 1,
+            (units + uslice - 1) / uslice);
   kernel<<<grid, 32 * warps, smem, stream>>>(grad, idx, rows_per_batch,
                                              units, n, rows, uslice, lanes,
                                              cap, dpoints);
@@ -661,10 +667,18 @@ int launch_interp(const V* grad, const int* idx, const float* weight, int b,
       return (int)err;
     }
   }
-  dim3 grid((m + warps - 1) / warps, b,
-            (units + 32 * kU - 1) / (32 * kU));
-  kernel<<<grid, 32 * warps, smem, stream>>>(grad, idx, weight, 3 * n,
-                                             units, m, dfeats);
+  // the batch on the grid's y (z holds the channel units, so not
+  // batch_rows.cuh's y and z), one launch a chunk of 65535 rows (one
+  // launch below that: folding the row into x cost the call 2-3% on an
+  // H100, PERF.md section 6)
+  for (int b0 = 0; b0 < b; b0 += 65535) {
+    const size_t r = (size_t)b0 * 3 * n;
+    dim3 grid((m + warps - 1) / warps, std::min(b - b0, 65535),
+              (units + 32 * kU - 1) / (32 * kU));
+    kernel<<<grid, 32 * warps, smem, stream>>>(
+        grad + (size_t)b0 * n * units, idx + r, weight + r, 3 * n, units, m,
+        dfeats + (size_t)b0 * m * units);
+  }
   return (int)cudaGetLastError();
 }
 

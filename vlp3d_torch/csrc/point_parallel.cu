@@ -6,9 +6,9 @@
 // (point_parallel.py:74-130), ball_query_sharded's merge (:133-205) and
 // _owned_rows (:208-219) around the pmax / pmin / psum collectives. Here:
 //
-//   * fps_shard_loop: a whole fps_sharded call in one persistent launch,
-//     the ranks' candidates exchanged through peer memory instead of a
-//     collective an iteration. One thread-block cluster a batch row, each
+//   * fps_shard_loop (the peer route): a whole fps_sharded call in one
+//     persistent launch, the ranks' candidates exchanged through peer
+//     memory instead of a collective an iteration. One cluster a row, each
 //     block's share of this rank's slab in registers (fps_regs.cuh, the
 //     device code of fps.cu's fps_regs_kernel<P, true>) or, for a share
 //     too long for registers (P = 0), streamed from global memory with
@@ -55,8 +55,12 @@
 //     then fill 16-byte-aligned quads of slots with int4 stores (int4
 //     loads where a quad comes from one shard at an aligned offset, shard
 //     0's read before the counts arrive), the row's unaligned head and
-//     tail slot by slot. Bound by bytes; two dependent reads a centre
-//     (the counts, then the other shards' indices), one with W = 1.
+//     tail slot by slot. More than 32 shards come 32 a chunk, the running
+//     count carried from chunk to chunk (any W; JAX's merge has no
+//     limit). Bound by bytes; two dependent reads a centre (the counts,
+//     then the other shards' indices), one with W = 1.
+//   * fps_shard_step: one iteration of the collective route, for a group
+//     whose cards cannot reach each other's memory (see the kernel).
 //   * gather_owned: rows of this rank's slab at global indices, a row of
 //     zeros where another rank owns the index (the sum over the point
 //     group then holds every row once). Not grouping.cu's gather on
@@ -390,8 +394,229 @@ struct LoopLaunch {
   }
 };
 
+// ---------------------------------------------------------------- FPS step
+
+// One iteration of a point-sharded FPS call for the collective route (a
+// group whose cards cannot reach each other's memory): the candidates of
+// the previous iteration come all-gathered over NCCL, one launch a step,
+// fps_shard_step_plain in point_parallel.py in its exact layout. cands
+// (W, B, 5) int32: distance bits, global index, x, y, z bits a rank. A
+// cluster of `blocks` blocks a row (the grid's rows folded into x):
+//   - warp 0 of every block picks the winner among the W candidates, 32 at
+//     a time (the largest distance, then the lowest global index, the
+//     lowest rank among equals), block 0 writes its index to out[:, t];
+//   - unless `last`, each block streams its share of the slab, min-updates
+//     the running distances in temp (B, nl) with (dx^2 + dy^2) + dz^2,
+//     and offers its largest distance (-1 for a point with |p|^2 <= 1e-3),
+//     the lowest index among equals; block 0 reads the blocks' offers
+//     from their shared memory (between two cluster barriers) and writes
+//     this rank's candidate, global index = offset + local, to
+//     cand_out (B, 5).
+// Bound by bytes (16 a point read, 4 written a step); the step's launch
+// and the all-gather's host time bound the call.
+constexpr int kStepThreads = 1024;
+
+__global__ void __launch_bounds__(kStepThreads)
+    fps_shard_step_kernel(const float* __restrict__ xyz,
+                          float* __restrict__ temp,
+                          const int* __restrict__ cands, int W, int B, int nl,
+                          int share, int offset, int t, int last, int npoint,
+                          int* __restrict__ out, int* __restrict__ cand_out) {
+  __shared__ unsigned slot_k[2][32];
+  __shared__ int slot_i[2][32];
+  __shared__ float4 pick;
+  __shared__ uint4 offer;  // this block's: key, x, y, z bits
+  __shared__ int offer_i;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int crank = (int)cluster.block_rank();
+  const int blocks = (int)cluster.num_blocks();
+  const int row = blockIdx.x / blocks;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (warp == 0) {
+    unsigned key = 0;  // below every float's key
+    int gi = INT_MAX, src = 0;
+    for (int w0 = 0; w0 < W; w0 += 32) {
+      unsigned k = 0;
+      int g = INT_MAX;
+      if (w0 + lane < W) {
+        const int* c = cands + ((size_t)(w0 + lane) * B + row) * 5;
+        k = ordered(__int_as_float(c[0]));
+        g = c[1];
+      }
+      const unsigned top = __reduce_max_sync(kFullMask, k);
+      const int best = __reduce_min_sync(kFullMask, k == top ? g : INT_MAX);
+      if (top > key || (top == key && best < gi)) {
+        key = top;
+        gi = best;
+        src = w0 +
+              __ffs(__ballot_sync(kFullMask, k == top && g == best)) - 1;
+      }
+    }
+    if (lane == 0) {
+      if (crank == 0) out[(size_t)row * npoint + t] = gi;
+      const int* c = cands + ((size_t)src * B + row) * 5;
+      pick = make_float4(__int_as_float(c[2]), __int_as_float(c[3]),
+                         __int_as_float(c[4]), 0.0f);
+    }
+  }
+  if (last) return;  // every block of the grid: no barrier is pending
+  __syncthreads();
+  const float px = pick.x, py = pick.y, pz = pick.z;
+  const float* p = xyz + (size_t)row * nl * 3;
+  float* tm = temp + (size_t)row * nl;
+  const int base = crank * share;
+  const int end = min(nl, base + share);
+  float bv = __int_as_float(0xff800000);
+  int bi = INT_MAX;
+  for (int i = base + tid; i < end; i += blockDim.x) {
+    const float x = p[3 * i], y = p[3 * i + 1], z = p[3 * i + 2];
+    const float d = sq3(__fsub_rn(x, px), __fsub_rn(y, py), __fsub_rn(z, pz));
+    const float v = fminf(tm[i], d);
+    tm[i] = v;
+    const float o = sq3(x, y, z) > kMinSqNorm ? v : -1.0f;
+    if (o > bv) {  // i rises, so strict > keeps the lowest index
+      bv = o;
+      bi = i;
+    }
+  }
+  unsigned key = ordered(bv);
+  bi = block_candidate(key, bi, tid, blockDim.x, false, slot_k, slot_i, 0);
+  if (tid == 0) {
+    offer = bi == INT_MAX
+                ? make_uint4(key, 0u, 0u, 0u)
+                : make_uint4(key, __float_as_uint(p[3 * bi]),
+                             __float_as_uint(p[3 * bi + 1]),
+                             __float_as_uint(p[3 * bi + 2]));
+    offer_i = bi;
+  }
+  cluster.sync();  // every block's offer is in its shared memory
+  if (crank == 0 && warp == 0) {
+    uint4 c = make_uint4(0u, 0u, 0u, 0u);
+    int ci = INT_MAX;
+    if (lane < blocks) {
+      c = *cluster.map_shared_rank(&offer, lane);
+      ci = *cluster.map_shared_rank(&offer_i, lane);
+    }
+    // shares are consecutive, so among equal keys the lowest block rank
+    // holds the lowest index
+    const unsigned top = __reduce_max_sync(kFullMask, c.x);
+    const int win = __reduce_min_sync(
+        kFullMask, lane < blocks && c.x == top ? lane : INT_MAX);
+    if (lane == win) {
+      int* o = cand_out + (size_t)row * 5;
+      o[0] = __float_as_int(unordered(top));
+      o[1] = ci + offset;
+      o[2] = (int)c.y;
+      o[3] = (int)c.z;
+      o[4] = (int)c.w;
+    }
+  }
+  cluster.sync();  // block 0 has read every block's shared memory
+}
+
+// blocks a row of the step kernel for slabs of nl points: at least 4
+// points a thread, at most 8 blocks (the portable cluster size)
+int step_blocks(int nl) {
+  int blocks = 1;
+  while (blocks < 8 && (long long)blocks * kStepThreads * 4 < nl) blocks *= 2;
+  return blocks;
+}
+
 // ------------------------------------------------------------------ merge
 
+// slots [lo, up) of a centre's row `o` (r0 = its first slot's index in
+// out), from the chunk of shards w0 .. w0 + 31 whose inclusive ends
+// (`end`, the earlier chunks' hits included) and starts each lane holds:
+// slot sl < total from the shard holding it, the rest `pad`. 16-byte
+// quads wholly inside [lo, up) go as int4 stores (int4 loads where a quad
+// comes from one shard at an aligned offset; chunk 0's shard 0 from
+// `pre`, its first 32 quads read before the counts), the rest slot by
+// slot. Without kWide the range is the whole row, and no range is
+// checked.
+template <bool kWide>
+__device__ __forceinline__ void merge_range(
+    const int* __restrict__ all_idx, int* o, int r0, int S, int BM, int bm,
+    int nl, int w0, int shards, int end, int start, int total, int pad,
+    int lo, int up, int4 pre, int lane) {
+  const int a0 = (r0 + 3) & ~3;
+  const int a1 = (r0 + S) & ~3;
+  const int head = min(a0, r0 + S) - r0;
+  const int tail0 = max(a1 - r0, head);
+  const int nq = a1 > a0 ? (a1 - a0) >> 2 : 0;
+  // the chunk's shard holding slot sl < total: its lanes whose end is <=
+  // sl (the chunk's last shard ends past every slot it holds)
+  auto owner = [&](int sl) {
+    int own = 0;
+    for (int w = 0; w + 1 < shards; ++w)
+      own += __shfl_sync(kFullMask, end, w) <= sl ? 1 : 0;
+    return own;
+  };
+  auto value = [&](int sl, int own, int st) {
+    return sl < total
+               ? all_idx[((w0 + own) * BM + bm) * S + sl - st] + (w0 + own) * nl
+               : pad;
+  };
+  {
+    int sl = -1;  // lanes 0-2 the head, lanes 4-6 the tail
+    if (lane < head)
+      sl = lane;
+    else if (lane >= 4 && lane - 4 < S - tail0)
+      sl = tail0 + lane - 4;
+    const int own = owner(sl);
+    const int st = __shfl_sync(kFullMask, start, own);
+    if (sl >= 0 && (!kWide || (sl >= lo && sl < up)))
+      o[sl] = value(sl, own, st);
+  }
+  for (int qb = 0; qb < nq; qb += 32) {
+    const int q = qb + lane;
+    const int sl = a0 - r0 + 4 * q;
+    int own[4] = {0, 0, 0, 0};
+    for (int w = 0; w + 1 < shards; ++w) {
+      const int e = __shfl_sync(kFullMask, end, w);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) own[k] += e <= sl + k ? 1 : 0;
+    }
+    int st[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) st[k] = __shfl_sync(kFullMask, start, own[k]);
+    if (q >= nq) continue;
+    if (kWide && (sl + 3 < lo || sl >= up)) continue;
+    if (kWide && (sl < lo || sl + 3 >= up)) {  // cut by the range
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (sl + k >= lo && sl + k < up)
+          o[sl + k] = value(sl + k, own[k], st[k]);
+      continue;
+    }
+    int4 v;
+    const int src = ((w0 + own[0]) * BM + bm) * S + sl - st[0];
+    if (sl + 3 < total && own[3] == 0 && w0 == 0 && qb == 0) {
+      v = pre;
+    } else if (sl + 3 < total && own[0] == own[3] && (src & 3) == 0) {
+      v = *reinterpret_cast<const int4*>(all_idx + src);
+      const int add = (w0 + own[0]) * nl;
+      v.x += add;
+      v.y += add;
+      v.z += add;
+      v.w += add;
+    } else {
+      v = make_int4(value(sl, own[0], st[0]), value(sl + 1, own[1], st[1]),
+                    value(sl + 2, own[2], st[2]),
+                    value(sl + 3, own[3], st[3]));
+    }
+    *reinterpret_cast<int4*>(o + sl) = v;
+  }
+}
+
+// One warp a centre. The counts come 32 shards a chunk: lane w of chunk
+// w0 loads count w0 + w. Up to 32 shards (kWide false) are one chunk.
+// Past 32, a first pass over the chunks sums the total and finds the
+// first shard with a hit (the padding), then each chunk in turn fills
+// the slots its hits reach, the running count carried from chunk to
+// chunk, so the hits keep their global order; the chunk that reaches the
+// total also writes the padding. (One kernel for both took 38% longer at
+// one shard on an H100: PERF.md.)
+template <bool kWide>
 __global__ void __launch_bounds__(kMergeWarps * 32)
     ball_query_merge_kernel(const int* __restrict__ all_idx,
                             const int* __restrict__ all_cnt, int W, int BM,
@@ -401,11 +626,8 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
   if (bm >= BM) return;  // the whole warp
   const int r0 = bm * S;
   int* o = out + r0;
-  // the row's 16-byte-aligned quads [a0, a1) of out, its head and tail
   const int a0 = (r0 + 3) & ~3;
   const int a1 = (r0 + S) & ~3;
-  const int head = min(a0, r0 + S) - r0;
-  const int tail0 = max(a1 - r0, head);
   const int nq = a1 > a0 ? (a1 - a0) >> 2 : 0;
   // shard 0's quads of the first batch, read before the counts are known
   // (shard 0 starts at slot 0, so its quads are aligned where out's are):
@@ -413,16 +635,24 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
   int4 pre = make_int4(0, 0, 0, 0);
   if (lane < nq)
     pre = *reinterpret_cast<const int4*>(all_idx + a0 + 4 * lane);
-  const int c = lane < W ? min(all_cnt[lane * BM + bm], S) : 0;
-  int end = c;
+  const int c0 = lane < W ? min(all_cnt[lane * BM + bm], S) : 0;
+  int end = c0;  // chunk 0's inclusive ends
 #pragma unroll
   for (int o2 = 1; o2 < 32; o2 <<= 1) {
     const int v = __shfl_up_sync(kFullMask, end, o2);
     if (lane >= o2) end += v;
   }
-  const int start = end - c;
-  const int total = __shfl_sync(kFullMask, end, 31);
-  const int first = __ffs(__ballot_sync(kFullMask, c > 0)) - 1;
+  int total = __shfl_sync(kFullMask, end, 31);
+  int first = __ffs(__ballot_sync(kFullMask, c0 > 0)) - 1;
+  if constexpr (kWide) {
+    for (int w0 = 32; w0 < W; w0 += 32) {
+      const int c =
+          w0 + lane < W ? min(all_cnt[(w0 + lane) * BM + bm], S) : 0;
+      total += __reduce_add_sync(kFullMask, c);
+      const unsigned hit = __ballot_sync(kFullMask, c > 0);
+      if (first < 0 && hit) first = w0 + __ffs(hit) - 1;
+    }
+  }
   // slots past the total repeat the first hit, slot 0; an empty ball is
   // zeros
   const int pre0 = __shfl_sync(kFullMask, pre.x, 0);
@@ -431,56 +661,32 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
     pad = pre0;
   else if (first >= 0)
     pad = all_idx[(first * BM + bm) * S] + first * nl;
-  {
-    int sl = -1;  // lanes 0-2 the head, lanes 4-6 the tail
-    if (lane < head)
-      sl = lane;
-    else if (lane >= 4 && lane - 4 < S - tail0)
-      sl = tail0 + lane - 4;
-    // the shard holding slot sl < total: the shards whose end is <= sl
-    int own = 0;
-    for (int w = 0; w + 1 < W; ++w)
-      own += __shfl_sync(kFullMask, end, w) <= sl ? 1 : 0;
-    const int st = __shfl_sync(kFullMask, start, own);
-    if (sl >= 0)
-      o[sl] = sl < total ? all_idx[(own * BM + bm) * S + sl - st] + own * nl
-                         : pad;
-  }
-  for (int qb = 0; qb < nq; qb += 32) {
-    const int q = qb + lane;
-    const int sl = a0 - r0 + 4 * q;
-    int own[4] = {0, 0, 0, 0};
-    for (int w = 0; w + 1 < W; ++w) {
-      const int e = __shfl_sync(kFullMask, end, w);
+  if constexpr (!kWide) {
+    merge_range<false>(all_idx, o, r0, S, BM, bm, nl, 0, W, end, end - c0,
+                       total, pad, 0, S, pre, lane);
+  } else {
+    const int reach = min(total, S);
+    int carry = 0;  // the earlier chunks' hits
+    for (int w0 = 0; w0 < W; w0 += 32) {
+      int c = c0;
+      if (w0 > 0) {
+        c = w0 + lane < W ? min(all_cnt[(w0 + lane) * BM + bm], S) : 0;
+        end = c;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) own[k] += e <= sl + k ? 1 : 0;
+        for (int o2 = 1; o2 < 32; o2 <<= 1) {
+          const int v = __shfl_up_sync(kFullMask, end, o2);
+          if (lane >= o2) end += v;
+        }
+        end += carry;
+      }
+      const int hi = __shfl_sync(kFullMask, end, 31);
+      const bool closes = hi >= reach;
+      merge_range<true>(all_idx, o, r0, S, BM, bm, nl, w0, min(32, W - w0),
+                        end, end - c, total, pad, carry, closes ? S : hi,
+                        pre, lane);
+      if (closes) break;
+      carry = hi;
     }
-    int st[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) st[k] = __shfl_sync(kFullMask, start, own[k]);
-    if (q >= nq) continue;
-    int4 v;
-    const int src = (own[0] * BM + bm) * S + sl - st[0];
-    if (sl + 3 < total && own[3] == 0 && qb == 0) {
-      v = pre;
-    } else if (sl + 3 < total && own[0] == own[3] && (src & 3) == 0) {
-      v = *reinterpret_cast<const int4*>(all_idx + src);
-      const int add = own[0] * nl;
-      v.x += add;
-      v.y += add;
-      v.z += add;
-      v.w += add;
-    } else {
-      int e[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        e[k] = sl + k < total
-                   ? all_idx[(own[k] * BM + bm) * S + sl + k - st[k]] +
-                         own[k] * nl
-                   : pad;
-      v = make_int4(e[0], e[1], e[2], e[3]);
-    }
-    *reinterpret_cast<int4*>(o + sl) = v;
   }
 }
 
@@ -598,16 +804,52 @@ int vlp3d_ipc_open(const void* handle, void** ptr) {
   return (int)err;
 }
 
+// One step of the collective route: xyz (b, nl, 3) f32 this rank's slab,
+// temp (b, nl) f32 its running distances (updated), cands (w, b, 5) i32
+// the ranks' candidates of the previous iteration; out (b, npoint) i32
+// gets the winner at column t; unless `last`, cand_out (b, 5) i32 this
+// rank's candidate (global index = offset + local).
+int vlp3d_fps_shard_step(const float* xyz, float* temp, const int* cands,
+                         int w, int b, int nl, int offset, int t, int last,
+                         int npoint, int* out, int* cand_out,
+                         cudaStream_t stream) {
+  if (w < 1 || b < 1 || nl < 1 || t < 0 || t >= npoint ||
+      (!last && !cand_out))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = step_blocks(nl);
+  const int share = (nl + blocks - 1) / blocks;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  cfg.gridDim = dim3((unsigned)blocks * (unsigned)b);
+  cfg.blockDim = dim3(kStepThreads);
+  cfg.stream = stream;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = blocks;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, fps_shard_step_kernel, xyz, temp, cands, w, b, nl, share, offset,
+      t, last, npoint, out, cand_out);
+  const cudaError_t after = cudaGetLastError();  // also clears it
+  return (int)(err != cudaSuccess ? err : after);
+}
+
 // all_idx (W, B, M, S) / all_cnt (W, B, M) i32 -> out (B, M, S) i32;
-// W <= 32, W * B * M * S < 2^31.
+// any W >= 1, W * B * M * S < 2^31.
 int vlp3d_ball_query_merge(const int* all_idx, const int* all_cnt, int W,
                            int B, int M, int S, int nl, int* out,
                            cudaStream_t stream) {
-  if (W < 1 || W > 32) return (int)cudaErrorInvalidValue;
+  if (W < 1) return (int)cudaErrorInvalidValue;
   const int bm = B * M;
   const int grid = (bm + kMergeWarps - 1) / kMergeWarps;
-  ball_query_merge_kernel<<<grid, kMergeWarps * 32, 0, stream>>>(
-      all_idx, all_cnt, W, bm, S, nl, out);
+  if (W <= 32)
+    ball_query_merge_kernel<false><<<grid, kMergeWarps * 32, 0, stream>>>(
+        all_idx, all_cnt, W, bm, S, nl, out);
+  else
+    ball_query_merge_kernel<true><<<grid, kMergeWarps * 32, 0, stream>>>(
+        all_idx, all_cnt, W, bm, S, nl, out);
   return static_cast<int>(cudaGetLastError());
 }
 

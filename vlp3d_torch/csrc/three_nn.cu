@@ -47,6 +47,8 @@
 
 #include <cuda_runtime.h>
 
+#include "batch_rows.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -119,10 +121,11 @@ __device__ __forceinline__ T pick3(int k, T a, T b, T c) {
 
 __global__ void __launch_bounds__(kThreads)
     three_nn_kernel(const float* __restrict__ unknown,
-                    const float* __restrict__ known, int n, int m,
+                    const float* __restrict__ known, int B, int n, int m,
                     float* __restrict__ dist2, int* __restrict__ idx) {
   __shared__ float tile[kTile * 3];
-  const int b = blockIdx.y;
+  const int b = grid_row();
+  if (b >= B) return;  // the whole block, before any barrier
   const int i = blockIdx.x * kThreads + threadIdx.x;
   const bool active = i < n;
   const float* u = unknown + ((size_t)b * n + (active ? i : 0)) * 3;
@@ -163,12 +166,13 @@ template <int L, bool kInterp, typename V>
 __global__ void __launch_bounds__(1024)
     three_nn_team_kernel(const float* __restrict__ unknown,
                          const float* __restrict__ known,
-                         const V* __restrict__ feats, int n, int m,
+                         const V* __restrict__ feats, int B, int n, int m,
                          int units, float* __restrict__ dist2,
                          int* __restrict__ idx, float* __restrict__ weight,
                          V* __restrict__ out) {
   __shared__ float sxyz[3][kTile];  // x[], y[], z[]
-  const int b = blockIdx.y;
+  const int b = grid_row();
+  if (b >= B) return;  // the whole block, before any barrier
   const int lane = threadIdx.x & (L - 1);
   const int i = blockIdx.x * (blockDim.x / L) + threadIdx.x / L;
   const bool active = i < n;
@@ -253,17 +257,17 @@ void launch_team(const float* unknown, const float* known, const float* feats,
                  float* dist2, int* idx, float* weight, float* out,
                  cudaStream_t s) {
   const int points = threads / L;
-  dim3 grid((n + points - 1) / points, b);
+  const dim3 grid = rows_grid((n + points - 1) / points, b);
   if (!feats) {
     three_nn_team_kernel<L, false, float><<<grid, threads, 0, s>>>(
-        unknown, known, nullptr, n, m, 0, dist2, idx, nullptr, nullptr);
+        unknown, known, nullptr, b, n, m, 0, dist2, idx, nullptr, nullptr);
   } else if (vec) {
     three_nn_team_kernel<L, true, float4><<<grid, threads, 0, s>>>(
-        unknown, known, (const float4*)feats, n, m, c / 4, dist2, idx,
+        unknown, known, (const float4*)feats, b, n, m, c / 4, dist2, idx,
         weight, (float4*)out);
   } else {
     three_nn_team_kernel<L, true, float><<<grid, threads, 0, s>>>(
-        unknown, known, feats, n, m, c, dist2, idx, weight, out);
+        unknown, known, feats, b, n, m, c, dist2, idx, weight, out);
   }
 }
 
@@ -275,9 +279,9 @@ extern "C" {
 // m >= 3; dist2: (b, n, 3) f32; idx: (b, n, 3) i32.
 int vlp3d_three_nn(const void* unknown, const void* known, int b, int n,
                    int m, void* dist2, void* idx, void* stream) {
-  dim3 grid((n + kThreads - 1) / kThreads, b);
+  const dim3 grid = rows_grid((n + kThreads - 1) / kThreads, b);
   three_nn_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)unknown, (const float*)known, n, m, (float*)dist2,
+      (const float*)unknown, (const float*)known, b, n, m, (float*)dist2,
       (int*)idx);
   return (int)cudaGetLastError();
 }
@@ -296,7 +300,7 @@ int vlp3d_three_nn_team(const void* unknown, const void* known,
                         int lanes, int threads, int vec, void* dist2,
                         void* idx, void* weight, void* out, void* stream) {
   if (threads < 32 || threads > 1024 || threads % 32 != 0 || b < 1 ||
-      b > 65535 || n < 1 || m < 1 || (feats && c < 1))
+      n < 1 || m < 1 || (feats && c < 1))
     return (int)cudaErrorInvalidValue;
   const float* u = (const float*)unknown;
   const float* k = (const float*)known;

@@ -20,14 +20,28 @@
 // the voxels, and the order of the sequential loop is rebuilt from point
 // indices, never from the order atomics happen to run in. One memset and
 // four dependent kernels after the dynamic one:
-//   (a) voxel_head_count_kernel: each point's linear cell key; the cell
-//       table (a dense {head, count} pair a grid cell a batch row) keeps
-//       n - (the cell's first point's index) by atomicMax (0: empty) and
-//       the cell's count. Lanes of a warp in one cell (__match_any_sync)
-//       make one atomic of each, and a cell several lanes meet gathers
-//       its block's in shared memory first (HotTable), since a cell may
-//       hold 20 000 points and atomics on one address serialise. One
-//       memset clears the table, the scan's status words and its ticket;
+//   (a) voxel_head_count_kernel: each point's linear cell key, JAX's
+//       int32 (z * gy + y) * gx + x, and its cell's entry in the row's
+//       cell table of `slots` entries (a power of two of at least 2 n,
+//       capped at 2^31 and then still more than n, so never full; so
+//       it and its memset grow with the points, never with the grid: any
+//       grid of up to 2^31 - 2 cells), each a {head, count} pair. A grid
+//       of at most `slots` cells addresses the table by the key itself
+//       (direct); a larger one hashes it, open addressing: a tag a slot
+//       (key + 1; 0: empty, claimed by atomicCAS, probed linearly from a
+//       multiplicative hash), which makes a cell's first lane wait for
+//       a load and a CAS before its atomics (at PointPillars' grid, 4 x
+//       120000 points, the whole call 16% slower than the direct table's
+//       on an H100; PERF.md).
+//       The entry keeps n - (the cell's first point's index) by atomicMax
+//       (0: empty) and the cell's count, and the point keeps its entry's
+//       index in place of its key, so that (b) and (c) address the entry
+//       directly. Lanes of a warp in one cell (__match_any_sync) probe
+//       once and make one atomic of each, and a cell several lanes meet
+//       gathers its block's in shared memory first (HotTable), since a
+//       cell may hold 20 000 points and atomics on one address
+//       serialise. One memset clears the table, the scan's status words
+//       and its ticket;
 //   (b) voxel_scan_kernel: one single-pass prefix sum over the points in
 //       point order, a tile of kTile points a block, tiles taken in the
 //       order of an atomic ticket (so a tile's predecessors are running
@@ -64,17 +78,23 @@
 //       memory, whose set bits a thread's share of words counts and a
 //       block scan places; the block then copies the kept points.
 //
+// The batch has no grid limit: (a) and (c) put its rows on the grid's y
+// and z (batch_rows.cuh), (b) folds them into x with the tiles, and (d)
+// puts them on x.
+//
 // What bounds it on the H100: bytes, most of them the voxels written
 // once (4 x 16000 x 32 x 4 floats at PointPillars' KITTI widths, 32.8 MB
-// of the call's 43.5); then the cell table's random accesses (a few a
-// point, each a 32-byte sector), the atomics on a hot cell (one address,
-// serialised) and the dependent launches.
+// of the call's 43.5); then the cell table's random accesses (a probe
+// and a few atomics a point, each a 32-byte sector), the atomics on a
+// hot cell (one address, serialised) and the dependent launches.
 
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <climits>
 #include <cstdint>
+
+#include "batch_rows.cuh"
 
 namespace {
 
@@ -112,9 +132,10 @@ __global__ void dynamic_voxelize_kernel(const float* __restrict__ points,
 
 // A block's table of the cells that several lanes of one of its warps
 // meet (the hot ones among them: a pillar of 20 000 points meets ~5
-// lanes of every warp): their atomics are gathered in shared memory and
-// made once a block on the cell table. A cell that finds no slot in
-// kProbe probes makes its own.
+// lanes of every warp), keyed by the cell's entry in the row's cell
+// table: their atomics are gathered in shared memory and made once a
+// block on the cell table. A cell that finds no slot in kProbe probes
+// makes its own.
 constexpr int kHot = 64;
 constexpr int kProbe = 4;
 
@@ -128,7 +149,7 @@ struct HotTable {
       head[t] = 0;
     }
   }
-  // the slot of cell k, claimed if free; -1 when none is found
+  // the slot of entry k, claimed if free; -1 when none is found
   __device__ int slot(int k) {
     int t = static_cast<int>((static_cast<unsigned>(k) * 2654435761u) >> 26);
     for (int p = 0; p < kProbe; ++p, t = (t + 1) & (kHot - 1)) {
@@ -139,19 +160,44 @@ struct HotTable {
   }
 };
 
-// (a) keys, heads and counts. cell: (b, cells) of {head, count}, zero.
-// Grid: x = spans of kSpan points of a row, y = batch rows; a thread
-// takes kPts points kThreads apart, their loads together.
+// The cell table's entry of cell key k (>= 0) in a row's hash table of
+// mask + 1 slots (tags: key + 1, 0 empty), claimed if the cell has none.
+// A tag once set never changes, so a plain load that finds one is final;
+// one that finds 0 may be stale and the CAS decides. The table holds at
+// least twice the row's points, so a probe always ends.
+__device__ __forceinline__ int cell_entry(int* __restrict__ tags,
+                                          unsigned mask, int shift, int k) {
+  const int tag = k + 1;
+  unsigned s = (static_cast<unsigned>(k) * 2654435761u) >> shift;
+  while (true) {
+    int cur = tags[s];
+    if (cur == 0) cur = atomicCAS(&tags[s], 0, tag);
+    if (cur == 0 || cur == tag) return static_cast<int>(s);
+    s = (s + 1) & mask;
+  }
+}
+
+// (a) keys, heads and counts. cell: (b, slots) of {head, count} and tags:
+// (b, slots), zero. Grid: x = spans of kSpan points of a row, y (and z)
+// = batch rows; a thread takes kPts points kThreads apart, their loads
+// together. entry[j]: point j's entry in the row's table, -1 outside:
+// the key itself where the grid has no more cells than the table has
+// slots (`direct`: no probe, no tags), else its slot in the hash table.
 __global__ void __launch_bounds__(kThreads)
-    voxel_head_count_kernel(const int* __restrict__ coords, int n, int g0,
-                            int g1, long long cells, int* __restrict__ key,
-                            int2* __restrict__ cell) {
+    voxel_head_count_kernel(const int* __restrict__ coords, int B, int n,
+                            int g0, int g1, long long slots, int shift,
+                            int direct, int* __restrict__ entry,
+                            int2* __restrict__ cell, int* __restrict__ tags) {
   __shared__ HotTable hot;
-  const int b = blockIdx.y, lane = threadIdx.x & 31;
+  const int b = grid_row();
+  if (b >= B) return;  // the whole block, before any barrier
+  const int lane = threadIdx.x & 31;
   const int j0 = blockIdx.x * kSpan + threadIdx.x;
   const int* cr = coords + 3LL * b * n;
-  int* kr = key + static_cast<long long>(b) * n;
-  int2* cb = cell + b * cells;
+  int* er = entry + static_cast<long long>(b) * n;
+  int2* cb = cell + b * slots;
+  int* tb = tags + b * slots;
+  const unsigned mask = static_cast<unsigned>(slots - 1);
   hot.clear();
   int x[kPts], y[kPts], z[kPts];
 #pragma unroll
@@ -166,28 +212,34 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = 0; r < kPts; ++r) {
     const int j = j0 + r * kThreads;
     const int k = x[r] < 0 ? -1 : (z[r] * g1 + y[r]) * g0 + x[r];
-    if (j < n) kr[j] = k;
     // lanes in one cell: the lowest holds the smallest index (lanes
-    // follow the points) and makes the cell's atomics for all
+    // follow the points), finds the cell's entry and makes its atomics
+    // for all
     const unsigned peers = __match_any_sync(kFull, k);
-    if (k >= 0 && lane == __ffs(peers) - 1) {
-      const int t = __popc(peers) > 1 ? hot.slot(k) : -1;
+    const int leader = __ffs(peers) - 1;
+    int e = -1;
+    if (k >= 0 && lane == leader)
+      e = direct ? k : cell_entry(tb, mask, shift, k);
+    e = __shfl_sync(kFull, e, leader);
+    if (j < n) er[j] = e;
+    if (e >= 0 && lane == leader) {
+      const int t = __popc(peers) > 1 ? hot.slot(e) : -1;
       if (t >= 0) {
         atomicMax(&hot.head[t], n - j);
         atomicAdd(&hot.count[t], __popc(peers));
       } else {
-        atomicMax(&cb[k].x, n - j);
-        atomicAdd(&cb[k].y, __popc(peers));
+        atomicMax(&cb[e].x, n - j);
+        atomicAdd(&cb[e].y, __popc(peers));
       }
     }
   }
   __syncthreads();
   for (int t = threadIdx.x; t < kHot; t += blockDim.x) {
-    const int k = hot.key[t];
-    if (k < 0) continue;
-    int* h = &cb[k].x;
+    const int e = hot.key[t];
+    if (e < 0) continue;
+    int* h = &cb[e].x;
     if (hot.head[t] > *h) atomicMax(h, hot.head[t]);
-    atomicAdd(&cb[k].y, hot.count[t]);
+    atomicAdd(&cb[e].y, hot.count[t]);
   }
 }
 
@@ -215,11 +267,12 @@ __device__ __forceinline__ unsigned long long load_status(
   return v;
 }
 
-// (b) the pair prefix sum over the points. status: (b, tiles) words and a
-// ticket, zero; vinfo: (b, max_voxels) of {first point, offset, count}.
+// (b) the pair prefix sum over the points. entry: (a)'s; status: (b,
+// tiles) words and a ticket, zero; vinfo: (b, max_voxels) of {first
+// point, offset, count}.
 __global__ void __launch_bounds__(kTileThreads)
     voxel_scan_kernel(const int* __restrict__ key, int2* __restrict__ cell,
-                      int n, int tiles, long long cells, int max_voxels,
+                      int n, int tiles, long long slots, int max_voxels,
                       unsigned long long* __restrict__ status,
                       unsigned* __restrict__ ticket,
                       int4* __restrict__ vinfo, int* __restrict__ voxel_num) {
@@ -232,7 +285,7 @@ __global__ void __launch_bounds__(kTileThreads)
   const int b = tile_id / tiles, tile = tile_id % tiles;
   const int begin = tile * kTile + threadIdx.x * kPer;
   const int* kb = key + static_cast<long long>(b) * n;
-  int2* cb = cell + b * cells;
+  int2* cb = cell + b * slots;
   int k[kPer];
   if ((n & 3) == 0 && begin + kPer <= n) {
 #pragma unroll
@@ -338,13 +391,15 @@ __global__ void __launch_bounds__(kTileThreads)
 // cell several lanes meet takes its block's places in one atomicSub.
 __global__ void __launch_bounds__(kThreads)
     voxel_place_kernel(const int* __restrict__ key, int2* __restrict__ cell,
-                       int n, long long cells, int* __restrict__ seg,
+                       int B, int n, long long slots, int* __restrict__ seg,
                        int* __restrict__ slot_out) {
   __shared__ HotTable hot;
-  const int b = blockIdx.y, lane = threadIdx.x & 31;
+  const int b = grid_row();
+  if (b >= B) return;  // the whole block, before any barrier
+  const int lane = threadIdx.x & 31;
   const int j0 = blockIdx.x * kSpan + threadIdx.x;
   const int* kr = key + static_cast<long long>(b) * n;
-  int2* cb = cell + b * cells;
+  int2* cb = cell + b * slots;
   int* sr = seg + static_cast<long long>(b) * n;
   hot.clear();
   int k[kPts], old[kPts], t[kPts];
@@ -469,7 +524,8 @@ __global__ void __launch_bounds__(32 * kWriteWarps)
   __shared__ int scan[kWriteWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.x;  // rows interleaved: low voxel ids first
-  const int v0 = (blockIdx.y * kWriteWarps + warp) * kVox;
+  // voxel blocks as rows_grid's rows (past the last: no voxel)
+  const int v0 = (grid_row() * kWriteWarps + warp) * kVox;
   const long long row = static_cast<long long>(b) * max_voxels;
   const V* src = points + static_cast<long long>(b) * n * cv;
   const int* sb = seg + static_cast<long long>(b) * n;
@@ -665,42 +721,53 @@ int vlp3d_dynamic_voxelize(const float* points, long long total, int c,
 
 // points (b, n, c) f32 and their coords (b, n, 3) i32 -> voxels
 // (b, V, P, c), coors (b, V, 3), num (b, V), voxel_num (b,), mask (b, V)
-// and each point's voxel * P + slot (or -1) in slot_out (b, n).
-// workspace: 2 * b * n + 2 * b * ceil(n / kTile) + 2 + 2 * b * cells
-//            + 3 + 4 * b * V ints, 16-byte aligned. Device operations: one
-// memset (the cell tables, the scan's status words and ticket), then the
-// four kernels (a)-(d); voxels is written once, by (d).
+// and each point's voxel * P + slot (or -1) in slot_out (b, n). slots:
+// the cell table's entries a row, a power of two of at least 2 n (and at
+// least 64), at most 2^31 and more than n (a probe then always meets an
+// empty slot or its key); direct: the grid has at most `slots` cells, so
+// a cell's key is its entry (no hashing). workspace: 2 * b * n + 2 * b *
+// ceil(n / kTile) + 2 + 3 * b * slots + 3 + 4 * b * V ints, 16-byte
+// aligned. Device operations: one memset (the cell tables, with the tags
+// unless direct, the scan's status words and ticket), then the four
+// kernels (a)-(d); voxels is written once, by (d).
 int vlp3d_hard_voxelize(const float* points, const int* coords, int b, int n,
-                        int c, int g0, int g1, int g2, int max_points,
-                        int max_voxels, int* workspace, float* voxels,
-                        int* coors, int* num, int* voxel_num, uint8_t* mask,
-                        int* slot_out, cudaStream_t stream) {
+                        int c, int g0, int g1, int g2, long long slots,
+                        int direct,
+                        int max_points, int max_voxels, int* workspace,
+                        float* voxels, int* coors, int* num, int* voxel_num,
+                        uint8_t* mask, int* slot_out, cudaStream_t stream) {
+  if (slots < 64 || slots > (1LL << 31) || (slots & (slots - 1)) != 0 ||
+      slots <= n || slots < std::min(2LL * n, 1LL << 31) ||
+      (direct && static_cast<long long>(g0) * g1 * g2 > slots))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long total = static_cast<long long>(b) * n;
-  const long long cells = static_cast<long long>(g0) * g1 * g2;
-  const long long nv = static_cast<long long>(b) * max_voxels;
   const int tiles = (n + kTile - 1) / kTile;
+  const int shift = __builtin_clzll(static_cast<unsigned long long>(slots)) -
+                    31;  // 32 - log2(slots)
   int* key = workspace;
   int* seg = key + total;
-  // the memset's part: status words, ticket, cell table
+  // the memset's part: status words, ticket, cell table, tags
   auto* status = reinterpret_cast<unsigned long long*>(seg + total);
   auto* ticket = reinterpret_cast<unsigned*>(status + b * tiles);
   auto* cell = reinterpret_cast<int2*>(ticket + 2);
+  int* tags = reinterpret_cast<int*>(cell + b * slots);
   // vinfo on the next 16-byte boundary (at most three ints of padding)
-  const long long at = (2 * total + 2LL * b * tiles + 2 + 2 * b * cells +
-                        3) & ~3LL;
+  const long long at =
+      (2 * total + 2LL * b * tiles + 2 + 3 * b * slots + 3) & ~3LL;
   auto* vinfo = reinterpret_cast<int4*>(workspace + at);
   cudaMemsetAsync(status, 0,
-                  sizeof(int) * (2LL * b * tiles + 2 + 2 * b * cells),
+                  sizeof(int) * (2LL * b * tiles + 2 +
+                                 (direct ? 2 : 3) * b * slots),
                   stream);
   if (total > 0) {
-    const dim3 span((n + kSpan - 1) / kSpan, b);
+    const dim3 span = rows_grid((n + kSpan - 1) / kSpan, b);
     voxel_head_count_kernel<<<span, kThreads, 0, stream>>>(
-        coords, n, g0, g1, cells, key, cell);
+        coords, b, n, g0, g1, slots, shift, direct, key, cell, tags);
     voxel_scan_kernel<<<b * tiles, kTileThreads, 0, stream>>>(
-        key, cell, n, tiles, cells, max_voxels, status, ticket, vinfo,
+        key, cell, n, tiles, slots, max_voxels, status, ticket, vinfo,
         voxel_num);
-    voxel_place_kernel<<<span, kThreads, 0, stream>>>(key, cell, n, cells,
-                                                       seg, slot_out);
+    voxel_place_kernel<<<span, kThreads, 0, stream>>>(key, cell, b, n, slots,
+                                                      seg, slot_out);
   } else {
     cudaMemsetAsync(voxel_num, 0, sizeof(int) * b, stream);
   }
@@ -709,7 +776,8 @@ int vlp3d_hard_voxelize(const float* points, const int* coords, int b, int n,
     const int words = static_cast<int>(
         std::max(1LL, std::min<long long>((n + 31) / 32, kWindowWords)));
     const int per_block = kWriteWarps * kVox;
-    const dim3 grid(b, (max_voxels + per_block - 1) / per_block);
+    const int blocks = (max_voxels + per_block - 1) / per_block;
+    const dim3 grid = rows_grid(b, blocks);
     const size_t smem = sizeof(unsigned) * words;
     if (c % 4 == 0 && reinterpret_cast<uintptr_t>(points) % 16 == 0 &&
         reinterpret_cast<uintptr_t>(voxels) % 16 == 0)

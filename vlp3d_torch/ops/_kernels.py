@@ -4,7 +4,8 @@ Each ``.cu`` file has a plain C interface and is compiled by ``nvcc`` into
 its own shared library at first use; all sources compile at once, one
 ``nvcc`` process each. A library's file name carries a hash of its source,
 of the headers under ``csrc`` (``fps_regs.cuh``, which ``fps.cu`` and
-``point_parallel.cu`` share) and of ``NVCC_FLAGS``, so a change to any of
+``point_parallel.cu`` share, and ``batch_rows.cuh``) and of
+``NVCC_FLAGS``, so a change to any of
 them builds it anew, and a library already there is never built
 again: the directory is a persistent build cache keyed by that hash.
 Libraries go to ``$VLP3D_TORCH_BUILD_DIR`` when that is set, else to
@@ -20,7 +21,7 @@ after its launch, which :func:`check` turns into an exception.
 ``launches`` counts the launches of each kernel (a source may hold more
 than one: ``grouping.cu`` has the gather, its scatter-add backward and the
 three-NN interpolation's backward; ``point_parallel.cu`` the point-axis
-FPS loop, the ball-query merge and the owned-rows gather; ``voxelize.cu``
+FPS loop and step, the ball-query merge and the owned-rows gather; ``voxelize.cu``
 dynamic and hard voxelization; ``iou3d.cu`` the rotated BEV overlap / IoU
 and NMS),
 so a run can show that its main path went through the kernels.
@@ -56,7 +57,8 @@ SOURCES = ("fps", "ball_query", "three_nn", "grouping", "point_parallel",
 # kernels with a launch counter; each wrapper adds one where it launches
 KERNELS = ("fps", "ball_query", "three_nn", "group_points",
            "group_points_grad", "three_interpolate_grad", "fps_shard_loop",
-           "ball_query_merge", "gather_owned", "dynamic_voxelize",
+           "fps_shard_step", "ball_query_merge", "gather_owned",
+           "dynamic_voxelize",
            "hard_voxelize", "boxes_iou_bev", "nms_bev")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -97,6 +99,8 @@ SIGNATURES = {
         "vlp3d_fps_shard_loop": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                  _P, _U, _F, _P, _P, _P],
         "vlp3d_fps_shard_loop_max_clusters": [_I, _I, _I],
+        "vlp3d_fps_shard_step": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                                 _P, _P],
         "vlp3d_pci_bus_id": [_I, _P, _I],
         "vlp3d_ipc_handle": [_P, _P],
         "vlp3d_ipc_open": [_P, _P],
@@ -106,8 +110,8 @@ SIGNATURES = {
     "voxelize": {
         "vlp3d_dynamic_voxelize": [_P, _L, _I, _F, _F, _F, _F, _F, _F, _I,
                                    _I, _I, _P, _P],
-        "vlp3d_hard_voxelize": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
-                                _P, _P, _P, _P, _P, _P, _P],
+        "vlp3d_hard_voxelize": [_P, _P, _I, _I, _I, _I, _I, _I, _L, _I, _I,
+                                _I, _P, _P, _P, _P, _P, _P, _P, _P],
     },
     "iou3d": {
         "vlp3d_iou_bev": [_P, _P, _I, _I, _I, _P, _P, _P],

@@ -124,7 +124,7 @@ def _three_nn_plan(b: int, n: int, m: int) -> tuple[int, int]:
     lost at FP2. Shapes the kernel does not take raise."""
     if m < 3:
         raise ValueError(f"three_nn needs at least 3 known points, got {m}")
-    if not 1 <= b <= 65535 or n < 0:
+    if b < 1 or n < 0:
         raise ValueError(f"three_nn: {b} batch rows of {n} points are "
                          "outside the kernel's grid")
     return 16, 32
@@ -254,7 +254,7 @@ def _three_interpolate_grad_cuda(grad: torch.Tensor, idx: torch.Tensor,
         raise ValueError("grad, idx and weight shapes differ")
     if grad.numel() == 0 or m == 0:
         return torch.zeros((b, m, c), dtype=torch.float32, device=grad.device)
-    if b > 65535 or 3 * n >= 2 ** 31:
+    if 3 * n >= 2 ** 31:
         raise ValueError(f"three_interpolate_grad: {b} batch rows of {n} "
                          "points are outside the kernel's grid")
     warps, lane_units = _check_interp_grad_plan(

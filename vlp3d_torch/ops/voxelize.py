@@ -17,11 +17,16 @@ outputs with B in front, in one launch of each kernel.
 
 A CUDA tensor goes to the hand-written kernels (``csrc/voxelize.cu``), a
 CPU tensor to :func:`dynamic_voxelize_plain` / :func:`hard_voxelize_plain`;
-there is no fallback between the two. The hard kernel's dense cell table
-holds ``grid`` cells a batch row (214 272 at PointPillars' KITTI range),
-up to :data:`MAX_CELLS`; a larger grid raises. ``voxels`` carries a
-gradient to ``points``: a kept point gets its slot's gradient, a dropped
-point 0, as JAX's scatter gives.
+there is no fallback between the two. The hard kernel's cell table holds
+:func:`table_slots` entries a batch row, sized by the points and never by
+the grid: a grid of no more cells addresses it by the cell key (direct),
+a larger one hashes the key into it, chosen from the grid before the
+launch. So both paths take any grid of JAX's int32 cell keys: up to :data:`MAX_GRID_CELLS` cells, past which JAX's sentinel
+key ``cells + 1`` overflows and both raise (ROADMAP C28); the plain path
+finds each cell's first point by a stable sort of the keys, as JAX does,
+in memory that grows with the points. ``voxels`` carries a gradient to
+``points``: a kept point gets its slot's gradient, a dropped point 0, as
+JAX's scatter gives.
 """
 
 from __future__ import annotations
@@ -33,11 +38,39 @@ import torch
 
 from vlp3d_torch.ops import _kernels
 
-# cells of the hard kernel's two dense tables (head, count) a batch row
-# (64 MiB of int32 each)
-MAX_CELLS = 1 << 24
+# the largest grid JAX's int32 keys take: its sentinel key for a point
+# outside the range is cells + 1
+MAX_GRID_CELLS = 2 ** 31 - 2
 # points a tile of the kernel's prefix sum (kTile in csrc/voxelize.cu)
 VOXEL_TILE = 2048
+
+
+def grid_cells(grid) -> int:
+    """Cells of ``grid`` (gx, gy, gz); raises past :data:`MAX_GRID_CELLS`,
+    where JAX's int32 keys stop (ROADMAP C28)."""
+    cells = int(grid[0]) * int(grid[1]) * int(grid[2])
+    if cells > MAX_GRID_CELLS:
+        raise ValueError(f"a grid of {cells} cells is past JAX's int32 cell "
+                         f"keys ({MAX_GRID_CELLS} cells at most, ROADMAP C28)")
+    return cells
+
+
+def table_slots(n: int) -> int:
+    """Entries of the hard kernel's cell table a batch row of ``n`` points:
+    the power of two of at least 2 n and at least 64, at most 2^31 (past
+    2^30 points more than half full, and still never full: a row holds
+    fewer than 2^31 points). The kernel takes exactly this rule."""
+    return min(1 << 31, max(64, 1 << max(0, 2 * n - 1).bit_length()))
+
+
+def hard_workspace_ints(b: int, n: int, max_voxels: int) -> int:
+    """int32 words of the hard kernel's workspace for B rows of n points:
+    the keys and segments a point, the scan's status words (two ints a
+    tile) and ticket, the cell table (tag, head, count a slot), up to
+    three ints of padding, four ints a voxel. The grid plays no part."""
+    tiles = -(-n // VOXEL_TILE)
+    return (2 * b * n + 2 * b * tiles + 2 + 3 * b * table_slots(n) + 3
+            + 4 * b * max_voxels)
 
 
 def _grid(voxel_size, coors_range):
@@ -118,14 +151,17 @@ def _hard_plain(points, coords, grid, max_points, max_voxels):
     dev = points.device
     g = [int(x) for x in grid]
     valid = coords[:, 0] >= 0
-    cells = g[0] * g[1] * g[2]
     key = ((coords[:, 2].long() * g[1] + coords[:, 1]) * g[0]
            + coords[:, 0])
-    key = torch.where(valid, key, cells)  # points outside: a spare cell
+    key = torch.where(valid, key, grid_cells(g))  # outside: a spare cell
     idx = torch.arange(n, device=dev)
-    # each cell's first point; heads ranked in point order are voxel ids
-    head = torch.full((cells + 1,), n, dtype=torch.long, device=dev)
-    first = head.scatter_reduce_(0, key, idx, "amin")[key]
+    # each cell's first point, the head of its run in a stable sort of the
+    # keys; heads ranked in point order are voxel ids
+    key_s, order = torch.sort(key, stable=True)
+    new = torch.ones(n, dtype=torch.bool, device=dev)
+    new[1:] = key_s[1:] != key_s[:-1]
+    first = torch.empty_like(idx)
+    first[order] = order[new][torch.cumsum(new.long(), 0) - 1]
     is_head = valid & (first == idx)
     vid = torch.where(valid, (torch.cumsum(is_head.long(), 0) - 1)[first],
                       -1)
@@ -157,6 +193,7 @@ def hard_voxelize_plain(points, voxel_size, coors_range, max_points,
                         max_voxels):
     """Plain PyTorch hard voxelization of (B, N, C) points: the outputs of
     :func:`hard_voxelize` stacked over B, and each point's slot."""
+    grid_cells(_grid(voxel_size, coors_range)[2])
     if points.shape[0] == 0:
         return _empty(points, max_points, max_voxels)
     coords, grid = dynamic_voxelize_plain(points, voxel_size, coors_range)
@@ -185,11 +222,8 @@ def _hard_cuda(points, voxel_size, coors_range, max_points, max_voxels):
     _kernels.require(points, "points", torch.float32, 3)
     b, n, c = points.shape
     g = _grid(voxel_size, coors_range)[2]
-    cells = g[0] * g[1] * g[2]
-    if cells > MAX_CELLS:
-        raise ValueError(f"a grid of {cells} cells is more than the hard "
-                         f"voxelization kernel's table holds ({MAX_CELLS})")
-    if b * n >= 2 ** 31 or b * max_voxels >= 2 ** 31 or b > 65535 \
+    cells = grid_cells(g)
+    if b * n >= 2 ** 31 or b * max_voxels >= 2 ** 31 \
             or b * max_voxels * max_points * c >= 2 ** 40:
         raise ValueError(f"points {tuple(points.shape)} too large")
     if b == 0:
@@ -203,18 +237,16 @@ def _hard_cuda(points, voxel_size, coors_range, max_points, max_voxels):
     voxel_num = torch.empty((b,), dtype=torch.int32, device=dev)
     mask = torch.empty((b, max_voxels), dtype=torch.bool, device=dev)
     slot = torch.empty((b, n), dtype=torch.int32, device=dev)
-    # keys and segments a point, the scan's status words (two ints a
-    # tile) and ticket, the cell table (head, count), up to three ints of
-    # padding, four ints a voxel
-    tiles = -(-n // VOXEL_TILE)
-    work = torch.empty(2 * b * n + 2 * b * tiles + 2 + 2 * b * cells + 3
-                       + 4 * b * max_voxels, dtype=torch.int32, device=dev)
+    work = torch.empty(hard_workspace_ints(b, n, max_voxels),
+                       dtype=torch.int32, device=dev)
+    slots = table_slots(n)
     with _kernels.on_device(points):
         rc = _kernels.function("voxelize", "vlp3d_hard_voxelize")(
-            points.data_ptr(), coords.data_ptr(), b, n, c, *g, max_points,
-            max_voxels, work.data_ptr(), voxels.data_ptr(), coors.data_ptr(),
-            num.data_ptr(), voxel_num.data_ptr(), mask.data_ptr(),
-            slot.data_ptr(), _kernels.stream_ptr(points))
+            points.data_ptr(), coords.data_ptr(), b, n, c, *g, slots,
+            cells <= slots, max_points, max_voxels, work.data_ptr(),
+            voxels.data_ptr(), coors.data_ptr(), num.data_ptr(),
+            voxel_num.data_ptr(), mask.data_ptr(), slot.data_ptr(),
+            _kernels.stream_ptr(points))
         _kernels.check(rc, "hard_voxelize kernel")
     _kernels.launches["hard_voxelize"] += 1
     return voxels, coors, num, voxel_num, mask, slot

@@ -12,17 +12,22 @@ dense ops' on the whole cloud bit for bit:
   * :func:`fps_sharded`: start at global index 0, skip points with
     ``|p|^2 <= 1e-3``, take the largest running distance, the lowest
     global index on ties, index 0 everywhere for an all-invalid row. On
-    the card a call is one launch of the ``fps_shard_loop`` kernel
-    (``csrc/point_parallel.cu``), which runs every iteration and
-    exchanges each rank's candidate through peer memory (a group of one
-    through its own buffer): the group's exchange buffers are shared once
-    by CUDA IPC, which needs every rank on one host and every pair of its
-    cards able to reach each other (:func:`check_peer_group`, ROADMAP
-    C22; JAX runs a ``pmax``, a ``pmin`` and a ``psum`` an iteration). A
-    slab of any length: a share too long for registers streams from
-    global memory. On the CPU,
-    :func:`fps_sharded_plain` runs the iterations in Python with one
-    all-gather each;
+    the card one of two routes, chosen once a group and batch size
+    before any launch (:func:`fps_route`, ROADMAP C22): the peer route,
+    one launch of the ``fps_shard_loop`` kernel (``csrc/point_parallel.cu``)
+    a call, which runs every iteration and exchanges each rank's
+    candidate through peer memory (a group of one through its own
+    buffer), the group's exchange buffers shared once by CUDA IPC, for a
+    group whose ranks are on one host and whose cards all reach each
+    other (:func:`check_peer_group`); else the collective route, one
+    launch of the ``fps_shard_step`` kernel an iteration, each after an
+    all-gather of the ranks' candidates over NCCL (JAX runs a ``pmax``,
+    a ``pmin`` and a ``psum`` an iteration, over any mesh). Either route
+    can be forced (``route=``); a failure raises, nothing retries on
+    the other. A slab of any length: a share of the loop kernel too
+    long for registers streams from global memory. On the CPU,
+    :func:`fps_sharded_plain` runs the collective route's loop with the
+    plain step over gloo;
   * :func:`ball_query_sharded`: ``ball_query.cu``'s count variant on the
     slab (the first ``nsample`` in-ball local indices and the count), an
     all-gather of both, and :func:`ball_query_merge` (the
@@ -75,7 +80,8 @@ call of several ranks starts behind a collective on its stream, so the
 wait counts from the moment every rank has reached the call: only a fault
 of the exchange (a rank whose launch failed) outlasts it, and that then
 fails the run instead of hanging it."""
-MERGE_MAX_RANKS = 32  # a point group the merge kernel takes: one warp
+LOOP_MAX_RANKS = 32  # a point group the loop kernel takes: one warp
+ROUTES = ("peer", "collective")
 
 
 # ------------------------------------------------------------ collectives
@@ -158,26 +164,64 @@ def fps_shard_step_plain(xyz, temp, cands, offset: int, t: int, last: bool,
     return out
 
 
+def fps_shard_step(xyz, temp, cands, offset: int, t: int, last: bool,
+                   out_idx):
+    """:func:`fps_shard_step_plain` for the collective route: one launch
+    of the ``fps_shard_step`` kernel on CUDA tensors (xyz, temp, cands
+    and out_idx contiguous, as :func:`_fps_collective` makes them), the
+    plain step on CPU ones."""
+    if not _kernels.cuda_or_cpu(xyz):
+        return fps_shard_step_plain(xyz, temp, cands, offset, t, last,
+                                    out_idx)
+    _kernels.require(xyz, "xyz", torch.float32, 3, 3)
+    _kernels.require(temp, "temp", torch.float32, 2)
+    _kernels.require(cands, "cands", torch.int32, 3, 5)
+    _kernels.require(out_idx, "out_idx", torch.int32, 2)
+    b, nl, _ = xyz.shape
+    if temp.shape != (b, nl) or cands.shape[1] != b \
+            or out_idx.shape[0] != b or not 0 <= t < out_idx.shape[1]:
+        raise ValueError("fps_shard_step: xyz, temp, cands and out_idx "
+                         "disagree")
+    cand = None if last else torch.empty((1, b, 5), dtype=torch.int32,
+                                         device=xyz.device)
+    with _kernels.on_device(xyz):
+        rc = _kernels.function("point_parallel", "vlp3d_fps_shard_step")(
+            xyz.data_ptr(), temp.data_ptr(), cands.data_ptr(),
+            cands.shape[0], b, nl, offset, t, int(last), out_idx.shape[1],
+            out_idx.data_ptr(), None if cand is None else cand.data_ptr(),
+            _kernels.stream_ptr(xyz))
+        if rc != 0:
+            _kernels.check(rc, "fps shard step kernel")
+    _kernels.launches["fps_shard_step"] += 1
+    return cand
+
+
+def _fps_collective(xyz: torch.Tensor, npoint: int, point: ModelGroup,
+                    step) -> torch.Tensor:
+    """The collective route's loop: npoint iterations of ``step``
+    (:func:`fps_shard_step_plain` or :func:`fps_shard_step`), each after
+    an all-gather of the ranks' candidates."""
+    b, nl, _ = xyz.shape
+    out = torch.zeros((b, npoint), dtype=torch.int32, device=xyz.device)
+    if b == 0 or npoint == 0:
+        return out
+    temp = torch.full((b, nl), _INF, dtype=torch.float32, device=xyz.device)
+    cand = _seed(xyz, point.rank)
+    for t in range(npoint):
+        cand = step(xyz, temp, _gather(cand, point).view(-1, b, 5),
+                    point.rank * nl, t, t == npoint - 1, out)
+    return out
+
+
 def fps_sharded_plain(xyz: torch.Tensor, npoint: int,
                       point: ModelGroup = LOCAL_POINTS) -> torch.Tensor:
     """Plain :func:`fps_sharded`: npoint iterations of
     :func:`fps_shard_step_plain`, each after an all-gather of the ranks'
-    candidates (on a CUDA tensor it runs as it does on the CPU: the loop
-    kernel's yardstick)."""
+    candidates (on a CUDA tensor it runs as it does on the CPU: the
+    kernels' yardstick)."""
     with torch.no_grad():
-        xyz = xyz.float().contiguous()
-        b, nl, _ = xyz.shape
-        out = torch.zeros((b, npoint), dtype=torch.int32, device=xyz.device)
-        if b == 0 or npoint == 0:
-            return out
-        temp = torch.full((b, nl), _INF, dtype=torch.float32,
-                          device=xyz.device)
-        cand = _seed(xyz, point.rank)
-        for t in range(npoint):
-            cand = fps_shard_step_plain(xyz, temp, _gather(cand, point)
-                                        .view(-1, b, 5), point.rank * nl, t,
-                                        t == npoint - 1, out)
-        return out
+        return _fps_collective(xyz.float().contiguous(), npoint, point,
+                               fps_shard_step_plain)
 
 
 def loop_plan(nl: int, cluster: int | None = None) -> tuple[int, int]:
@@ -272,34 +316,41 @@ def peer_info(device: torch.device) -> dict:
                       for d in range(torch.cuda.device_count())}}
 
 
-def check_peer_group(infos: list) -> None:
-    """Raise a ValueError naming the first two ranks of a point group
-    (``infos``: :func:`peer_info` of each rank, in rank order) that are on
-    different hosts, or of which one cannot see the other's card (so that
-    peer access cannot be checked) or cannot reach it: the FPS loop
-    exchanges candidates through peer memory and has no other route."""
+def check_peer_group(infos: list) -> str | None:
+    """Why a point group (``infos``: :func:`peer_info` of each rank, in
+    rank order) cannot take the peer route, naming its first two ranks
+    that are on different hosts, or of which one cannot see the other's
+    card (so that peer access cannot be checked) or cannot reach it; None
+    when every pair reaches the other."""
     for a, ia in enumerate(infos):
         for b, ib in enumerate(infos):
             if ia["host"] != ib["host"]:
-                raise ValueError(
-                    f"fps_sharded exchanges candidates through peer memory, "
-                    f"so a point group must lie on one host: rank {a} is on "
-                    f"{ia['host']!r}, rank {b} on {ib['host']!r} (ROADMAP "
-                    f"C22)")
+                return (f"rank {a} is on {ia['host']!r}, rank {b} on "
+                        f"{ib['host']!r}")
             if ib["card"] not in ia["reach"]:
-                raise ValueError(
-                    f"fps_sharded exchanges candidates through peer memory: "
-                    f"rank {a} (cuda:{ia['device']}, {ia['card']}) does not "
-                    f"see rank {b}'s card ({ib['card']}), so peer access "
-                    f"between them cannot be checked; let every rank of a "
-                    f"point group see all of its cards (CUDA_VISIBLE_DEVICES)"
-                    f" (ROADMAP C22)")
+                return (f"rank {a} (cuda:{ia['device']}, {ia['card']}) does "
+                        f"not see rank {b}'s card ({ib['card']}), so peer "
+                        f"access between them cannot be checked "
+                        f"(CUDA_VISIBLE_DEVICES)")
             if not ia["reach"][ib["card"]]:
-                raise ValueError(
-                    f"fps_sharded exchanges candidates through peer memory: "
-                    f"rank {a} (cuda:{ia['device']}, {ia['card']}) cannot "
-                    f"access rank {b}'s card ({ib['card']}) as a peer "
-                    f"(ROADMAP C22)")
+                return (f"rank {a} (cuda:{ia['device']}, {ia['card']}) "
+                        f"cannot access rank {b}'s card ({ib['card']}) as a "
+                        f"peer")
+    return None
+
+
+def fps_route(point: ModelGroup, device: torch.device) -> tuple[str, str]:
+    """(route, why) of ``point``'s FPS: "peer" for a group of one, or of up
+    to :data:`LOOP_MAX_RANKS` ranks that pass :func:`check_peer_group`;
+    "collective" otherwise. The verdict is taken from every rank's
+    :func:`peer_info` (a collective), so every rank takes the same."""
+    if point.group is None:
+        return "peer", "a group of one"
+    if point.world > LOOP_MAX_RANKS:
+        return "collective", (f"{point.world} ranks, past the loop kernel's "
+                              f"{LOOP_MAX_RANKS}")
+    why = check_peer_group(_gather_objects(peer_info(device), point))
+    return ("collective", why) if why else ("peer", "every card a peer")
 
 
 def _segment(t: torch.Tensor) -> tuple[int, int]:
@@ -324,12 +375,16 @@ def _open(handle: bytes) -> int:
 
 
 class _Exchange:
-    """The exchange buffers of ``point`` for B rows: this rank's (zeroed),
-    and a device array of every rank's, peers' opened by CUDA IPC (a group
-    of one: its own buffer alone); the sequence number the next call
-    starts at."""
+    """The peer route's exchange buffers of ``point`` for B rows: this
+    rank's (zeroed), and a device array of every rank's, peers' opened by
+    CUDA IPC (a group of one: its own buffer alone); the sequence number
+    the next call starts at."""
 
-    def __init__(self, point: ModelGroup, b: int, device: torch.device):
+    route = "peer"
+
+    def __init__(self, point: ModelGroup, b: int, device: torch.device,
+                 why: str = ""):
+        self.why = why
         self.seq = 1  # every flag starts at 0
         if point.group is None:
             self.buf = torch.zeros(exchange_words(b, 1), dtype=torch.int64,
@@ -337,8 +392,6 @@ class _Exchange:
             self.peers = torch.tensor([self.buf.data_ptr()],
                                       dtype=torch.int64, device=device)
             return
-        # the group is checked before anything is allocated or launched
-        check_peer_group(_gather_objects(peer_info(device), point))
         self.buf = torch.zeros(exchange_words(b, point.world),
                                dtype=torch.int64, device=device)
         base, offset = _segment(self.buf)
@@ -355,20 +408,49 @@ class _Exchange:
         self.token = torch.zeros(1, dtype=torch.int32, device=device)
 
 
-def _exchange(point: ModelGroup, b: int, device: torch.device) -> _Exchange:
-    key = (id(point.group), point.rank, b, device.index)
+class _Collective:
+    """The collective route of a group: nothing to set up."""
+
+    route = "collective"
+
+    def __init__(self, why: str):
+        self.why = why
+
+
+def _exchange(point: ModelGroup, b: int, device: torch.device,
+              route: str | None = None):
+    """The FPS route of ``point`` for B rows, chosen once (the group's
+    verdict, or ``route`` forced) before any launch: an :class:`_Exchange`
+    (peer) or a :class:`_Collective`. A forced peer route still takes the
+    group's verdict and raises, before anything is allocated, for a group
+    that cannot take it."""
+    key = (id(point.group), point.rank, b, device.index, route)
     if key not in _EXCHANGES:
-        _EXCHANGES[key] = (point.group, _Exchange(point, b, device))
+        if route == "collective":
+            chosen, why = route, "forced"
+        else:
+            chosen, why = fps_route(point, device)
+            if route == "peer":
+                if chosen != "peer":
+                    raise ValueError(f"fps_sharded: the peer route was "
+                                     f"forced, but {why}")
+                why = f"forced ({why})"
+        _EXCHANGES[key] = (point.group,
+                           _Exchange(point, b, device, why)
+                           if chosen == "peer" else _Collective(why))
     return _EXCHANGES[key][1]
 
 
-def _fps_loop_cuda(xyz: torch.Tensor, npoint: int,
-                   point: ModelGroup) -> torch.Tensor:
+def _fps_loop_cuda(xyz: torch.Tensor, npoint: int, point: ModelGroup,
+                   route: str | None = None) -> torch.Tensor:
     _kernels.require(xyz, "xyz", torch.float32, 3, 3)
     b, nl, _ = xyz.shape
-    out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
     if b == 0 or npoint == 0:
-        return out.zero_()
+        return torch.zeros((b, npoint), dtype=torch.int32, device=xyz.device)
+    ex = _exchange(point, b, xyz.device, route)
+    if ex.route == "collective":
+        return _fps_collective(xyz, npoint, point, fps_shard_step)
+    out = torch.empty((b, npoint), dtype=torch.int32, device=xyz.device)
     w = point.world if point.group is not None else 1
     cluster, points = loop_plan(nl)
     with _kernels.on_device(xyz):
@@ -376,7 +458,6 @@ def _fps_loop_cuda(xyz: torch.Tensor, npoint: int,
     if most < 1:
         raise RuntimeError(f"fps_sharded: the card runs no cluster of "
                            f"{cluster} blocks of the loop kernel ({most})")
-    ex = _exchange(point, b, xyz.device)
     if w > 1:
         # on this stream the launch then starts once every rank has
         # reached the call: the spin limit counts from there
@@ -390,16 +471,21 @@ def _fps_loop_cuda(xyz: torch.Tensor, npoint: int,
 
 
 def fps_sharded(xyz: torch.Tensor, npoint: int,
-                point: ModelGroup = LOCAL_POINTS) -> torch.Tensor:
+                point: ModelGroup = LOCAL_POINTS, *,
+                route: str | None = None) -> torch.Tensor:
     """FPS over a point-sharded cloud: xyz (B, Nl, 3), this rank's slab
     of the global (B, N, 3) -> (B, npoint) int32 global indices, the same
-    on every rank of ``point``. No gradient. A CUDA tensor takes one
-    launch of the loop kernel (a group of several ranks must pass
-    :func:`check_peer_group`), a CPU tensor :func:`fps_sharded_plain`."""
+    on every rank of ``point``. No gradient. A CUDA tensor takes the
+    group's route (:func:`fps_route`; ``route`` "peer" or "collective"
+    forces one, the same on every rank), a CPU tensor
+    :func:`fps_sharded_plain`."""
+    if route not in (None, *ROUTES):
+        raise ValueError(f"fps_sharded: route {route!r} is not one of "
+                         f"{ROUTES}")
     if not _kernels.cuda_or_cpu(xyz):
         return fps_sharded_plain(xyz, npoint, point)
     with torch.no_grad():
-        return _fps_loop_cuda(xyz.float().contiguous(), npoint, point)
+        return _fps_loop_cuda(xyz.float().contiguous(), npoint, point, route)
 
 
 # ---------------------------------------------------------- ball query
@@ -430,8 +516,8 @@ def ball_query_merge_plain(all_idx: torch.Tensor, all_cnt: torch.Tensor,
 def ball_query_merge(all_idx: torch.Tensor, all_cnt: torch.Tensor, nl: int,
                      nsample: int) -> torch.Tensor:
     """The per-shard ball queries merged into global slots: the
-    ``ball_query_merge`` kernel for CUDA tensors (one warp a centre, so at
-    most :data:`MERGE_MAX_RANKS` shards, and 32-bit indices), the plain
+    ``ball_query_merge`` kernel for CUDA tensors (one warp a centre, the
+    shards 32 at a time, any number of them; 32-bit indices), the plain
     version for CPU ones."""
     if not _kernels.cuda_or_cpu(all_idx):
         return ball_query_merge_plain(all_idx, all_cnt, nl, nsample)
@@ -440,9 +526,6 @@ def ball_query_merge(all_idx: torch.Tensor, all_cnt: torch.Tensor, nl: int,
     w, b, m, _ = all_idx.shape
     if all_cnt.shape != (w, b, m):
         raise ValueError("ball_query_merge: all_idx and all_cnt disagree")
-    if w > MERGE_MAX_RANKS:
-        raise ValueError(f"ball_query_merge: {w} shards; the kernel merges "
-                         f"at most {MERGE_MAX_RANKS}")
     if all_idx.numel() >= 2 ** 31:
         raise ValueError("ball_query_merge: 2^31 or more slots")
     out = torch.empty((b, m, nsample), dtype=torch.int32,
@@ -475,19 +558,21 @@ def ball_query_sharded(radius: float, nsample: int, xyz: torch.Tensor,
 # ------------------------------------------- ranks emulated in one process
 
 
-def fps_emulated(xyz: torch.Tensor, w: int, npoint: int) -> list:
+def fps_emulated(xyz: torch.Tensor, w: int, npoint: int, *,
+                 route: str | None = None) -> list:
     """:func:`fps_sharded` over ``w`` ranks emulated on one device: xyz
     (B, N, 3) the whole cloud -> every rank's (B, npoint) int32 indices.
     On the card, one launch of the loop kernel holds the ``w`` ranks'
     clusters, their exchange buffers in one device buffer (raises when
     they cannot all be resident at once: a cluster of smaller blocks is
-    tried first); on the CPU, the plain steps in turn, the all-gather a
+    tried first); with ``route`` "collective", and on the CPU, the ranks'
+    steps (:func:`fps_shard_step`) in turn, the all-gather a
     concatenation of the ranks' candidates."""
     with torch.no_grad():
         xyz = xyz.float().contiguous()
         b, n, _ = xyz.shape
         nl = n // w
-        if _kernels.cuda_or_cpu(xyz):
+        if _kernels.cuda_or_cpu(xyz) and route != "collective":
             return list(_fps_emulated_cuda(xyz, w, nl, npoint))
         slabs = [xyz[:, i * nl:(i + 1) * nl].contiguous() for i in range(w)]
         outs = [torch.zeros((b, npoint), dtype=torch.int32,
@@ -497,9 +582,9 @@ def fps_emulated(xyz: torch.Tensor, w: int, npoint: int) -> list:
         cands = [_seed(s, i) for i, s in enumerate(slabs)]
         for t in range(npoint):
             gathered = torch.cat(cands)
-            cands = [fps_shard_step_plain(slabs[i], temps[i], gathered,
-                                          i * nl, t, t == npoint - 1,
-                                          outs[i]) for i in range(w)]
+            cands = [fps_shard_step(slabs[i], temps[i], gathered, i * nl,
+                                    t, t == npoint - 1, outs[i])
+                     for i in range(w)]
         return outs
 
 
@@ -661,15 +746,17 @@ def query_and_group_sharded(radius: float, nsample: int, xyz, new_xyz,
 
 def large_scene_front(point: ModelGroup, npoint: int, radius: float,
                       nsample: int, *, use_xyz: bool = True,
-                      normalize_xyz: bool = True):
+                      normalize_xyz: bool = True,
+                      fps_route: str | None = None):
     """The point-sharded SA front end: ``run(xyz (B, Nl, 3), features
     (B, Nl, C) | None) -> (new_xyz (B, npoint, 3), grouped (B, npoint,
     nsample, 3[+C]), fps_inds (B, npoint))`` on this rank's slab of each
     of this data rank's scenes; every output is the same on every rank of
-    ``point`` and equals the dense SA1 inputs on the whole cloud."""
+    ``point`` and equals the dense SA1 inputs on the whole cloud.
+    ``fps_route`` forces the FPS's route (see :func:`fps_sharded`)."""
 
     def run(xyz, features=None):
-        fps_idx = fps_sharded(xyz, npoint, point)
+        fps_idx = fps_sharded(xyz, npoint, point, route=fps_route)
         new_xyz = gather_points_sharded(xyz, fps_idx, point)
         grouped, _ = query_and_group_sharded(
             radius, nsample, xyz, new_xyz, features, use_xyz=use_xyz,
